@@ -6,23 +6,33 @@ Run from the repository root on a machine with a card and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the port's hand-written CUDA kernels from ``src/repro_torch`` and
-drives the port end to end:
+drives the port end to end on four paths: the MuonBP baseline and the
+optimizer variants NorMuon, Turbo-Muon and Dion.
 
   1. device   -- the card's name and power limit (nvidia-smi), device count;
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
   3. kernels  -- every kernel against its plain PyTorch version at the
-                 shapes of the training step (TF32 off), with tolerances;
-  4. train    -- six steps of full-width muonbp-960m MuonBP training
-                 (12 layers, virtual 8-way tensor-parallel block grid,
-                 batch 4 x seq 1024): phases full, block x4, full; launch
-                 counts of every kernel on that path; the Muon update from
-                 the kernels against the one from the plain versions on
-                 the same gradients, for one block and one full step;
+                 shapes of the training steps (TF32 off), with tolerances:
+                 the NS products and chains, the fused chain at Dion's polar
+                 shapes (K = 6) and Turbo-Muon's K = 3 on spectrally
+                 pre-scaled stacks, and the NorMuon row norm at every leaf
+                 shape in both modes;
+  4. train    -- full-width muonbp-960m (12 layers, virtual 8-way
+                 tensor-parallel block grid, batch 4 x seq 1024): six
+                 MuonBP steps (full, block x4, full), six NorMuon steps and
+                 six Turbo-Muon steps (the same phases; 9 NorMuon launches
+                 a step) and two Dion steps. For each path: the
+                 launch counts of every kernel, counted from zero just before
+                 it and read just after, and the update from the kernels
+                 against the one from the plain versions on the same
+                 gradients and state;
   5. reference -- six reduced steps on the card against the same steps on
-                 the CPU (plain versions), from the same weights;
+                 the CPU (plain versions), from the same weights, for the
+                 baseline and for NorMuon;
   6. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
-                 the least time the card could take for the same work.
+                 the least time the card could take for the same work; the
+                 whole NorMuon epilogue of a step.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are the kernels JSON and the device JSON.
@@ -50,6 +60,19 @@ QO_FULL = (24, 1536, 1536)     # full phase, attn wq/wo: tiled
 MLP_BLOCK = (192, 768, 1536)   # block phase, mlp wi/wg blocks: fused chain
 KV_BLOCK = (192, 48, 1536)     # block phase, attn wk/wv blocks: fused chain
 NS_STEPS = 5
+# Dion's full-phase polar buckets on the small side (rank 64: 72 units of
+# the 1536-row factors, 12 of the 6144-row ones), K = 6; Turbo-Muon's K.
+DION_POLAR = ((72, 64, 1536), (12, 64, 6144))
+DION_STEPS, TURBO_STEPS = 6, 3
+# The NorMuon epilogue's launches, one a Muon leaf a step, as (B, m, n).
+NORMUON_LEAVES = {
+    "mlp/wi": (12, 1536, 6144), "mlp/wg": (12, 1536, 6144), "mlp/wo": (12, 6144, 1536),
+    "attn/wq": (12, 1536, 1536), "attn/wo": (12, 1536, 1536),
+    "attn/wk": (12, 1536, 384), "attn/wv": (12, 1536, 384),
+    "norms/attn_norm": (1, 12, 1536), "norms/mlp_norm": (1, 12, 1536),
+}
+NORMUON_TIMED = (12, 6144, 1536)   # the largest launch, mlp/wo
+BETA2, STAT_EPS = 0.95, 1e-8
 
 # Tolerances, relative to max|plain|. Single products: fp32 FFMA sums in
 # another order than cuBLAS's fp32 SGEMM (TF32 off) agree to ~1e-6 of the
@@ -59,6 +82,7 @@ PRODUCT_TOL = 1e-4
 CHAIN_TOL = 1e-3
 UPDATE_TOL = 1e-3      # Muon update: NS chains + the RMS-matched epilogue
 SMALL_LOSS_TOL = 1e-3  # reduced run on the card vs the CPU, fp32 compute
+NORM_TOL = 1e-5        # NorMuon row norm: only the row sum's order differs
 
 TPU_KERNELS = {
     "ns_matmul": ("cuda", "src/repro_torch/kernels/csrc/ns_matmul.cu",
@@ -69,8 +93,23 @@ TPU_KERNELS = {
                        "src/repro/kernels/newton_schulz/fused.py:104"),
     "ns_fused_iter": ("cuda", "src/repro_torch/kernels/csrc/ns_fused.cu",
                       "src/repro/kernels/newton_schulz/fused.py:98"),
+    "normuon": ("cuda", "src/repro_torch/kernels/csrc/normuon.cu",
+                "src/repro/kernels/normuon.py:67"),
 }
 MAIN_PATH_KERNELS = ("ns_matmul", "ns_fma_matmul", "ns_fused_chain")
+
+# The training paths: (label, extra launcher flags, steps, kernels that must
+# launch, phases whose update is checked against the plain versions).
+BASE_ARGV = ["--arch", "muonbp-960m", "--optimizer", "muonbp", "--period", "5",
+             "--mesh-model", "8", "--batch", "4", "--seq", "1024"]
+PATHS = (
+    ("muonbp", [], 6, MAIN_PATH_KERNELS, ("block", "full")),
+    ("normuon", ["--optimizer-variant", "normuon"], 6, MAIN_PATH_KERNELS + ("normuon",),
+     ("block", "full")),
+    ("turbo_muon", ["--optimizer-variant", "turbo_muon"], 6, MAIN_PATH_KERNELS,
+     ("block", "full")),
+    ("dion", ["--optimizer-variant", "dion"], 2, ("ns_fused_chain",), ("full",)),
+)
 
 
 def log(msg: str) -> None:
@@ -123,6 +162,29 @@ def unit_inputs(shape, seed: int):
     return x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
 
 
+def spectral_inputs(shape, seed: int):
+    """Random fp32 stacks on the card divided by their spectral-norm estimate
+    with the variants' margin (Turbo-Muon's and Dion's NS inputs)."""
+    import torch
+
+    from repro_torch.core.muon import SPECTRAL_MARGIN
+    from repro_torch.core.newton_schulz import spectral_norm_est
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+    return x / (spectral_norm_est(x) * SPECTRAL_MARGIN + 1e-7)
+
+
+def normuon_inputs(shape, seed: int):
+    """An update-like stack and positive row statistics on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+    v = torch.rand((*shape[:-1], 1), generator=gen, device="cuda", dtype=torch.float32)
+    return x / shape[-1] ** 0.5, v / shape[-1]
+
+
 def ns_step_flops(b: int, m: int, n: int) -> float:
     """Least flops of one NS step on b units of m x n (m <= n).
 
@@ -162,6 +224,7 @@ def phase_kernels(errors: dict) -> None:
     import torch
 
     from repro_torch.core.newton_schulz import PAPER_COEFFS, orthogonalize_plain
+    from repro_torch.kernels import normuon
     from repro_torch.kernels.newton_schulz import fused, ops
     from repro_torch.kernels.newton_schulz import newton_schulz as tiled
 
@@ -199,6 +262,27 @@ def phase_kernels(errors: dict) -> None:
             record("ns_fused_iter", f"{shape} {NS_STEPS} launches", y, ref, CHAIN_TOL)
         del xb, ref
 
+    # The variants' chains: unnormalised, spectrally pre-scaled stacks.
+    for shape, steps, seed in ((DION_POLAR[0], DION_STEPS, 7), (DION_POLAR[1], DION_STEPS, 8),
+                               (MLP_BLOCK, TURBO_STEPS, 9)):
+        xs = spectral_inputs(shape, seed)
+        ref = fused.ns_chain_plain(xs, PAPER_COEFFS, steps)
+        record("ns_fused_chain", f"{shape} x{steps} steps, spectral pre-scale",
+               fused.ns_chain(xs, PAPER_COEFFS, steps), ref, CHAIN_TOL)
+        del xs, ref
+
+    corr = normuon.bias_correction(2, BETA2)
+    for i, shape in enumerate(sorted(set(NORMUON_LEAVES.values()))):
+        x, v = normuon_inputs(shape, 10 + i)
+        for refresh in (True, False):
+            kw = dict(beta2=BETA2, eps=STAT_EPS, refresh=refresh)
+            y, v_new = normuon.neuron_norm(x, v, corr, **kw)
+            y_ref, v_ref = normuon.neuron_norm_plain(x, v, corr, **kw)
+            mode = "refresh" if refresh else "apply"
+            record("normuon", f"{shape} {mode} y", y, y_ref, NORM_TOL)
+            record("normuon", f"{shape} {mode} v", v_new, v_ref, NORM_TOL)
+        del x, v, y, v_new, y_ref, v_ref
+
     g = unit_inputs(QO_FULL, 4)
     ref = orthogonalize_plain(g, steps=NS_STEPS)
     out = ops.orthogonalize(g, steps=NS_STEPS)
@@ -210,56 +294,35 @@ def phase_kernels(errors: dict) -> None:
     torch.cuda.synchronize()
 
 
-def phase_train(launches: dict) -> None:
+def matrix_optimizer(label: str, block_specs, strategy):
+    """The path's matrix optimizer as the launcher builds it, at constant LR;
+    ``strategy="plain"`` runs the plain NS chain."""
+    from repro_torch.core import build_variant, muon
+
+    if label == "dion":
+        return build_variant("dion", 0.02, rank=64, weight_decay=0.1, ns_strategy=strategy)
+    return muon(0.02, 0.02, period=5, weight_decay=0.1, block_specs=block_specs,
+                ns_strategy=strategy, variant=None if label == "muonbp" else label)
+
+
+def check_update(label: str, run, phases, breakdown: dict) -> None:
+    """The path's matrix update from the kernels against the plain versions.
+
+    Both start from the run's final optimizer state and the same gradients;
+    each update is timed (the second of two calls, host clock around a
+    synchronised update), with the forward and backward beside them: where
+    the step's time goes. For the plain update the NorMuon epilogue runs its
+    plain version too.
+    """
     import torch
 
-    from repro_torch import kernels
     from repro_torch import tree as tree_lib
-    from repro_torch.core import label_tree, muon
+    from repro_torch.core import label_tree
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.launch import train
+    from repro_torch.kernels import normuon
     from repro_torch.training.train_step import loss_and_grads
 
-    argv = ["--arch", "muonbp-960m", "--optimizer", "muonbp", "--period", "5",
-            "--mesh-model", "8", "--steps", "6", "--batch", "4", "--seq", "1024"]
-    log(f"[train] python -m repro_torch.launch.train {' '.join(argv)}")
-    per_step = []
-    last = {}
-
-    def on_step(rec):
-        counts = kernels.launch_counts()
-        per_step.append((rec["phase"], {k: counts[k] - last.get(k, 0) for k in counts}))
-        last.update(counts)
-        log(f"[train] step {rec['step']} phase {rec['phase']} loss {rec['loss']:.4f} "
-            f"wall {rec['wall_s']:.3f} s launches {per_step[-1][1]}")
-
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    run = train.run(argv, on_step=on_step)
-    counts = kernels.launch_counts()
-    launches.update(counts)
-    log(f"[train] launches on the main path: {counts}")
-    log(f"[train] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    losses = [r["loss"] for r in run.records]
-    phases = [r["phase"] for r in run.records]
-    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
-        fail(f"non-finite loss: {losses}")
-    if phases != ["full", "block", "block", "block", "block", "full"]:
-        fail(f"unexpected phases {phases}")
-    for name in MAIN_PATH_KERNELS:
-        if counts[name] <= 0:
-            fail(f"kernel {name} never launched on the main path")
-    for phase in ("block", "full"):
-        step_counts = next(c for p, c in per_step if p == phase)
-        log(f"[train] launches per {phase} step: {step_counts}")
-        launches[f"per_{phase}_step"] = step_counts
-
-    # The Muon update from the kernels against the plain versions, on the
-    # same gradients, for one block and one full step; each also timed (the
-    # second of two calls, host clock around a synchronised update), with
-    # the forward and backward beside them: where the step's time goes.
-    params = run.state.params
-    cfg = run.cfg
+    params, cfg = run.state.params, run.cfg
     batch = next(iter(SyntheticLM(cfg, 4, 1024, seed=1)))
     batch = {k: torch.from_numpy(v).to(device="cuda", dtype=torch.long) for k, v in batch.items()}
 
@@ -272,39 +335,102 @@ def phase_train(launches: dict) -> None:
 
     loss_and_grads(params, batch, cfg)
     (_, _, grads), fwd_bwd_ms = timed(lambda: loss_and_grads(params, batch, cfg))
-    log(f"[train] forward+backward (bf16 compute) {fwd_bwd_ms:.1f} ms")
-    breakdown = {"fwd_bwd_ms": fwd_bwd_ms}
+    breakdown["fwd_bwd_ms"] = fwd_bwd_ms
+    log(f"[train:{label}] forward+backward (bf16 compute) {fwd_bwd_ms:.1f} ms")
     labels = label_tree(params)
     only_muon = lambda t: tree_lib.tree_map(lambda x, l: x if l == "muon" else None, t, labels)
     g_m, p_m = only_muon(grads), only_muon(params)
+    state = run.state.opt_state.inner["muon"]
     del grads
-    for phase in ("block", "full"):
+    kernel_norm = normuon.neuron_norm
+    for phase in phases:
         outs = {}
         for strategy in (None, "plain"):
-            opt = muon(0.02, 0.02, period=5, weight_decay=0.1,
-                       block_specs=run.block_specs, ns_strategy=strategy)
-            state = opt.init(p_m)
+            opt = matrix_optimizer(label, run.block_specs, strategy)
+            if strategy == "plain":
+                normuon.neuron_norm = normuon.neuron_norm_plain
             opt.update(g_m, state, p_m, phase)
             (upd, _), ms = timed(lambda: opt.update(g_m, state, p_m, phase))
+            normuon.neuron_norm = kernel_norm
             outs[strategy] = tree_lib.flatten_with_path(upd)
-            breakdown[f"muon_{phase}_{'kernels' if strategy is None else 'plain'}_ms"] = ms
+            breakdown[f"update_{phase}_{'kernels' if strategy is None else 'plain'}_ms"] = ms
         err = max(float((u.double() - v.double()).abs().max())
                   for (_, u), (_, v) in zip(outs[None], outs["plain"]))
         scale = max(float(v.abs().max()) for _, v in outs["plain"])
-        log(f"[train] muon update {phase}: kernels vs plain max_abs_err {err:.3e} "
+        log(f"[train:{label}] update {phase}: kernels vs plain max_abs_err {err:.3e} "
             f"rel {err / scale:.3e} (tol {UPDATE_TOL:g}); "
-            f"{breakdown[f'muon_{phase}_kernels_ms']:.1f} ms with the kernels, "
-            f"{breakdown[f'muon_{phase}_plain_ms']:.1f} ms plain")
+            f"{breakdown[f'update_{phase}_kernels_ms']:.1f} ms with the kernels, "
+            f"{breakdown[f'update_{phase}_plain_ms']:.1f} ms plain")
         if not err / scale <= UPDATE_TOL:
-            fail(f"{phase} Muon update from the kernels disagrees with the plain update")
-    log(f"[train] breakdown {json.dumps(breakdown)}")
-    del run, params, g_m, p_m, outs
-    torch.cuda.empty_cache()
+            fail(f"{label} {phase} update from the kernels disagrees with the plain update")
+        breakdown[f"update_{phase}_rel_err"] = err / scale
+
+
+def phase_train(launches: dict) -> None:
+    """Drive each path of PATHS at full width and check it.
+
+    ``launches`` gets the baseline's counts for the NS kernels and the
+    NorMuon path's count for the NorMuon kernel.
+    """
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.muon import phase_for_step
+    from repro_torch.launch import train
+
+    for label, extra, steps, required, checked in PATHS:
+        argv = BASE_ARGV + extra + ["--steps", str(steps)]
+        log(f"[train:{label}] python -m repro_torch.launch.train {' '.join(argv)}")
+        per_step = []
+        last = {}
+
+        def on_step(rec):
+            counts = kernels.launch_counts()
+            per_step.append((rec["phase"], {k: counts[k] - last.get(k, 0) for k in counts}))
+            last.update(counts)
+            log(f"[train:{label}] step {rec['step']} phase {rec['phase']} loss {rec['loss']:.4f} "
+                f"wall {rec['wall_s']:.3f} s launches {per_step[-1][1]}")
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        run = train.run(argv, on_step=on_step)
+        counts = kernels.launch_counts()
+        log(f"[train:{label}] launches on the path: {counts}")
+        log(f"[train:{label}] max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        losses = [r["loss"] for r in run.records]
+        phases = [r["phase"] for r in run.records]
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
+            fail(f"{label}: non-finite loss: {losses}")
+        period = 1 if label == "dion" else 5
+        if phases != [phase_for_step(t, period) for t in range(steps)]:
+            fail(f"{label}: unexpected phases {phases}")
+        for name in required:
+            if counts[name] <= 0:
+                fail(f"{label}: kernel {name} never launched on its path")
+        if label == "normuon":
+            norm_steps = [c["normuon"] for _, c in per_step]
+            if norm_steps != [len(NORMUON_LEAVES)] * steps:
+                fail(f"normuon launches per step {norm_steps}, expected {len(NORMUON_LEAVES)}")
+            launches["normuon"] = counts["normuon"]
+            launches["normuon_refresh"] = sum(c["normuon"] for p, c in per_step if p == "full")
+            launches["normuon_apply"] = sum(c["normuon"] for p, c in per_step if p == "block")
+        if label == "muonbp":
+            launches.update({k: v for k, v in counts.items() if k != "normuon"})
+        for phase in dict.fromkeys(phases):
+            step_counts = next(c for p, c in per_step if p == phase)
+            log(f"[train:{label}] launches per {phase} step: {step_counts}")
+        breakdown = {"step_wall_s": [r["wall_s"] for r in run.records], "phases": phases}
+        check_update(label, run, checked, breakdown)
+        log(f"[train:{label}] breakdown {json.dumps(breakdown)}")
+        del run
+        torch.cuda.empty_cache()
 
 
 def phase_reference() -> None:
     import torch
 
+    from repro_torch import kernels
     from repro_torch import tree as tree_lib
     from repro_torch.configs import get_config
     from repro_torch.launch import train
@@ -326,6 +452,17 @@ def phase_reference() -> None:
             f"max |loss diff| {diff:.3e} (tol {SMALL_LOSS_TOL:g})")
         if not diff <= SMALL_LOSS_TOL:
             fail(f"card run ({strategy}) does not track the CPU reference")
+
+    nm_argv = argv + ["--optimizer-variant", "normuon"]
+    cpu = train.run(nm_argv + ["--device", "cpu"], params=base).records
+    kernels.reset_launch_counts()
+    gpu = train.run(nm_argv + ["--device", "cuda"],
+                    params=tree_lib.tree_map(lambda p: p.to("cuda"), base)).records
+    diff = max(abs(g["loss"] - c["loss"]) for g, c in zip(gpu, cpu))
+    log(f"[reference] reduced 6 NorMuon steps, card vs CPU plain: max |loss diff| {diff:.3e} "
+        f"(tol {SMALL_LOSS_TOL:g}), {kernels.launch_counts()['normuon']} normuon launches")
+    if not diff <= SMALL_LOSS_TOL or kernels.launch_counts()["normuon"] <= 0:
+        fail("NorMuon card run does not track the CPU reference")
     torch.cuda.synchronize()
 
 
@@ -333,13 +470,14 @@ def phase_times(errors: dict, launches: dict) -> list:
     import torch
 
     from repro_torch.core.newton_schulz import PAPER_COEFFS
+    from repro_torch.kernels import normuon
     from repro_torch.kernels.newton_schulz import fused
     from repro_torch.kernels.newton_schulz import newton_schulz as tiled
 
     a, b, c = PAPER_COEFFS
     rows = []
 
-    def add(name, shape, fn, plain, library, flops, nbytes, iters):
+    def add(name, shape, fn, plain, library, flops, nbytes, iters, **extra):
         ms = cuda_ms(fn, iters)
         plain_ms = cuda_ms(plain, iters)
         lib_ms = cuda_ms(library, iters) if library is not None else None
@@ -348,7 +486,7 @@ def phase_times(errors: dict, launches: dict) -> list:
         row = {"name": name, "route": route, "source": source, "replaces": replaces,
                "launches": int(launches.get(name, 0)), "max_abs_err": errors.get(name),
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": kind,
-               "library_ms": lib_ms, "shape": shape}
+               "library_ms": lib_ms, "shape": shape, **extra}
         log(f"[times] {name} {shape}: {ms:.3f} ms (plain {plain_ms:.3f}, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.3f}'}, bound {bms:.3f} ms by {kind}, "
             f"{bms / ms:.1%} of bound)")
@@ -386,6 +524,44 @@ def phase_times(errors: dict, launches: dict) -> list:
         lambda: fused.ns_chain_plain(xb, PAPER_COEFFS, 1), None,
         ns_step_flops(B, m, n), io, 3)
     del xb
+    torch.cuda.empty_cache()
+
+    # NorMuon at its largest launch, in each mode. It reads x and writes y,
+    # 8 bytes an element, plus v (read, and written on a refresh); it does
+    # a multiply-add an element for the row sum and a division for y. No
+    # one PyTorch call computes it.
+    corr = normuon.bias_correction(2, BETA2)
+    x, v = normuon_inputs(NORMUON_TIMED, 20)
+    rows_n, elems = x.numel() // x.shape[-1], x.numel()
+    for refresh in (True, False):
+        kw = dict(beta2=BETA2, eps=STAT_EPS, refresh=refresh)
+        mode = "refresh" if refresh else "apply"
+        add("normuon", f"{'x'.join(map(str, NORMUON_TIMED))} {mode}",
+            lambda: normuon.neuron_norm(x, v, corr, **kw),
+            lambda: normuon.neuron_norm_plain(x, v, corr, **kw), None,
+            (3.0 if refresh else 1.0) * elems, 8.0 * elems + (8.0 if refresh else 4.0) * rows_n,
+            20, mode=mode, launches_in_mode=int(launches.get(f"normuon_{mode}", 0)))
+    del x, v
+    torch.cuda.empty_cache()
+
+    # The whole NorMuon epilogue of a step: the kernel on every leaf, and
+    # the kernel plus the plain rescale and casts around it.
+    leaves = [normuon_inputs(shape, 30 + i) for i, shape in enumerate(NORMUON_LEAVES.values())]
+    elems = sum(x.numel() for x, _ in leaves)
+    rows_n = sum(v.numel() for _, v in leaves)
+    epilogue = {}
+    for refresh in (True, False):
+        kw = dict(beta2=BETA2, eps=STAT_EPS, refresh=refresh)
+        mode = "refresh" if refresh else "apply"
+        epilogue[f"{mode}_kernels_ms"] = cuda_ms(
+            lambda: [normuon.neuron_norm(x, v, corr, **kw) for x, v in leaves], 5)
+        epilogue[f"{mode}_epilogue_ms"] = cuda_ms(
+            lambda: [normuon.apply_neuron_norm(x, v, 1, **kw) for x, v in leaves], 5)
+        epilogue[f"{mode}_bound_ms"] = bound_ms(
+            0.0, 8.0 * elems + (8.0 if refresh else 4.0) * rows_n)[0]
+    log(f"[times] NorMuon epilogue a step, {len(leaves)} leaves, {elems} elements: "
+        f"{json.dumps(epilogue)}")
+    del leaves
     torch.cuda.empty_cache()
     return rows
 

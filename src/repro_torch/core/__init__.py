@@ -1,4 +1,4 @@
-"""Core of the port: MuonBP, its baselines, AdamW, and the update program."""
+"""Core of the port: MuonBP, its baselines and variants, AdamW, and the update program."""
 
 from repro_torch.core.adamw import adamw
 from repro_torch.core.blocking import (
@@ -8,6 +8,7 @@ from repro_torch.core.blocking import (
     unpartition_blocks,
 )
 from repro_torch.core.combine import apply_updates, combine, default_label_fn, label_tree
+from repro_torch.core.dion import DionState, dion
 from repro_torch.core.muon import Optimizer, block_muon, muon, muon_full, phase_for_step
 from repro_torch.core.newton_schulz import (
     JORDAN_COEFFS,
@@ -15,18 +16,26 @@ from repro_torch.core.newton_schulz import (
     orthogonality_error,
     orthogonalize,
     orthogonalize_plain,
+    spectral_norm_est,
 )
 from repro_torch.core.program import LeafSpec, UpdateProgram, compile_program
+from repro_torch.core.variants import VARIANTS, VariantSpec, build_variant
+from repro_torch.core.variants import get as get_variant
+from repro_torch.core.variants import names as variant_names
 
 __all__ = [
     "adamw",
     "apply_updates",
-    "BlockSpec2D",
     "block_muon",
     "block_spec_from_partition",
+    "BlockSpec2D",
+    "build_variant",
     "combine",
     "compile_program",
     "default_label_fn",
+    "dion",
+    "DionState",
+    "get_variant",
     "JORDAN_COEFFS",
     "label_tree",
     "LeafSpec",
@@ -39,6 +48,10 @@ __all__ = [
     "PAPER_COEFFS",
     "partition_blocks",
     "phase_for_step",
-    "UpdateProgram",
+    "spectral_norm_est",
     "unpartition_blocks",
+    "UpdateProgram",
+    "variant_names",
+    "VARIANTS",
+    "VariantSpec",
 ]

@@ -1,6 +1,7 @@
 """Muon / BlockMuon / MuonBP -- paper Algorithm 1 as a PyTorch optimizer.
 
-Counterpart of ``repro/core/muon.py``, baseline variant only. One
+Counterpart of ``repro/core/muon.py`` with its optimizer variants
+(``core/variants.py``: Turbo-Muon, NorMuon; Dion is ``core/dion.py``). One
 implementation covers all three methods via the period ``P``:
 
   * ``P = 1``        -> Muon       (full orthogonalization every step)
@@ -13,7 +14,9 @@ momentum, interprets the compiled :class:`program.UpdateProgram` (one NS
 chain per shape bucket through ``kernels.dispatch``), then the two-stepsize
 RMS-matched epilogue with decoupled weight decay (Theorem 2, paper
 Sec 3.2). The step count is a host integer, so schedules never sync the
-device.
+device. A variant changes three things: the chain length K, a pre-NS
+stage (Turbo-Muon's spectral pre-scale) and a post-NS stage (NorMuon's
+row normalization, ``kernels/normuon.py``, refreshed on full steps).
 
 Trees are nested dicts (``repro_torch.tree``); ``None`` leaves are masked
 out, as ``core.combine`` hands each sub-optimizer its own parameters.
@@ -29,15 +32,27 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.core import newton_schulz
 from repro_torch.core import program as program_lib
+from repro_torch.core import variants as variants_lib
 from repro_torch.core.bucketing import dtype_name
 from repro_torch.core.newton_schulz import PAPER_COEFFS
+from repro_torch.kernels import normuon as normuon_lib
 
 Schedule = Callable[[int], float]
+
+# Turbo-Muon spectral pre-scale margin: the power-iteration estimate
+# converges to sigma_max from below, so dividing by est * margin keeps every
+# singular value <= 1 with near-certainty (the NS cubic's basin reaches
+# sqrt(3)).
+SPECTRAL_MARGIN = 1.01
 
 
 class OptState(NamedTuple):
     momentum: dict  # path -> fp32 momentum tensor
     count: int      # step counter
+    # NorMuon only; None for every other variant, so their state is the
+    # two-field state.
+    second_moment: Optional[dict] = None  # path -> (..., 1) fp32 row second moments
+    vcount: Optional[dict] = None         # path -> host-int refresh counter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +107,18 @@ def muon(
     :class:`blocking.BlockSpec2D` (or None) matching params;
     ``ns_strategy`` pins every bucket's kernel (``dispatch.STRATEGIES``,
     ``"plain"`` for the plain PyTorch chain; None plans per bucket).
-    Optimizer variants are not ported yet: any ``variant`` other than the
-    baseline raises.
+    ``variant`` is a name of ``core.variants.VARIANTS`` ("muon" |
+    "turbo_muon" | "normuon"), a ``VariantSpec``, or None for the baseline;
+    a low-rank variant raises ``ValueError`` (build it with
+    ``variants.build_variant``).
     """
-    if variant not in (None, "muon"):
-        raise NotImplementedError(f"optimizer variant {variant!r} is not ported yet")
+    vspec = variants_lib.get(variant)
+    if vspec.low_rank:
+        raise ValueError(
+            f"variant {vspec.name!r} is a low-rank program; build it with "
+            "core.variants.build_variant (it routes to core.dion)"
+        )
+    eff_ns_steps = max(1, ns_steps + vspec.ns_steps_delta)
     lr_full_fn = _as_schedule(lr_full)
     lr_block_fn = _as_schedule(lr_block if lr_block is not None else lr_full)
     mu = momentum
@@ -108,22 +130,37 @@ def muon(
         if key not in programs:
             programs[key] = program_lib.compile_program(
                 leaf_specs, bucketing=bucketing, backend=backend, strategy=ns_strategy,
+                ns_steps=eff_ns_steps, precondition=vspec.precondition,
+                epilogue=vspec.epilogue,
             )
         return programs[key]
 
     def _orth(u: torch.Tensor, strategy: Optional[str] = None) -> torch.Tensor:
+        if vspec.precondition == "spectral_scale":
+            # Turbo-Muon: divide by the spectral norm instead of the much
+            # larger Frobenius norm the chain applies on entry, which lands
+            # every singular value near 1 and buys the reduced K.
+            sigma = newton_schulz.spectral_norm_est(u).to(u.dtype)
+            u = u / (sigma * SPECTRAL_MARGIN + 1e-7)
+            return newton_schulz.orthogonalize(
+                u, steps=eff_ns_steps, coeffs=ns_coeffs, strategy=strategy, normalize=False
+            )
         return newton_schulz.orthogonalize(
-            u, steps=ns_steps, coeffs=ns_coeffs, strategy=strategy
+            u, steps=eff_ns_steps, coeffs=ns_coeffs, strategy=strategy
         )
 
     def init(params) -> OptState:
-        return OptState(
-            momentum={
-                path: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for path, p in tree_lib.flatten_with_path(params)
-            },
-            count=0,
-        )
+        flat = tree_lib.flatten_with_path(params)
+        zeros = lambda shape, p: torch.zeros(shape, dtype=torch.float32, device=p.device)
+        second = vcount = None
+        if vspec.epilogue == "neuron_norm":
+            # One statistic per output neuron (row): the leaf shape with its
+            # last dim collapsed; sub-matrix leaves keep theirs (skipped).
+            second = {path: zeros(p.shape[:-1] + (1,) if p.dim() >= 2 else p.shape, p)
+                      for path, p in flat}
+            vcount = {path: 0 for path, _ in flat}
+        return OptState(momentum={path: zeros(p.shape, p) for path, p in flat}, count=0,
+                        second_moment=second, vcount=vcount)
 
     @torch.no_grad()
     def update(grads, state: OptState, params, phase: str = "block"):
@@ -153,6 +190,19 @@ def muon(
         o_leaves = program.execute(phase, u_leaves, _orth)
         prog_phase = program.phase(phase)
 
+        # NorMuon: the row statistics refresh on full steps only (the port
+        # has no staggered schedule); every step applies them.
+        new_second, new_vcount = state.second_moment, state.vcount
+        if vspec.epilogue == "neuron_norm":
+            new_second, new_vcount = dict(new_second), dict(new_vcount)
+            for i, k in enumerate(keys):
+                if o_leaves[i].dim() < 2:
+                    continue
+                o_leaves[i], new_second[k], new_vcount[k] = normuon_lib.apply_neuron_norm(
+                    o_leaves[i], new_second[k], new_vcount[k], beta2=vspec.beta2,
+                    eps=vspec.stat_eps, refresh=phase == "full",
+                )
+
         upd_items = []
         for i, (k, o, p) in enumerate(zip(keys, o_leaves, p_leaves)):
             m_eff, n_eff = prog_phase.eff_dims(i)
@@ -162,7 +212,8 @@ def muon(
                 upd = upd - lr * weight_decay * p.to(torch.float32)
             upd_items.append((k, upd.to(p.dtype)))
         new_m = dict(zip(keys, m_leaves))
-        return tree_lib.unflatten(upd_items), OptState(momentum=new_m, count=count)
+        return tree_lib.unflatten(upd_items), OptState(
+            momentum=new_m, count=count, second_moment=new_second, vcount=new_vcount)
 
     return Optimizer(init=init, update=update)
 

@@ -7,10 +7,12 @@ is approximated with K iterations of ``X <- a X + (b A + c A^2) X`` where
 ``orthogonalize_plain`` is the plain PyTorch chain (the reference's
 ``orthogonalize_jnp``) and the numerics oracle of every kernel strategy;
 ``orthogonalize`` routes through ``repro_torch.kernels.dispatch``.
+``spectral_norm_est`` is the spectral pre-scale of Turbo-Muon and Dion.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 PAPER_COEFFS = (2.0, -1.5, 0.5)
@@ -85,6 +87,30 @@ def orthogonalize_plain(
     """
     return on_small_side(g, lambda x: ns_steps_plain(x, coeffs, steps), eps=eps,
                          normalize=normalize)
+
+
+def spectral_norm_est(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
+    """Spectral-norm estimate over the trailing two dims (power iteration).
+
+    Counterpart of the reference's ``spectral_norm_est``: ``iters`` power
+    iterations from the uniform start vector ``1/sqrt(n)``, batched over the
+    leading dims, returning shape ``(..., 1, 1)``. The estimate converges to
+    sigma_max from below. Callers run it on the packed stack as the update
+    program hands it over (before any transpose to the small side), as the
+    reference does: iterating on ``X`` and on ``X^T`` rounds differently.
+    """
+    x = x.to(torch.float32)
+    n = x.shape[-1]
+    # fp32 1/sqrt(n), rounded as the reference forms it.
+    start = float(np.float32(1.0) / np.sqrt(np.float32(n)))
+    v = torch.full(x.shape[:-2] + (n, 1), start, dtype=torch.float32, device=x.device)
+    xt = x.transpose(-1, -2)
+    for _ in range(iters):
+        w = x @ v
+        v = xt @ w
+        v = v / (torch.linalg.vector_norm(v, dim=(-2, -1), keepdim=True) + 1e-20)
+    w = x @ v
+    return torch.linalg.vector_norm(w, dim=(-2, -1), keepdim=True)
 
 
 def orthogonality_error(x: torch.Tensor) -> torch.Tensor:

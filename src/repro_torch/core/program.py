@@ -49,11 +49,22 @@ class KernelPlan:
     "cpu"; on the CPU every strategy runs its kernels' plain versions);
     ``strategy`` is one of ``dispatch.STRATEGIES``; ``merged_dtypes`` records
     a cross-bucket launch merge (``dispatch.shared_launch_groups``).
+
+    Variant stages (``core/variants.py``) are part of the plan: ``ns_steps``
+    is the effective chain length K the bucket runs (None for a plan built
+    without one), ``precondition`` a pre-NS stage ('spectral_scale': divide
+    by a power-iteration spectral-norm estimate and skip the entry Frobenius
+    normalization) and ``epilogue`` a post-NS stage ('neuron_norm': the
+    NorMuon row normalization, applied by ``muon.update`` after unpack).
+    The optimizer's ``orth`` callable runs them; the plan records them.
     """
 
     backend: str
     strategy: str
     merged_dtypes: tuple = ()
+    ns_steps: Optional[int] = None
+    precondition: Optional[str] = None
+    epilogue: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,17 +149,17 @@ def execute_ops(ops: Sequence[BucketOp], leaves: list, orth: Callable) -> list:
 
 
 def _kernel_plan(packed_shape: tuple, backend: str, strategy: Optional[str],
-                 merged_dtypes: tuple = ()) -> KernelPlan:
+                 merged_dtypes: tuple = (), **stages) -> KernelPlan:
+    """``stages``: the variant's ``ns_steps``/``precondition``/``epilogue``."""
     from repro_torch.kernels import dispatch
 
     if strategy is not None and strategy != "auto":
         if strategy not in dispatch.STRATEGIES:
             raise ValueError(f"unknown NS strategy {strategy!r}; available: {dispatch.STRATEGIES}")
-        return KernelPlan(backend=backend, strategy=strategy, merged_dtypes=merged_dtypes)
-    return KernelPlan(
-        backend=backend, strategy=dispatch.plan_strategy(packed_shape),
-        merged_dtypes=merged_dtypes,
-    )
+    else:
+        strategy = dispatch.plan_strategy(packed_shape)
+    return KernelPlan(backend=backend, strategy=strategy, merged_dtypes=merged_dtypes,
+                      **stages)
 
 
 def _group_buckets(leaf_execs: Sequence[LeafExec], mode: str, bucketing: bool):
@@ -194,7 +205,7 @@ def _packed_shape(plans: Sequence[bucketing_lib.LeafPlan], mode: str) -> tuple:
 
 
 def _compile_phase(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketing: bool,
-                   backend: str, strategy: Optional[str]) -> PhaseProgram:
+                   backend: str, strategy: Optional[str], stages: dict) -> PhaseProgram:
     """Counterpart of the reference's ``_compile_phase_gspmd`` with no layer_shard."""
     mode = "concat" if phase == "full" else "stack"
     leaf_execs: list[LeafExec] = []
@@ -213,7 +224,7 @@ def _compile_phase(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketing: boo
             bucket_key=key,
             leaves=tuple(members),
             mode=mode,
-            kernel=_kernel_plan(packed, backend, strategy, merged),
+            kernel=_kernel_plan(packed, backend, strategy, merged, **stages),
             packed_shape=packed,
             compute_dtype=compute_dtype,
         ))
@@ -226,16 +237,22 @@ def compile_program(
     bucketing: bool = True,
     backend: str = "cuda",
     strategy: Optional[str] = None,
+    ns_steps: int = 5,
+    precondition: Optional[str] = None,
+    epilogue: Optional[str] = None,
 ) -> UpdateProgram:
     """Compile the two-phase :class:`UpdateProgram` from static leaf info.
 
     ``bucketing=False`` compiles the degenerate one-bucket-per-leaf program;
     ``backend`` is the device type the program runs on; ``strategy`` pins
     every bucket's kernel (``None``/"auto" plans per packed shape).
+    ``ns_steps`` is the effective chain length K and ``precondition`` /
+    ``epilogue`` the variant's stage names, recorded on every KernelPlan.
     """
+    stages = dict(ns_steps=ns_steps, precondition=precondition, epilogue=epilogue)
     phases = {
         phase: _compile_phase(leaf_specs, phase, bucketing=bucketing,
-                              backend=backend, strategy=strategy)
+                              backend=backend, strategy=strategy, stages=stages)
         for phase in ("block", "full")
     }
     return UpdateProgram(leaf_specs=tuple(leaf_specs), phases=phases)

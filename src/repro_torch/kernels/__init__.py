@@ -9,6 +9,7 @@ from __future__ import annotations
 
 def kernel_wrappers() -> dict:
     """``{name: wrapper}`` for every ported kernel (each has ``.launches``)."""
+    from repro_torch.kernels import normuon
     from repro_torch.kernels.newton_schulz import fused
     from repro_torch.kernels.newton_schulz import newton_schulz as tiled
 
@@ -17,6 +18,7 @@ def kernel_wrappers() -> dict:
         "ns_fma_matmul": tiled.fma_matmul,
         "ns_fused_chain": fused.ns_chain,
         "ns_fused_iter": fused.ns_iteration,
+        "normuon": normuon.neuron_norm,
     }
 
 

@@ -42,6 +42,10 @@ LIBRARIES = {
         "ns_fused.cu",
         {"ns_fused_chain": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P]},
     ),
+    "normuon": (
+        "normuon.cu",
+        {"normuon_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P]},
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

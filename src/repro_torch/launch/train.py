@@ -11,6 +11,12 @@ Example (one H100, full-width muonbp-960m):
   PYTHONPATH=src python -m repro_torch.launch.train --arch muonbp-960m \\
       --optimizer muonbp --period 5 --mesh-model 8 --steps 6 --batch 4 --seq 1024
 
+``--optimizer-variant {muon,turbo_muon,normuon,dion}`` picks the optimizer
+variant (``core/variants.py``), as ``--optimizer dion`` picks Dion, e.g.
+  PYTHONPATH=src python -m repro_torch.launch.train --arch muonbp-960m \\
+      --optimizer muonbp --optimizer-variant normuon --period 5 --mesh-model 8 \\
+      --steps 6 --batch 4 --seq 1024
+
 ``--device cpu`` runs the same path on the CPU (every kernel wrapper then
 runs its plain PyTorch version); without it the launcher needs a card.
 """
@@ -29,6 +35,7 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.configs import get_config
 from repro_torch.core import adamw, block_muon, combine, label_tree, muon, muon_full
+from repro_torch.core import variants as variants_lib
 from repro_torch.core.muon import phase_for_step
 from repro_torch.core.schedule import cosine, wsd
 from repro_torch.data.pipeline import SyntheticLM
@@ -40,26 +47,38 @@ COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def build_optimizer(name, params, *, lr, adam_lr, period, schedule_fn=None,
-                    block_specs=None, weight_decay=0.1, ns_strategy=None,
-                    bucketing=True):
-    """(combined optimizer, effective period) as the reference builds them."""
+                    block_specs=None, rank=64, weight_decay=0.1, ns_strategy=None,
+                    bucketing=True, variant=None):
+    """(combined optimizer, effective period) as the reference builds them.
+
+    ``--optimizer dion`` and the ``dion`` variant build the same low-rank
+    program, whose period is 1 (the same work every step).
+    """
     labels = label_tree(params)
     lr_s = schedule_fn(lr) if schedule_fn else lr
     adam_s = schedule_fn(adam_lr) if schedule_fn else adam_lr
+    vspec = variants_lib.get(variant)
     ns_kw = dict(bucketing=bucketing, ns_strategy=ns_strategy)
     if name == "adamw":
         return combine({"adamw": adamw(adam_s, weight_decay=weight_decay)},
                        tree_lib.tree_map(lambda _: "adamw", labels)), None
-    if name == "muon":
-        matrix_opt = muon_full(lr_s, weight_decay=weight_decay, block_specs=block_specs, **ns_kw)
+    if name == "dion" or vspec.low_rank:
+        matrix_opt = variants_lib.build_variant("dion", lr_s, rank=rank,
+                                                weight_decay=weight_decay, period=period,
+                                                **ns_kw)
+        name = "dion"
+    elif name == "muon":
+        matrix_opt = muon_full(lr_s, weight_decay=weight_decay, block_specs=block_specs,
+                               variant=vspec, **ns_kw)
     elif name == "blockmuon":
-        matrix_opt = block_muon(lr_s, weight_decay=weight_decay, block_specs=block_specs, **ns_kw)
+        matrix_opt = block_muon(lr_s, weight_decay=weight_decay, block_specs=block_specs,
+                                variant=vspec, **ns_kw)
     elif name == "muonbp":
         matrix_opt = muon(lr_s, lr_s, period=period, weight_decay=weight_decay,
-                          block_specs=block_specs, **ns_kw)
+                          block_specs=block_specs, variant=vspec, **ns_kw)
     else:
         raise ValueError(name)
-    period_eff = {"muon": 1, "blockmuon": None, "muonbp": period}[name]
+    period_eff = {"muon": 1, "blockmuon": None, "dion": 1, "muonbp": period}[name]
     return combine({"muon": matrix_opt, "adamw": adamw(adam_s, weight_decay=weight_decay)},
                    labels), period_eff
 
@@ -69,7 +88,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="muonbp-960m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--optimizer", default="muonbp",
-                    choices=["muonbp", "muon", "blockmuon", "adamw"])
+                    choices=["muonbp", "muon", "blockmuon", "adamw", "dion"])
+    ap.add_argument("--optimizer-variant", default=None, choices=list(variants_lib.names()),
+                    help="optimizer variant (core/variants.py): 'muon' baseline, "
+                         "'turbo_muon' spectral pre-scale + K-2 NS steps, 'normuon' "
+                         "neuron-wise second-moment epilogue, 'dion' low-rank (it "
+                         "replaces the matrix optimizer); default: the baseline")
     ap.add_argument("--period", type=int, default=5)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -130,7 +154,7 @@ def run(argv=None, *, params: Optional[dict] = None,
     optimizer, period = build_optimizer(
         args.optimizer, params, lr=args.lr, adam_lr=args.adam_lr, period=args.period,
         schedule_fn=sched, block_specs=bspecs, ns_strategy=args.ns_strategy,
-        bucketing=not args.no_ns_bucketing,
+        bucketing=not args.no_ns_bucketing, variant=args.optimizer_variant,
     )
     state = init_train_state(params, optimizer)
     pipe = iter(SyntheticLM(cfg, args.batch, args.seq, seed=args.seed))
@@ -138,7 +162,8 @@ def run(argv=None, *, params: Optional[dict] = None,
 
     n_params = sum(p.numel() for p in tree_lib.leaves(params))
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M optimizer={args.optimizer} "
-          f"period={period} mesh={axis_sizes} device={device}", flush=True)
+          f"variant={variants_lib.get(args.optimizer_variant).name} period={period} "
+          f"mesh={axis_sizes} device={device}", flush=True)
     records = []
     for step in range(args.steps):
         batch = {k: torch.from_numpy(v).to(device=device, dtype=torch.long)

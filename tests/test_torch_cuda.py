@@ -10,9 +10,10 @@ as a card run and skips them here. On the card, from the repository root:
 the card need not have; this file imports none of it.)
 
 Tolerances are relative to max|plain|, TF32 off on both sides: 1e-4 for one
-product (fp32 FFMA in another summation order than cuBLAS's SGEMM) and
+product (fp32 FFMA in another summation order than cuBLAS's SGEMM),
 1e-3 for NS chains, whose cubic polynomial compounds the rounding of each
-step.
+step, and 1e-5 for the NorMuon row normalization, where only the order of
+the row sum of squares differs.
 """
 
 import pytest
@@ -20,12 +21,13 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.newton_schulz import PAPER_COEFFS, orthogonalize, orthogonalize_plain
+from repro_torch.kernels import normuon
 from repro_torch.kernels.newton_schulz import fused, ops
 from repro_torch.kernels.newton_schulz import newton_schulz as tiled
 
 pytestmark = pytest.mark.cuda
 
-PRODUCT_TOL, CHAIN_TOL = 1e-4, 1e-3
+PRODUCT_TOL, CHAIN_TOL, NORM_TOL = 1e-4, 1e-3, 1e-5
 
 
 @pytest.fixture
@@ -122,4 +124,59 @@ def test_reduced_training_on_the_card_tracks_the_cpu(card):
     assert kernels.launch_counts()["ns_fused_chain"] > 0
     # fp32 on both; cuBLAS and the CPU's BLAS sum in other orders, which six
     # NS-amplified updates carry into the loss (see chip_smoke.py).
+    assert max(abs(g["loss"] - c["loss"]) for g, c in zip(gpu, cpu)) <= 1e-3
+
+
+@pytest.mark.parametrize("refresh", [True, False])
+@pytest.mark.parametrize("shape,offset", [((3, 10, 130), 0), ((2, 7, 17), 0), ((2, 6, 64), 1),
+                                          ((12, 6144, 1536), 0)])
+def test_neuron_norm_matches_plain(card, refresh, shape, offset):
+    """Ragged rows, a row start off the 16-byte grid (scalar path) and the
+    largest main-path leaf (mlp/wo, 73,728 rows)."""
+    x = _rand(shape, 14, card)
+    if offset:  # contiguous, but offset by one float from its allocation
+        x = torch.empty(x.numel() + offset, device=card)[offset:].view(shape).copy_(x)
+    v = _rand((*shape[:-1], 1), 15, card).abs()
+    corr = normuon.bias_correction(3, 0.95)
+    y, v_new = normuon.neuron_norm(x, v, corr, beta2=0.95, eps=1e-8, refresh=refresh)
+    y_ref, v_ref = normuon.neuron_norm_plain(x, v, corr, beta2=0.95, eps=1e-8, refresh=refresh)
+    _assert_rel(y, y_ref, NORM_TOL)
+    _assert_rel(v_new, v_ref, NORM_TOL)
+    assert refresh or v_new is v
+    assert normuon.neuron_norm.launches == 1
+
+
+def test_neuron_norm_refuses_what_the_kernel_does_not_take(card):
+    x, v = _rand((2, 8, 32), 16, card), _rand((2, 8, 1), 17, card).abs()
+    kw = dict(beta2=0.95, eps=1e-8, refresh=True)
+    with pytest.raises(TypeError):
+        normuon.neuron_norm(x.double(), v.double(), 0.5, **kw)
+    with pytest.raises(TypeError):
+        normuon.neuron_norm(x.to(torch.bfloat16), v, 0.5, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        normuon.neuron_norm(_rand((2, 32, 8), 18, card).transpose(-1, -2), v, 0.5, **kw)
+    with pytest.raises(ValueError):
+        normuon.neuron_norm(x, v.cpu(), 0.5, **kw)
+    with pytest.raises(ValueError):
+        normuon.neuron_norm(x, v[:, :4], 0.5, **kw)
+    assert normuon.neuron_norm.launches == 0
+
+
+@pytest.mark.parametrize("variant", ["normuon", "turbo_muon", "dion"])
+def test_reduced_variant_training_on_the_card_tracks_the_cpu(card, variant):
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+
+    base = init_params(get_config("muonbp-960m").reduced(), seed=0, device="cpu")
+    argv = ["--reduced", "--mesh-model", "4", "--steps", "3", "--period", "2",
+            "--batch", "2", "--seq", "32", "--compute-dtype", "float32",
+            "--optimizer-variant", variant]
+    cpu = train.run(argv + ["--device", "cpu"], params=base).records
+    gpu = train.run(argv + ["--device", "cuda"],
+                    params=tree_lib.tree_map(lambda p: p.to("cuda"), base)).records
+    counts = kernels.launch_counts()
+    assert counts["ns_fused_chain"] > 0
+    assert (counts["normuon"] > 0) == (variant == "normuon")
     assert max(abs(g["loss"] - c["loss"]) for g, c in zip(gpu, cpu)) <= 1e-3

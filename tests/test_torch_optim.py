@@ -180,9 +180,11 @@ def test_adamw_cases_of_the_reference_hold(case):
         assert float(torch.linalg.norm(w - target)) < 0.05
 
 
-def test_variants_are_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        muon(0.02, variant="normuon")
+def test_muon_rejects_low_rank_variant():
+    """As the reference (tests/test_variants.py): Dion is built by
+    ``variants.build_variant``, never by ``muon``."""
+    with pytest.raises(ValueError, match="low-rank"):
+        muon(0.02, variant="dion")
 
 
 # ---------------------------------------------------------------------------
