@@ -13,7 +13,9 @@ optimizer variants NorMuon, Turbo-Muon and Dion.
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
   3. kernels  -- every kernel against its plain PyTorch version at the
                  shapes of the training steps (TF32 off), with tolerances:
-                 the NS products and chains, the fused chain at Dion's polar
+                 the NS products (the symmetric Gram and polynomial exactly
+                 symmetric; the Gram also against fp64) and chains, the
+                 fused chain at Dion's polar
                  shapes (K = 6) and Turbo-Muon's K = 3 on spectrally
                  pre-scaled stacks, and the NorMuon row norm at every leaf
                  shape in both modes;
@@ -25,14 +27,18 @@ optimizer variants NorMuon, Turbo-Muon and Dion.
                  launch counts of every kernel, counted from zero just before
                  it and read just after, and the update from the kernels
                  against the one from the plain versions on the same
-                 gradients and state;
+                 gradients and state; no launch of the path packs an
+                 operand;
   5. reference -- six reduced steps on the card against the same steps on
                  the CPU (plain versions), from the same weights, for the
                  baseline and for NorMuon;
   6. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
                  the least time the card could take for the same work; the
-                 whole NorMuon epilogue of a step.
+                 tiled Gram with its B operand K-major and N-major (the
+                 transposed split) over the full grid; the tiled 5-step chain
+                 beside the fused one at the block-phase shape; the whole
+                 NorMuon epilogue of a step.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are the kernels JSON and the device JSON.
@@ -51,6 +57,8 @@ SRC = ROOT / "src"
 
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bound.
 FP32_FLOPS = 67e12       # fp32 outside the tensor cores
+TF32_FLOPS = 495e12      # TF32 on the tensor cores, dense
+TC_PASSES = 3            # the tiled products' 3xTF32: hi*hi + hi*lo + lo*hi
 HBM_BYTES_S = 3.35e12
 
 # Main-path shapes at full-width muonbp-960m with an 8-way block grid
@@ -74,8 +82,9 @@ NORMUON_LEAVES = {
 NORMUON_TIMED = (12, 6144, 1536)   # the largest launch, mlp/wo
 BETA2, STAT_EPS = 0.95, 1e-8
 
-# Tolerances, relative to max|plain|. Single products: fp32 FFMA sums in
-# another order than cuBLAS's fp32 SGEMM (TF32 off) agree to ~1e-6 of the
+# Tolerances, relative to max|plain|. Single products: the tiled kernel's
+# 3xTF32 tensor-core sums and the fused chain's fp32 FFMA sums, in another
+# order than cuBLAS's fp32 SGEMM (TF32 off), agree to a few 1e-6 of the
 # largest value. The 5-step chains compound per-step rounding differences
 # through a cubic polynomial, so they get one more decade.
 PRODUCT_TOL = 1e-4
@@ -148,8 +157,8 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+def bound_ms(flops: float, nbytes: float, rate: float = FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -239,16 +248,28 @@ def phase_kernels(errors: dict) -> None:
         if not ok:
             fail(f"{name} {label} disagrees with its plain version")
 
+    # The three products of an NS step as ops.ns_iteration calls them: the
+    # Gram and the polynomial from their upper tiles (symmetric=True, the
+    # output exactly symmetric), each kernel and its plain version on the
+    # same inputs.
     x = unit_inputs(MLP_FULL, 1)
-    gram_ref = tiled.matmul_plain(x, x.transpose(-1, -2))
-    record("ns_matmul", f"gram {MLP_FULL}", tiled.matmul(x, x.transpose(-1, -2)), gram_ref, PRODUCT_TOL)
-    poly_ref = tiled.fma_matmul_plain(gram_ref, gram_ref, gram_ref, alpha=b, beta=c)
-    record("ns_fma_matmul", "poly bA+cA^2",
-           tiled.fma_matmul(gram_ref, gram_ref, gram_ref, alpha=b, beta=c), poly_ref, PRODUCT_TOL)
-    upd_ref = tiled.fma_matmul_plain(poly_ref, x, x, alpha=a, beta=1.0)
-    record("ns_fma_matmul", "update aX+PX",
-           tiled.fma_matmul(poly_ref, x, x, alpha=a, beta=1.0), upd_ref, PRODUCT_TOL)
-    del x, gram_ref, poly_ref, upd_ref
+    xt = x.transpose(-1, -2)
+    gram = tiled.matmul(x, xt, symmetric=True)
+    gram_ref = tiled.matmul_plain(x, xt)
+    record("ns_matmul", f"gram {MLP_FULL}", gram, gram_ref, PRODUCT_TOL)
+    # Both against an fp64 product: how much of the difference is whose.
+    gram64 = torch.matmul(x.double(), xt.double())
+    log(f"[kernels] gram {MLP_FULL} against fp64: kernel rel {rel_err(gram, gram64)[1]:.3e}, "
+        f"cuBLAS fp32 rel {rel_err(gram_ref, gram64)[1]:.3e}")
+    del gram_ref, gram64
+    poly = tiled.fma_matmul(gram, gram, gram, alpha=b, beta=c, symmetric=True)
+    record("ns_fma_matmul", "poly bA+cA^2", poly,
+           tiled.fma_matmul_plain(gram, gram, gram, alpha=b, beta=c), PRODUCT_TOL)
+    if not (torch.equal(gram, gram.mT) and torch.equal(poly, poly.mT)):
+        fail("a symmetric product's output is not exactly symmetric")
+    record("ns_fma_matmul", "update aX+PX", tiled.fma_matmul(poly, x, x, alpha=a, beta=1.0),
+           tiled.fma_matmul_plain(poly, x, x, alpha=a, beta=1.0), PRODUCT_TOL)
+    del x, xt, gram, poly
 
     for shape, seed in ((MLP_BLOCK, 2), (KV_BLOCK, 3)):
         xb = unit_inputs(shape, seed)
@@ -408,6 +429,8 @@ def phase_train(launches: dict) -> None:
         for name in required:
             if counts[name] <= 0:
                 fail(f"{label}: kernel {name} never launched on its path")
+        if kernels.packed_launches() != 0:
+            fail(f"{label}: {kernels.packed_launches()} tiled launches packed an operand")
         if label == "normuon":
             norm_steps = [c["normuon"] for _, c in per_step]
             if norm_steps != [len(NORMUON_LEAVES)] * steps:
@@ -420,6 +443,11 @@ def phase_train(launches: dict) -> None:
         for phase in dict.fromkeys(phases):
             step_counts = next(c for p, c in per_step if p == phase)
             log(f"[train:{label}] launches per {phase} step: {step_counts}")
+        if label == "muonbp":
+            for p_, c_ in per_step:
+                if p_ == "full" and (c_["ns_matmul"], c_["ns_fma_matmul"]) != (15, 30):
+                    fail(f"muonbp full step launched {c_['ns_matmul']} Grams and "
+                         f"{c_['ns_fma_matmul']} fma products, expected 15 and 30")
         breakdown = {"step_wall_s": [r["wall_s"] for r in run.records], "phases": phases}
         check_update(label, run, checked, breakdown)
         log(f"[train:{label}] breakdown {json.dumps(breakdown)}")
@@ -471,45 +499,76 @@ def phase_times(errors: dict, launches: dict) -> list:
 
     from repro_torch.core.newton_schulz import PAPER_COEFFS
     from repro_torch.kernels import normuon
-    from repro_torch.kernels.newton_schulz import fused
+    from repro_torch.kernels.newton_schulz import fused, ops
     from repro_torch.kernels.newton_schulz import newton_schulz as tiled
 
     a, b, c = PAPER_COEFFS
     rows = []
 
-    def add(name, shape, fn, plain, library, flops, nbytes, iters, **extra):
+    def add(name, shape, fn, plain, library, flops, nbytes, iters, tc_flops=None, **extra):
+        """``flops``: the least work, bound at the fp32 rate. A tensor-core
+        row gives ``tc_flops``, its product's least work: it is bound at its
+        own arithmetic, TC_PASSES TF32 products at TF32_FLOPS, and keeps the
+        fp32-rate bound beside it as ``fp32_bound_ms``."""
         ms = cuda_ms(fn, iters)
         plain_ms = cuda_ms(plain, iters)
         lib_ms = cuda_ms(library, iters) if library is not None else None
-        bms, kind = bound_ms(flops, nbytes)
+        if tc_flops is not None:
+            bms, kind = bound_ms(TC_PASSES * tc_flops, nbytes, TF32_FLOPS)
+            extra["fp32_bound_ms"] = bound_ms(flops, nbytes)[0]
+        else:
+            bms, kind = bound_ms(flops, nbytes)
         route, source, replaces = TPU_KERNELS[name]
         row = {"name": name, "route": route, "source": source, "replaces": replaces,
                "launches": int(launches.get(name, 0)), "max_abs_err": errors.get(name),
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": kind,
                "library_ms": lib_ms, "shape": shape, **extra}
+        fp32_note = (f", fp32-rate bound {extra['fp32_bound_ms']:.3f} ms"
+                     if "fp32_bound_ms" in extra else "")
         log(f"[times] {name} {shape}: {ms:.3f} ms (plain {plain_ms:.3f}, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.3f}'}, bound {bms:.3f} ms by {kind}, "
-            f"{bms / ms:.1%} of bound)")
+            f"{bms / ms:.1%} of bound{fp32_note})")
         rows.append(row)
 
-    # On the main path ns_matmul only forms the Gram X X^T, which is
-    # symmetric: the least work is its m(m+1)/2 distinct entries, n
-    # multiply-adds each, as ns_step_flops counts it (the kernel computes
-    # every tile).
+    # The three products of an NS step, as ops.ns_iteration calls them. The
+    # Gram and the polynomial are symmetric: the least work is their
+    # m(m+1)/2 distinct entries, n (resp. m) multiply-adds each, as
+    # ns_step_flops counts it, and the kernel computes the upper tiles only.
+    # Each product of an NS step launches once per Gram, so the polynomial
+    # and the update each make ns_matmul's count of the fma launches.
     B, m, n = MLP_FULL
     x = unit_inputs(MLP_FULL, 5)
     xt = x.transpose(-1, -2)
-    add("ns_matmul", f"gram {B}x{m}x{n}", lambda: tiled.matmul(x, xt),
+    per_gram = int(launches.get("ns_matmul", 0))
+    add("ns_matmul", f"gram {B}x{m}x{n}", lambda: tiled.matmul(x, xt, symmetric=True),
         lambda: tiled.matmul_plain(x, xt), lambda: torch.bmm(x, xt),
-        B * m * (m + 1.0) * n, 4.0 * (B * m * n + B * m * m), 3)
-    gram = tiled.matmul_plain(x, xt)
-    poly = tiled.fma_matmul_plain(gram, gram, gram, alpha=b, beta=c)
+        B * m * (m + 1.0) * n, 4.0 * (B * m * n + B * m * m), 5,
+        tc_flops=B * m * (m + 1.0) * n)
+    gram = tiled.matmul(x, xt, symmetric=True)
+    add("ns_fma_matmul", f"poly bA+cA^2 {B}x{m}x{m}",
+        lambda: tiled.fma_matmul(gram, gram, gram, alpha=b, beta=c, symmetric=True),
+        lambda: tiled.fma_matmul_plain(gram, gram, gram, alpha=b, beta=c),
+        lambda: torch.baddbmm(gram, gram, gram, beta=b, alpha=c),
+        B * m * m * (m + 1.0) + 2.0 * B * m * m, 4.0 * 2 * B * m * m, 10,
+        tc_flops=B * m * m * (m + 1.0), launches_in_mode=per_gram)
+    poly = tiled.fma_matmul(gram, gram, gram, alpha=b, beta=c, symmetric=True)
     add("ns_fma_matmul", f"update aX+PX {B}x{m}x{m}@{m}x{n}",
         lambda: tiled.fma_matmul(poly, x, x, alpha=a, beta=1.0),
         lambda: tiled.fma_matmul_plain(poly, x, x, alpha=a, beta=1.0),
         lambda: torch.baddbmm(x, poly, x, beta=a, alpha=1.0),
-        2.0 * B * m * m * n + 2.0 * B * m * n, 4.0 * (B * m * m + 2 * B * m * n), 3)
-    del x, xt, gram, poly
+        2.0 * B * m * m * n + 2.0 * B * m * n, 4.0 * (B * m * m + 2 * B * m * n), 5,
+        tc_flops=2.0 * B * m * m * n, launches_in_mode=per_gram)
+    # The transposed split's share: the same full-grid Gram with B read
+    # K-major (X^T in place) and N-major (X^T packed row-major, so every
+    # stage's B is transposed into the K-major layout by the consumers).
+    xt_rows = xt.contiguous()
+    ab = {}
+    for turn in ("kmajor", "nmajor", "nmajor", "kmajor"):
+        y = xt if turn == "kmajor" else xt_rows
+        ab.setdefault(turn, []).append(cuda_ms(lambda: tiled.matmul(x, y), 5))
+    log(f"[times] A/B full-grid Gram {B}x{m}x{n}, B operand K-major vs N-major (transposed "
+        f"split), in turns: {json.dumps(ab)}")
+    del x, xt, xt_rows, gram, poly
     torch.cuda.empty_cache()
 
     B, m, n = MLP_BLOCK
@@ -523,6 +582,11 @@ def phase_times(errors: dict, launches: dict) -> list:
         lambda: fused.ns_iteration(xb, PAPER_COEFFS),
         lambda: fused.ns_chain_plain(xb, PAPER_COEFFS, 1), None,
         ns_step_flops(B, m, n), io, 3)
+    # The dispatcher's gate sends block-phase buckets to the fused chain;
+    # would the tiled path (3 products a step) now carry them faster?
+    tiled_chain_ms = cuda_ms(lambda: ops.orthogonalize(xb, steps=NS_STEPS, normalize=False), 2)
+    log(f"[times] block-phase bucket {B}x{m}x{n} x{NS_STEPS} steps: tiled chain "
+        f"{tiled_chain_ms:.3f} ms, fused chain {rows[-2]['ms']:.3f} ms")
     del xb
     torch.cuda.empty_cache()
 

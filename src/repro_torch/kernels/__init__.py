@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels of the port and their dispatch.
 
 ``kernel_wrappers`` names every kernel wrapper; ``launch_counts`` and
-``reset_launch_counts`` read and zero their launch counters.
+``reset_launch_counts`` read and zero their launch counters, and
+``packed_launches`` reads the tiled products' count of launches that first
+packed an operand.
 """
 
 from __future__ import annotations
@@ -26,6 +28,12 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
+def packed_launches() -> int:
+    return sum(getattr(fn, "packed_launches", 0) for fn in kernel_wrappers().values())
+
+
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "packed_launches"):
+            fn.packed_launches = 0

@@ -35,8 +35,8 @@ _F = ctypes.c_float
 LIBRARIES = {
     "ns_matmul": (
         "ns_matmul.cu",
-        {"ns_gemm_batched": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
-                             _I, _I, _I, _I, _I, _F, _F, _P]},
+        {"ns_tc_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I,
+                        _L, _L, _L, _L, _I, _F, _F, _P]},
     ),
     "ns_fused": (
         "ns_fused.cu",
@@ -122,6 +122,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(rc: int, what: str) -> None:
-    """Raise when a launch returned a CUDA error code."""
+    """Raise when a launch returned a CUDA error code (negative: a libcuda
+    CUresult from setting the launch up)."""
+    if rc < 0:
+        raise RuntimeError(f"{what}: launch set-up failed with CUresult {-rc}")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")

@@ -18,10 +18,14 @@ from repro_torch.kernels.newton_schulz.newton_schulz import fma_matmul, matmul
 
 
 def ns_iteration(x: torch.Tensor, coeffs=PAPER_COEFFS) -> torch.Tensor:
-    """One NS step on ``(m, n)`` or ``(B, m, n)``: A = X X^T; P = bA + cA^2; Y = aX + PX."""
+    """One NS step on ``(m, n)`` or ``(B, m, n)``: A = X X^T; P = bA + cA^2; Y = aX + PX.
+
+    The Gram and the polynomial are symmetric: their products launch the
+    upper tiles only.
+    """
     a, b, c = (float(v) for v in coeffs)
-    gram = matmul(x, x.transpose(-1, -2))
-    poly = fma_matmul(gram, gram, gram, alpha=b, beta=c)
+    gram = matmul(x, x.transpose(-1, -2), symmetric=True)
+    poly = fma_matmul(gram, gram, gram, alpha=b, beta=c, symmetric=True)
     return fma_matmul(poly, x, x, alpha=a, beta=1.0)
 
 

@@ -10,7 +10,7 @@ as a card run and skips them here. On the card, from the repository root:
 the card need not have; this file imports none of it.)
 
 Tolerances are relative to max|plain|, TF32 off on both sides: 1e-4 for one
-product (fp32 FFMA in another summation order than cuBLAS's SGEMM),
+product (3xTF32 tensor-core sums in another order than cuBLAS's SGEMM),
 1e-3 for NS chains, whose cubic polynomial compounds the rounding of each
 step, and 1e-5 for the NorMuon row normalization, where only the order of
 the row sum of squares differs.
@@ -69,6 +69,43 @@ def test_gram_reads_the_transposed_operand_in_place(card):
                 tiled.matmul_plain(x, x.transpose(-1, -2)), PRODUCT_TOL)
     strided = _rand((3, 200, 140), 5, card)[:, :, ::2]  # neither layout: packed first
     _assert_rel(tiled.matmul(x, strided), tiled.matmul_plain(x, strided), PRODUCT_TOL)
+
+
+def test_symmetric_gram_and_polynomial_match_plain_and_are_symmetric(card):
+    """Several tiles a side: the upper tiles, their mirrors and the diagonal."""
+    x = _rand((2, 384, 512), 20, card)
+    gram = tiled.matmul(x, x.transpose(-1, -2), symmetric=True)
+    _assert_rel(gram, tiled.matmul_plain(x, x.transpose(-1, -2)), PRODUCT_TOL)
+    assert torch.equal(gram, gram.mT)
+    poly = tiled.fma_matmul(gram, gram, gram, alpha=-1.5, beta=0.5, symmetric=True)
+    _assert_rel(poly, tiled.fma_matmul_plain(gram, gram, gram, alpha=-1.5, beta=0.5), PRODUCT_TOL)
+    assert torch.equal(poly, poly.mT)
+    assert (tiled.matmul.launches, tiled.fma_matmul.launches) == (1, 1)
+    assert kernels.packed_launches() == 0
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_product_at_the_mlp_gram_depth_keeps_fp32_accuracy(card, symmetric):
+    """K = 6144, the full-phase MLP Gram's depth: the 3xTF32 sums over 192
+    K slices, promoted to an fp32 register sum every four."""
+    x = _rand((2, 256, 6144), 21, card)
+    y = x.transpose(-1, -2) if symmetric else _rand((2, 6144, 256), 22, card)
+    _assert_rel(tiled.matmul(x, y, symmetric=symmetric), tiled.matmul_plain(x, y), PRODUCT_TOL)
+
+
+def test_unaligned_operands_are_packed_and_still_match(card):
+    x, y, c = _rand((2, 33, 30), 23, card), _rand((2, 30, 18), 24, card), _rand((2, 33, 18), 25, card)
+    _assert_rel(tiled.fma_matmul(x, y, c, alpha=0.5, beta=2.0),
+                tiled.fma_matmul_plain(x, y, c, alpha=0.5, beta=2.0), PRODUCT_TOL)
+    assert (tiled.fma_matmul.launches, tiled.fma_matmul.packed_launches) == (1, 1)
+    offset = torch.empty(2 * 64 * 128 + 1, device=card)[1:].view(2, 64, 128)  # off the 16-byte grid
+    offset.copy_(_rand((2, 64, 128), 26, card))
+    _assert_rel(tiled.matmul(offset, y[:, :1].expand(2, 128, 18).contiguous()),
+                tiled.matmul_plain(offset, y[:, :1].expand(2, 128, 18).contiguous()), PRODUCT_TOL)
+    assert (tiled.matmul.launches, tiled.matmul.packed_launches) == (1, 1)
+    aligned = _rand((2, 64, 128), 27, card)
+    tiled.matmul(aligned, aligned.transpose(-1, -2), symmetric=True)
+    assert kernels.packed_launches() == 2
 
 
 @pytest.mark.parametrize("shape", [(4, 13, 150), (2, 130, 200), (1, 48, 1536)])
