@@ -14,11 +14,11 @@ optimizer variants NorMuon, Turbo-Muon and Dion.
   3. kernels  -- every kernel against its plain PyTorch version at the
                  shapes of the training steps (TF32 off), with tolerances:
                  the NS products (the symmetric Gram and polynomial exactly
-                 symmetric; the Gram also against fp64) and chains, the
-                 fused chain at Dion's polar
-                 shapes (K = 6) and Turbo-Muon's K = 3 on spectrally
-                 pre-scaled stacks, and the NorMuon row norm at every leaf
-                 shape in both modes;
+                 symmetric; the Gram also against fp64) and chains (the
+                 fused chain also against an fp64 chain), the fused chain
+                 at Dion's polar shapes (K = 6) and Turbo-Muon's K = 3 on
+                 spectrally pre-scaled stacks, and the NorMuon row norm at
+                 every leaf shape in both modes;
   4. train    -- full-width muonbp-960m (12 layers, virtual 8-way
                  tensor-parallel block grid, batch 4 x seq 1024): six
                  MuonBP steps (full, block x4, full), six NorMuon steps and
@@ -27,8 +27,8 @@ optimizer variants NorMuon, Turbo-Muon and Dion.
                  launch counts of every kernel, counted from zero just before
                  it and read just after, and the update from the kernels
                  against the one from the plain versions on the same
-                 gradients and state; no launch of the path packs an
-                 operand;
+                 gradients and state; no launch of the path, tiled or
+                 fused, packs an operand;
   5. reference -- six reduced steps on the card against the same steps on
                  the CPU (plain versions), from the same weights, for the
                  baseline and for NorMuon;
@@ -37,8 +37,8 @@ optimizer variants NorMuon, Turbo-Muon and Dion.
                  the least time the card could take for the same work; the
                  tiled Gram with its B operand K-major and N-major (the
                  transposed split) over the full grid; the tiled 5-step chain
-                 beside the fused one at the block-phase shape; the whole
-                 NorMuon epilogue of a step.
+                 beside the fused one at every block-phase bucket shape; the
+                 whole NorMuon epilogue of a step.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are the kernels JSON and the device JSON.
@@ -67,6 +67,9 @@ MLP_FULL = (24, 1536, 6144)    # full phase, mlp wi/wg: tiled
 QO_FULL = (24, 1536, 1536)     # full phase, attn wq/wo: tiled
 MLP_BLOCK = (192, 768, 1536)   # block phase, mlp wi/wg blocks: fused chain
 KV_BLOCK = (192, 48, 1536)     # block phase, attn wk/wv blocks: fused chain
+# Every block-phase bucket (the norm gains aside): mlp wi/wg, mlp wo, wq/wo,
+# wk/wv.
+BLOCK_BUCKETS = (MLP_BLOCK, (96, 768, 1536), (96, 192, 1536), KV_BLOCK)
 NS_STEPS = 5
 # Dion's full-phase polar buckets on the small side (rank 64: 72 units of
 # the 1536-row factors, 12 of the 6144-row ones), K = 6; Turbo-Muon's K.
@@ -82,11 +85,11 @@ NORMUON_LEAVES = {
 NORMUON_TIMED = (12, 6144, 1536)   # the largest launch, mlp/wo
 BETA2, STAT_EPS = 0.95, 1e-8
 
-# Tolerances, relative to max|plain|. Single products: the tiled kernel's
-# 3xTF32 tensor-core sums and the fused chain's fp32 FFMA sums, in another
-# order than cuBLAS's fp32 SGEMM (TF32 off), agree to a few 1e-6 of the
-# largest value. The 5-step chains compound per-step rounding differences
-# through a cubic polynomial, so they get one more decade.
+# Tolerances, relative to max|plain|. Single products: the kernels' 3xTF32
+# tensor-core sums (tiled and fused alike), in another order than cuBLAS's
+# fp32 SGEMM (TF32 off), agree to a few 1e-6 of the largest value. The
+# 5-step chains compound per-step rounding differences through a cubic
+# polynomial, so they get one more decade.
 PRODUCT_TOL = 1e-4
 CHAIN_TOL = 1e-3
 UPDATE_TOL = 1e-3      # Muon update: NS chains + the RMS-matched epilogue
@@ -274,8 +277,13 @@ def phase_kernels(errors: dict) -> None:
     for shape, seed in ((MLP_BLOCK, 2), (KV_BLOCK, 3)):
         xb = unit_inputs(shape, seed)
         ref = fused.ns_chain_plain(xb, PAPER_COEFFS, NS_STEPS)
-        record("ns_fused_chain", f"{shape} x{NS_STEPS} steps",
-               fused.ns_chain(xb, PAPER_COEFFS, NS_STEPS), ref, CHAIN_TOL)
+        out = fused.ns_chain(xb, PAPER_COEFFS, NS_STEPS)
+        record("ns_fused_chain", f"{shape} x{NS_STEPS} steps", out, ref, CHAIN_TOL)
+        # Both against an fp64 chain: how much of the difference is whose.
+        ref64 = fused.ns_chain_plain(xb.double(), PAPER_COEFFS, NS_STEPS)
+        log(f"[kernels] fused chain {shape} against fp64: kernel rel {rel_err(out, ref64)[1]:.3e}, "
+            f"cuBLAS fp32 chain rel {rel_err(ref, ref64)[1]:.3e}")
+        del out, ref64
         if shape == MLP_BLOCK:
             y = xb
             for _ in range(NS_STEPS):
@@ -430,7 +438,8 @@ def phase_train(launches: dict) -> None:
             if counts[name] <= 0:
                 fail(f"{label}: kernel {name} never launched on its path")
         if kernels.packed_launches() != 0:
-            fail(f"{label}: {kernels.packed_launches()} tiled launches packed an operand")
+            fail(f"{label}: {kernels.packed_launches()} launches (tiled or fused chain) "
+                 "packed an operand")
         if label == "normuon":
             norm_steps = [c["normuon"] for _, c in per_step]
             if norm_steps != [len(NORMUON_LEAVES)] * steps:
@@ -571,24 +580,40 @@ def phase_times(errors: dict, launches: dict) -> list:
     del x, xt, xt_rows, gram, poly
     torch.cuda.empty_cache()
 
+    # The fused chain and iteration: three TF32 products of the least work
+    # a step (the symmetric Gram and A^2 from their distinct entries), the
+    # fp32-rate bound beside it.
     B, m, n = MLP_BLOCK
     xb = unit_inputs(MLP_BLOCK, 6)
     io = 4.0 * 2 * B * m * n
     add("ns_fused_chain", f"{B}x{m}x{n} x{NS_STEPS} steps",
         lambda: fused.ns_chain(xb, PAPER_COEFFS, NS_STEPS),
         lambda: fused.ns_chain_plain(xb, PAPER_COEFFS, NS_STEPS), None,
-        NS_STEPS * ns_step_flops(B, m, n), io, 2)
+        NS_STEPS * ns_step_flops(B, m, n), io, 2, tc_flops=NS_STEPS * ns_step_flops(B, m, n))
     add("ns_fused_iter", f"{B}x{m}x{n} one step",
         lambda: fused.ns_iteration(xb, PAPER_COEFFS),
         lambda: fused.ns_chain_plain(xb, PAPER_COEFFS, 1), None,
-        ns_step_flops(B, m, n), io, 3)
-    # The dispatcher's gate sends block-phase buckets to the fused chain;
-    # would the tiled path (3 products a step) now carry them faster?
-    tiled_chain_ms = cuda_ms(lambda: ops.orthogonalize(xb, steps=NS_STEPS, normalize=False), 2)
-    log(f"[times] block-phase bucket {B}x{m}x{n} x{NS_STEPS} steps: tiled chain "
-        f"{tiled_chain_ms:.3f} ms, fused chain {rows[-2]['ms']:.3f} ms")
+        ns_step_flops(B, m, n), io, 3, tc_flops=ns_step_flops(B, m, n))
     del xb
     torch.cuda.empty_cache()
+    # The dispatcher's gate sends every block-phase bucket to the fused
+    # chain; the tiled path (3 product launches a step) beside it, in turns.
+    gate = {}
+    for shape in BLOCK_BUCKETS:
+        xs = unit_inputs(shape, 7)
+        fused_ms = cuda_ms(lambda: fused.ns_chain(xs, PAPER_COEFFS, NS_STEPS), 2)
+        tiled_ms = cuda_ms(lambda: ops.orthogonalize(xs, steps=NS_STEPS, normalize=False), 2)
+        fused_ms2 = cuda_ms(lambda: fused.ns_chain(xs, PAPER_COEFFS, NS_STEPS), 2)
+        bound = bound_ms(TC_PASSES * NS_STEPS * ns_step_flops(*shape), 4.0 * 2 * xs.numel(),
+                         TF32_FLOPS)[0]
+        key = "x".join(map(str, shape))
+        gate[key] = {"fused_ms": [fused_ms, fused_ms2], "tiled_ms": tiled_ms, "bound_ms": bound}
+        log(f"[times] block-phase bucket {key} x{NS_STEPS} steps: fused chain {fused_ms:.3f} / "
+            f"{fused_ms2:.3f} ms, tiled chain {tiled_ms:.3f} ms, 3xTF32 bound {bound:.3f} ms; "
+            f"{'fused' if min(fused_ms, fused_ms2) < tiled_ms else 'tiled'} is faster")
+        del xs
+        torch.cuda.empty_cache()
+    log(f"[times] fused vs tiled chain at the block-phase buckets: {json.dumps(gate)}")
 
     # NorMuon at its largest launch, in each mode. It reads x and writes y,
     # 8 bytes an element, plus v (read, and written on a refresh); it does

@@ -40,7 +40,8 @@ LIBRARIES = {
     ),
     "ns_fused": (
         "ns_fused.cu",
-        {"ns_fused_chain": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P]},
+        {"ns_fused_chain": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I,
+                            _F, _F, _F, _P]},
     ),
     "normuon": (
         "normuon.cu",

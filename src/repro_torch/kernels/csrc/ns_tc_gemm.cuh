@@ -1,7 +1,10 @@
-// Building blocks of the 3xTF32 tensor-core GEMM tile (ns_matmul.cu), in raw
+// The 3xTF32 tensor-core GEMM tile shared by the tiled products
+// (ns_matmul.cu) and the fused Newton-Schulz chain (ns_fused.cu), in raw
 // PTX for sm_90a: mbarriers, TMA tensor loads, wgmma descriptors and the
 // m64n128k8 TF32 warpgroup product (A from registers, B from shared
-// memory), and the hi/lo split of fp32 operands.
+// memory), the hi/lo split of fp32 operands, and gemm_tile, which computes
+// one 128 x 128 output tile of alpha*C + beta*A@op(B); a block may run it
+// for many tiles in a row.
 //
 // Shared-memory tiles are K-major (a row holds 32 consecutive k, 128 bytes)
 // in the 128-byte swizzle that TMA writes and wgmma reads: inside each
@@ -13,6 +16,7 @@
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace tc {
@@ -20,12 +24,11 @@ namespace tc {
 constexpr int BM = 128;   // output tile rows: two consumer warpgroups of 64
 constexpr int BN = 128;   // output tile columns: one m64n128 wgmma a warpgroup
 constexpr int BK = 32;    // K slice: 32 fp32 = 128 bytes, one swizzle row
-constexpr int CONSUMERS = 256;                 // two warpgroups
-constexpr int THREADS = CONSUMERS + 128;       // + the producer warpgroup
-// setmaxnreg: the producer gives registers up, the consumers take them
-// (128 x 24 + 256 x 240 <= 65,536).
-constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_REGS = 240;
+static_assert(BM == BN, "one K-major map (box BK x BM) serves as A and as B");
+// Two warpgroups, 64 output rows each; with one block an SM, a thread may
+// hold 255 registers (65,536 / 256), which the accumulator, its fp32 sum
+// and two slices of A fragments need.
+constexpr int THREADS = 256;
 constexpr int TILE_BYTES = BM * BK * 4;        // 16 KB: a 128 x 32 fp32 slice
 // The ring: a stage holds A raw, B hi and B lo, plus B raw when B is
 // N-major (it is transposed into B hi and lo, so cannot be split in place):
@@ -37,8 +40,9 @@ struct Ring {
   static constexpr int B_RAW = B_KMAJOR ? TILE_BYTES : 3 * TILE_BYTES;  // TMA's B target
 };
 constexpr int RING_BYTES = 12 * TILE_BYTES;
-// + alignment slack, + a full and an empty mbarrier for each of up to 4 stages
-constexpr int SMEM_BYTES = 1024 + RING_BYTES + 2 * 4 * 8;
+constexpr int MAX_STAGES = 4;
+// + alignment slack, + a full mbarrier for each of up to 4 stages
+constexpr int SMEM_BYTES = 1024 + RING_BYTES + MAX_STAGES * 8;
 // A fresh wgmma accumulator takes PROMOTE K slices (PROMOTE * BK terms of
 // each of the three products); then it is added into an fp32 register sum
 // on the CUDA cores, so no accumulator inside the tensor core runs long.
@@ -53,13 +57,13 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
 
+__device__ __forceinline__ void mbar_inval(uint32_t bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
+}
+
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
                : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
 // Spins until the phase of parity `parity` of the barrier has completed.
@@ -84,15 +88,6 @@ __device__ __forceinline__ void fence_barrier_init() {
 // accesses (wgmma operand reads, TMA writes) of the same bytes.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-template <int REGS>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(REGS));
-}
-template <int REGS>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(REGS));
 }
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -203,13 +198,13 @@ __device__ __forceinline__ void load_a_split(const float* tile, int row, int kk,
 
 // Splits a K-major fp32 slice in place: `hi` (as TMA wrote it) becomes its
 // TF32 high part and `lo` gets the remainder at the same (swizzled)
-// positions. Consumer thread t of CONSUMERS takes every CONSUMERS-th chunk.
+// positions. Thread t of THREADS takes every THREADS-th chunk.
 __device__ __forceinline__ void split_kmajor(float* hi, float* lo, int t) {
   float4* h = reinterpret_cast<float4*>(hi);
   float4* l = reinterpret_cast<float4*>(lo);
 #pragma unroll
-  for (int i = 0; i < TILE_BYTES / 16 / CONSUMERS; ++i) {
-    const int idx = t + i * CONSUMERS;
+  for (int i = 0; i < TILE_BYTES / 16 / THREADS; ++i) {
+    const int idx = t + i * THREADS;
     float4 vh, vl;
     split4(h[idx], vh, vl);
     h[idx] = vh;
@@ -226,7 +221,7 @@ __device__ __forceinline__ void split_kmajor(float* hi, float* lo, int t) {
 __device__ __forceinline__ void split_nmajor(const float* raw, float* hi, float* lo, int t) {
   const int n = t % BN;
 #pragma unroll
-  for (int i = 0; i < BK / 4 * BN / CONSUMERS; ++i) {
+  for (int i = 0; i < BK / 4 * BN / THREADS; ++i) {
     const int g = t / BN + 2 * i;
     const float4 v = make_float4(raw[(4 * g) * BN + n], raw[(4 * g + 1) * BN + n],
                                  raw[(4 * g + 2) * BN + n], raw[(4 * g + 3) * BN + n]);
@@ -236,6 +231,314 @@ __device__ __forceinline__ void split_nmajor(const float* raw, float* hi, float*
     *reinterpret_cast<float4*>(hi + off) = vh;
     *reinterpret_cast<float4*>(lo + off) = vl;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The tile routine.
+//
+// All 256 threads of a block run gemm_tile for each of the block's tiles,
+// in the same order. Thread 0 also issues the TMA loads: the first STAGES
+// K slices when the tile starts, then each later slice as soon as the
+// block-wide barrier after a slice's split shows that both warpgroups are
+// done with the stage it reuses. So there is no producer warpgroup and no
+// empty barrier, and a thread keeps up to 255 registers.
+
+// Named barrier 1 is the whole block (0 is __syncthreads); 2 + wg one
+// warpgroup.
+constexpr int BLOCK_BARRIER = 1;
+
+// out[z] = alpha * C[z] + beta * (A[z] @ op(B[z])) over M x N, rows ld*
+// floats apart, matrices stride_* floats apart; C may be null. With
+// `symmetric` (M == N, the product and C symmetric) the tile is also
+// written to its mirror, and a diagonal tile from its upper triangle.
+struct Epilogue {
+  const float* C;  // read through L2 (ld.global.cg): another SM may have
+                   // written it earlier in the same launch
+  long long ldc, stride_c;
+  float* out;
+  long long ldo, stride_o;
+  int M, N;
+  int symmetric;
+  float alpha, beta;
+};
+
+// One output tile: rows m0.., columns n0.. of matrix z, over K. A is read
+// through map_a as (K inner, M outer); B through map_b as (K, N) when B is
+// K-major (op(B) = B^T), else as (N inner, K outer).
+struct TileJob {
+  const CUtensorMap* map_a;
+  const CUtensorMap* map_b;
+  int m0, n0, z, K;
+};
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                    ~static_cast<uintptr_t>(1023));
+}
+
+__device__ __forceinline__ uint32_t full_bar(uint32_t smem0, int s) {
+  return smem0 + RING_BYTES + 8 * s;
+}
+
+// Thread 0 initialises the ring's barriers; the caller syncs the block
+// after. gemm_tile re-initialises them at the end of each tile, so that
+// every tile starts them at phase 0 whatever the ring's geometry (3 or 4
+// stages) was before.
+__device__ __forceinline__ void ring_init(uint8_t* smem) {
+  if (threadIdx.x == 0) {
+    const uint32_t smem0 = smem_u32(smem);
+    for (int s = 0; s < MAX_STAGES; ++s) mbar_init(full_bar(smem0, s), 1);
+    fence_barrier_init();
+  }
+}
+
+// Upper tile t of a square grid of nt x nt tiles, row by row: (bi, bj), bj >= bi.
+__device__ __forceinline__ void upper_tile(int t, int nt, int& bi, int& bj) {
+  bi = 0;
+  while (t >= nt - bi) {
+    t -= nt - bi;
+    ++bi;
+  }
+  bj = bi + t;
+}
+
+// One tile (see above). `ep` lies in shared or kernel-parameter memory and
+// is read after the K loop, so no register holds it through the loop.
+// Ends with a barrier of the whole block: the ring is free, and its
+// barriers are back at phase 0, when it returns.
+template <bool B_KMAJOR>
+__device__ __forceinline__ void gemm_tile(uint8_t* smem, const TileJob& job, const Epilogue& ep) {
+  const uint32_t smem0 = smem_u32(smem);
+  constexpr int STAGES = Ring<B_KMAJOR>::STAGES, STAGE_BYTES = Ring<B_KMAJOR>::STAGE_BYTES;
+  const int nk = (job.K + BK - 1) / BK;
+  const int t = threadIdx.x;
+  const int wg = t / 128;
+  const int lane = t % 32, warp = (t % 128) / 32;
+  const int a_row = 64 * wg + 16 * warp + lane / 4;
+
+  // Thread 0: slice kt's A and B into its stage.
+  auto load = [&](int kt) {
+    const int s = kt % STAGES;
+    const uint32_t stage = smem0 + s * STAGE_BYTES;
+    const uint32_t full = full_bar(smem0, s);
+    mbar_expect_tx(full, 2 * TILE_BYTES);
+    tma_load_3d(stage, job.map_a, full, kt * BK, job.m0, job.z);
+    const uint32_t b_raw = stage + Ring<B_KMAJOR>::B_RAW;
+    if (B_KMAJOR)
+      tma_load_3d(b_raw, job.map_b, full, kt * BK, job.n0, job.z);
+    else
+      tma_load_3d(b_raw, job.map_b, full, job.n0, kt * BK, job.z);
+  };
+  if (t == 0)
+    for (int kt = 0; kt < STAGES && kt < nk; ++kt) load(kt);
+
+  // Slice kt fills its stage's barrier's phase kt / STAGES.
+  auto wait_full = [&](int kt) { mbar_wait(full_bar(smem0, kt % STAGES), (kt / STAGES) & 1); };
+  // B's split pass (in shared memory, for both warpgroups' wgmmas).
+  auto split_b = [&](int s) {
+    float* b = reinterpret_cast<float*>(smem + s * STAGE_BYTES + TILE_BYTES);
+    if (B_KMAJOR)
+      split_kmajor(b, b + TILE_BYTES / 4, t);
+    else
+      split_nmajor(b + TILE_BYTES / 2, b, b + TILE_BYTES / 4, t);
+    fence_async_smem();
+  };
+
+  // A's split pass, in registers: this warpgroup's 64 rows of a slice.
+  auto split_a = [&](int s, uint32_t (&hi)[BK / 8][4], uint32_t (&lo)[BK / 8][4]) {
+    const float* a = reinterpret_cast<const float*>(smem + s * STAGE_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) load_a_split(a, a_row, kk, lane % 4, hi[kk], lo[kk]);
+  };
+
+  float acc[64], sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+  // Two sets of A fragments: the slice in flight and the next one.
+  uint32_t a0_hi[BK / 8][4], a0_lo[BK / 8][4], a1_hi[BK / 8][4], a1_lo[BK / 8][4];
+
+  // One K slice: its wgmmas on `cur` and B's stage, then, while they run,
+  // the next slice's split passes into `nxt` (free once the previous
+  // slice's wgmmas are done). After the block barrier that ends the split,
+  // both warpgroups are done with slice kt - 1's stage: thread 0 refills it.
+  auto slice = [&](int kt, uint32_t (&cur_hi)[BK / 8][4], uint32_t (&cur_lo)[BK / 8][4],
+                   uint32_t (&nxt_hi)[BK / 8][4], uint32_t (&nxt_lo)[BK / 8][4]) {
+    const uint32_t b_hi = smem0 + (kt % STAGES) * STAGE_BYTES + TILE_BYTES;
+    const uint32_t b_lo = b_hi + TILE_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint32_t off = kk * 8 * 4;  // 8 k = 32 bytes along the swizzled row
+      wgmma_tf32(acc, cur_lo[kk], sw128_desc(b_hi + off));
+      wgmma_tf32(acc, cur_hi[kk], sw128_desc(b_lo + off));
+      wgmma_tf32(acc, cur_hi[kk], sw128_desc(b_hi + off));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // slice kt - 1 is done: its stage and fragments are free
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      fence_operands(nxt_hi[kk]);
+      fence_operands(nxt_lo[kk]);
+    }
+    if (kt + 1 < nk) {
+      wait_full(kt + 1);
+      split_b((kt + 1) % STAGES);
+      split_a((kt + 1) % STAGES, nxt_hi, nxt_lo);
+      named_sync(BLOCK_BARRIER, THREADS);
+      if (t == 0 && kt >= 1 && kt - 1 + STAGES < nk) load(kt - 1 + STAGES);
+    }
+  };
+
+  if (nk > 0) {
+    wait_full(0);
+    split_b(0);
+    split_a(0, a0_hi, a0_lo);
+    named_sync(BLOCK_BARRIER, THREADS);
+  }
+  // A group of PROMOTE slices runs into one fresh accumulator, written out
+  // straight so that nothing touches the accumulator while its wgmmas are in
+  // flight; the tensor cores drain only at the end of a group, where it
+  // joins the fp32 sum. The last group may be short.
+  static_assert(PROMOTE == 4, "the group below is written out for PROMOTE = 4");
+  for (int g = 0; g < nk; g += PROMOTE) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    fence_operands(acc);
+    slice(g, a0_hi, a0_lo, a1_hi, a1_lo);
+    if (g + PROMOTE <= nk) {
+      slice(g + 1, a1_hi, a1_lo, a0_hi, a0_lo);
+      slice(g + 2, a0_hi, a0_lo, a1_hi, a1_lo);
+      slice(g + 3, a1_hi, a1_lo, a0_hi, a0_lo);
+    } else if (g + 1 < nk) {
+      slice(g + 1, a1_hi, a1_lo, a0_hi, a0_lo);
+      if (g + 2 < nk) slice(g + 2, a0_hi, a0_lo, a1_hi, a1_lo);
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      fence_operands(a0_hi[kk]);
+      fence_operands(a0_lo[kk]);
+      fence_operands(a1_hi[kk]);
+      fence_operands(a1_lo[kk]);
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+  }
+  // Both warpgroups are done with the stages, and every load of the tile
+  // has landed: reuse the ring for staging, and reset its barriers.
+  named_sync(BLOCK_BARRIER, THREADS);
+  if (t == 0) {
+    for (int s = 0; s < MAX_STAGES; ++s) {
+      mbar_inval(full_bar(smem0, s));
+      mbar_init(full_bar(smem0, s), 1);
+    }
+    fence_barrier_init();
+  }
+
+  // Epilogue: the tile is staged in shared memory (stride BN + 1, free of
+  // bank conflicts both ways) so that the direct and the mirror stores are
+  // 128-byte rows. Rounded as PyTorch rounds alpha*c + beta*prod: two
+  // products, then a sum, never contracted into an FMA. The job's and the
+  // epilogue's fields are read once here, after the K loop.
+  const int m0 = job.m0, n0 = job.n0, z = job.z;
+  const float* const C = ep.C;
+  float* const out = ep.out;
+  const long long ldc = ep.ldc, ldo = ep.ldo;
+  const int M = ep.M, N = ep.N;
+  const bool symmetric = ep.symmetric != 0;
+  const float alpha = ep.alpha, beta = ep.beta;
+  const float* cz = C == nullptr ? nullptr : C + z * ep.stride_c;
+  float* oz = out + z * ep.stride_o;
+  float* st = reinterpret_cast<float*>(smem) + wg * 64 * STAGE_LD;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + lane / 4 + 8 * h, c = 8 * j + 2 * (lane % 4);
+      st[r * STAGE_LD + c] = __fmul_rn(beta, sum[4 * j + 2 * h]);
+      st[r * STAGE_LD + c + 1] = __fmul_rn(beta, sum[4 * j + 2 * h + 1]);
+    }
+  }
+  named_sync(2 + wg, 128);
+
+  const bool diag = symmetric && m0 == n0;
+  const int row0 = m0 + 64 * wg;
+  for (int r = warp; r < 64 && row0 + r < M; r += 4) {
+    const int gm = row0 + r;
+#pragma unroll
+    for (int q = 0; q < BN / 32; ++q) {
+      const int c = lane + 32 * q, gn = n0 + c;
+      if (gn < N && (!diag || gn >= gm)) {
+        float v = st[r * STAGE_LD + c];
+        if (cz != nullptr) v = __fadd_rn(__fmul_rn(alpha, __ldcg(cz + gm * ldc + gn)), v);
+        oz[gm * ldo + gn] = v;
+        st[r * STAGE_LD + c] = v;
+      }
+    }
+  }
+  if (symmetric) {  // (gn, gm) <- (gm, gn) for every gn > gm of the tile
+    named_sync(2 + wg, 128);
+    for (int c = warp; c < BN && n0 + c < N; c += 4) {
+      const int gn = n0 + c;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = lane + 32 * h, gm = row0 + r;
+        if (gm < M && gn > gm) oz[gn * ldo + gm] = st[r * STAGE_LD + c];
+      }
+    }
+  }
+  // The staging reads and writes (generic proxy) come before the next
+  // tile's TMA writes (async proxy) into the same bytes.
+  fence_async_smem();
+  named_sync(BLOCK_BARRIER, THREADS);
+}
+
+// ---------------------------------------------------------------------------
+// Host side: TMA tensor maps.
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda.so.1, which the CUDA runtime has
+// already loaded (no link against libcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    if (lib != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A (batch, outer, inner) fp32 operand, rows `ld` floats apart and
+// matrices `stride` floats apart, cut into (box_outer x box_inner) boxes;
+// boxes past the edge are zero-filled.
+inline CUresult make_map(CUtensorMap* map, const float* ptr, int inner, int outer, int batch,
+                         long long ld, long long stride, int box_inner, int box_outer,
+                         bool swizzle) {
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 4, (cuuint64_t)stride * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// An operand that a tile reads K-major: A, or a B with op(B) = B^T.
+inline CUresult make_kmajor_map(CUtensorMap* map, const float* ptr, int K, int rows, int batch,
+                                long long ld, long long stride) {
+  return make_map(map, ptr, K, rows, batch, ld, stride, BK, BM, true);
+}
+
+// A B that a tile reads N-major: (K, N) with rows ld floats apart.
+inline CUresult make_nmajor_map(CUtensorMap* map, const float* ptr, int K, int N, int batch,
+                                long long ld, long long stride) {
+  return make_map(map, ptr, N, K, batch, ld, stride, BN, BK, false);
 }
 
 }  // namespace tc

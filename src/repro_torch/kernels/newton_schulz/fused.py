@@ -9,21 +9,23 @@ CUDA kernel, ``csrc/ns_fused.cu``, replaces both TPU kernels:
     (strategy ``fused_iter``, the A/B point: K launches against 1).
 
 Design: each stacked unit is split over a thread-block cluster of
-:func:`cluster_parts` blocks, which loops over the steps; the Gram, the
-polynomial and the X/Y ping-pong live in a per-unit fp32 workspace
-allocated here (``2 m^2 + m n`` floats a unit), the three stages separated
-by cluster barriers; the symmetric Gram and ``A^2`` are computed from their
-upper tiles and mirrored. Arithmetic is exact fp32 FFMA. The workspace is in
-device memory and does not fit the 50 MB L2: a 768 x 1536 block unit holds
-9.4 MB, and with two blocks an SM and two-block clusters 132 of the 192
-units of that bucket are live at once, 1.25 GB, so the stages' operands
-stream from HBM. Bound on the H100: the 67 TFLOP/s fp32 rate; this design
-is simple rather than fast (workspace in HBM, no tensor cores), see the
-source's note.
+:func:`cluster_parts` blocks (one block an SM), which loops over the steps
+and the three stages of each (Gram, polynomial, update), dealing each
+stage's 128 x 128 output tiles to its blocks. Every tile is the tiled
+products' 3xTF32 ``wgmma`` tile on TMA-fed operands (``csrc/ns_tc_gemm.cuh``),
+so the chain is fp32-grade, not bit-equal to its plain version, and is
+bound by three TF32 products at 495 TFLOP/s. The symmetric Gram and ``A^2``
+come from their upper tiles, mirrored. The Gram, the polynomial and the
+X/Y ping-pong live in an fp32 workspace allocated here, its rows
+(:func:`chain_layout`) a multiple of 4 floats apart, as TMA needs; an ``x``
+whose rows are not (``n % 4 != 0``) or whose base is off the 16-byte grid
+is first copied into such a layout, and the launch counted in
+``.packed_launches``.
 
-On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
-tensor it launches the kernel or raises. Launches are counted in
-``ns_chain.launches`` and ``ns_iteration.launches``.
+On a CPU tensor each wrapper runs its plain PyTorch version
+(``ns_chain_plain``, the oracle); on a CUDA tensor it launches the kernel or
+raises. Launches are counted in ``ns_chain.launches`` and
+``ns_iteration.launches``.
 
 Fit gate. :func:`fits_budget` keeps the reference's working-set formula
 ``4 * (2 m_p n_p + 2 m_p^2)`` bytes (``fused.py:123-135``: fp32 X and Y plus
@@ -69,8 +71,9 @@ def round_up(v: int, mult: int) -> int:
 def _padded_dims(m: int, n: int, tm: int = DEFAULT_GRAM_TILE) -> tuple[int, int, int]:
     """(tile, m_p, n_p) as the reference pads (rows to the tile, columns to 128).
 
-    The CUDA kernel masks ragged edges and pads nothing; the padded dims
-    only feed the reference's working-set formula in :func:`fits_budget`.
+    The CUDA kernel pads no tile (TMA zero-fills the ragged edge); the
+    padded dims only feed the reference's working-set formula in
+    :func:`fits_budget`.
     """
     tm_ = min(tm, round_up(m, 8))
     return tm_, round_up(m, tm_), round_up(n, 128)
@@ -89,27 +92,54 @@ def ns_chain_plain(x: torch.Tensor, coeffs, steps: int) -> torch.Tensor:
     return ns_steps_plain(x, coeffs, steps)
 
 
-def cluster_parts(units: int, sms: int) -> int:
-    """Blocks a unit is split over (a thread-block cluster of 1, 2, 4 or 8).
+TILE = 128      # the kernel's output tile, rows and columns (ns_tc_gemm.cuh)
+K_SLICE = 32    # the depth of one TMA slice
+CLUSTER_SIZES = (1, 2, 4, 8)
 
-    A unit is the kernel's grain of work, so with one block a unit the SMs
-    that get one unit more than the others set the launch's time: 192
-    units on 132 SMs leave 60 SMs with twice the work of the other 72.
-    Splitting each unit over ``parts`` blocks evens the load out: the
-    busiest SM then holds ``ceil(units * parts / sms) / parts`` units'
-    worth. A larger split is taken only where it cuts that by a tenth, since
-    each split adds barriers and shortens the tile lists (192 units -> 2,
-    96 -> 4, a 2-unit norm bucket -> 8, 1000 -> 1).
+
+def chain_layout(m: int, n: int) -> tuple[int, int]:
+    """``(ldx, ldg)``: the leading dims, in floats, of the kernel's ``m x n``
+    buffers (x as it reads it, the output, the Y ping-pong) and of its
+    ``m x m`` Gram and polynomial. TMA reads rows whose stride is a
+    multiple of 16 bytes, so both round up to 4 floats."""
+    return round_up(n, 4), round_up(m, 4)
+
+
+def needs_packing(x: torch.Tensor) -> bool:
+    """Whether a contiguous ``(B, m, n)`` stack must be copied into the
+    :func:`chain_layout` before TMA can read it."""
+    return x.shape[-1] % 4 != 0 or x.data_ptr() % 16 != 0
+
+
+def stage_work(m: int, n: int) -> tuple[tuple[int, int], ...]:
+    """``(tiles, K slices a tile)`` of one unit's Gram, polynomial and update."""
+    mt, nt = -(-m // TILE), -(-n // TILE)
+    upper = mt * (mt + 1) // 2
+    return ((upper, -(-n // K_SLICE)), (upper, -(-m // K_SLICE)), (mt * nt, -(-m // K_SLICE)))
+
+
+def cluster_parts(units: int, m: int, n: int, sms: int) -> int:
+    """Blocks a unit is split over: a thread-block cluster of 1, 2, 4 or 8.
+
+    One block fills an SM, so ``sms // p`` clusters of ``p`` run at once,
+    and the units go in ``ceil(units / (sms // p))`` waves. A wave lasts
+    as long as its busiest block: in each stage ``ceil(tiles / p)`` tiles
+    of that stage's depth. The split that minimises waves x that path, in
+    K slices, wins; a tie goes to the larger cluster, which keeps fewer
+    units live and so more of each unit's operands in L2. The stages'
+    tile counts are uneven (21, 21 and 72 at m = 768, n = 1536; 1, 1 and
+    12 at m = 48), so the split is not a function of the units alone.
     """
-    load = lambda p: -(-units * p // sms) / p
-    best = 1
-    for p in (2, 4, 8):
-        if load(p) <= 0.9 * load(best):
-            best = p
-    return best
+    work = stage_work(m, n)
+
+    def cost(p: int) -> int:
+        waves = -(-units // (sms // p))
+        return waves * sum(-(-tiles // p) * slices for tiles, slices in work)
+
+    return min((p for p in CLUSTER_SIZES if p <= sms), key=lambda p: (cost(p), -p))
 
 
-def _launch(x: torch.Tensor, coeffs, steps: int) -> torch.Tensor:
+def _launch(wrapper, x: torch.Tensor, coeffs, steps: int) -> torch.Tensor:
     from repro_torch.kernels import build
 
     if not x.is_cuda:
@@ -123,37 +153,45 @@ def _launch(x: torch.Tensor, coeffs, steps: int) -> torch.Tensor:
     if m > n:
         raise ValueError(f"fused NS kernel iterates on the small side; got m={m} > n={n}")
     a, b, c = (float(v) for v in coeffs)
-    out = torch.empty_like(x)
-    work = torch.empty(batch * (2 * m * m + m * n), dtype=torch.float32, device=x.device)
+    ldx, ldg = chain_layout(m, n)
+    packed = needs_packing(x)
+    if packed:
+        xp = torch.empty((batch, m, ldx), dtype=x.dtype, device=x.device)
+        xp[..., :n].copy_(x)
+        x = xp
+    out = torch.empty((batch, m, ldx), dtype=x.dtype, device=x.device)
+    tmp = torch.empty_like(out) if steps > 1 else None
+    gram = torch.empty((batch, m, ldg), dtype=x.dtype, device=x.device)
+    poly = torch.empty_like(gram)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    parts = cluster_parts(batch, torch.cuda.get_device_properties(x.device).multi_processor_count)
     rc = build.load("ns_fused").ns_fused_chain(
-        x.data_ptr(), out.data_ptr(), work.data_ptr(), batch, m, n, steps, parts, a, b, c, stream
+        x.data_ptr(), out.data_ptr(), None if tmp is None else tmp.data_ptr(),
+        gram.data_ptr(), poly.data_ptr(), batch, m, n, ldx, ldg, steps,
+        cluster_parts(batch, m, n, sms), a, b, c, stream,
     )
     build.check(rc, "ns_fused_chain")
-    return out
+    wrapper.launches += 1
+    wrapper.packed_launches += int(packed)
+    return out if ldx == n else out[..., :n]
 
 
 def ns_chain(x: torch.Tensor, coeffs, steps: int) -> torch.Tensor:
     """All ``steps`` NS iterations of a ``(B, m, n)`` stack in one launch (kernel #3)."""
     if x.device.type == "cpu":
         return ns_chain_plain(x, coeffs, steps)
-    out = _launch(x, coeffs, steps)
-    ns_chain.launches += 1
-    return out
+    return _launch(ns_chain, x, coeffs, steps)
 
 
 def ns_iteration(x: torch.Tensor, coeffs) -> torch.Tensor:
     """One NS iteration of a ``(B, m, n)`` stack in one launch (kernel #4)."""
     if x.device.type == "cpu":
         return ns_chain_plain(x, coeffs, 1)
-    out = _launch(x, coeffs, 1)
-    ns_iteration.launches += 1
-    return out
+    return _launch(ns_iteration, x, coeffs, 1)
 
 
-ns_chain.launches = 0
-ns_iteration.launches = 0
+ns_chain.launches = ns_chain.packed_launches = 0
+ns_iteration.launches = ns_iteration.packed_launches = 0
 
 
 def orthogonalize(

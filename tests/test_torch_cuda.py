@@ -10,10 +10,10 @@ as a card run and skips them here. On the card, from the repository root:
 the card need not have; this file imports none of it.)
 
 Tolerances are relative to max|plain|, TF32 off on both sides: 1e-4 for one
-product (3xTF32 tensor-core sums in another order than cuBLAS's SGEMM),
-1e-3 for NS chains, whose cubic polynomial compounds the rounding of each
-step, and 1e-5 for the NorMuon row normalization, where only the order of
-the row sum of squares differs.
+product or one NS step (3xTF32 tensor-core sums in another order than
+cuBLAS's SGEMM), 1e-3 for NS chains, tiled or fused, whose cubic polynomial
+compounds the rounding of each step, and 1e-5 for the NorMuon row
+normalization, where only the order of the row sum of squares differs.
 """
 
 import pytest
@@ -119,6 +119,69 @@ def test_fused_chain_and_iteration_match_plain(card, shape):
         y = fused.ns_iteration(y, PAPER_COEFFS)
     _assert_rel(y, ref, CHAIN_TOL)
     assert (fused.ns_chain.launches, fused.ns_iteration.launches) == (1, 5)
+
+
+# (B, m, n), K: the chain's small sides on the training paths (12: the norm
+# gains, 48: the k/v blocks, 64: Dion's polar factors, 192: the attention
+# blocks, 768: the MLP blocks), ragged sides, and the depths K = 1, 3, 5, 6.
+CHAIN_CASES = [
+    ((2, 12, 1536), 5), ((6, 48, 1536), 3), ((4, 64, 1536), 6), ((3, 64, 6144), 6),
+    ((4, 192, 1536), 5), ((3, 768, 1536), 5), ((2, 768, 1536), 1), ((4, 13, 150), 3),
+    ((2, 130, 200), 6), ((2, 200, 260), 1),
+]
+
+
+@pytest.mark.parametrize("shape,steps", CHAIN_CASES)
+def test_fused_chain_matches_plain_at_every_side_and_depth(card, shape, steps):
+    x = _rand(shape, 40, card)
+    x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    out = fused.ns_chain(x, PAPER_COEFFS, steps)
+    _assert_rel(out, fused.ns_chain_plain(x, PAPER_COEFFS, steps), CHAIN_TOL)
+    assert (fused.ns_chain.launches, fused.ns_chain.packed_launches) == (1, int(shape[-1] % 4 != 0))
+
+
+@pytest.mark.parametrize("units,m,n", [(2, 192, 1536), (1024, 48, 1536), (1000, 12, 64)])
+def test_fused_chain_over_small_and_large_buckets(card, units, m, n):
+    """2 units (clusters of 8, most SMs idle) and >= 1000 units (many waves)."""
+    x = _rand((units, m, n), 41, card)
+    x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    _assert_rel(fused.ns_chain(x, PAPER_COEFFS, 5), fused.ns_chain_plain(x, PAPER_COEFFS, 5),
+                CHAIN_TOL)
+
+
+def test_fused_chain_packs_an_unaligned_stack_and_still_matches(card):
+    x = _rand((3, 40, 150), 42, card)  # rows of 600 bytes: off the 16-byte grid
+    x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    out = fused.ns_chain(x, PAPER_COEFFS, 5)
+    _assert_rel(out, fused.ns_chain_plain(x, PAPER_COEFFS, 5), CHAIN_TOL)
+    offset = torch.empty(2 * 48 * 256 + 1, device=card)[1:].view(2, 48, 256)  # base off the grid
+    offset.copy_(_rand((2, 48, 256), 43, card) / 40.0)
+    _assert_rel(fused.ns_iteration(offset, PAPER_COEFFS),
+                fused.ns_chain_plain(offset, PAPER_COEFFS, 1), CHAIN_TOL)
+    assert (fused.ns_chain.packed_launches, fused.ns_iteration.packed_launches) == (1, 1)
+    assert kernels.packed_launches() == 2
+
+
+@pytest.mark.parametrize("shape", [(16, 768, 1536), (24, 384, 1536), (2, 12, 1536), (192, 48, 1536)])
+def test_fused_chain_is_deterministic(card, shape):
+    """A race between a stage's writes and the next stage's reads (the
+    cluster barrier, the proxy fences) would show as two runs that differ."""
+    x = _rand(shape, 44, card)
+    x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    first = fused.ns_chain(x, PAPER_COEFFS, 5)
+    second = fused.ns_chain(x, PAPER_COEFFS, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("shape", [(4, 192, 1536), (3, 13, 150)])
+def test_fused_chain_of_one_step_is_the_fused_iteration(card, shape):
+    x = _rand(shape, 45, card)
+    x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    one = fused.ns_chain(x, PAPER_COEFFS, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(one, fused.ns_iteration(x, PAPER_COEFFS))
+    _assert_rel(one, ops.ns_iteration(x, PAPER_COEFFS), PRODUCT_TOL)
 
 
 @pytest.mark.parametrize("strategy", ["fused_chain", "fused_iter", "tiled", None])

@@ -166,7 +166,9 @@ def test_cpu_wrappers_launch_nothing_and_other_devices_raise():
     tiled.fma_matmul(x, x.T, torch.ones(4, 4), alpha=1.0, beta=1.0)
     fused.ns_chain(x[None], PAPER_COEFFS, 2)
     fused.ns_iteration(x[None], PAPER_COEFFS)
+    fused.ns_chain(torch.ones(1, 3, 150), PAPER_COEFFS, 1)  # rows TMA could not read
     assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0)
+    assert kernels.packed_launches() == 0
     meta = torch.empty(1, 4, 8, device="meta")
     with pytest.raises(ValueError):
         tiled.matmul(meta, meta.transpose(-1, -2))
@@ -265,7 +267,15 @@ def test_newton_schulz_properties_of_the_reference_hold(case):
     _ns_property(case)
 
 
-@pytest.mark.parametrize("units,parts", [(192, 2), (96, 4), (24, 4), (2, 8), (264, 1), (1000, 1)])
-def test_fused_chain_cluster_split_evens_out_the_busiest_sm(units, parts):
-    """On the H100's 132 SMs: the block-phase buckets of full-width muonbp-960m."""
-    assert fused.cluster_parts(units, 132) == parts
+@pytest.mark.parametrize("units,m,n,parts", [
+    (192, 768, 1536, 2),   # block: mlp wi/wg
+    (96, 768, 1536, 8),    # block: mlp wo
+    (96, 192, 1536, 4),    # block: wq/wo
+    (24, 384, 1536, 4),    # full: wk/wv
+    (2, 12, 1536, 8),      # both phases: norm gains
+    (1000, 48, 1536, 1),   # a bucket of many small units
+])
+def test_fused_chain_cluster_split_evens_out_the_busiest_sm(units, m, n, parts):
+    """On the H100's 132 SMs, one block an SM: the split that minimises
+    waves x the busiest block's K slices, ties to the larger cluster."""
+    assert fused.cluster_parts(units, m, n, 132) == parts
