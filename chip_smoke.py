@@ -29,10 +29,25 @@ optimizer variants NorMuon, Turbo-Muon and Dion.
                  against the one from the plain versions on the same
                  gradients and state; no launch of the path, tiled or
                  fused, packs an operand;
-  5. reference -- six reduced steps on the card against the same steps on
+  5. resilience -- the hardened launcher at full width (MuonBP, bf16,
+                 --guard --guard-warmup 2 --fault-plan
+                 nan_grads@2,spike_loss@4x8 --obs-block, constant LR): run A,
+                 nine guarded steps, whose skipped steps 2 and 4 launch no
+                 NS kernel and leave every state leaf torch.equal, step 3
+                 forced full, and whose bus counters match the kernels'
+                 launch counts; the same step run twice from one state
+                 (bitwise or not, reported), the guarded and unguarded step
+                 walls, and the guarded against the unguarded update
+                 (torch.equal, both phases); run B, seven steps and one ~8 GB
+                 snapshot, and run C, resumed from it to step 9: the
+                 restored state torch.equal to run B's, skipped = 2, the data
+                 position, and steps 7-8 against run A's; the kill drill
+                 (chaos_run with kill_mid_save and kill_in_save) on the
+                 reduced model;
+  6. reference -- six reduced steps on the card against the same steps on
                  the CPU (plain versions), from the same weights, for the
                  baseline and for NorMuon;
-  6. times    -- each kernel, its plain version and the one-call PyTorch
+  7. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
                  the least time the card could take for the same work; the
                  tiled Gram with its B operand K-major and N-major (the
@@ -47,8 +62,11 @@ Its last two lines are the kernels JSON and the device JSON.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -113,7 +131,7 @@ MAIN_PATH_KERNELS = ("ns_matmul", "ns_fma_matmul", "ns_fused_chain")
 # The training paths: (label, extra launcher flags, steps, kernels that must
 # launch, phases whose update is checked against the plain versions).
 BASE_ARGV = ["--arch", "muonbp-960m", "--optimizer", "muonbp", "--period", "5",
-             "--mesh-model", "8", "--batch", "4", "--seq", "1024"]
+             "--mesh-model", "8", "--batch", "4", "--seq", "1024", "--obs-block"]
 PATHS = (
     ("muonbp", [], 6, MAIN_PATH_KERNELS, ("block", "full")),
     ("normuon", ["--optimizer-variant", "normuon"], 6, MAIN_PATH_KERNELS + ("normuon",),
@@ -122,6 +140,26 @@ PATHS = (
      ("block", "full")),
     ("dion", ["--optimizer-variant", "dion"], 2, ("ns_fused_chain",), ("full",)),
 )
+
+# The resilience phase: the guarded launcher at full width, MuonBP, under the
+# fault plan below, at a constant LR so that runs of 7 and 9 steps share
+# their first 7. Steps 2 (NaN gradients) and 4 (the spike) are skipped, the
+# escalator forces step 3 to 'full'.
+RES_ARGV = BASE_ARGV + ["--schedule", "const", "--log-every", "1", "--guard",
+                        "--guard-warmup", "2", "--fault-plan", "nan_grads@2,spike_loss@4x8"]
+RES_SKIPPED = (2, 4)
+RES_PHASES = ["full", "block", "block", "full", "block", "full", "block", "block", "block"]
+# Launches of a healthy MuonBP step at full width: (Grams, fma products,
+# fused chains) a full step, fused chains a block step.
+FULL_STEP_LAUNCHES, BLOCK_STEP_CHAINS = (15, 30, 2), 6
+# Resumed steps against the uninterrupted run's when the card does not
+# repeat a step bitwise: |loss difference| in bf16 compute.
+RESUME_LOSS_TOL = 1e-3
+# The kill drill: the reduced model, a snapshot every 2 steps; the kill
+# fires at the step-4 save, so every relaunch must resume at step 3.
+CHAOS_ARGV = ["--arch", "muonbp-960m", "--reduced", "--steps", "6", "--batch", "2", "--seq",
+              "64", "--period", "3", "--mesh-model", "4", "--guard", "--checkpoint-every", "2",
+              "--keep-checkpoints", "2", "--log-every", "1"]
 
 
 def log(msg: str) -> None:
@@ -418,7 +456,7 @@ def phase_train(launches: dict) -> None:
             per_step.append((rec["phase"], {k: counts[k] - last.get(k, 0) for k in counts}))
             last.update(counts)
             log(f"[train:{label}] step {rec['step']} phase {rec['phase']} loss {rec['loss']:.4f} "
-                f"wall {rec['wall_s']:.3f} s launches {per_step[-1][1]}")
+                f"wall {rec['dur_s']:.3f} s launches {per_step[-1][1]}")
 
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
@@ -457,11 +495,262 @@ def phase_train(launches: dict) -> None:
                 if p_ == "full" and (c_["ns_matmul"], c_["ns_fma_matmul"]) != (15, 30):
                     fail(f"muonbp full step launched {c_['ns_matmul']} Grams and "
                          f"{c_['ns_fma_matmul']} fma products, expected 15 and 30")
-        breakdown = {"step_wall_s": [r["wall_s"] for r in run.records], "phases": phases}
+        breakdown = {"step_wall_s": [r["dur_s"] for r in run.records], "phases": phases}
         check_update(label, run, checked, breakdown)
         log(f"[train:{label}] breakdown {json.dumps(breakdown)}")
         del run
         torch.cuda.empty_cache()
+
+
+def state_leaves(tree) -> list:
+    """Every tensor and host counter of a state tree, in a fixed order."""
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in state_leaves(v)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree, key=str) for x in state_leaves(tree[k])]
+    return [] if tree is None else [tree]
+
+
+def states_equal(a, b) -> bool:
+    import torch
+
+    la, lb = state_leaves(a), state_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+def clone_state(tree):
+    import torch
+
+    if isinstance(tree, tuple):
+        items = [clone_state(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    if isinstance(tree, dict):
+        return {k: clone_state(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def span_seconds(log_file: str, name: str) -> float:
+    from repro_torch.obs.bus import read_jsonl
+
+    durs = [r["dur_s"] for r in read_jsonl(log_file)
+            if r.get("event") == "span" and r.get("name") == name]
+    if len(durs) != 1:
+        fail(f"{log_file}: {len(durs)} '{name}' spans, expected 1")
+    return durs[0]
+
+
+def phase_resilience(smi: str) -> None:
+    """The guarded launcher, snapshots, resume and the kill drill (see the
+    module docstring); every snapshot lives in a temporary directory that is
+    removed at the end."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        walls = resilience_runs(tmp)
+        kill_drill(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[resilience] card: {smi}")
+    for line in walls:
+        log(f"[resilience] {line}")
+    log(f"[resilience] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def resilience_runs(tmp: str) -> list:
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.core.combine import apply_updates
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.obs.bus import read_jsonl
+    from repro_torch.training import checkpoint, resilience
+    from repro_torch.training.train_step import loss_and_grads, train_step
+
+    # Run A: nine guarded steps.
+    saved, batches_a = {}, {}
+
+    def before_a(step, state, batch):
+        if step - 1 in RES_SKIPPED:
+            if not states_equal(saved.pop(step - 1), (state.params, state.opt_state)):
+                fail(f"skipped step {step - 1} changed the params or the optimizer state")
+            log(f"[resilience] run A: skipped step {step - 1} left every state leaf torch.equal")
+        if step in RES_SKIPPED:
+            saved[step] = clone_state((state.params, state.opt_state))
+        if step in (7, 8):
+            batches_a[step] = {k: v.clone() for k, v in batch.items()}
+
+    log_a = os.path.join(tmp, "run_a.jsonl")
+    log(f"[resilience] run A: python -m repro_torch.launch.train {' '.join(RES_ARGV)} --steps 9")
+    kernels.reset_launch_counts()
+    run_a = train.run(RES_ARGV + ["--steps", "9", "--log-file", log_a], before_step=before_a)
+    counts = kernels.launch_counts()
+    recs = run_a.records
+    for r in recs:
+        log(f"[resilience] run A step {r['step']} {r['phase']} loss {r['loss']:.4f} "
+            f"healthy {r['healthy']} skipped {r['skipped']} {r['escalation']} "
+            f"wall {r['dur_s']:.3f} s")
+    if ([r["phase"] for r in recs] != RES_PHASES or saved
+            or [r["healthy"] for r in recs] != [int(t not in RES_SKIPPED) for t in range(9)]
+            or recs[-1]["skipped"] != 2):
+        fail("run A did not skip steps 2 and 4 and force step 3 to 'full'")
+    n_full = sum(1 for r in recs if r["healthy"] and r["phase"] == "full")
+    n_block = sum(1 for r in recs if r["healthy"] and r["phase"] == "block")
+    want = {"ns_matmul": FULL_STEP_LAUNCHES[0] * n_full,
+            "ns_fma_matmul": FULL_STEP_LAUNCHES[1] * n_full,
+            "ns_fused_chain": FULL_STEP_LAUNCHES[2] * n_full + BLOCK_STEP_CHAINS * n_block}
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"run A launched {counts}, expected {want}: a skipped step ran NS work")
+    # The bus counts NS dispatches: one a fused chain, one a tiled chain of
+    # NS_STEPS Grams and 2 NS_STEPS fma products.
+    ns = {k: v for k, v in run_a.counters.items() if k.startswith("ns_launch.")}
+    want_ns = {"ns_launch.cuda.tiled": counts["ns_matmul"] // NS_STEPS,
+               "ns_launch.cuda.fused_chain": counts["ns_fused_chain"]}
+    if ns != want_ns or counts["ns_fma_matmul"] != 2 * counts["ns_matmul"]:
+        fail(f"bus counters {ns} do not match the kernels' launch counts {counts}")
+    ends = [r for r in read_jsonl(log_a) if r.get("event") == "run_end"]
+    if len(ends) != 1 or ends[0]["counters"] != run_a.counters or ends[0]["status"] != "ok":
+        fail(f"run A's run_end record does not carry its counters: {ends}")
+    log(f"[resilience] run A: launches {counts}, bus counters {run_a.counters}")
+
+    # One state, one batch: the step twice (is the card's step repeatable?),
+    # guarded and unguarded step walls in turns, and the guarded against the
+    # unguarded update on the same gradients.
+    base, cfg = run_a.state, run_a.cfg
+    opt, _ = train.build_optimizer("muonbp", base.params, lr=0.02, adam_lr=0.008, period=5,
+                                   block_specs=run_a.block_specs)
+    gcfg = resilience.GuardConfig(warmup_steps=2)
+    batch = next(iter(SyntheticLM(cfg, 4, 1024, seed=1)))
+    batch = {k: torch.from_numpy(v).to(device="cuda", dtype=torch.long) for k, v in batch.items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    deterministic, walls = True, []
+    for phase in ("block", "full"):
+        kw = dict(cfg=cfg, optimizer=opt, phase=phase)
+        (u1, m1), t_u1 = timed(lambda: train_step(base, batch, **kw))
+        mg, t_g1 = timed(lambda: train_step(base, batch, guard=gcfg, **kw)[1])
+        _, t_g2 = timed(lambda: train_step(base, batch, guard=gcfg, **kw)[1])
+        (u2, m2), t_u2 = timed(lambda: train_step(base, batch, **kw))
+        if int(mg["healthy"]) != 1:
+            fail(f"the guarded {phase} step from run A's state was not healthy")
+        same = (states_equal((u1.params, u1.opt_state), (u2.params, u2.opt_state))
+                and torch.equal(m1["loss"], m2["loss"]))
+        deterministic = deterministic and same
+        log(f"[resilience] the same full-width {phase} step twice from one state: "
+            f"{'bitwise equal' if same else 'NOT bitwise equal'}")
+        walls.append(f"{phase} step wall: unguarded {t_u1:.4f} / {t_u2:.4f} s, "
+                     f"guarded {t_g1:.4f} / {t_g2:.4f} s (in turns u, g, g, u)")
+        del u1, u2
+        torch.cuda.empty_cache()
+    loss, _, grads = loss_and_grads(base.params, batch, cfg)
+    with torch.no_grad():
+        gsq = sum(torch.sum(g.to(torch.float32) ** 2) for g in tree_lib.leaves(grads))
+        for phase in ("block", "full"):
+            upd, o_u = opt.update(grads, base.opt_state, base.params, phase)
+            p_u = apply_updates(base.params, upd)
+            del upd
+            p_g, o_g, _, healthy = resilience.guarded_update(
+                opt, gcfg, grads, base.opt_state, base.params,
+                resilience.init_guard_state("cuda"), loss, gsq, phase)
+            if not bool(healthy) or not states_equal((p_u, o_u), (p_g, o_g)):
+                fail(f"the guarded {phase} update is not torch.equal to the unguarded one")
+            log(f"[resilience] guarded and unguarded {phase} update: torch.equal on every leaf")
+            del p_u, o_u, p_g, o_g
+    del grads
+    torch.cuda.empty_cache()
+
+    # Run B: seven steps, one snapshot (its last step); run C resumes it.
+    ckpt = os.path.join(tmp, "ckpt")
+    need = sum(t.numel() * t.element_size() for t in state_leaves((base.params, base.opt_state))
+               if isinstance(t, torch.Tensor))
+    free = shutil.disk_usage(tmp).free
+    if free < 1.25 * need:
+        fail(f"{tmp}: {free / 1e9:.2f} GB free on disk, a snapshot takes {need / 1e9:.2f} GB")
+    log_b, log_c = os.path.join(tmp, "run_b.jsonl"), os.path.join(tmp, "run_c.jsonl")
+    run_b = train.run(RES_ARGV + ["--steps", "7", "--checkpoint-every", "1000", "--checkpoint-dir",
+                                  ckpt, "--keep-checkpoints", "1", "--log-file", log_b])
+    snaps = checkpoint.list_snapshots(ckpt)
+    if [s for s, _ in snaps] != [6]:
+        fail(f"run B left snapshots {snaps}, expected one at step 6")
+    snap_files = sorted(os.listdir(snaps[0][1]))
+    snap_bytes = sum(os.path.getsize(os.path.join(snaps[0][1], f)) for f in snap_files)
+    b_state = (run_b.state.params, run_b.state.opt_state)
+    b_guard = resilience.guard_to_meta(run_b.state.guard)
+    del run_b
+    checked = []
+
+    def before_c(step, state, batch_c):
+        if step == 7:
+            checked.append(
+                state.step == 7 and states_equal((state.params, state.opt_state), b_state)
+                and resilience.guard_to_meta(state.guard) == b_guard and b_guard["skipped"] == 2
+                and all(torch.equal(batch_c[k], batches_a[7][k]) for k in batch_c))
+
+    run_c = train.run(RES_ARGV + ["--steps", "9", "--resume", "--checkpoint-dir", ckpt,
+                                  "--log-file", log_c], before_step=before_c)
+    if checked != [True]:
+        fail("run C did not restore run B's state, guard counters and data position at step 7")
+    log("[resilience] run C: resumed at step 7, state torch.equal to run B's, skipped = 2, "
+        "the step-7 batch equal to run A's")
+    del b_state
+    c_losses = [r["loss"] for r in run_c.records]
+    a_losses = [r["loss"] for r in recs[7:]]
+    if [r["step"] for r in run_c.records] != [7, 8]:
+        fail(f"run C ran steps {[r['step'] for r in run_c.records]}, expected 7 and 8")
+    if deterministic:
+        if c_losses != a_losses or not states_equal(
+                (run_c.state.params, run_c.state.opt_state), (base.params, base.opt_state)):
+            fail("resumed steps 7-8 are not bitwise equal to run A's")
+        log("[resilience] run C steps 7-8: losses and final state bitwise equal to run A's")
+    else:
+        diff = max(abs(c - a) for c, a in zip(c_losses, a_losses))
+        if diff > RESUME_LOSS_TOL:
+            fail(f"resumed steps 7-8 differ from run A's by {diff:.3e} in the loss")
+        log(f"[resilience] run C steps 7-8: max |loss diff| {diff:.3e} against run A "
+            f"(tol {RESUME_LOSS_TOL:g}; the card's step is not bitwise repeatable)")
+    save_s = span_seconds(log_b, "checkpoint.save")
+    verify_s = span_seconds(log_c, "checkpoint.verify")
+    restore_s = span_seconds(log_c, "checkpoint.restore")
+    guarded = {p: [r["dur_s"] for r in recs[1:] if r["phase"] == p and r["healthy"]]
+               for p in ("block", "full")}
+    guarded["skipped"] = [r["dur_s"] for r in recs if not r["healthy"]]
+    del run_a, run_c, base
+    torch.cuda.empty_cache()
+    return [f"snapshot: {snap_bytes} bytes ({snap_bytes / 1e9:.3f} GB) in {snap_files}",
+            f"snapshot save {save_s:.3f} s, verify {verify_s:.3f} s, restore {restore_s:.3f} s",
+            *walls,
+            f"run A guarded step walls after step 0 (--obs-block dur_s): {json.dumps(guarded)}",
+            f"the card's full-width step repeats bitwise: {deterministic}"]
+
+
+def kill_drill(tmp: str) -> None:
+    """chaos_run on the card: each kill fires in the step-4 save, and the
+    relaunch must resume from the step-2 snapshot and finish."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))}
+    for kind in ("kill_mid_save", "kill_in_save"):
+        cmd = [sys.executable, "-m", "repro_torch.scripts.chaos_run", "--plan", f"{kind}@3",
+               "--max-restarts", "2", "--"] + CHAOS_ARGV + [
+               "--checkpoint-dir", os.path.join(tmp, kind)]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+        lines = out.stdout.splitlines()
+        resumes = [json.loads(l) for l in lines if l.startswith('{"event": "resume"')]
+        if (out.returncode != 0 or not any(l.startswith("chaos_run: OK") for l in lines)
+                or [r["step"] for r in resumes] != [3]):
+            fail(f"kill drill {kind}: rc {out.returncode}, resumes {resumes}\n"
+                 f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        log(f"[resilience] kill drill {kind}@3: killed once, resumed at step 3 from "
+            f"{os.path.basename(resumes[0]['snapshot'])}, finished; "
+            f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_reference() -> None:
@@ -677,6 +966,7 @@ def main() -> int:
     phase_build()
     phase_kernels(errors)
     phase_train(launches)
+    phase_resilience(device["smi"])
     phase_reference()
     rows = phase_times(errors, launches)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")

@@ -1,5 +1,5 @@
 """Data pipeline of the port."""
 
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import MemmapDataset, SyntheticLM, unigram_entropy
 
-__all__ = ["SyntheticLM"]
+__all__ = ["MemmapDataset", "SyntheticLM", "unigram_entropy"]

@@ -4,9 +4,11 @@ Both packages keep the same stacked ``(L, ...)`` layout under the same path
 names, so conversion is leaf for leaf: a reference pytree handed over as
 nested dicts of numpy arrays becomes nested dicts of torch tensors, and
 back. Tests use it to start both packages from the same weights and to
-compare updates leaf by leaf. The optimizer state goes the same way:
-Dion's start basis comes from ``jax.random``, which a ``torch.Generator``
-cannot reproduce, so parity tests carry the reference's basis over.
+compare updates leaf by leaf. The optimizer state goes the same way, the
+whole combined state (AdamW's moments and the matrix optimizer's state) and
+the guard state included: Dion's start basis comes from ``jax.random``,
+which a ``torch.Generator`` cannot reproduce, so parity tests carry the
+reference's basis over.
 """
 
 from __future__ import annotations
@@ -15,8 +17,11 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.core.adamw import AdamWState
+from repro_torch.core.combine import CombinedState
 from repro_torch.core.dion import DionState
 from repro_torch.core.muon import OptState
+from repro_torch.training.resilience import GuardState
 
 
 def params_from_numpy(tree, device="cuda") -> dict:
@@ -44,19 +49,23 @@ def params_to_numpy(tree) -> dict:
 
 
 def opt_state_from_numpy(state: dict, device="cuda"):
-    """The reference's Muon or Dion state -> the port's ``OptState``/``DionState``.
+    """The reference's Muon, Dion or AdamW state -> the port's ``OptState``,
+    ``DionState`` or ``AdamWState``.
 
     ``state`` is the reference's state as a dict of its fields (its
     ``_asdict()``) with nested dicts of numpy arrays as trees: ``momentum``,
     ``count`` and, for NorMuon, ``second_moment`` and ``vcount`` (None
-    otherwise); or ``momentum``, ``basis`` and ``count`` for Dion. Tensors
-    are keyed by path as the port keeps them; counters become host integers.
+    otherwise); ``momentum``, ``basis`` and ``count`` for Dion; ``mu``,
+    ``nu`` and ``count`` for AdamW. Tensors are keyed by path as the port
+    keeps them; counters become host integers.
     """
     def tensors(tree):
         return {path: torch.from_numpy(np.array(leaf, dtype=np.float32, copy=True)).to(device)
                 for path, leaf in tree_lib.flatten_with_path(tree)}
 
     count = int(state["count"])
+    if "mu" in state:
+        return AdamWState(mu=tensors(state["mu"]), nu=tensors(state["nu"]), count=count)
     if "basis" in state:
         return DionState(momentum=tensors(state["momentum"]), basis=tensors(state["basis"]),
                          count=count)
@@ -77,6 +86,8 @@ def opt_state_to_numpy(state) -> dict:
     def nested(by_path):
         return params_to_numpy(tree_lib.unflatten(list(by_path.items())))
 
+    if isinstance(state, AdamWState):
+        return {"mu": nested(state.mu), "nu": nested(state.nu), "count": np.int32(state.count)}
     out = {"momentum": nested(state.momentum), "count": np.int32(state.count)}
     if isinstance(state, DionState):
         out["basis"] = nested(state.basis)
@@ -85,3 +96,29 @@ def opt_state_to_numpy(state) -> dict:
     out["vcount"] = None if state.vcount is None else tree_lib.unflatten(
         [(path, np.int32(c)) for path, c in state.vcount.items()])
     return out
+
+
+def combined_state_from_numpy(inner: dict, device="cuda") -> CombinedState:
+    """The reference's ``CombinedState`` -> the port's.
+
+    ``inner`` is the reference state's ``inner`` with each sub-state as the
+    dict :func:`opt_state_from_numpy` takes: ``{label: fields}``.
+    """
+    return CombinedState(inner={label: opt_state_from_numpy(fields, device)
+                                for label, fields in inner.items()})
+
+
+def combined_state_to_numpy(state: CombinedState) -> dict:
+    """Inverse of :func:`combined_state_from_numpy`: ``{label: fields}``."""
+    return {label: opt_state_to_numpy(sub) for label, sub in state.inner.items()}
+
+
+def guard_from_numpy(fields: dict, device="cuda") -> GuardState:
+    """The reference's ``GuardState`` (its ``_asdict()``) -> 0-d tensors."""
+    return GuardState(**{k: torch.from_numpy(np.array(v, copy=True)).to(device)
+                         for k, v in fields.items()})
+
+
+def guard_to_numpy(gstate: GuardState) -> dict:
+    """Inverse of :func:`guard_from_numpy`: 0-d float32/int32 numpy arrays."""
+    return {k: v.detach().to("cpu").numpy() for k, v in gstate._asdict().items()}

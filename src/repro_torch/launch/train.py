@@ -1,22 +1,46 @@
 """Training launcher of the port: config-driven MuonBP pretraining on one GPU.
 
-Counterpart of a minimal ``repro/launch/train.py``, with the reference's
-flag names and defaults. ``--mesh-model N`` declares the tensor-parallel
-size whose shards define the MuonBP blocks, so one GPU runs the paper's
-N-way block grids. The phase schedule is driven here: ``step % P == 0``
-runs 'full', every other step 'block'. One JSON line per step reports the
-loss, the phase and the step's wall time (ending in a device sync).
+Counterpart of ``repro/launch/train.py`` for one device and the synchronous
+schedule, with the reference's flag names and defaults. ``--mesh-model N``
+declares the tensor-parallel size whose shards define the MuonBP blocks, so
+one GPU runs the paper's N-way block grids. The phase schedule is driven
+here: ``step % P == 0`` runs 'full', every other step 'block'.
+
+Resilience: ``--guard`` runs the optimizer apply behind the health check of
+``training/resilience.py`` (skip on NaN/Inf or a loss spike) and drives the
+escalation ladder from here -- skip -> force an early 'full'-phase step ->
+LR backoff -> checkpoint-and-abort (exit 3). ``--checkpoint-every`` writes
+atomic, checksummed snapshots in the reference's format (always including
+the final step) and ``--resume`` continues from the newest *valid* one: the
+step, the optimizer state, the data-stream position and the guard
+counters. ``--fault-plan`` injects deterministic faults for drills
+(``python -m repro_torch.scripts.chaos_run``).
+
+Telemetry flows through ``repro_torch.obs``: per-step lines, the
+checkpoint/resume/escalation/abort/skip_snapshot events, spans and counters
+go to the event bus. Stdout keeps the reference's wire format: a step line
+every ``--log-every`` steps (and on the last and every unhealthy step) whose
+``wall_s`` is the time since the run began. ``--log-file`` append-streams
+fsync'd JSONL, so a SIGKILL loses no record already printed. Each step runs
+in a ``step`` span; ``--obs-block`` puts a device sync inside it, so its
+``dur_s`` is the step's wall time with the device work included.
+``--profile-steps A:B`` captures a ``torch.profiler`` trace of those steps.
+The NS dispatch counters ``ns_launch.<device>.<strategy>`` count
+orthogonalize calls as they run (the reference counts traces, once per
+compiled specialisation); ``python -m repro_torch.scripts.obs_report``
+reads the JSONL.
 
 Example (one H100, full-width muonbp-960m):
   PYTHONPATH=src python -m repro_torch.launch.train --arch muonbp-960m \\
       --optimizer muonbp --period 5 --mesh-model 8 --steps 6 --batch 4 --seq 1024
 
-``--optimizer-variant {muon,turbo_muon,normuon,dion}`` picks the optimizer
-variant (``core/variants.py``), as ``--optimizer dion`` picks Dion, e.g.
+Guarded, with snapshots and a resume:
   PYTHONPATH=src python -m repro_torch.launch.train --arch muonbp-960m \\
-      --optimizer muonbp --optimizer-variant normuon --period 5 --mesh-model 8 \\
-      --steps 6 --batch 4 --seq 1024
+      --period 5 --mesh-model 8 --steps 20 --batch 4 --seq 1024 --guard \\
+      --checkpoint-every 5 --checkpoint-dir ckpt --log-file run.jsonl --resume
 
+``--optimizer-variant {muon,turbo_muon,normuon,dion}`` picks the optimizer
+variant (``core/variants.py``), as ``--optimizer dion`` picks Dion.
 ``--device cpu`` runs the same path on the CPU (every kernel wrapper then
 runs its plain PyTorch version); without it the launcher needs a card.
 """
@@ -25,8 +49,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
+import os
 import sys
+import tempfile
 import time
 from typing import Any, Callable, Optional
 
@@ -39,8 +64,13 @@ from repro_torch.core import variants as variants_lib
 from repro_torch.core.muon import phase_for_step
 from repro_torch.core.schedule import cosine, wsd
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.kernels import dispatch
 from repro_torch.models.model import init_params
+from repro_torch.obs import Bus, JsonlSink, StdoutSink, set_bus, span, stage_scope
+from repro_torch.obs.spans import parse_profile_window
 from repro_torch.sharding import specs as sh
+from repro_torch.training import checkpoint, resilience
+from repro_torch.training import faults as faults_lib
 from repro_torch.training.train_step import init_train_state, train_step
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -113,31 +143,115 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--compute-dtype", default="bfloat16", choices=sorted(COMPUTE_DTYPES))
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--checkpoint-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--keep-checkpoints", type=int, default=3,
+                    help="snapshot retention: keep the newest k step_* dirs "
+                         "under --checkpoint-dir")
+    ap.add_argument("--resume", action="store_true",
+                    help="auto-resume from the newest VALID snapshot under "
+                         "--checkpoint-dir (corrupt ones are skipped; run "
+                         "metadata is verified); starts fresh when none exists")
+    ap.add_argument("--guard", action="store_true",
+                    help="guarded train step: health check (all-finite loss/grads + "
+                         "EMA loss-spike detector) skips unstable updates and drives "
+                         "the escalation ladder (skip -> forced full step -> LR "
+                         "backoff -> checkpoint-and-abort)")
+    ap.add_argument("--guard-spike-factor", type=float, default=3.0,
+                    help="skip the step when loss > factor * EMA(loss)")
+    ap.add_argument("--guard-ema-beta", type=float, default=0.98,
+                    help="EMA decay of the loss-spike detector")
+    ap.add_argument("--guard-warmup", type=int, default=10,
+                    help="healthy steps before spike detection engages")
+    ap.add_argument("--guard-force-full-after", type=int, default=1,
+                    help="consecutive skips before forcing an early 'full'-phase "
+                         "step (the paper's stabilizer); 0 disables the rung")
+    ap.add_argument("--guard-backoff-after", type=int, default=3,
+                    help="consecutive skips before LR backoff; 0 disables")
+    ap.add_argument("--guard-backoff-factor", type=float, default=0.5,
+                    help="multiplier applied to the guard lr_scale per backoff")
+    ap.add_argument("--guard-abort-after", type=int, default=6,
+                    help="consecutive skips before checkpoint-and-abort (exit 3); "
+                         "0 disables")
+    ap.add_argument("--fault-plan", default=None,
+                    help="deterministic fault injection spec, e.g. "
+                         "'nan_grads@7,spike_loss@9x8,kill_in_save@12' "
+                         "(repro_torch.training.faults; drills only)")
+    ap.add_argument("--log-file", default=None,
+                    help="append-stream every telemetry record (steps, spans, events, "
+                         "counters) as fsync'd JSONL; a kill loses at most the record "
+                         "being written. Read with python -m repro_torch.scripts.obs_report")
+    ap.add_argument("--obs-block", action="store_true",
+                    help="synchronize the device inside each step span so its dur_s "
+                         "includes device completion (one more sync per step)")
+    ap.add_argument("--profile-steps", default=None,
+                    help="capture a torch.profiler trace over steps A:B (half-open "
+                         "window), e.g. '3:6'")
+    ap.add_argument("--profile-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_torch_profile"),
+                    help="output dir for the --profile-steps trace")
     return ap
 
 
 @dataclasses.dataclass
 class TrainRun:
-    """What one launcher run leaves behind, for callers that inspect it."""
+    """What one launcher run leaves behind, for callers that inspect it.
+
+    ``records`` holds one record a step: ``step``, ``loss`` (unrounded),
+    ``phase``, ``residue``, ``due``, ``dur_s`` (the step span's duration)
+    and, under ``--guard``, ``healthy``, ``skipped``, ``escalation`` and
+    ``lr_scale``.
+    """
 
     cfg: Any
     state: Any
     block_specs: dict
     records: list
+    counters: dict
 
 
 def run(argv=None, *, params: Optional[dict] = None,
-        on_step: Optional[Callable[[dict], None]] = None) -> TrainRun:
+        on_step: Optional[Callable[[dict], None]] = None,
+        before_step: Optional[Callable[[int, Any, dict], None]] = None) -> TrainRun:
     """Parse ``argv`` and train; returns the :class:`TrainRun`.
 
     ``params`` replaces the seeded initialization (tests start both packages
-    from the reference's weights); ``on_step(record)`` is called after every
-    step, once the step's device work has finished.
+    from the reference's weights); ``before_step(step, state, batch)`` is
+    called just before each step runs, ``on_step(record)`` after it, once its
+    loss has been read. An abort raises ``SystemExit(3)``. The bus, the NS
+    dispatch hook and the active fault plan are installed for the run and
+    removed after it.
     """
     args = parser().parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass --device cpu to run on the CPU")
+
+    # Sink order matters: the durable JSONL sink comes FIRST, so every record
+    # a stdout parser (chaos_run) sees is already fsync'd on disk.
+    sinks: list = [JsonlSink(args.log_file)] if args.log_file else []
+    sinks.append(StdoutSink())
+    bus = Bus(sinks)
+    prev_bus = set_bus(bus)
+    dispatch.set_launch_hook(
+        lambda dev, strategy, shape: bus.inc(f"ns_launch.{dev}.{strategy}"))
+    plan = faults_lib.FaultPlan.parse(args.fault_plan) if args.fault_plan else None
+    faults_lib.set_active(plan)
+    try:
+        bus.event("run_start", argv=list(sys.argv[1:] if argv is None else argv),
+                  args=vars(args))
+        return _train(args, device, bus, plan, params, on_step, before_step)
+    finally:
+        faults_lib.set_active(None)
+        dispatch.set_launch_hook(None)
+        set_bus(prev_bus)
+        bus.close()
+
+
+def _train(args, device, bus, plan, params, on_step, before_step) -> TrainRun:
+    prof_window = parse_profile_window(args.profile_steps) if args.profile_steps else None
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -156,32 +270,194 @@ def run(argv=None, *, params: Optional[dict] = None,
         schedule_fn=sched, block_specs=bspecs, ns_strategy=args.ns_strategy,
         bucketing=not args.no_ns_bucketing, variant=args.optimizer_variant,
     )
-    state = init_train_state(params, optimizer)
-    pipe = iter(SyntheticLM(cfg, args.batch, args.seq, seed=args.seed))
+    variant_name = variants_lib.get(args.optimizer_variant).name
+    n_muon_matrices = sum(
+        1 for lab, p in zip(tree_lib.leaves(labels), tree_lib.leaves(params))
+        if lab == "muon" and p.ndim >= 2)
+    guard_cfg = (
+        resilience.GuardConfig(spike_factor=args.guard_spike_factor,
+                               ema_beta=args.guard_ema_beta, warmup_steps=args.guard_warmup)
+        if args.guard else None
+    )
+    state = init_train_state(params, optimizer, guard=args.guard)
+    pipe_src = SyntheticLM(cfg, args.batch, args.seq, seed=args.seed)
+    pipe = iter(pipe_src)
     compute_dtype = COMPUTE_DTYPES[args.compute_dtype]
+
+    # Run metadata, the reference's fields for one device and the synchronous
+    # schedule: checked on resume, so a wrong-arch/optimizer/grid resume fails
+    # with a named mismatch instead of a shape error.
+    run_meta = {
+        "arch": cfg.name,
+        "optimizer": args.optimizer,
+        "variant": variant_name,
+        "period": period,
+        "mesh": {"data": 1, "model": args.mesh_model},
+        "zero1": False,
+        "seed": args.seed,
+        "schedule": {"mode": "synchronous", "period": period, "offsets": None},
+    }
+
+    def save_ckpt(step):
+        extra = {
+            "run": run_meta,
+            "args": vars(args),
+            "data_state": pipe_src.state(),
+            "guard": resilience.guard_to_meta(state.guard),
+        }
+        with span(bus, "checkpoint.save", step=step):
+            path = checkpoint.save_snapshot(
+                args.checkpoint_dir, state.params, state.opt_state, step=step,
+                extra=extra, keep=args.keep_checkpoints)
+        bus.inc("checkpoint.saves")
+        bus.emit({"event": "checkpoint", "step": step, "path": path})
+
+    def on_skip_snapshot(p, why):
+        bus.inc("checkpoint.fallbacks")
+        bus.emit({"event": "skip_snapshot", "path": p, "why": why})
+
+    start_step = 0
+    if args.resume:
+        with span(bus, "resume"):
+            with span(bus, "checkpoint.verify"):
+                found = checkpoint.latest_valid(args.checkpoint_dir, expect_run=run_meta,
+                                                on_skip=on_skip_snapshot)
+            if found is not None:
+                ck_path, meta = found
+                with span(bus, "checkpoint.restore"):
+                    r_params, r_opt, saved_step = checkpoint.restore(
+                        ck_path, state.params, state.opt_state, device=device,
+                        verify_checksums=False)  # latest_valid already verified
+                state = state._replace(
+                    params=r_params, opt_state=r_opt, step=saved_step + 1,
+                    guard=(resilience.guard_from_meta(meta.get("guard"), device)
+                           if args.guard else None))
+                if meta.get("data_state"):
+                    pipe_src.set_state(meta["data_state"])
+                start_step = saved_step + 1
+        if found is not None:
+            bus.inc("resumes")
+            bus.emit({"event": "resume", "step": start_step, "snapshot": ck_path})
+        else:
+            bus.emit({"event": "resume", "step": 0, "snapshot": None})
 
     n_params = sum(p.numel() for p in tree_lib.leaves(params))
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M optimizer={args.optimizer} "
-          f"variant={variants_lib.get(args.optimizer_variant).name} period={period} "
-          f"mesh={axis_sizes} device={device}", flush=True)
+          f"variant={variant_name} period={period} mesh={axis_sizes} device={device}",
+          flush=True)
+
+    escalator = (
+        resilience.Escalator(resilience.EscalationPolicy(
+            force_full_after=args.guard_force_full_after,
+            backoff_after=args.guard_backoff_after,
+            backoff_factor=args.guard_backoff_factor,
+            abort_after=args.guard_abort_after,
+        ))
+        if args.guard else None
+    )
+    if escalator is not None and start_step:
+        # The cumulative skip counter survives the resume; don't re-escalate
+        # on skips that happened before the preemption.
+        escalator._last_total = int(state.guard.skipped)
+
+    sync = ((lambda: torch.cuda.synchronize(device))
+            if args.obs_block and device.type == "cuda" else None)
+    profiler = None
     records = []
-    for step in range(args.steps):
+
+    def finish(status):
+        nonlocal profiler
+        if profiler is not None:
+            _stop_profiler(profiler, args.profile_dir, prof_window)
+            profiler = None
+        bus.event("run_end", steps=args.steps - start_step,
+                  wall_s=round(time.time() - t0, 1), status=status,
+                  counters=dict(bus.counters))
+
+    t0 = time.time()
+    forced_full = False
+    for step in range(start_step, args.steps):
+        if prof_window is not None and step == prof_window[0]:
+            profiler = _start_profiler(device)
         batch = {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
                  for k, v in next(pipe).items()}
         phase = phase_for_step(step, period) if args.optimizer != "adamw" else "block"
-        t0 = time.perf_counter()
-        state, metrics = train_step(state, batch, cfg=cfg, optimizer=optimizer,
-                                    phase=phase, compute_dtype=compute_dtype)
+        if forced_full and args.optimizer != "adamw":
+            phase = "full"
+        forced_full = False
+        residue = step % period if period else 0
+        due = n_muon_matrices if phase == "full" else 0
+        fault = plan.grad_fault(step) if plan else None
+        if before_step is not None:
+            before_step(step, state, batch)
+        with span(bus, "step", sync=sync, step=step, phase=phase, residue=residue,
+                  due=due) as sp:
+            with stage_scope(f"muonbp.{phase}"):
+                state, metrics = train_step(state, batch, cfg=cfg, optimizer=optimizer,
+                                            phase=phase, compute_dtype=compute_dtype,
+                                            guard=guard_cfg, fault=fault)
+        if profiler is not None and step == prof_window[1] - 1:
+            _stop_profiler(profiler, args.profile_dir, prof_window)
+            profiler = None
         loss = float(metrics["loss"])
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        rec = {"step": step, "loss": loss, "phase": phase,
-               "wall_s": time.perf_counter() - t0}
-        print(json.dumps(rec), flush=True)
+        rec = {"step": step, "loss": loss, "phase": phase, "residue": residue, "due": due,
+               "dur_s": sp.dur_s}
+        action = "none"
+        healthy = None
+        if escalator is not None:
+            skipped = int(metrics["skipped"])
+            healthy = int(metrics["healthy"])
+            if not healthy:
+                bus.inc("guard.skipped_steps")
+            action = escalator.observe(step, skipped)
+            if action != "none":
+                bus.inc(f"escalation.{action}")
+                bus.event("escalation", step=step, action=action)
+            if action == "force_full":
+                forced_full = True
+            elif action == "backoff":
+                state = resilience.apply_backoff(state, args.guard_backoff_factor)
+            rec.update(healthy=healthy, skipped=skipped, escalation=action,
+                       lr_scale=float(metrics["lr_scale"]))
+        if (step % args.log_every == 0 or step == args.steps - 1
+                or (healthy is not None and not healthy)):
+            line = {"step": step, "loss": round(loss, 4), "phase": phase,
+                    "residue": residue, "due": due, "wall_s": round(time.time() - t0, 1)}
+            if escalator is not None:
+                line.update(healthy=healthy, skipped=rec["skipped"], escalation=action,
+                            lr_scale=round(rec["lr_scale"], 4))
+            bus.emit(line)
         records.append(rec)
         if on_step is not None:
             on_step(rec)
-    return TrainRun(cfg=cfg, state=state, block_specs=bspecs, records=records)
+        if args.checkpoint_every and (
+                (step and step % args.checkpoint_every == 0) or step == args.steps - 1):
+            save_ckpt(step)
+        if action == "abort":
+            save_ckpt(step)
+            bus.emit({"event": "abort", "step": step,
+                      "consecutive_skips": escalator.consecutive})
+            finish("abort")
+            raise SystemExit(3)
+    finish("ok")
+    return TrainRun(cfg=cfg, state=state, block_specs=bspecs, records=records,
+                    counters=dict(bus.counters))
+
+
+def _start_profiler(device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: str, window: tuple[int, int]) -> None:
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    profiler.export_chrome_trace(
+        os.path.join(profile_dir, f"trace_steps_{window[0]}_{window[1]}.json"))
 
 
 def main(argv=None) -> None:

@@ -1,16 +1,17 @@
 """Training step: mixed-precision loss/grad + optimizer apply.
 
-Counterpart of the unguarded ``repro/training/train_step.py``. Paper setup
-(Sec 4.2): fp32 master parameters; the forward and backward run on a cast
-to ``compute_dtype`` (bf16 by default); gradients and optimizer state are
+Counterpart of ``repro/training/train_step.py``. Paper setup (Sec 4.2):
+fp32 master parameters; the forward and backward run on a cast to
+``compute_dtype`` (bf16 by default); gradients and optimizer state are
 fp32. The MuonBP phase ('block' | 'full') is an argument, chosen per step
-by the launcher. The reference's guard and fault injection belong to the
-resilience slice and are not ported yet.
+by the launcher. ``guard=`` runs the optimizer apply behind the health
+check of ``training/resilience.py``; ``fault=`` injects a fault of
+``training/faults.py`` into the step.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -19,16 +20,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.combine import apply_updates
 from repro_torch.core.muon import Optimizer
 from repro_torch.models.model import loss_fn
+from repro_torch.training import faults as faults_lib
+from repro_torch.training import resilience
 
 
 class TrainState(NamedTuple):
     params: Any      # nested dict of fp32 master tensors
     opt_state: Any
     step: int
+    # resilience.GuardState when the guarded step is on, None otherwise.
+    guard: Any = None
 
 
-def init_train_state(params, optimizer: Optimizer) -> TrainState:
-    return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+def init_train_state(params, optimizer: Optimizer, guard: bool = False) -> TrainState:
+    device = tree_lib.leaves(params)[0].device
+    return TrainState(params=params, opt_state=optimizer.init(params), step=0,
+                      guard=resilience.init_guard_state(device) if guard else None)
 
 
 def cast_tree(tree, dtype):
@@ -62,6 +69,8 @@ def train_step(
     compute_dtype=torch.bfloat16,
     accum_steps: int = 1,
     bf16_grads: bool = False,
+    guard=None,
+    fault=None,
 ) -> tuple[TrainState, dict]:
     """One optimization step. Returns (new_state, metrics).
 
@@ -69,6 +78,14 @@ def train_step(
     their gradients (same total work, less activation memory).
     ``bf16_grads`` differentiates w.r.t. the compute-dtype cast of the
     parameters instead of the fp32 masters.
+
+    ``guard``: an optional :class:`resilience.GuardConfig`. Healthy steps
+    equal the unguarded step bitwise; unhealthy ones leave params and
+    optimizer state untouched and bump ``state.guard.skipped``. The metrics
+    then also carry ``healthy``, ``skipped``, ``ema_loss`` and ``lr_scale``.
+
+    ``fault``: an optional in-step :class:`faults.Fault` (tests and the
+    chaos drill only).
     """
     if accum_steps > 1:
         micro = [
@@ -87,11 +104,25 @@ def train_step(
         metrics = {"ce": loss, "loss": loss}
     else:
         loss, metrics, grads = loss_and_grads(state.params, batch, cfg, compute_dtype, bf16_grads)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if fault is not None:
+        loss, grads, metrics = faults_lib.inject(fault, loss, grads, metrics)
+    with torch.no_grad():
+        grad_sq_norm = sum(torch.sum(g.to(torch.float32) ** 2) for g in tree_lib.leaves(grads))
+        metrics["grad_norm"] = torch.sqrt(grad_sq_norm)
+    if guard is not None:
+        gstate = state.guard
+        if gstate is None:
+            gstate = resilience.init_guard_state(loss.device)
+        new_params, new_opt_state, new_guard, healthy = resilience.guarded_update(
+            optimizer, guard, grads, state.opt_state, state.params, gstate, loss,
+            grad_sq_norm, phase)
+        metrics["healthy"] = healthy.to(torch.int32)
+        metrics["skipped"] = new_guard.skipped
+        metrics["ema_loss"] = resilience.debiased_ema(guard, new_guard)
+        metrics["lr_scale"] = new_guard.lr_scale
+        return TrainState(new_params, new_opt_state, state.step + 1, new_guard), metrics
     updates, new_opt_state = optimizer.update(grads, state.opt_state, state.params, phase)
     with torch.no_grad():
         new_params = apply_updates(state.params, updates)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = torch.sqrt(
-            sum(torch.sum(g.to(torch.float32) ** 2) for g in tree_lib.leaves(grads))
-        )
-    return TrainState(new_params, new_opt_state, state.step + 1), metrics
+    return TrainState(new_params, new_opt_state, state.step + 1, state.guard), metrics

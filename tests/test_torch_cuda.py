@@ -280,3 +280,94 @@ def test_reduced_variant_training_on_the_card_tracks_the_cpu(card, variant):
     assert counts["ns_fused_chain"] > 0
     assert (counts["normuon"] > 0) == (variant == "normuon")
     assert max(abs(g["loss"] - c["loss"]) for g, c in zip(gpu, cpu)) <= 1e-3
+
+
+def _reduced_state_on_the_card(card, variant=None):
+    """The reduced muonbp-960m on the card, its 4-way grid, one full step
+    taken: (cfg, optimizer, state, batch)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core import adamw, combine, label_tree, muon
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import specs as sh
+    from repro_torch.training.train_step import init_train_state, train_step
+
+    cfg = get_config("muonbp-960m").reduced()
+    params = init_params(cfg, seed=0, device=card)
+    sizes = {"model": 4}
+    labels = label_tree(params)
+    bspecs = tree_lib.tree_map(lambda b, l: b if l == "muon" else None,
+                               sh.block_specs_for(params, sh.param_specs(params, cfg, sizes), sizes),
+                               labels)
+    opt = combine({"muon": muon(0.02, 0.02, period=5, block_specs=bspecs, variant=variant),
+                   "adamw": adamw(0.008)}, labels)
+    batches = iter(SyntheticLM(cfg, 2, 32, seed=0))
+    batch = lambda: {k: torch.from_numpy(v).to(card, torch.long) for k, v in next(batches).items()}
+    state, _ = train_step(init_train_state(params, opt, guard=True), batch(), cfg=cfg,
+                          optimizer=opt, phase="full")
+    return cfg, opt, state, batch()
+
+
+def _states_equal(a, b):
+    """(params, optimizer state) pairs equal leaf for leaf, as their snapshot
+    arrays: every tensor and every host counter."""
+    from repro_torch.training import checkpoint
+
+    for x, y in zip(a, b):
+        fx, fy = checkpoint._flatten(x), checkpoint._flatten(y)
+        if fx.keys() != fy.keys() or not all(
+                fx[k].dtype == fy[k].dtype and (fx[k] == fy[k]).all() for k in fx):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("variant", [None, "normuon"])
+def test_guarded_update_equals_the_unguarded_update_on_the_card(card, variant):
+    """On the same gradients the guarded update is torch.equal to the
+    unguarded one in both phases, and a NaN gradient leaves the state as it
+    was and launches no kernel."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.core.combine import apply_updates
+    from repro_torch.training import resilience
+    from repro_torch.training.train_step import loss_and_grads
+
+    cfg, opt, state, batch = _reduced_state_on_the_card(card, variant)
+    loss, _, grads = loss_and_grads(state.params, batch, cfg)
+    gsq = sum(torch.sum(g.float() ** 2) for g in tree_lib.leaves(grads))
+    gcfg = resilience.GuardConfig()
+    with torch.no_grad():
+        for phase in ("block", "full"):
+            upd, o_u = opt.update(grads, state.opt_state, state.params, phase)
+            p_u = apply_updates(state.params, upd)
+            p_g, o_g, _, healthy = resilience.guarded_update(
+                opt, gcfg, grads, state.opt_state, state.params, state.guard, loss, gsq, phase)
+            assert bool(healthy)
+            assert _states_equal((p_u, o_u), (p_g, o_g))
+        kernels.reset_launch_counts()
+        nan = tree_lib.tree_map(lambda g: torch.full_like(g, float("nan")), grads)
+        p_s, o_s, g_s, healthy = resilience.guarded_update(
+            opt, gcfg, nan, state.opt_state, state.params, state.guard, loss,
+            torch.tensor(float("nan"), device=card), "full")
+    assert not bool(healthy) and int(g_s.skipped) == 1
+    assert p_s is state.params and o_s is state.opt_state
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_snapshot_round_trip_card_to_cpu_and_back(card, tmp_path):
+    from repro_torch import tree as tree_lib
+    from repro_torch.training import checkpoint
+
+    _, opt, state, _ = _reduced_state_on_the_card(card, "normuon")
+    checkpoint.save_snapshot(str(tmp_path), state.params, state.opt_state, step=1)
+    path, meta = checkpoint.latest_valid(str(tmp_path))
+    cpu_p, cpu_o, step = checkpoint.restore(path, state.params, state.opt_state, device="cpu")
+    assert step == 1 and not any(t.is_cuda for t in tree_lib.leaves(cpu_p))
+    assert not any(t.is_cuda for t in cpu_o.inner["muon"].second_moment.values())
+    assert _states_equal((cpu_p, cpu_o), (state.params, state.opt_state))
+    back_p, back_o, _ = checkpoint.restore(path, cpu_p, cpu_o, device=card)
+    for a, b in zip(tree_lib.leaves(back_p), tree_lib.leaves(state.params)):
+        assert a.is_cuda and torch.equal(a, b)
+    for path_, v in state.opt_state.inner["adamw"].mu.items():
+        assert torch.equal(back_o.inner["adamw"].mu[path_], v)
+    assert _states_equal((back_p, back_o), (state.params, state.opt_state))
