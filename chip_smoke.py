@@ -47,7 +47,31 @@ optimizer variants NorMuon, Turbo-Muon and Dion.
   6. reference -- six reduced steps on the card against the same steps on
                  the CPU (plain versions), from the same weights, for the
                  baseline and for NorMuon;
-  7. times    -- each kernel, its plain version and the one-call PyTorch
+  7. serve    -- the serving path, which launches none of the kernels:
+                 full-width gemma2-9b (42 layers, fp32 parameters from
+                 init_params(seed=0), a bf16 paged KV pool) behind the
+                 continuous-batching engine (4 slots, blocks of 16, a
+                 4608-token window), six greedy requests of 4400, 4200,
+                 2048, 512, 64 and 16 prompt tokens run to idle: every one
+                 completes, every block comes back, and each one's tokens
+                 equal the port's generate on its prompt alone (a token may
+                 differ only at a near-tie: a top-2 logit gap under 1e-4 of
+                 max|logit|); decode after a 4096-token prefill against
+                 teacher forcing over 64 tokens (fp32 cache, 1e-3 of
+                 max|logit|); corrupt_cache on a shorter run cancels exactly
+                 its victim and leaves the co-batched tokens as without it;
+                 the reduced model on the card against the CPU on one seeded
+                 trace; serve_sim's kill_in_decode drill and its telemetry
+                 trail. It prints the TTFT wall per prompt length (the
+                 engine's admission of the request alone: prefill, the copy
+                 into the pool, the first token on the host), the
+                 serve_decode span percentiles, decode tokens/s at 4 active
+                 slots (tokens over the summed wall of those steps) beside
+                 the decode step's bound, the device's busy share over a
+                 traced window, one decode step's eager wall against the
+                 same step as one CUDA graph (host or device), the pool's
+                 bytes and the peak memory;
+  8. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
                  the least time the card could take for the same work; the
                  tiled Gram with its B operand K-major and N-major (the
@@ -103,6 +127,30 @@ NORMUON_LEAVES = {
 NORMUON_TIMED = (12, 6144, 1536)   # the largest launch, mlp/wo
 BETA2, STAT_EPS = 0.95, 1e-8
 
+# The serve phase: full-width gemma2-9b behind the engine. Prompts past 4096
+# tokens make the even (local, window 4096) layers mask; six requests on
+# four slots make two wait and take recycled slots.
+SERVE_ARCH = "gemma2-9b"
+SERVE_ENGINE = dict(slots=4, block_size=16, max_model_len=4608, num_blocks=1152,
+                    max_prompt_len=4480, max_new_tokens=64)
+SERVE_PROMPTS = (4400, 4200, 2048, 512, 64, 16)
+SERVE_NEW = (64, 32)
+# corrupt_cache: a shorter run at full width, with and without the fault.
+CORRUPT_PROMPTS, CORRUPT_NEW, CORRUPT_PLAN = (600, 300, 100), (16,), "corrupt_cache@2"
+TF_PREFIX, TF_STEPS = 4096, 64   # decode against teacher forcing
+PROFILE_STEPS = (10, 14)         # engine steps under torch.profiler, every slot
+                                 # active: the first sets the profiler up, the
+                                 # rest are traced
+# The reduced model, card against CPU: the same trace scaled to its window
+# of 64 (prompts past it) and a 128-token engine window.
+SMALL_ENGINE = dict(slots=4, block_size=16, max_model_len=128, num_blocks=32,
+                    max_prompt_len=112, max_new_tokens=16)
+SMALL_PROMPTS, SMALL_NEW = (100, 90, 40, 20, 8, 4), (16, 8)
+SERVE_KILL_ARGV = ["--reduced", "--steps", "10", "--rate", "1", "--slots", "2",
+                   "--block-size", "4", "--num-blocks", "32", "--max-model-len", "32",
+                   "--max-prompt-len", "16", "--max-new-tokens", "8", "--prompt-lens", "8",
+                   "--new-tokens", "8", "--seed", "0", "--fault-plan", "kill_in_decode@3"]
+
 # Tolerances, relative to max|plain|. Single products: the kernels' 3xTF32
 # tensor-core sums (tiled and fused alike), in another order than cuBLAS's
 # fp32 SGEMM (TF32 off), agree to a few 1e-6 of the largest value. The
@@ -113,6 +161,13 @@ CHAIN_TOL = 1e-3
 UPDATE_TOL = 1e-3      # Muon update: NS chains + the RMS-matched epilogue
 SMALL_LOSS_TOL = 1e-3  # reduced run on the card vs the CPU, fp32 compute
 NORM_TOL = 1e-5        # NorMuon row norm: only the row sum's order differs
+# Serving, relative to max|logit|: greedy tokens of two runs may part only
+# where the first differing token's top-2 logit gap is under TIE_REL (a
+# near-tie, which rounding in another order may flip); decode from an fp32
+# cache against the full forward agrees to DECODE_TOL (the full softmax over
+# the window sums in another order than the prefill's).
+TIE_REL = 1e-4
+DECODE_TOL = 1e-3
 
 TPU_KERNELS = {
     "ns_matmul": ("cuda", "src/repro_torch/kernels/csrc/ns_matmul.cu",
@@ -731,11 +786,15 @@ def resilience_runs(tmp: str) -> list:
             f"the card's full-width step repeats bitwise: {deterministic}"]
 
 
+def subprocess_env() -> dict:
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))}
+
+
 def kill_drill(tmp: str) -> None:
     """chaos_run on the card: each kill fires in the step-4 save, and the
     relaunch must resume from the step-2 snapshot and finish."""
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        [str(SRC)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))}
+    env = subprocess_env()
     for kind in ("kill_mid_save", "kill_in_save"):
         cmd = [sys.executable, "-m", "repro_torch.scripts.chaos_run", "--plan", f"{kind}@3",
                "--max-restarts", "2", "--"] + CHAOS_ARGV + [
@@ -790,6 +849,435 @@ def phase_reference() -> None:
     if not diff <= SMALL_LOSS_TOL or kernels.launch_counts()["normuon"] <= 0:
         fail("NorMuon card run does not track the CPU reference")
     torch.cuda.synchronize()
+
+
+def serve_requests(vocab: int, prompts, new, seed: int) -> list:
+    """Seeded greedy requests: random prompts of the given lengths, a
+    new-token budget drawn from ``new`` for each."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=f"s{i}", prompt=rng.integers(0, vocab, size=n).astype(np.int32),
+                    max_new_tokens=int(rng.choice(new))) for i, n in enumerate(prompts)]
+
+
+def run_engine(params, cfg, engine_kw: dict, requests, plan=None, profile=None):
+    """Submit ``requests`` at t = 0 and step the engine to idle (one virtual
+    second a step). Returns (engine, bus records, (positions, active,
+    profiled) of each decode step). ``profile`` (A, B): trace the card over
+    steps A..B-1 with torch.profiler and print where their device time
+    went; those steps are marked profiled."""
+    from repro_torch.obs.bus import Bus, MemorySink
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.training import faults
+
+    decode_log = []
+    profiling = [False]
+
+    class TracedEngine(ServingEngine):
+        def _decode_fn(self, tables, tokens, pos, active, generators):
+            decode_log.append((pos.copy(), active.copy(), profiling[0]))
+            return super()._decode_fn(tables, tokens, pos, active, generators)
+
+    bus = Bus([MemorySink()])
+    eng = TracedEngine(params, cfg, EngineConfig(**engine_kw), bus=bus,
+                       fault_plan=faults.FaultPlan.parse(plan) if plan else None)
+    try:
+        for req in requests:
+            if not eng.submit(req, 0.0):
+                fail(f"request {req.rid} rejected: {req.reason}")
+        t = 0.0
+        while not eng.idle:
+            if t > 1000:
+                fail("the engine did not reach idle in 1000 steps")
+            if profile is not None and eng.step_idx == profile[0]:
+                host_probe(eng)
+                profiling[0] = True
+                profile_steps(eng, t, profile[1] - profile[0])
+                profiling[0] = False
+                t += profile[1] - profile[0]
+                continue
+            eng.step(t)
+            t += 1.0
+    finally:
+        faults.set_active(None)
+    return eng, bus.sinks[0].records, decode_log
+
+
+def profile_steps(eng, t: float, n: int) -> None:
+    """``n`` engine steps under torch.profiler: the first sets the profiler
+    up, the other ``n - 1`` are traced. Prints the device time over the host
+    wall of the same traced steps, and the kernels that took it, by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traced.extend(p.events())) as prof:
+        eng.step(t)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for i in range(1, n):
+            eng.step(t + i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    n -= 1
+    by_name: dict = {}
+    for ev in traced:
+        # Device kernels and copies only: not the schedule's step annotation.
+        if ev.device_type == DeviceType.CUDA and not ev.name.startswith("ProfilerStep"):
+            us, count = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (us + ev.time_range.elapsed_us(), count + 1)
+    busy = sum(us for us, _ in by_name.values())
+    launches = sum(c for _, c in by_name.values())
+    log(f"[serve] traced {n} decode steps at {int(eng._active.sum())} active slots: wall "
+        f"{wall_us / n / 1e3:.3f} ms a step (profiler on), device busy {busy / n / 1e3:.3f} ms a "
+        f"step, {busy / wall_us:.1%} of the same steps' wall; {launches // n} kernel launches "
+        f"a step")
+    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[serve]   {us / n / 1e3:8.3f} ms a step, {count // n:5d} launches: {name[:110]}")
+
+
+def host_probe(eng, reps: int = 3) -> None:
+    """Host or device: one decode step at the engine's state, run ``reps``
+    times each way. Eager, as the engine runs it: its wall, and the host's
+    time to submit it (to the return of the call, before the sync). As one
+    CUDA graph: the replay's wall, the device's time for the same kernels
+    with no wait on the host's launches. Re-running the step writes the
+    same K/V at the same positions, so the engine's run goes on as without
+    the probe."""
+    import torch
+
+    from repro_torch.models.transformer import decode_layers
+    from repro_torch.serving.kvcache import PagedLayer
+
+    dev = eng.device
+    tables = torch.as_tensor(eng.kv.tables, dtype=torch.long, device=dev)
+    pos = torch.as_tensor(eng._pos, dtype=torch.long, device=dev)
+    active = torch.as_tensor(eng._active, device=dev)
+    tokens = torch.as_tensor(eng._tokens, dtype=torch.long, device=dev)[:, None]
+
+    def step():
+        with torch.no_grad():
+            return decode_layers(eng.params, tokens, pos, eng.cfg,
+                                 lambda i: PagedLayer(eng.kv, i, tables, active)).argmax(-1)
+
+    eager = step()
+    torch.cuda.synchronize()
+    walls, submits, replays = [], [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step()
+        submits.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = step()
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append((time.perf_counter() - t0) * 1e3)
+    same = torch.equal(out, eager)
+    del graph, out
+    torch.cuda.empty_cache()
+    ms = lambda xs: "/".join(f"{x:.3f}" for x in xs)
+    log(f"[serve] host probe, one decode step at {int(eng._active.sum())} active slots, "
+        f"{reps} runs each: eager wall {ms(walls)} ms, of which the host submits it in "
+        f"{ms(submits)} ms; as one CUDA graph {ms(replays)} ms (same tokens as eager: {same})")
+
+
+def admission_walls(params, cfg, requests) -> dict:
+    """TTFT wall by prompt length: the engine's own admission (prefill, the
+    padded copy into the pool, the first token read on the host) of each
+    prompt alone, into an idle engine, synchronized around it."""
+    import torch
+
+    from repro_torch.obs.bus import Bus
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    eng = ServingEngine(params, cfg, EngineConfig(**SERVE_ENGINE), bus=Bus([]))
+    walls, t = {}, 0.0
+    for req in sorted(requests, key=lambda r: r.prompt_len):
+        one = Request(rid=f"ttft{req.prompt_len}", prompt=req.prompt, max_new_tokens=1)
+        if not eng.submit(one, t):
+            fail(f"{one.rid} rejected: {one.reason}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._admit(t)
+        torch.cuda.synchronize()
+        walls[req.prompt_len] = time.perf_counter() - t0
+        if one.state != "active":
+            fail(f"{one.rid} not admitted into an idle engine: {one.state}")
+        while not eng.idle:
+            eng.step(t)
+            t += 1.0
+    if eng.outstanding_blocks() != 0:
+        fail(f"{eng.outstanding_blocks()} blocks outstanding after the TTFT runs")
+    return walls
+
+
+def top2_gap(params, cfg, prompt, tokens, j: int) -> float:
+    """Top-2 gap over max|logit| of the logits that chose ``tokens[j]``
+    after ``prompt``, from a prefill of the prompt and ``tokens[:j]``."""
+    import torch
+
+    from repro_torch.models.model import prefill
+
+    dev = params["embed"].device
+    seq = torch.cat([torch.as_tensor(prompt, dtype=torch.long),
+                     torch.as_tensor(tokens[:j], dtype=torch.long)]).to(dev)
+    with torch.no_grad():
+        logits = prefill(params, {"tokens": seq[None]}, cfg)[0][0, -1].to(torch.float32)
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1]) / float(logits.abs().max())
+
+
+def same_tokens(label: str, params, cfg, prompt, got, expect) -> str:
+    """``got`` against ``expect`` (greedy tokens after ``prompt``, computed
+    by ``params`` on another path); they may part only at a near-tie."""
+    if list(got) == list(expect):
+        return "equal"
+    j = next((i for i, (a, b) in enumerate(zip(got, expect)) if a != b), None)
+    if j is None:
+        fail(f"{label}: {len(got)} tokens against {len(expect)}")
+    gap = top2_gap(params, cfg, prompt, expect, j)
+    log(f"[serve] {label}: token {j} differs ({got[j]} vs {expect[j]}); top-2 logit gap "
+        f"{gap:.3e} of max|logit| (tie rule {TIE_REL:g})")
+    if not gap < TIE_REL:
+        fail(f"{label}: tokens differ at {j} where the top-2 gap is {gap:.3e}, not a near-tie")
+    return f"near-tie at token {j} (gap {gap:.3e})"
+
+
+def phase_serve(smi: str) -> None:
+    """The serving path at full width and its checks (module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.obs.spans import percentiles
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SERVE_ARCH)
+    params = init_params(cfg, seed=0, device="cuda")
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_lib.leaves(params))
+    kv_token_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2  # K, V in bf16
+    log(f"[serve] full-width {SERVE_ARCH}: {param_bytes / 4} fp32 parameters "
+        f"({param_bytes / 1e9:.3f} GB), KV {kv_token_bytes} bytes a token in bf16")
+
+    requests = serve_requests(cfg.vocab_size, SERVE_PROMPTS, SERVE_NEW, seed=0)
+    t0 = time.perf_counter()
+    eng, records, decode_log = run_engine(params, cfg, SERVE_ENGINE, requests,
+                                          profile=PROFILE_STEPS)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    pool_bytes = eng.kv.k.numel() * eng.kv.k.element_size() * 2
+    window = eng.kv.window
+    engine_peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] engine {SERVE_ENGINE}: pool {pool_bytes} bytes ({pool_bytes / 1e9:.3f} GB), "
+        f"window {window} tokens; {eng.step_idx} steps, {len(decode_log)} decode steps in "
+        f"{engine_s:.2f} s; peak memory {engine_peak / 2**30:.2f} GiB")
+    done = {r.rid: r for r in eng.finished}
+    if len(done) != len(requests) or any(r.state != "done" for r in done.values()):
+        fail(f"not every request completed: {[(r.rid, r.state, r.reason) for r in eng.finished]}")
+    if eng.outstanding_blocks() != 0:
+        fail(f"{eng.outstanding_blocks()} blocks outstanding after the run")
+    waited = [r["request"] for r in records if r.get("event") == "admit" and r["queue_wait_s"] > 0]
+    log(f"[serve] every request completed, every block came back; waited for a slot: {waited}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # The serve_decode spans (synchronized on the card) against the least
+    # time a step could take: every fp32 parameter and the active slots'
+    # valid KV read once, at the HBM rate. The profiled steps are left out.
+    spans = [r for r in records if r.get("event") == "span" and r.get("name") == "serve_decode"]
+    if len(spans) != len(decode_log):
+        fail(f"{len(spans)} serve_decode spans for {len(decode_log)} decode steps")
+    spans, decode_log = zip(*[(r, d) for r, d in zip(spans, decode_log) if not d[2]])
+    four = [(r["dur_s"], pos, act) for r, (pos, act, _) in zip(spans, decode_log)
+            if r["active"] == SERVE_ENGINE["slots"]]
+    if not four:
+        fail("no decode step ran with every slot active")
+    durs = percentiles([d for d, _, _ in four])
+    wall = sum(d for d, _, _ in four)
+    tokens = SERVE_ENGINE["slots"] * len(four)
+    bound = sum(param_bytes + kv_token_bytes * float(np.sum((pos + 1) * act))
+                for _, pos, act in four) / HBM_BYTES_S
+    all_p = percentiles([r["dur_s"] for r in spans])
+    log(f"[serve] serve_decode span, all {len(spans)} steps not profiled: "
+        f"p50 {all_p['p50'] * 1e3:.3f} ms, p95 {all_p['p95'] * 1e3:.3f} ms")
+    log(f"[serve] decode at {SERVE_ENGINE['slots']} active slots, {len(four)} steps: "
+        f"{tokens} tokens in {wall * 1e3:.3f} ms, {tokens / wall:.2f} tokens/s; a step p50 "
+        f"{durs['p50'] * 1e3:.3f} ms, p95 {durs['p95'] * 1e3:.3f} ms; bound "
+        f"{bound / len(four) * 1e3:.3f} ms a step (bytes: fp32 parameters + active KV at "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s), {bound / wall:.1%} of it over these steps; the "
+        f"window gather copies {SERVE_ENGINE['slots'] * window * kv_token_bytes / 1e9:.2f} GB "
+        f"a step")
+
+    ttft = admission_walls(params, cfg, requests)
+    log(f"[serve] TTFT wall (the engine's admission of the prompt alone: prefill, pool "
+        f"copy, first token; synchronized), by prompt length: "
+        f"{json.dumps({k: round(v, 4) for k, v in ttft.items()})}")
+    torch.cuda.empty_cache()
+
+    check_generate(params, cfg, requests, done, window)
+    teacher_forcing(params, cfg)
+    corrupt_run(params, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    serve_small()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        serve_kill_drill(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[serve] card: {smi}; pool {pool_bytes} bytes; peak memory {peak / 2**30:.2f} GiB "
+        f"(engine run {engine_peak / 2**30:.2f} GiB); phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_generate(params, cfg, requests, done, window) -> None:
+    """Each request's engine tokens against the port's generate on its
+    prompt alone, with the engine's window as max_len."""
+    import torch
+
+    from repro_torch.serving.serve_step import generate
+
+    t0 = time.perf_counter()
+    verdicts = {}
+    for req in requests:
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long, device="cuda")[None]
+        expect = generate(params, prompt, cfg, max_new_tokens=req.budget,
+                          max_len=window)[0].tolist()
+        verdicts[req.rid] = same_tokens(f"{req.rid} ({req.prompt_len} tokens)", params, cfg,
+                                        req.prompt, done[req.rid].tokens, expect)
+        torch.cuda.empty_cache()
+    log(f"[serve] engine tokens against generate, request by request: {json.dumps(verdicts)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def teacher_forcing(params, cfg) -> None:
+    """Prefill TF_PREFIX tokens, then TF_STEPS decode steps on an fp32
+    cache, against the forward over the whole sequence."""
+    import torch
+
+    from repro_torch.models.model import decode_step, forward, prefill
+    from repro_torch.serving.serve_step import cache_from_prefill
+
+    total = TF_PREFIX + TF_STEPS
+    gen = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (1, total), generator=gen).to("cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = forward(params, tokens, cfg)[0, TF_PREFIX - 1:].clone()
+        logits_p, pcache = prefill(params, {"tokens": tokens[:, :TF_PREFIX]}, cfg)
+        errs = [float((logits_p[0, -1] - full[0]).abs().max())]
+        del logits_p
+        cache = cache_from_prefill(pcache, cfg, total, dtype=torch.float32)
+        del pcache
+        for j in range(TF_STEPS):
+            t = TF_PREFIX + j
+            lg, cache = decode_step(params, tokens[:, t:t + 1], cache, t, cfg)
+            errs.append(float((lg[0, 0] - full[j + 1]).abs().max()))
+    rel = max(errs) / float(full.abs().max())
+    log(f"[serve] decode after a {TF_PREFIX}-token prefill, {TF_STEPS} steps on an fp32 cache, "
+        f"against teacher forcing: max abs diff {max(errs):.3e}, {rel:.3e} of max|logit| "
+        f"(tol {DECODE_TOL:g}); {time.perf_counter() - t0:.1f} s")
+    if not rel <= DECODE_TOL:
+        fail("decode disagrees with teacher forcing")
+    del full, cache
+    torch.cuda.empty_cache()
+
+
+def corrupt_run(params, cfg) -> None:
+    """corrupt_cache at full width: exactly the victim cancelled (reason
+    corrupt), the co-batched requests' tokens as in the fault-free run."""
+    import torch
+
+    runs = {}
+    for plan in (None, CORRUPT_PLAN):
+        requests = serve_requests(cfg.vocab_size, CORRUPT_PROMPTS, CORRUPT_NEW, seed=1)
+        eng, _, _ = run_engine(params, cfg, SERVE_ENGINE, requests, plan)
+        if eng.outstanding_blocks() != 0:
+            fail(f"{plan}: {eng.outstanding_blocks()} blocks outstanding")
+        runs[plan] = {r.rid: (r.state, r.reason, r.tokens) for r in eng.finished}
+        del eng
+        torch.cuda.empty_cache()
+    clean, hit = runs[None], runs[CORRUPT_PLAN]
+    victims = [rid for rid, (state, reason, _) in hit.items() if state != "done"]
+    if victims != ["s0"] or hit["s0"][:2] != ("cancelled", "corrupt"):
+        fail(f"{CORRUPT_PLAN} cancelled {victims}: {hit}")
+    if any(hit[rid][2] != clean[rid][2] for rid in hit if rid != "s0"):
+        fail(f"{CORRUPT_PLAN} changed a co-batched request's tokens")
+    log(f"[serve] {CORRUPT_PLAN} at full width: s0 cancelled (corrupt) after "
+        f"{len(hit['s0'][2])} tokens; s1, s2 token for token as without the fault")
+
+
+def serve_small() -> None:
+    """The reduced model's seeded trace on the card against the CPU."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(SERVE_ARCH).reduced()
+    base = init_params(cfg, seed=0, device="cpu")
+    runs = {}
+    for device in ("cpu", "cuda"):
+        params = tree_lib.tree_map(lambda p: p.to(device), base)
+        requests = serve_requests(cfg.vocab_size, SMALL_PROMPTS, SMALL_NEW, seed=2)
+        eng, records, _ = run_engine(params, cfg, SMALL_ENGINE, requests)
+        if eng.outstanding_blocks() != 0 or any(r.state != "done" for r in eng.finished):
+            fail(f"reduced run on {device}: {[(r.rid, r.state) for r in eng.finished]}")
+        events = [{k: v for k, v in r.items() if k not in ("ts", "dur_s")} for r in records]
+        runs[device] = ({r.rid: r for r in eng.finished}, events)
+    verdicts = {rid: same_tokens(f"reduced {rid}", base, cfg, req.prompt,
+                                 runs["cuda"][0][rid].tokens, req.tokens)
+                for rid, req in runs["cpu"][0].items()}
+    same_events = runs["cuda"][1] == runs["cpu"][1]
+    if all(v == "equal" for v in verdicts.values()) and not same_events:
+        fail("reduced run: equal tokens on the card and the CPU but other events")
+    log(f"[serve] reduced {SERVE_ARCH}, engine {SMALL_ENGINE}, card against CPU: "
+        f"{json.dumps(verdicts)}; event streams (no ts, dur_s) equal: {same_events}")
+
+
+def serve_kill_drill(tmp: str) -> None:
+    """serve_sim on the card, SIGKILLed in the decode loop: the JSONL trail
+    holds every record stdout saw."""
+    from repro_torch.scripts.chaos_run import telemetry_failures
+
+    log_file = os.path.join(tmp, "serve_kill.jsonl")
+    cmd = [sys.executable, "-m", "repro_torch.scripts.serve_sim"] + SERVE_KILL_ARGV + [
+        "--log-file", log_file]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                         env=subprocess_env())
+    recs = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    failures = telemetry_failures(log_file, recs, "serve")
+    if out.returncode != -9 or not any(r.get("event") == "admit" for r in recs) or failures:
+        fail(f"serve kill drill: rc {out.returncode}, failures {failures}\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    log(f"[serve] kill drill: python -m repro_torch.scripts.serve_sim {' '.join(SERVE_KILL_ARGV)} "
+        f"SIGKILLed (rc -9) with {len(recs)} records on stdout, all on disk; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_times(errors: dict, launches: dict) -> list:
@@ -968,6 +1456,7 @@ def main() -> int:
     phase_train(launches)
     phase_resilience(device["smi"])
     phase_reference()
+    phase_serve(device["smi"])
     rows = phase_times(errors, launches)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     print(device["smi"], flush=True)

@@ -1,11 +1,12 @@
-"""Model API, dense training subset (counterpart of ``repro/models/model.py``)."""
+"""Model API, dense subset: init / loss / prefill / decode (counterpart of
+``repro/models/model.py``)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import forward, init_params
+from repro_torch.models.transformer import decode_step, forward, init_cache, init_params
 
 IGNORE_LABEL = -1
 
@@ -25,4 +26,11 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
     return ce, {"ce": ce, "loss": ce}
 
 
-__all__ = ["IGNORE_LABEL", "cross_entropy", "forward", "init_params", "loss_fn"]
+def prefill(params: dict, batch: dict, cfg: ModelConfig):
+    """Full-sequence prefill of ``batch["tokens"]``: returns ``(logits, cache)``
+    (the reference returns its aux losses between them; they are MoE-only)."""
+    return forward(params, batch["tokens"], cfg, mode="prefill")
+
+
+__all__ = ["IGNORE_LABEL", "cross_entropy", "decode_step", "forward", "init_cache",
+           "init_params", "loss_fn", "prefill"]

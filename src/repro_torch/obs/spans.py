@@ -52,6 +52,10 @@ class Span:
     parent: "Span | None" = None
     dur_s: float | None = None
 
+    def set(self, **attrs: Any) -> None:
+        """Attach attributes after entry (e.g. the active slots of a decode)."""
+        self.attrs.update(attrs)
+
 
 @contextlib.contextmanager
 def span(

@@ -2,9 +2,9 @@
 
 Counterpart of the reference's ``scripts/obs_report.py`` over the port's
 own bus and spans, without its comm-drift section (the port has no
-distributed plan to drift from yet) and its serving section (no serving
-path yet). Input is the append-streamed trail
-``repro_torch.launch.train --log-file`` writes (one JSON record per line;
+distributed plan to drift from yet). Input is the append-streamed trail
+``repro_torch.launch.train --log-file`` or
+``repro_torch.scripts.serve_sim --log-file`` writes (one JSON record per line;
 schema in ``repro_torch.obs.bus.EVENT_FIELDS``). Because the file is
 append-mode and survives restarts, one trail can span several launches --
 kills and resumes show up in the incident timeline.
@@ -16,6 +16,12 @@ Sections:
 * **step times** -- p50/p95/p99 wall-time percentiles from ``step`` span
   records, overall and per MuonBP phase (block vs full), plus span
   breakdowns for checkpoint.save / verify / restore / resume.
+* **serving** -- present only when the trail carries serving traffic
+  (``repro_torch.scripts.serve_sim`` / ``repro_torch.serving.engine``):
+  outcome counts by type and reason, virtual-clock TTFT / per-token
+  percentiles from ``complete`` events, wall-clock decode-dispatch
+  percentiles from ``serve_decode`` spans, and the final goodput-vs-offered
+  summary.
 * **counters** -- merged from ``run_end`` records (guard skips,
   escalations, checkpoint saves/fallbacks, NS launch counts).
 * **incident timeline** -- chronological run_start / unhealthy steps /
@@ -61,6 +67,57 @@ def step_time_section(records: list[dict]) -> list[str]:
             f"{name}: n={len(vals)} p50={p['p50'] * 1e3:.2f}ms "
             f"p95={p['p95'] * 1e3:.2f}ms"
         )
+    return lines
+
+
+def serving_section(records: list[dict]) -> list[str]:
+    """Serving-engine rollup from admit/reject/shed/cancel/complete events.
+
+    Only rendered when the trail contains serving traffic (a training-only
+    trail keeps its old report byte-for-byte)."""
+    kinds = ("admit", "reject", "shed", "cancel", "complete", "serve_report")
+    if not any(event_type(r) in kinds for r in records):
+        return []
+    lines = ["== serving =="]
+    by_outcome: dict[str, int] = {}
+    for r in records:
+        ev = event_type(r)
+        if ev in ("reject", "shed", "cancel"):
+            key = f"{ev}:{r.get('reason')}"
+        elif ev in ("admit", "complete"):
+            key = ev
+        else:
+            continue
+        by_outcome[key] = by_outcome.get(key, 0) + 1
+    for k in sorted(by_outcome):
+        lines.append(f"{k}: {by_outcome[k]}")
+    completes = [r for r in records if event_type(r) == "complete"]
+    ttft = percentiles([r["ttft_s"] for r in completes if "ttft_s" in r])
+    tpot = percentiles([r["tpot_s"] for r in completes
+                        if r.get("tpot_s") is not None and r["tpot_s"] > 0])
+    if ttft:
+        lines.append(f"ttft: p50={ttft['p50'] * 1e3:.1f}ms "
+                     f"p95={ttft['p95'] * 1e3:.1f}ms "
+                     f"p99={ttft['p99'] * 1e3:.1f}ms (virtual)")
+    if tpot:
+        lines.append(f"per-token: p50={tpot['p50'] * 1e3:.1f}ms "
+                     f"p95={tpot['p95'] * 1e3:.1f}ms "
+                     f"p99={tpot['p99'] * 1e3:.1f}ms (virtual)")
+    decode = percentiles([r["dur_s"] for r in records
+                          if event_type(r) == "span"
+                          and r.get("name") == "serve_decode"])
+    if decode:
+        lines.append(f"decode dispatch (wall): p50={decode['p50'] * 1e3:.1f}ms "
+                     f"p95={decode['p95'] * 1e3:.1f}ms")
+    for r in records:
+        if event_type(r) == "serve_report":
+            lines.append(
+                f"offered {r.get('offered')} req / "
+                f"{r.get('offered_tokens')} tok; completed "
+                f"{r.get('completed')} req / {r.get('completed_tokens')} tok; "
+                f"goodput {r.get('goodput_tps')} tok/s vs offered "
+                f"{r.get('offered_tps')} tok/s; shed {r.get('shed')}; "
+                f"timeouts {r.get('timeouts')}")
     return lines
 
 
@@ -170,6 +227,8 @@ def main() -> int:
             failures.append(f"{len(violations)} schema violation(s)")
 
     for line in step_time_section(records):
+        print(line)
+    for line in serving_section(records):
         print(line)
     for line in counters_section(records):
         print(line)

@@ -20,8 +20,7 @@ Fault kinds:
 * ``kill_mid_save@K`` -- same, but between the array-file writes, leaving a
   torn tmp dir (which restore must never pick up).
 
-Serving-path faults (the reference's serving engine consumes them; the
-port parses them and has no serving path yet):
+Serving-path faults (``repro_torch.serving.engine`` fires them):
 
 * ``slow_step@NxS`` -- host-level: the engine sleeps S wall seconds (default
   0.05) inside scheduler iteration N, simulating a straggler / preempted
@@ -126,6 +125,15 @@ class FaultPlan:
                 return f
         return None
 
+    def serve_fault(self, step: int) -> Optional[Fault]:
+        """The serving-path fault scheduled for scheduler iteration ``step``
+        (``slow_step`` / ``corrupt_cache``; kills go through
+        :func:`crash_point` with point ``"serve.decode"``)."""
+        for f in self.faults:
+            if f.kind in SERVE_KINDS and f.step == step:
+                return f
+        return None
+
     def without_kills(self) -> "FaultPlan":
         """The plan a restarted process should run under: replayed steps
         re-inject grad faults deterministically, but re-arming a kill at a
@@ -161,7 +169,8 @@ def active() -> Optional[FaultPlan]:
 
 
 def crash_point(point: str, step: Optional[int] = None) -> None:
-    """Called from ``checkpoint.save`` at its crash-injection points.
+    """Called from ``checkpoint.save`` at its crash-injection points, and from
+    the serving engine's decode loop (``"serve.decode"``).
 
     SIGKILLs the current process -- no atexit, no cleanup, exactly what a
     preemption looks like -- when either the active :class:`FaultPlan` or

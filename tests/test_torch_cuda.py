@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels and serving path on the card, against their plain
+PyTorch versions and the CPU.
 
 Marked ``cuda``: each test asks the ``card`` fixture for the device, and the
 fixture skips where there is none, so the CPU run collects the same tests
@@ -371,3 +372,109 @@ def test_snapshot_round_trip_card_to_cpu_and_back(card, tmp_path):
     for path_, v in state.opt_state.inner["adamw"].mu.items():
         assert torch.equal(back_o.inner["adamw"].mu[path_], v)
     assert _states_equal((back_p, back_o), (state.params, state.opt_state))
+
+
+# ---------------------------------------------------------------------------
+# The serving path on the card (no kernel of its own: plain PyTorch, held to
+# the CPU). Logits to 1e-4 absolute on values of O(1), fp32 with TF32 off;
+# greedy tokens and the engine's event stream exactly.
+# ---------------------------------------------------------------------------
+
+def _serve_model(device, window=None):
+    import dataclasses
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("gemma2-9b").reduced()
+    if window is not None:
+        cfg = dataclasses.replace(cfg, window_size=window)
+    params = init_params(cfg, seed=0, device="cpu")
+    return cfg, tree_lib.tree_map(lambda p: p.to(device), params)
+
+
+def test_prefill_and_decode_on_the_card_track_the_cpu(card):
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.serving.serve_step import cache_from_prefill
+
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, 512, (2, 16), generator=gen)
+    pos = torch.tensor([9, 15])
+    outs = {}
+    for device in ("cpu", card):
+        cfg, params = _serve_model(device, window=4)
+        with torch.no_grad():
+            logits_p, pcache = prefill(params, {"tokens": tokens[:, :8].to(device)}, cfg)
+            cache = cache_from_prefill(pcache, cfg, 16, dtype=torch.float32)
+            steps = []
+            for t in range(8, 16):
+                lg, cache = decode_step(params, tokens[:, t:t + 1].to(device), cache, t, cfg)
+                steps.append(lg)
+            # one more step with the rows at their own positions
+            rows, _ = decode_step(params, tokens[torch.arange(2), pos][:, None].to(device), cache,
+                                  pos.to(device), cfg)
+        outs[str(device)] = [logits_p, cache["kv"][0], *steps, rows]
+    for a, b in zip(outs["cpu"], outs[str(card)]):
+        assert b.is_cuda
+        assert float((b.cpu() - a).abs().max()) <= 1e-4
+
+
+def _run_engine(device, plan=None):
+    from repro_torch.obs.bus import Bus, MemorySink
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    from repro_torch.training.faults import FaultPlan, set_active
+
+    cfg, params = _serve_model(device)
+    bus = Bus([MemorySink()])
+    eng = ServingEngine(params, cfg, EngineConfig(slots=3, block_size=16, max_model_len=128,
+                                                  num_blocks=24, max_prompt_len=112,
+                                                  max_new_tokens=16),
+                        bus=bus, fault_plan=FaultPlan.parse(plan) if plan else None)
+    gen = torch.Generator().manual_seed(1)
+    for i, n in enumerate((100, 70, 20, 5)):
+        prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
+        assert eng.submit(Request(rid=f"r{i}", prompt=prompt, max_new_tokens=16 - 4 * i), 0.0)
+    t = 0.0
+    while not eng.idle:
+        eng.step(t)
+        t += 1.0
+    set_active(None)
+    events = [{k: v for k, v in r.items() if k not in ("ts", "dur_s")}
+              for r in bus.sinks[0].records]
+    return eng, [(r.rid, r.state, r.reason, r.tokens) for r in eng.finished], events
+
+
+@pytest.mark.parametrize("plan", [None, "corrupt_cache@2"])
+def test_engine_on_the_card_gives_the_cpu_tokens_and_events(card, plan):
+    eng, finished, events = _run_engine(card, plan)
+    assert eng.kv.k.is_cuda and eng.outstanding_blocks() == 0
+    _, cpu_finished, cpu_events = _run_engine("cpu", plan)
+    assert finished == cpu_finished
+    assert events == cpu_events
+
+
+def test_paged_pool_is_written_in_place_on_the_card(card):
+    """A decode step allocates nothing of the pool's size: the pools keep
+    their storage, and the step's peak allocation above what was live
+    stays a fraction of the pool (the per-layer windows and activations)."""
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    cfg, params = _serve_model(card)
+    eng = ServingEngine(params, cfg, EngineConfig(slots=2, block_size=4, max_model_len=32,
+                                                  num_blocks=4096, max_prompt_len=16,
+                                                  max_new_tokens=8))
+    pool_bytes = 2 * eng.kv.k.numel() * eng.kv.k.element_size()
+    ptrs = (eng.kv.k.data_ptr(), eng.kv.v.data_ptr())
+    for i in range(2):
+        assert eng.submit(Request(rid=f"r{i}", prompt=torch.arange(10 + i).numpy(),
+                                  max_new_tokens=8), 0.0)
+    eng.step(0.0)  # admission (prefill) and a first decode
+    for t in range(1, 4):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng.step(float(t))
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - before < pool_bytes / 8
+        assert (eng.kv.k.data_ptr(), eng.kv.v.data_ptr()) == ptrs

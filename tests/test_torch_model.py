@@ -30,7 +30,7 @@ from repro.models.model import loss_fn as j_loss_fn
 from repro.models.transformer import forward as j_forward
 from repro_torch import interop
 from repro_torch import tree as tree_lib
-from repro_torch.configs import PAPER_CONFIGS, get_config
+from repro_torch.configs import ARCHS, PAPER_CONFIGS, get_config
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models import layers
 from repro_torch.models.model import cross_entropy, forward, init_params, loss_fn
@@ -52,7 +52,7 @@ def _close(out, expect, rtol=RTOL, atol=ATOL):
 # Configs, weights, data
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", sorted(PAPER_CONFIGS))
+@pytest.mark.parametrize("name", sorted(PAPER_CONFIGS) + sorted(ARCHS))
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_match_reference(name, reduced):
     port, ref = get_config(name), j_get_config(name)
@@ -149,12 +149,15 @@ def test_attention_block_matches_reference():
          "wv": _rand((d, hkv * hd), 13, 0.2), "wo": _rand((hq * hd, d), 14, 0.2)}
     inv = layers.rope_frequencies(hd)
     kw = dict(num_heads=hq, num_kv_heads=hkv, head_dim=hd)
-    out = layers.attention_block(torch.from_numpy(x), interop.params_from_numpy(p, device="cpu"),
-                                 positions=torch.arange(6), inv_freq=inv, window=4, **kw)
-    expect, _ = j_layers.attention_block(jnp.asarray(x), jax.tree.map(jnp.asarray, p),
-                                         positions=jnp.arange(6),
-                                         inv_freq=jnp.asarray(inv.numpy()), window=4, **kw)
+    out, (k, v) = layers.attention_block(
+        torch.from_numpy(x), interop.params_from_numpy(p, device="cpu"),
+        positions=torch.arange(6), inv_freq=inv, window=4, **kw)
+    expect, (jk, jv) = j_layers.attention_block(jnp.asarray(x), jax.tree.map(jnp.asarray, p),
+                                                positions=jnp.arange(6),
+                                                inv_freq=jnp.asarray(inv.numpy()), window=4, **kw)
     _close(out, expect)
+    _close(k, jk)  # the post-RoPE K/V, what prefill caches
+    _close(v, jv)
 
 
 def test_cross_entropy_ignores_label_minus_one():
