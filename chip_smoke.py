@@ -6,8 +6,9 @@ Run from the repository root on a machine with a card and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the port's hand-written CUDA kernels from ``src/repro_torch`` and
-drives the port end to end on four paths: the MuonBP baseline and the
-optimizer variants NorMuon, Turbo-Muon and Dion.
+drives the port end to end: the MuonBP baseline and the optimizer variants
+NorMuon, Turbo-Muon and Dion on the dense model, MuonBP on the
+Mixture-of-Experts model, and serving of both.
 
   1. device   -- the card's name and power limit (nvidia-smi), device count;
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
@@ -29,7 +30,17 @@ optimizer variants NorMuon, Turbo-Muon and Dion.
                  against the one from the plain versions on the same
                  gradients and state; no launch of the path, tiled or
                  fused, packs an operand;
-  5. resilience -- the hardened launcher at full width (MuonBP, bf16,
+  5. train_moe -- MuonBP on expert stacks: full-width olmoe-1b-7b (d 2048,
+                 64 experts top-8 of d_ff 1024) cut to 4 of its 16 layers,
+                 through the launcher (8-way block grid, batch 4 x seq 1024,
+                 bf16, --obs-block): six steps (full, block x4, full), loss,
+                 load_balance and z_loss each step, the launches and NS
+                 buckets of each phase, the update from the kernels against
+                 the plain versions in both phases, and each kernel against
+                 its plain version, and timed, at the buckets the MoE path
+                 adds (64 x 2048 router units, 128 x 2048 expert blocks,
+                 1024 x 2048 expert units);
+  6. resilience -- the hardened launcher at full width (MuonBP, bf16,
                  --guard --guard-warmup 2 --fault-plan
                  nan_grads@2,spike_loss@4x8 --obs-block, constant LR): run A,
                  nine guarded steps, whose skipped steps 2 and 4 launch no
@@ -44,10 +55,10 @@ optimizer variants NorMuon, Turbo-Muon and Dion.
                  position, and steps 7-8 against run A's; the kill drill
                  (chaos_run with kill_mid_save and kill_in_save) on the
                  reduced model;
-  6. reference -- six reduced steps on the card against the same steps on
+  7. reference -- six reduced steps on the card against the same steps on
                  the CPU (plain versions), from the same weights, for the
                  baseline and for NorMuon;
-  7. serve    -- the serving path, which launches none of the kernels:
+  8. serve    -- the serving path, which launches none of the kernels:
                  full-width gemma2-9b (42 layers, fp32 parameters from
                  init_params(seed=0), a bf16 paged KV pool) behind the
                  continuous-batching engine (4 slots, blocks of 16, a
@@ -71,7 +82,19 @@ optimizer variants NorMuon, Turbo-Muon and Dion.
                  traced window, one decode step's eager wall against the
                  same step as one CUDA graph (host or device), the pool's
                  bytes and the peak memory;
-  8. times    -- each kernel, its plain version and the one-call PyTorch
+  9. serve_moe -- full-depth olmoe-1b-7b in fp32 with the bf16 paged pool
+                 behind the engine (4 slots, a 2176-token window), six
+                 greedy requests of 2048, 1024, 512, 128, 64 and 16 prompt
+                 tokens to idle: every one completes, every block comes back,
+                 each one's tokens equal generate's on its prompt alone (the
+                 engine routes each slot alone, as the reference's per-slot
+                 step; the near-tie rule as above); decode after a
+                 1024-token prefill against teacher forcing on the dropless
+                 config; the reduced olmoe-1b-7b and mixtral-8x7b card
+                 against CPU. It prints the TTFT wall per prompt length,
+                 the serve_decode percentiles, decode tokens/s at 4 slots
+                 beside the bound and the peak memory;
+ 10. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
                  the least time the card could take for the same work; the
                  tiled Gram with its B operand K-major and N-major (the
@@ -150,6 +173,30 @@ SERVE_KILL_ARGV = ["--reduced", "--steps", "10", "--rate", "1", "--slots", "2",
                    "--block-size", "4", "--num-blocks", "32", "--max-model-len", "32",
                    "--max-prompt-len", "16", "--max-new-tokens", "8", "--prompt-lens", "8",
                    "--new-tokens", "8", "--seed", "0", "--fault-plan", "kill_in_decode@3"]
+
+# The MoE paths: olmoe-1b-7b (16 layers, d 2048, 16/16 heads of 128, 64
+# experts top-8 of d_ff 1024, vocab 50304, untied). Training runs 4 of its
+# 16 layers at full width (the whole model's fp32 master, gradients and
+# momentum would take ~94 GB); serving runs all 16 in fp32 (27.7 GB).
+MOE_ARCH = "olmoe-1b-7b"
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_ARGV = ["--arch", MOE_ARCH, "--optimizer", "muonbp", "--period", "5",
+                  "--mesh-model", "8", "--batch", "4", "--seq", "1024", "--obs-block",
+                  "--steps", "6"]
+# The NS buckets the MoE path adds, on the small side, at 4 layers and an
+# 8-way grid: the router's 64 x 2048 units in both phases (fewer rows than
+# the kernels' 128-row tile), the block phase's 128 x 2048 expert blocks
+# (wi/wg: 2 x 4 x 64 x 8 of them) and the full phase's 1024 x 2048 expert
+# units (wo: 4 x 64 of them; over the fused chain's 25 MB budget).
+MOE_ROUTER = (4, 64, 2048)
+MOE_EXPERT_BLOCK = (4096, 128, 2048)
+MOE_EXPERT_FULL = (256, 1024, 2048)
+MOE_SERVE_ENGINE = dict(slots=4, block_size=16, max_model_len=2176, num_blocks=512,
+                        max_prompt_len=2112, max_new_tokens=64)
+MOE_SERVE_PROMPTS = (2048, 1024, 512, 128, 64, 16)
+MOE_SERVE_NEW = (64, 32)
+MOE_TF_PREFIX, MOE_TF_STEPS = 1024, 32
+MOE_SMALL_ARCHS = ("olmoe-1b-7b", "mixtral-8x7b")
 
 # Tolerances, relative to max|plain|. Single products: the kernels' 3xTF32
 # tensor-core sums (tiled and fused alike), in another order than cuBLAS's
@@ -427,14 +474,16 @@ def matrix_optimizer(label: str, block_specs, strategy):
                 ns_strategy=strategy, variant=None if label == "muonbp" else label)
 
 
-def check_update(label: str, run, phases, breakdown: dict) -> None:
+def check_update(label: str, run, phases, breakdown: dict, tag: str = "",
+                 profile: bool = False) -> None:
     """The path's matrix update from the kernels against the plain versions.
 
     Both start from the run's final optimizer state and the same gradients;
     each update is timed (the second of two calls, host clock around a
     synchronised update), with the forward and backward beside them: where
     the step's time goes. For the plain update the NorMuon epilogue runs its
-    plain version too.
+    plain version too. ``profile``: one more update with the kernels under
+    torch.profiler, its device time by kernel.
     """
     import torch
 
@@ -444,6 +493,7 @@ def check_update(label: str, run, phases, breakdown: dict) -> None:
     from repro_torch.kernels import normuon
     from repro_torch.training.train_step import loss_and_grads
 
+    tag = tag or f"train:{label}"
     params, cfg = run.state.params, run.cfg
     batch = next(iter(SyntheticLM(cfg, 4, 1024, seed=1)))
     batch = {k: torch.from_numpy(v).to(device="cuda", dtype=torch.long) for k, v in batch.items()}
@@ -458,7 +508,7 @@ def check_update(label: str, run, phases, breakdown: dict) -> None:
     loss_and_grads(params, batch, cfg)
     (_, _, grads), fwd_bwd_ms = timed(lambda: loss_and_grads(params, batch, cfg))
     breakdown["fwd_bwd_ms"] = fwd_bwd_ms
-    log(f"[train:{label}] forward+backward (bf16 compute) {fwd_bwd_ms:.1f} ms")
+    log(f"[{tag}] forward+backward (bf16 compute) {fwd_bwd_ms:.1f} ms")
     labels = label_tree(params)
     only_muon = lambda t: tree_lib.tree_map(lambda x, l: x if l == "muon" else None, t, labels)
     g_m, p_m = only_muon(grads), only_muon(params)
@@ -472,14 +522,24 @@ def check_update(label: str, run, phases, breakdown: dict) -> None:
             if strategy == "plain":
                 normuon.neuron_norm = normuon.neuron_norm_plain
             opt.update(g_m, state, p_m, phase)
-            (upd, _), ms = timed(lambda: opt.update(g_m, state, p_m, phase))
+            (upd, new_state), ms = timed(lambda: opt.update(g_m, state, p_m, phase))
             normuon.neuron_norm = kernel_norm
-            outs[strategy] = tree_lib.flatten_with_path(upd)
+            if profile and strategy is None:
+                del upd, new_state
+                profile_update(tag, phase, lambda: opt.update(g_m, state, p_m, phase))
+                (upd, new_state), _ = timed(lambda: opt.update(g_m, state, p_m, phase))
+            # The kernels' update waits on the host while the plain one runs:
+            # at full-width MoE the card holds one update tree and its
+            # transients beside the state, not two.
+            outs[strategy] = [(k, v.cpu() if strategy is None else v)
+                              for k, v in tree_lib.flatten_with_path(upd)]
+            del upd, new_state
+            torch.cuda.empty_cache()
             breakdown[f"update_{phase}_{'kernels' if strategy is None else 'plain'}_ms"] = ms
-        err = max(float((u.double() - v.double()).abs().max())
+        err = max(float((u.to(v.device).double() - v.double()).abs().max())
                   for (_, u), (_, v) in zip(outs[None], outs["plain"]))
         scale = max(float(v.abs().max()) for _, v in outs["plain"])
-        log(f"[train:{label}] update {phase}: kernels vs plain max_abs_err {err:.3e} "
+        log(f"[{tag}] update {phase}: kernels vs plain max_abs_err {err:.3e} "
             f"rel {err / scale:.3e} (tol {UPDATE_TOL:g}); "
             f"{breakdown[f'update_{phase}_kernels_ms']:.1f} ms with the kernels, "
             f"{breakdown[f'update_{phase}_plain_ms']:.1f} ms plain")
@@ -555,6 +615,156 @@ def phase_train(launches: dict) -> None:
         log(f"[train:{label}] breakdown {json.dumps(breakdown)}")
         del run
         torch.cuda.empty_cache()
+
+
+def phase_train_moe(smi: str, errors: dict) -> None:
+    """MuonBP on the expert stacks: six steps of full-width olmoe-1b-7b cut
+    to MOE_TRAIN_LAYERS layers, through the launcher with the 8-way grid;
+    launch and bucket counts a step, the update from the kernels against the
+    plain versions in both phases, and the kernels at the new bucket shapes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core.muon import phase_for_step
+    from repro_torch.launch import train
+    from repro_torch.obs import get_bus
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    log(f"[train_moe] python -m repro_torch.launch.train {' '.join(MOE_TRAIN_ARGV)}, "
+        f"cfg=dataclasses.replace(get_config({MOE_ARCH!r}), num_layers={MOE_TRAIN_LAYERS})")
+    per_step, last = [], {}
+
+    def on_step(rec):
+        counts = dict(kernels.launch_counts())
+        counts.update({k: v for k, v in get_bus().counters.items() if k.startswith("ns_launch.")})
+        step = {k: v - last.get(k, 0) for k, v in counts.items()}
+        last.update(counts)
+        per_step.append((rec["phase"], step))
+        buckets = {k.rsplit(".", 1)[1]: v for k, v in step.items() if k.startswith("ns_launch.")}
+        launches = {k: v for k, v in step.items() if not k.startswith("ns_launch.")}
+        log(f"[train_moe] step {rec['step']} phase {rec['phase']} loss {rec['loss']:.4f} "
+            f"load_balance {rec['load_balance']:.5f} z_loss {rec['z_loss']:.4f} "
+            f"wall {rec['dur_s']:.3f} s (--obs-block) launches {launches} buckets {buckets}")
+
+    kernels.reset_launch_counts()
+    run = train.run(MOE_TRAIN_ARGV, cfg=cfg, on_step=on_step)
+    counts = kernels.launch_counts()
+    train_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in tree_lib.leaves(run.state.params))
+    log(f"[train_moe] {n_params} parameters; launches on the path: {counts}, "
+        f"{kernels.packed_launches()} of them packed an operand; peak memory "
+        f"{train_peak / 2**30:.2f} GiB")
+    records = run.records
+    phases = [r["phase"] for r in records]
+    if phases != [phase_for_step(t, 5) for t in range(len(records))]:
+        fail(f"train_moe: unexpected phases {phases}")
+    for r in records:
+        values = (r["loss"], r["load_balance"], r["z_loss"])
+        if not all(v == v and abs(v) != float("inf") for v in values):
+            fail(f"train_moe: non-finite metrics at step {r['step']}: {values}")
+    for name in MAIN_PATH_KERNELS:
+        if counts[name] <= 0:
+            fail(f"train_moe: kernel {name} never launched on its path")
+    for phase in ("block", "full"):
+        step = next(c for p, c in per_step if p == phase)
+        log(f"[train_moe] a {phase} step: launches "
+            f"{ {k: v for k, v in step.items() if not k.startswith('ns_launch.')} }, "
+            f"NS buckets {sum(v for k, v in step.items() if k.startswith('ns_launch.'))}")
+    walls = {p: [r["dur_s"] for r in records[1:] if r["phase"] == p] for p in ("block", "full")}
+    breakdown = {"step_wall_s": [r["dur_s"] for r in records], "phases": phases,
+                 "steady_step_wall_s": walls}
+    check_update("muonbp", run, ("block", "full"), breakdown, tag="train_moe", profile=True)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train_moe] breakdown {json.dumps(breakdown)}")
+    del run
+    torch.cuda.empty_cache()
+    moe_buckets(errors)
+    log(f"[train_moe] card: {smi}; peak memory {peak / 2**30:.2f} GiB (the six steps "
+        f"{train_peak / 2**30:.2f} GiB); phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def moe_buckets(errors: dict) -> None:
+    """Each NS kernel against its plain version at the bucket shapes the MoE
+    path adds, and its time beside the plain version's and the bound."""
+    import torch
+
+    from repro_torch.core.newton_schulz import PAPER_COEFFS
+    from repro_torch.kernels.newton_schulz import fused, ops
+    from repro_torch.kernels.newton_schulz import newton_schulz as tiled
+
+    a, b, c = PAPER_COEFFS
+    times = {}
+
+    def check(name, label, out, ref, tol):
+        """``name``: the kernel whose error this is; None for a chain of both
+        tiled products."""
+        err, rel = rel_err(out, ref)
+        log(f"[train_moe] {name or 'tiled chain'} {label}: max_abs_err {err:.3e} rel {rel:.3e} "
+            f"(tol {tol:g}) {'ok' if rel <= tol else 'FAIL'}")
+        if name is not None:
+            errors[name] = max(errors.get(name, 0.0), err)
+        if not rel <= tol:
+            fail(f"{name or 'tiled chain'} {label} disagrees with its plain version")
+
+    def timed(label, fn, plain, flops, nbytes, iters):
+        ms, plain_ms = cuda_ms(fn, iters), cuda_ms(plain, iters)
+        bms, kind = bound_ms(TC_PASSES * flops, nbytes, TF32_FLOPS)
+        times[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": kind}
+        log(f"[train_moe] time {label}: {ms:.3f} ms (plain {plain_ms:.3f}, 3xTF32 bound "
+            f"{bms:.3f} ms by {kind}, {bms / ms:.1%} of bound)")
+
+    for shape, seed in ((MOE_ROUTER, 40), (MOE_EXPERT_BLOCK, 41)):
+        x = unit_inputs(shape, seed)
+        label = "x".join(map(str, shape))
+        check("ns_fused_chain", f"{label} x{NS_STEPS} steps", fused.ns_chain(x, PAPER_COEFFS, NS_STEPS),
+              fused.ns_chain_plain(x, PAPER_COEFFS, NS_STEPS), CHAIN_TOL)
+        timed(f"ns_fused_chain {label} x{NS_STEPS}",
+              lambda: fused.ns_chain(x, PAPER_COEFFS, NS_STEPS),
+              lambda: fused.ns_chain_plain(x, PAPER_COEFFS, NS_STEPS),
+              NS_STEPS * ns_step_flops(*shape), 4.0 * 2 * x.numel(), 2)
+        # The gate sends these buckets to the fused chain; the tiled chain
+        # (three product launches a step) beside it.
+        times[f"tiled chain {label} x{NS_STEPS}"] = {"ms": cuda_ms(
+            lambda: ops.orthogonalize(x, steps=NS_STEPS, normalize=False), 2)}
+        log(f"[train_moe] time tiled chain {label} x{NS_STEPS}: "
+            f"{times[f'tiled chain {label} x{NS_STEPS}']['ms']:.3f} ms")
+        del x
+        torch.cuda.empty_cache()
+
+    B, m, n = MOE_EXPERT_FULL
+    x = unit_inputs(MOE_EXPERT_FULL, 42)
+    xt = x.transpose(-1, -2)
+    label = f"{B}x{m}x{n}"
+    gram = tiled.matmul(x, xt, symmetric=True)
+    check("ns_matmul", f"gram {label}", gram, tiled.matmul_plain(x, xt), PRODUCT_TOL)
+    poly = tiled.fma_matmul(gram, gram, gram, alpha=b, beta=c, symmetric=True)
+    check("ns_fma_matmul", f"poly bA+cA^2 {B}x{m}x{m}", poly,
+          tiled.fma_matmul_plain(gram, gram, gram, alpha=b, beta=c), PRODUCT_TOL)
+    check("ns_fma_matmul", f"update aX+PX {label}", tiled.fma_matmul(poly, x, x, alpha=a, beta=1.0),
+          tiled.fma_matmul_plain(poly, x, x, alpha=a, beta=1.0), PRODUCT_TOL)
+    check(None, f"{label} x{NS_STEPS} steps",
+          ops.orthogonalize(x, steps=NS_STEPS, normalize=False),
+          fused.ns_chain_plain(x, PAPER_COEFFS, NS_STEPS), CHAIN_TOL)
+    timed(f"ns_matmul gram {label}", lambda: tiled.matmul(x, xt, symmetric=True),
+          lambda: tiled.matmul_plain(x, xt), B * m * (m + 1.0) * n,
+          4.0 * (B * m * n + B * m * m), 3)
+    timed(f"ns_fma_matmul poly {B}x{m}x{m}",
+          lambda: tiled.fma_matmul(gram, gram, gram, alpha=b, beta=c, symmetric=True),
+          lambda: tiled.fma_matmul_plain(gram, gram, gram, alpha=b, beta=c),
+          B * m * m * (m + 1.0), 4.0 * 2 * B * m * m, 3)
+    timed(f"ns_fma_matmul update {label}", lambda: tiled.fma_matmul(poly, x, x, alpha=a, beta=1.0),
+          lambda: tiled.fma_matmul_plain(poly, x, x, alpha=a, beta=1.0), 2.0 * B * m * m * n,
+          4.0 * (B * m * m + 2 * B * m * n), 3)
+    del x, xt, gram, poly
+    torch.cuda.empty_cache()
+    log(f"[train_moe] times at the MoE bucket shapes: {json.dumps(times)}")
 
 
 def state_leaves(tree) -> list:
@@ -863,7 +1073,8 @@ def serve_requests(vocab: int, prompts, new, seed: int) -> list:
                     max_new_tokens=int(rng.choice(new))) for i, n in enumerate(prompts)]
 
 
-def run_engine(params, cfg, engine_kw: dict, requests, plan=None, profile=None):
+def run_engine(params, cfg, engine_kw: dict, requests, plan=None, profile=None,
+               tag: str = "serve"):
     """Submit ``requests`` at t = 0 and step the engine to idle (one virtual
     second a step). Returns (engine, bus records, (positions, active,
     profiled) of each decode step). ``profile`` (A, B): trace the card over
@@ -893,9 +1104,9 @@ def run_engine(params, cfg, engine_kw: dict, requests, plan=None, profile=None):
             if t > 1000:
                 fail("the engine did not reach idle in 1000 steps")
             if profile is not None and eng.step_idx == profile[0]:
-                host_probe(eng)
+                host_probe(eng, tag)
                 profiling[0] = True
-                profile_steps(eng, t, profile[1] - profile[0])
+                profile_steps(eng, t, profile[1] - profile[0], tag)
                 profiling[0] = False
                 t += profile[1] - profile[0]
                 continue
@@ -906,12 +1117,11 @@ def run_engine(params, cfg, engine_kw: dict, requests, plan=None, profile=None):
     return eng, bus.sinks[0].records, decode_log
 
 
-def profile_steps(eng, t: float, n: int) -> None:
+def profile_steps(eng, t: float, n: int, tag: str) -> None:
     """``n`` engine steps under torch.profiler: the first sets the profiler
     up, the other ``n - 1`` are traced. Prints the device time over the host
     wall of the same traced steps, and the kernels that took it, by name."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     traced = []
@@ -928,23 +1138,55 @@ def profile_steps(eng, t: float, n: int) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
         prof.step()
     n -= 1
-    by_name: dict = {}
-    for ev in traced:
-        # Device kernels and copies only: not the schedule's step annotation.
-        if ev.device_type == DeviceType.CUDA and not ev.name.startswith("ProfilerStep"):
-            us, count = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (us + ev.time_range.elapsed_us(), count + 1)
+    by_name = device_kernels(traced)
     busy = sum(us for us, _ in by_name.values())
     launches = sum(c for _, c in by_name.values())
-    log(f"[serve] traced {n} decode steps at {int(eng._active.sum())} active slots: wall "
+    log(f"[{tag}] traced {n} decode steps at {int(eng._active.sum())} active slots: wall "
         f"{wall_us / n / 1e3:.3f} ms a step (profiler on), device busy {busy / n / 1e3:.3f} ms a "
         f"step, {busy / wall_us:.1%} of the same steps' wall; {launches // n} kernel launches "
         f"a step")
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"[serve]   {us / n / 1e3:8.3f} ms a step, {count // n:5d} launches: {name[:110]}")
+        log(f"[{tag}]   {us / n / 1e3:8.3f} ms a step, {count // n:5d} launches: {name[:110]}")
 
 
-def host_probe(eng, reps: int = 3) -> None:
+def device_kernels(events) -> dict:
+    """{name: (device microseconds, launches)} of a torch.profiler trace's
+    device kernels and copies, the schedule's step annotations left out."""
+    from torch.autograd import DeviceType
+
+    by_name: dict = {}
+    for ev in events:
+        if ev.device_type == DeviceType.CUDA and not ev.name.startswith("ProfilerStep"):
+            us, count = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (us + ev.time_range.elapsed_us(), count + 1)
+    return by_name
+
+
+def profile_update(tag: str, phase: str, update) -> None:
+    """One ``update()`` under torch.profiler: its device time by kernel,
+    the NS kernels' share beside everything else (packing, the momentum and
+    epilogue's elementwise passes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_kernels(prof.events())
+    busy = sum(us for us, _ in by_name.values()) / 1e3
+    ns = sum(us for name, (us, _) in by_name.items()
+             if any(k in name for k in ("ns_chain_kernel", "tc_gemm_kernel"))) / 1e3
+    log(f"[{tag}] profiled {phase} update: wall {wall_ms:.3f} ms (profiler on), device busy "
+        f"{busy:.3f} ms, of which the NS kernels {ns:.3f} ms; "
+        f"{sum(c for _, c in by_name.values())} device launches")
+    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[{tag}]   {us / 1e3:8.3f} ms, {count:5d} launches: {name[:110]}")
+
+
+def host_probe(eng, tag: str, reps: int = 3) -> None:
     """Host or device: one decode step at the engine's state, run ``reps``
     times each way. Eager, as the engine runs it: its wall, and the host's
     time to submit it (to the return of the call, before the sync). As one
@@ -966,7 +1208,8 @@ def host_probe(eng, reps: int = 3) -> None:
     def step():
         with torch.no_grad():
             return decode_layers(eng.params, tokens, pos, eng.cfg,
-                                 lambda i: PagedLayer(eng.kv, i, tables, active)).argmax(-1)
+                                 lambda i: PagedLayer(eng.kv, i, tables, active),
+                                 group_rows=True).argmax(-1)
 
     eager = step()
     torch.cuda.synchronize()
@@ -995,12 +1238,12 @@ def host_probe(eng, reps: int = 3) -> None:
     del graph, out
     torch.cuda.empty_cache()
     ms = lambda xs: "/".join(f"{x:.3f}" for x in xs)
-    log(f"[serve] host probe, one decode step at {int(eng._active.sum())} active slots, "
+    log(f"[{tag}] host probe, one decode step at {int(eng._active.sum())} active slots, "
         f"{reps} runs each: eager wall {ms(walls)} ms, of which the host submits it in "
         f"{ms(submits)} ms; as one CUDA graph {ms(replays)} ms (same tokens as eager: {same})")
 
 
-def admission_walls(params, cfg, requests) -> dict:
+def admission_walls(params, cfg, requests, engine_kw: dict = SERVE_ENGINE) -> dict:
     """TTFT wall by prompt length: the engine's own admission (prefill, the
     padded copy into the pool, the first token read on the host) of each
     prompt alone, into an idle engine, synchronized around it."""
@@ -1009,7 +1252,7 @@ def admission_walls(params, cfg, requests) -> dict:
     from repro_torch.obs.bus import Bus
     from repro_torch.serving import EngineConfig, Request, ServingEngine
 
-    eng = ServingEngine(params, cfg, EngineConfig(**SERVE_ENGINE), bus=Bus([]))
+    eng = ServingEngine(params, cfg, EngineConfig(**engine_kw), bus=Bus([]))
     walls, t = {}, 0.0
     for req in sorted(requests, key=lambda r: r.prompt_len):
         one = Request(rid=f"ttft{req.prompt_len}", prompt=req.prompt, max_new_tokens=1)
@@ -1062,15 +1305,74 @@ def same_tokens(label: str, params, cfg, prompt, got, expect) -> str:
     return f"near-tie at token {j} (gap {gap:.3e})"
 
 
+def serve_engine_run(tag: str, params, cfg, engine_kw: dict, requests, param_bytes: int,
+                     kv_token_bytes: int, profile=None):
+    """Run ``requests`` through the engine to idle and check that every one
+    completed and every block came back; print the decode rate at every
+    slot active beside its bound. Returns (finished requests by id, the
+    engine's window, pool bytes, peak memory of the run)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.obs.spans import percentiles
+
+    t0 = time.perf_counter()
+    eng, records, decode_log = run_engine(params, cfg, engine_kw, requests, profile=profile,
+                                          tag=tag)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    pool_bytes = eng.kv.k.numel() * eng.kv.k.element_size() * 2
+    window = eng.kv.window
+    engine_peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] engine {engine_kw}: pool {pool_bytes} bytes ({pool_bytes / 1e9:.3f} GB), "
+        f"window {window} tokens; {eng.step_idx} steps, {len(decode_log)} decode steps in "
+        f"{engine_s:.2f} s; peak memory {engine_peak / 2**30:.2f} GiB")
+    done = {r.rid: r for r in eng.finished}
+    if len(done) != len(requests) or any(r.state != "done" for r in done.values()):
+        fail(f"not every request completed: {[(r.rid, r.state, r.reason) for r in eng.finished]}")
+    if eng.outstanding_blocks() != 0:
+        fail(f"{eng.outstanding_blocks()} blocks outstanding after the run")
+    waited = [r["request"] for r in records if r.get("event") == "admit" and r["queue_wait_s"] > 0]
+    log(f"[{tag}] every request completed, every block came back; waited for a slot: {waited}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # The serve_decode spans (synchronized on the card) against the least
+    # time a step could take: every fp32 parameter and the active slots'
+    # valid KV read once, at the HBM rate. The profiled steps are left out.
+    slots = engine_kw["slots"]
+    spans = [r for r in records if r.get("event") == "span" and r.get("name") == "serve_decode"]
+    if len(spans) != len(decode_log):
+        fail(f"{len(spans)} serve_decode spans for {len(decode_log)} decode steps")
+    spans, decode_log = zip(*[(r, d) for r, d in zip(spans, decode_log) if not d[2]])
+    full = [(r["dur_s"], pos, act) for r, (pos, act, _) in zip(spans, decode_log)
+            if r["active"] == slots]
+    if not full:
+        fail("no decode step ran with every slot active")
+    durs = percentiles([d for d, _, _ in full])
+    wall = sum(d for d, _, _ in full)
+    tokens = slots * len(full)
+    bound = sum(param_bytes + kv_token_bytes * float(np.sum((pos + 1) * act))
+                for _, pos, act in full) / HBM_BYTES_S
+    all_p = percentiles([r["dur_s"] for r in spans])
+    log(f"[{tag}] serve_decode span, all {len(spans)} steps not profiled: "
+        f"p50 {all_p['p50'] * 1e3:.3f} ms, p95 {all_p['p95'] * 1e3:.3f} ms")
+    log(f"[{tag}] decode at {slots} active slots, {len(full)} steps: "
+        f"{tokens} tokens in {wall * 1e3:.3f} ms, {tokens / wall:.2f} tokens/s; a step p50 "
+        f"{durs['p50'] * 1e3:.3f} ms, p95 {durs['p95'] * 1e3:.3f} ms; bound "
+        f"{bound / len(full) * 1e3:.3f} ms a step (bytes: fp32 parameters + active KV at "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s), {bound / wall:.1%} of it over these steps; the "
+        f"window gather copies {slots * window * kv_token_bytes / 1e9:.2f} GB a step")
+    return done, window, pool_bytes, engine_peak
+
+
 def phase_serve(smi: str) -> None:
     """The serving path at full width and its checks (module docstring)."""
-    import numpy as np
     import torch
 
     from repro_torch import tree as tree_lib
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
-    from repro_torch.obs.spans import percentiles
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1083,53 +1385,9 @@ def phase_serve(smi: str) -> None:
         f"({param_bytes / 1e9:.3f} GB), KV {kv_token_bytes} bytes a token in bf16")
 
     requests = serve_requests(cfg.vocab_size, SERVE_PROMPTS, SERVE_NEW, seed=0)
-    t0 = time.perf_counter()
-    eng, records, decode_log = run_engine(params, cfg, SERVE_ENGINE, requests,
-                                          profile=PROFILE_STEPS)
-    torch.cuda.synchronize()
-    engine_s = time.perf_counter() - t0
-    pool_bytes = eng.kv.k.numel() * eng.kv.k.element_size() * 2
-    window = eng.kv.window
-    engine_peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] engine {SERVE_ENGINE}: pool {pool_bytes} bytes ({pool_bytes / 1e9:.3f} GB), "
-        f"window {window} tokens; {eng.step_idx} steps, {len(decode_log)} decode steps in "
-        f"{engine_s:.2f} s; peak memory {engine_peak / 2**30:.2f} GiB")
-    done = {r.rid: r for r in eng.finished}
-    if len(done) != len(requests) or any(r.state != "done" for r in done.values()):
-        fail(f"not every request completed: {[(r.rid, r.state, r.reason) for r in eng.finished]}")
-    if eng.outstanding_blocks() != 0:
-        fail(f"{eng.outstanding_blocks()} blocks outstanding after the run")
-    waited = [r["request"] for r in records if r.get("event") == "admit" and r["queue_wait_s"] > 0]
-    log(f"[serve] every request completed, every block came back; waited for a slot: {waited}")
-    del eng
-    torch.cuda.empty_cache()
-
-    # The serve_decode spans (synchronized on the card) against the least
-    # time a step could take: every fp32 parameter and the active slots'
-    # valid KV read once, at the HBM rate. The profiled steps are left out.
-    spans = [r for r in records if r.get("event") == "span" and r.get("name") == "serve_decode"]
-    if len(spans) != len(decode_log):
-        fail(f"{len(spans)} serve_decode spans for {len(decode_log)} decode steps")
-    spans, decode_log = zip(*[(r, d) for r, d in zip(spans, decode_log) if not d[2]])
-    four = [(r["dur_s"], pos, act) for r, (pos, act, _) in zip(spans, decode_log)
-            if r["active"] == SERVE_ENGINE["slots"]]
-    if not four:
-        fail("no decode step ran with every slot active")
-    durs = percentiles([d for d, _, _ in four])
-    wall = sum(d for d, _, _ in four)
-    tokens = SERVE_ENGINE["slots"] * len(four)
-    bound = sum(param_bytes + kv_token_bytes * float(np.sum((pos + 1) * act))
-                for _, pos, act in four) / HBM_BYTES_S
-    all_p = percentiles([r["dur_s"] for r in spans])
-    log(f"[serve] serve_decode span, all {len(spans)} steps not profiled: "
-        f"p50 {all_p['p50'] * 1e3:.3f} ms, p95 {all_p['p95'] * 1e3:.3f} ms")
-    log(f"[serve] decode at {SERVE_ENGINE['slots']} active slots, {len(four)} steps: "
-        f"{tokens} tokens in {wall * 1e3:.3f} ms, {tokens / wall:.2f} tokens/s; a step p50 "
-        f"{durs['p50'] * 1e3:.3f} ms, p95 {durs['p95'] * 1e3:.3f} ms; bound "
-        f"{bound / len(four) * 1e3:.3f} ms a step (bytes: fp32 parameters + active KV at "
-        f"{HBM_BYTES_S / 1e12:.2f} TB/s), {bound / wall:.1%} of it over these steps; the "
-        f"window gather copies {SERVE_ENGINE['slots'] * window * kv_token_bytes / 1e9:.2f} GB "
-        f"a step")
+    done, window, pool_bytes, engine_peak = serve_engine_run(
+        "serve", params, cfg, SERVE_ENGINE, requests, param_bytes, kv_token_bytes,
+        profile=PROFILE_STEPS)
 
     ttft = admission_walls(params, cfg, requests)
     log(f"[serve] TTFT wall (the engine's admission of the prompt alone: prefill, pool "
@@ -1153,7 +1411,52 @@ def phase_serve(smi: str) -> None:
         f"(engine run {engine_peak / 2**30:.2f} GiB); phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def check_generate(params, cfg, requests, done, window) -> None:
+def phase_serve_moe(smi: str) -> None:
+    """MoE serving: full-depth olmoe-1b-7b in fp32 behind the engine (the
+    module docstring), its tokens against generate, decode against teacher
+    forcing on the dropless config, the reduced MoE models card against
+    CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MOE_ARCH)
+    params = init_params(cfg, seed=0, device="cuda")
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_lib.leaves(params))
+    kv_token_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2  # K, V in bf16
+    log(f"[serve_moe] full-depth {MOE_ARCH}: {param_bytes // 4} fp32 parameters "
+        f"({param_bytes / 1e9:.3f} GB), KV {kv_token_bytes} bytes a token in bf16")
+    requests = serve_requests(cfg.vocab_size, MOE_SERVE_PROMPTS, MOE_SERVE_NEW, seed=3)
+    done, window, pool_bytes, engine_peak = serve_engine_run(
+        "serve_moe", params, cfg, MOE_SERVE_ENGINE, requests, param_bytes, kv_token_bytes,
+        profile=PROFILE_STEPS)
+    ttft = admission_walls(params, cfg, requests, MOE_SERVE_ENGINE)
+    log(f"[serve_moe] TTFT wall (the engine's admission of the prompt alone: prefill, pool "
+        f"copy, first token; synchronized), by prompt length: "
+        f"{json.dumps({k: round(v, 4) for k, v in ttft.items()})}")
+    torch.cuda.empty_cache()
+    check_generate(params, cfg, requests, done, window, tag="serve_moe")
+    # A full forward over t tokens drops other assignments than t decodes of
+    # one: capacity_factor = E / top_k gives each expert every token.
+    dropless = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    teacher_forcing(params, dropless, MOE_TF_PREFIX, MOE_TF_STEPS, tag="serve_moe")
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    for arch in MOE_SMALL_ARCHS:
+        serve_small(arch, tag="serve_moe")
+    log(f"[serve_moe] card: {smi}; pool {pool_bytes} bytes; peak memory {peak / 2**30:.2f} GiB "
+        f"(engine run {engine_peak / 2**30:.2f} GiB); phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_generate(params, cfg, requests, done, window, tag: str = "serve") -> None:
     """Each request's engine tokens against the port's generate on its
     prompt alone, with the engine's window as max_len."""
     import torch
@@ -1169,35 +1472,36 @@ def check_generate(params, cfg, requests, done, window) -> None:
         verdicts[req.rid] = same_tokens(f"{req.rid} ({req.prompt_len} tokens)", params, cfg,
                                         req.prompt, done[req.rid].tokens, expect)
         torch.cuda.empty_cache()
-    log(f"[serve] engine tokens against generate, request by request: {json.dumps(verdicts)} "
+    log(f"[{tag}] engine tokens against generate, request by request: {json.dumps(verdicts)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
-def teacher_forcing(params, cfg) -> None:
-    """Prefill TF_PREFIX tokens, then TF_STEPS decode steps on an fp32
+def teacher_forcing(params, cfg, prefix: int = TF_PREFIX, steps: int = TF_STEPS,
+                    tag: str = "serve") -> None:
+    """Prefill ``prefix`` tokens, then ``steps`` decode steps on an fp32
     cache, against the forward over the whole sequence."""
     import torch
 
     from repro_torch.models.model import decode_step, forward, prefill
     from repro_torch.serving.serve_step import cache_from_prefill
 
-    total = TF_PREFIX + TF_STEPS
+    total = prefix + steps
     gen = torch.Generator().manual_seed(11)
     tokens = torch.randint(0, cfg.vocab_size, (1, total), generator=gen).to("cuda")
     t0 = time.perf_counter()
     with torch.no_grad():
-        full = forward(params, tokens, cfg)[0, TF_PREFIX - 1:].clone()
-        logits_p, pcache = prefill(params, {"tokens": tokens[:, :TF_PREFIX]}, cfg)
+        full = forward(params, tokens, cfg)[0, prefix - 1:].clone()
+        logits_p, pcache = prefill(params, {"tokens": tokens[:, :prefix]}, cfg)
         errs = [float((logits_p[0, -1] - full[0]).abs().max())]
         del logits_p
         cache = cache_from_prefill(pcache, cfg, total, dtype=torch.float32)
         del pcache
-        for j in range(TF_STEPS):
-            t = TF_PREFIX + j
+        for j in range(steps):
+            t = prefix + j
             lg, cache = decode_step(params, tokens[:, t:t + 1], cache, t, cfg)
             errs.append(float((lg[0, 0] - full[j + 1]).abs().max()))
     rel = max(errs) / float(full.abs().max())
-    log(f"[serve] decode after a {TF_PREFIX}-token prefill, {TF_STEPS} steps on an fp32 cache, "
+    log(f"[{tag}] decode after a {prefix}-token prefill, {steps} steps on an fp32 cache, "
         f"against teacher forcing: max abs diff {max(errs):.3e}, {rel:.3e} of max|logit| "
         f"(tol {DECODE_TOL:g}); {time.perf_counter() - t0:.1f} s")
     if not rel <= DECODE_TOL:
@@ -1230,7 +1534,7 @@ def corrupt_run(params, cfg) -> None:
         f"{len(hit['s0'][2])} tokens; s1, s2 token for token as without the fault")
 
 
-def serve_small() -> None:
+def serve_small(arch: str = SERVE_ARCH, tag: str = "serve") -> None:
     """The reduced model's seeded trace on the card against the CPU."""
     import torch
 
@@ -1238,7 +1542,7 @@ def serve_small() -> None:
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
 
-    cfg = get_config(SERVE_ARCH).reduced()
+    cfg = get_config(arch).reduced()
     base = init_params(cfg, seed=0, device="cpu")
     runs = {}
     for device in ("cpu", "cuda"):
@@ -1255,7 +1559,7 @@ def serve_small() -> None:
     same_events = runs["cuda"][1] == runs["cpu"][1]
     if all(v == "equal" for v in verdicts.values()) and not same_events:
         fail("reduced run: equal tokens on the card and the CPU but other events")
-    log(f"[serve] reduced {SERVE_ARCH}, engine {SMALL_ENGINE}, card against CPU: "
+    log(f"[{tag}] reduced {arch}, engine {SMALL_ENGINE}, card against CPU: "
         f"{json.dumps(verdicts)}; event streams (no ts, dur_s) equal: {same_events}")
 
 
@@ -1454,9 +1758,11 @@ def main() -> int:
     phase_build()
     phase_kernels(errors)
     phase_train(launches)
+    phase_train_moe(device["smi"], errors)
     phase_resilience(device["smi"])
     phase_reference()
     phase_serve(device["smi"])
+    phase_serve_moe(device["smi"])
     rows = phase_times(errors, launches)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     print(device["smi"], flush=True)

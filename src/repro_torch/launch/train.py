@@ -58,7 +58,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import tree as tree_lib
-from repro_torch.configs import get_config
+from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core import adamw, block_muon, combine, label_tree, muon, muon_full
 from repro_torch.core import variants as variants_lib
 from repro_torch.core.muon import phase_for_step
@@ -74,6 +74,8 @@ from repro_torch.training import faults as faults_lib
 from repro_torch.training.train_step import init_train_state, train_step
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# The MoE loss's aux metrics, carried on the step records and run_end.
+AUX_METRICS = ("load_balance", "z_loss")
 
 
 def build_optimizer(name, params, *, lr, adam_lr, period, schedule_fn=None,
@@ -200,9 +202,10 @@ class TrainRun:
     """What one launcher run leaves behind, for callers that inspect it.
 
     ``records`` holds one record a step: ``step``, ``loss`` (unrounded),
-    ``phase``, ``residue``, ``due``, ``dur_s`` (the step span's duration)
-    and, under ``--guard``, ``healthy``, ``skipped``, ``escalation`` and
-    ``lr_scale``.
+    ``phase``, ``residue``, ``due``, ``dur_s`` (the step span's duration),
+    for an MoE model ``load_balance`` and ``z_loss`` (the step's metrics,
+    layer-summed), and, under ``--guard``, ``healthy``, ``skipped``,
+    ``escalation`` and ``lr_scale``.
     """
 
     cfg: Any
@@ -212,13 +215,15 @@ class TrainRun:
     counters: dict
 
 
-def run(argv=None, *, params: Optional[dict] = None,
+def run(argv=None, *, params: Optional[dict] = None, cfg: Optional[ModelConfig] = None,
         on_step: Optional[Callable[[dict], None]] = None,
         before_step: Optional[Callable[[int, Any, dict], None]] = None) -> TrainRun:
     """Parse ``argv`` and train; returns the :class:`TrainRun`.
 
     ``params`` replaces the seeded initialization (tests start both packages
-    from the reference's weights); ``before_step(step, state, batch)`` is
+    from the reference's weights); ``cfg`` replaces the config that
+    ``--arch`` and ``--reduced`` name (a caller's cut in depth, which the
+    reference has no flag for); ``before_step(step, state, batch)`` is
     called just before each step runs, ``on_step(record)`` after it, once its
     loss has been read. An abort raises ``SystemExit(3)``. The bus, the NS
     dispatch hook and the active fault plan are installed for the run and
@@ -242,7 +247,7 @@ def run(argv=None, *, params: Optional[dict] = None,
     try:
         bus.event("run_start", argv=list(sys.argv[1:] if argv is None else argv),
                   args=vars(args))
-        return _train(args, device, bus, plan, params, on_step, before_step)
+        return _train(args, device, bus, plan, params, cfg, on_step, before_step)
     finally:
         faults_lib.set_active(None)
         dispatch.set_launch_hook(None)
@@ -250,17 +255,26 @@ def run(argv=None, *, params: Optional[dict] = None,
         bus.close()
 
 
-def _train(args, device, bus, plan, params, on_step, before_step) -> TrainRun:
+def matrix_block_specs(params, cfg: ModelConfig, mesh_model: int) -> dict:
+    """The MuonBP block grid of every Muon leaf (None for the AdamW leaves)
+    on a declared ``{"model": mesh_model}`` tensor-parallel size."""
+    axis_sizes = {"model": mesh_model}
+    bspecs = sh.block_specs_for(params, sh.param_specs(params, cfg, axis_sizes), axis_sizes)
+    return tree_lib.tree_map(lambda b, l: b if l == "muon" else None, bspecs,
+                             label_tree(params))
+
+
+def _train(args, device, bus, plan, params, cfg, on_step, before_step) -> TrainRun:
     prof_window = parse_profile_window(args.profile_steps) if args.profile_steps else None
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     if params is None:
         params = init_params(cfg, seed=args.seed, device=device)
     axis_sizes = {"model": args.mesh_model}
-    bspecs = sh.block_specs_for(params, sh.param_specs(params, cfg, axis_sizes), axis_sizes)
+    bspecs = matrix_block_specs(params, cfg, args.mesh_model)
     labels = label_tree(params)
-    bspecs = tree_lib.tree_map(lambda b, l: b if l == "muon" else None, bspecs, labels)
 
     sched = {"wsd": lambda peak: wsd(peak, args.steps),
              "cosine": lambda peak: cosine(peak, args.steps),
@@ -370,9 +384,11 @@ def _train(args, device, bus, plan, params, on_step, before_step) -> TrainRun:
         if profiler is not None:
             _stop_profiler(profiler, args.profile_dir, prof_window)
             profiler = None
+        # An MoE run's last aux metrics ride along, as on its step records.
+        aux = {k: records[-1][k] for k in AUX_METRICS if records and k in records[-1]}
         bus.event("run_end", steps=args.steps - start_step,
                   wall_s=round(time.time() - t0, 1), status=status,
-                  counters=dict(bus.counters))
+                  counters=dict(bus.counters), **aux)
 
     t0 = time.time()
     forced_full = False
@@ -402,6 +418,7 @@ def _train(args, device, bus, plan, params, on_step, before_step) -> TrainRun:
         loss = float(metrics["loss"])
         rec = {"step": step, "loss": loss, "phase": phase, "residue": residue, "due": due,
                "dur_s": sp.dur_s}
+        rec.update({k: float(metrics[k]) for k in AUX_METRICS if k in metrics})
         action = "none"
         healthy = None
         if escalator is not None:
@@ -423,6 +440,7 @@ def _train(args, device, bus, plan, params, on_step, before_step) -> TrainRun:
                 or (healthy is not None and not healthy)):
             line = {"step": step, "loss": round(loss, 4), "phase": phase,
                     "residue": residue, "due": due, "wall_s": round(time.time() - t0, 1)}
+            line.update({k: round(rec[k], 6) for k in AUX_METRICS if k in rec})
             if escalator is not None:
                 line.update(healthy=healthy, skipped=rec["skipped"], escalation=action,
                             lr_scale=round(rec["lr_scale"], 4))

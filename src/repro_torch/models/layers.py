@@ -1,4 +1,4 @@
-"""Shared model layers, dense subset: RMSNorm, RoPE, GQA attention, gated MLPs.
+"""Shared model layers: RMSNorm, RoPE, GQA attention, gated MLPs.
 
 Counterpart of ``repro/models/layers.py``. Attention in the reference is
 plain jnp (an online softmax over KV blocks, ``layers.py:128``), not a
@@ -136,7 +136,7 @@ class DenseKV(NamedTuple):
 
 def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
                     positions, inv_freq, causal: bool = True, window=None,
-                    attn_softcap=None, kv_cache=None, cache_index=None):
+                    attn_softcap=None, kv_cache=None, cache_index=None, kv_len=None):
     """Self-attention sub-block: projections + RoPE + attention + out-proj.
 
     Returns ``(out, new_kv)``. Without a cache ``new_kv`` is the post-RoPE
@@ -145,9 +145,9 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
     the same ``write``) the fresh K/V are written at ``cache_index`` (an int
     or (B,) per-row positions) in the cache's dtype, attention runs over the
     whole cache from query position ``cache_index``, keys at and past
-    ``cache_index + Sq`` masked, and ``new_kv`` is what was attended over
-    (the reference's ``kv_len`` override serves its ring cache, not
-    ported). Heads are head-major columns, the reference's single-device
+    ``kv_len`` masked (``cache_index + Sq`` unless given: the reference's
+    override, which its ring cache sets to the ring's fill), and ``new_kv``
+    is what was attended over. Heads are head-major columns, the reference's single-device
     layout; its 'hd' layout and cross-attention belong to the distributed
     and encoder-decoder slices and are not ported yet.
     """
@@ -159,10 +159,11 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
     new_kv = (k, v)
-    q_offset, kv_len = 0, None
+    q_offset = 0
     if kv_cache is not None:
         k, v = new_kv = kv_cache.write(k, v, cache_index)
-        q_offset, kv_len = cache_index, cache_index + s
+        q_offset = cache_index
+        kv_len = cache_index + s if kv_len is None else kv_len
     out = attention(q, k, v, causal=causal, window=window, attn_softcap=attn_softcap,
                     q_offset=q_offset, kv_len=kv_len)
     return out.reshape(b, s, num_heads * head_dim) @ params["wo"], new_kv

@@ -1,4 +1,4 @@
-"""repro_torch.serving -- inference half of the port (dense models).
+"""repro_torch.serving -- inference half of the port (dense and MoE models).
 
 Counterpart of ``repro/serving``. ``serve_step``: single-batch prefill +
 decode loop (the correctness baseline). ``engine``: the continuous-batching

@@ -1,14 +1,14 @@
 """Resilient continuous-batching serving engine.
 
-Counterpart of ``repro/serving/engine.py`` for the dense models. Admission,
+Counterpart of ``repro/serving/engine.py`` for the dense and MoE models. Admission,
 the health ladder, shedding, deadlines, drain and harvest are the
 reference's host code as it is; events, counters and gauges are the same,
 letter for letter. What differs is the decode step (see
 :meth:`ServingEngine._decode_fn`) and sampling, which draws from one
 ``torch.Generator`` a request and step, seeded from ``(req.seed,
 len(req.tokens))`` as the reference folds its key: the same law, other
-random bits than ``jax.random``. The reference also serves MoE archs; the
-port raises for anything but dense until the MoE slice lands.
+random bits than ``jax.random``. Like the reference it serves the dense
+and MoE archs and raises for any other.
 
 One :class:`ServingEngine` owns a fixed set of decode *slots*, a bounded
 request queue, and a block-granular paged KV pool (``kvcache.py``). Every
@@ -163,10 +163,10 @@ class ServingEngine:
         fault_plan: Optional[faults_lib.FaultPlan] = None,
     ):
         """The KV pool lives on the device of ``params``."""
-        if cfg.arch_type != "dense":
+        if cfg.arch_type not in ("dense", "moe"):
             raise NotImplementedError(
-                f"the port's serving engine serves dense archs only, got "
-                f"{cfg.arch_type!r} (MoE serving is not ported yet)")
+                f"serving engine supports decoder-only KV archs (dense/moe), "
+                f"got {cfg.arch_type!r}")
         ecfg.validate()
         self.params = params
         self.cfg = cfg
@@ -394,7 +394,10 @@ class ServingEngine:
         position 0), then every slot's table is gathered into its window
         and attended from its position (:class:`PagedLayer`). The window
         after the write equals the reference's window with the write, and
-        the pool ends the step as the reference's scatter leaves it.
+        the pool ends the step as the reference's scatter leaves it. MoE
+        layers route each slot's token alone (``group_rows``), as the
+        reference's per-slot step does: a slot's capacity is its own, so
+        its tokens never depend on its co-batch.
         """
         dev = self.device
         tables = torch.as_tensor(tables, dtype=torch.long, device=dev)
@@ -402,7 +405,8 @@ class ServingEngine:
         active = torch.as_tensor(active, device=dev)
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)[:, None]
         logits = decode_layers(self.params, tokens, pos, self.cfg,
-                               lambda i: PagedLayer(self.kv, i, tables, active))
+                               lambda i: PagedLayer(self.kv, i, tables, active),
+                               group_rows=True)
         lg = logits[:, 0].to(torch.float32)
         finite = torch.isfinite(lg).all(dim=-1)
         if generators is None:

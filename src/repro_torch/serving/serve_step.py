@@ -1,9 +1,11 @@
 """Serving: batched decode step + prefill-into-buffer + simple generate loop.
 
-Counterpart of ``repro/serving/serve_step.py`` for the dense models. The
-reference's ``compiled_serve_step`` is a cache of ``jax.jit`` executables
-per configuration; eager PyTorch compiles nothing, so it has no counterpart
-and :func:`generate` calls :func:`serve_step` directly. Sampling draws from
+Counterpart of ``repro/serving/serve_step.py`` for the dense and MoE
+models; MoE layers route a decode's whole batch as one group, as the
+reference's ``generate`` does. The reference's ``compiled_serve_step`` is a
+cache of ``jax.jit`` executables per configuration; eager PyTorch compiles
+nothing, so it has no counterpart and :func:`generate` calls
+:func:`serve_step` directly. Sampling draws from
 a ``torch.Generator`` where the reference splits a ``jax.random`` key: the
 same law, other random bits, so sampled tokens differ from the reference's
 (greedy tokens do not).

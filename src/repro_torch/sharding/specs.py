@@ -1,6 +1,6 @@
-"""Partition specs and MuonBP block grids, dense subset, without a mesh.
+"""Partition specs and MuonBP block grids, dense and MoE, without a mesh.
 
-Counterpart of the dense rules of ``repro/sharding/specs.py``
+Counterpart of the dense and MoE rules of ``repro/sharding/specs.py``
 (``attn_layouts``, ``param_specs``, ``block_specs_for``). The reference
 reads only the mesh's axis names and sizes; here they are a declared
 ``{axis: size}`` dict, so ``{"model": 8}`` gives the paper's 8-way
@@ -14,6 +14,9 @@ name. Megatron-style rules over the ``model`` axis:
   does not divide the axis the projection shards on head_dim ('hd' layout),
   and when neither divides it is replicated;
 * MLP: column-parallel wi/wg, row-parallel wo;
+* MoE: the experts' wi/wg column-parallel and wo row-parallel on their
+  trailing two dims (the ``(L, E)`` lead dims whole, so each expert's d_ff
+  splits), the router replicated;
 * norms and everything else replicated.
 """
 
@@ -48,7 +51,7 @@ def attn_layouts(cfg: ModelConfig, model_size: int) -> tuple[Optional[str], Opti
 
 
 def param_specs(params, cfg: ModelConfig, axis_sizes: dict[str, int]) -> dict:
-    """Tree of partition-spec tuples matching ``params`` (dense rules)."""
+    """Tree of partition-spec tuples matching ``params`` (dense and MoE rules)."""
     m = axis_sizes.get(MODEL_AXIS, 1)
     ql, kvl = attn_layouts(cfg, m)
 
@@ -81,7 +84,7 @@ def param_specs(params, cfg: ModelConfig, axis_sizes: dict[str, int]) -> dict:
                 return col(leaf, kvl is not None)
             if name == "wo":
                 return row(leaf, ql is not None)
-        if group == "mlp":
+        if group in ("mlp", "moe"):
             if name in ("wi", "wg"):
                 return col(leaf)
             if name == "wo":

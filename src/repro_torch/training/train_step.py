@@ -94,14 +94,17 @@ def train_step(
             for i in range(accum_steps)
         ]
         grads = None
-        losses = []
+        losses, micro_metrics = [], []
         for mb in micro:
-            loss_i, _, g = loss_and_grads(state.params, mb, cfg, compute_dtype, bf16_grads)
+            loss_i, m_i, g = loss_and_grads(state.params, mb, cfg, compute_dtype, bf16_grads)
             g = tree_lib.tree_map(lambda x: x.to(torch.float32) / accum_steps, g)
             grads = g if grads is None else tree_lib.tree_map(torch.add, grads, g)
             losses.append(loss_i)
+            micro_metrics.append(m_i)
         loss = torch.stack(losses).mean()
-        metrics = {"ce": loss, "loss": loss}
+        # Every metric is the mean over the microbatches, as the reference's.
+        metrics = {k: torch.stack([m[k].detach() for m in micro_metrics]).mean()
+                   for k in micro_metrics[0]}
     else:
         loss, metrics, grads = loss_and_grads(state.params, batch, cfg, compute_dtype, bf16_grads)
     metrics = {k: v.detach() for k, v in metrics.items()}

@@ -478,3 +478,130 @@ def test_paged_pool_is_written_in_place_on_the_card(card):
         torch.cuda.synchronize()
         assert torch.cuda.max_memory_allocated() - before < pool_bytes / 8
         assert (eng.kv.k.data_ptr(), eng.kv.v.data_ptr()) == ptrs
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts: the new bucket shapes, the reduced models, determinism
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ["olmoe-1b-7b", "mixtral-8x7b"]
+
+
+def test_kernels_at_the_router_shape_match_plain(card):
+    """olmoe's 64 x 2048 router units, fewer rows than the kernels' 128-row
+    tile: the fused chain, the three tiled products and the tiled chain."""
+    a, b, c = PAPER_COEFFS
+    x = _rand((4, 64, 2048), 50, card)
+    x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    _assert_rel(fused.ns_chain(x, PAPER_COEFFS, 5), fused.ns_chain_plain(x, PAPER_COEFFS, 5),
+                CHAIN_TOL)
+    xt = x.transpose(-1, -2)
+    gram = tiled.matmul(x, xt, symmetric=True)
+    _assert_rel(gram, tiled.matmul_plain(x, xt), PRODUCT_TOL)
+    assert torch.equal(gram, gram.mT)
+    poly = tiled.fma_matmul(gram, gram, gram, alpha=b, beta=c, symmetric=True)
+    _assert_rel(poly, tiled.fma_matmul_plain(gram, gram, gram, alpha=b, beta=c), PRODUCT_TOL)
+    _assert_rel(tiled.fma_matmul(poly, x, x, alpha=a, beta=1.0),
+                tiled.fma_matmul_plain(poly, x, x, alpha=a, beta=1.0), PRODUCT_TOL)
+    _assert_rel(ops.orthogonalize(x, steps=5, normalize=False),
+                fused.ns_chain_plain(x, PAPER_COEFFS, 5), CHAIN_TOL)
+    assert fused.ns_chain.launches == 1 and tiled.matmul.launches == 1 + 5
+    assert kernels.packed_launches() == 0
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_reduced_moe_training_on_the_card_tracks_the_cpu(card, arch):
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+
+    base = init_params(get_config(arch).reduced(), seed=0, device="cpu")
+    argv = ["--arch", arch, "--reduced", "--mesh-model", "4", "--steps", "3", "--period", "2",
+            "--batch", "2", "--seq", "32", "--compute-dtype", "float32"]
+    cpu = train.run(argv + ["--device", "cpu"], params=base).records
+    gpu = train.run(argv + ["--device", "cuda"],
+                    params=tree_lib.tree_map(lambda p: p.to("cuda"), base)).records
+    assert kernels.launch_counts()["ns_fused_chain"] > 0
+    # fp32, 1e-3 of each value as the dense run's loss above: the aux losses
+    # sum squared router log-sum-exps of ~4 (z_loss) and load shares over
+    # the layers, so the card's summation order shows relative to them.
+    for key in ("loss", "load_balance", "z_loss"):
+        assert max(abs(g[key] - c[key]) / max(1.0, abs(c[key]))
+                   for g, c in zip(gpu, cpu)) <= 1e-3, key
+
+
+def _moe_model(arch, device, **over):
+    import dataclasses
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    params = init_params(cfg, seed=0, device="cpu")
+    return cfg, tree_lib.tree_map(lambda p: p.to(device), params)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_reduced_moe_serving_on_the_card_tracks_the_cpu(card, arch):
+    """Prefill and batched decode (drops at the default capacity) to 1e-4,
+    the ring cache for the sliding-window arch, and the engine's tokens and
+    events, card against CPU."""
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.obs.bus import Bus, MemorySink
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    from repro_torch.serving.serve_step import cache_from_prefill
+
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, 512, (2, 16), generator=gen)
+    outs, engines = {}, {}
+    for device in ("cpu", card):
+        cfg, params = _moe_model(arch, device)
+        with torch.no_grad():
+            logits_p, pcache = prefill(params, {"tokens": tokens[:, :8].to(device)}, cfg)
+            cache = cache_from_prefill(pcache, cfg, 16, dtype=torch.float32)
+            steps = [logits_p]
+            for t in range(8, 16):
+                steps.append(decode_step(params, tokens[:, t:t + 1].to(device), cache, t, cfg)[0])
+            if cfg.attention_pattern == "swa":
+                ring = init_cache(cfg, 2, 6, dtype=torch.float32, device=device)
+                for t in range(16):
+                    steps.append(decode_step(params, tokens[:, t:t + 1].to(device), ring, t, cfg,
+                                             ring_cache=True)[0])
+        outs[str(device)] = steps
+        bus = Bus([MemorySink()])
+        eng = ServingEngine(params, cfg, EngineConfig(slots=3, block_size=16, max_model_len=128,
+                                                      num_blocks=24, max_prompt_len=112,
+                                                      max_new_tokens=16), bus=bus)
+        for i, n in enumerate((100, 70, 20, 5)):
+            assert eng.submit(Request(rid=f"r{i}", prompt=torch.arange(n).numpy() % 500,
+                                      max_new_tokens=16 - 4 * i), 0.0)
+        t = 0.0
+        while not eng.idle:
+            eng.step(t)
+            t += 1.0
+        engines[str(device)] = ([(r.rid, r.state, r.tokens) for r in eng.finished],
+                                [{k: v for k, v in r.items() if k not in ("ts", "dur_s")}
+                                 for r in bus.sinks[0].records])
+    for a, b in zip(outs["cpu"], outs[str(card)]):
+        assert b.is_cuda and float((b.cpu() - a).abs().max()) <= 1e-4
+    assert engines[str(card)] == engines["cpu"]
+
+
+def test_moe_block_is_deterministic_on_the_card(card):
+    """bf16 forward and backward twice on one input: bitwise equal (no
+    atomic adds in the dispatch or the combine)."""
+    from repro_torch.models.moe import moe_block
+
+    x = _rand((4, 256, 128), 60, card).to(torch.bfloat16)
+    w = {"router": _rand((128, 8), 61, card), "wi": _rand((8, 128, 96), 62, card),
+         "wg": _rand((8, 128, 96), 63, card), "wo": _rand((8, 96, 128), 64, card)}
+    runs = []
+    for _ in range(2):
+        xs = x.clone().requires_grad_(True)
+        ws = {k: (0.1 * v).to(torch.bfloat16).requires_grad_(True) for k, v in w.items()}
+        out = moe_block(xs, ws, top_k=2, capacity_factor=1.0, router_style="softmax_topk")
+        (out.y.float().square().sum() + out.load_balance_loss + out.router_z_loss).backward()
+        runs.append([out.y, xs.grad] + [ws[k].grad for k in sorted(ws)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -69,7 +69,7 @@ def test_full_width_muonbp_960m_is_the_papers():
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab_size) == (12, 1536, 16, 4, 96, 6144, 128256)
     with pytest.raises(KeyError):
-        get_config("mixtral-8x7b")
+        get_config("mamba2-1.3b")
 
 
 def test_init_params_paths_shapes_and_law_match_reference():
