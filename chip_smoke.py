@@ -8,7 +8,8 @@ Run from the repository root on a machine with a card and the CUDA toolkit:
 It builds the port's hand-written CUDA kernels from ``src/repro_torch`` and
 drives the port end to end: the MuonBP baseline and the optimizer variants
 NorMuon, Turbo-Muon and Dion on the dense model, MuonBP on the
-Mixture-of-Experts model, and serving of both.
+Mixture-of-Experts model, and serving of both; MuonBP training and
+generate on the SSM, hybrid, VLM and audio models.
 
   1. device   -- the card's name and power limit (nvidia-smi), device count;
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
@@ -94,7 +95,32 @@ Mixture-of-Experts model, and serving of both.
                  against CPU. It prints the TTFT wall per prompt length,
                  the serve_decode percentiles, decode tokens/s at 4 slots
                  beside the bound and the peak memory;
- 10. times    -- each kernel, its plain version and the one-call PyTorch
+ 10. train_ssm -- MuonBP on full-width mamba2-1.3b (d 2048, d_inner 4096,
+                 64 SSM heads of 64, state 128) cut to 24 of its 48 layers,
+                 through the launcher (8-way block grid, batch 4 x seq 1024,
+                 bf16, --obs-block): six steps (full, block x4, full), the
+                 loss, launches (packed ones counted) and NS buckets of each
+                 step, the update from the kernels against the plain
+                 versions in both phases, and each kernel against its plain
+                 version, and timed with its bound, at the buckets the SSM
+                 paths add (2048 x 8 wdt blocks, 24 x 8 per-head scalar
+                 blocks, 2048 x 128 wb/wc units, 2048 x 512 wz/wx blocks,
+                 hymba's packed 32 x 50 scalars, the 2048 x 4096 full-phase
+                 units on the tiled products);
+ 11. serve_ssm -- full-depth mamba2-1.3b in fp32 through generate (batch 4,
+                 a 2048-token prompt, 64 new tokens); the same steps timed
+                 one by one and held to teacher forcing (1e-3 of
+                 max|logit|); the prefill wall and the decode step's p50 /
+                 p95 beside its bound (every fp32 parameter and the SSM
+                 state once);
+ 12. archs    -- hymba-1.5b, internvl2-1b (256 vision tokens) and
+                 whisper-small (1500 encoder frames) at full width: two
+                 MuonBP steps each (full, block) with the update checked
+                 against the plain one, generate of 16 tokens after a
+                 1024-token prompt against teacher forcing, hymba also past
+                 its 1024-token window on the ring cache against the dense
+                 cache; the four reduced models on the card against the CPU;
+ 13. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
                  the least time the card could take for the same work; the
                  tiled Gram with its B operand K-major and N-major (the
@@ -197,6 +223,39 @@ MOE_SERVE_PROMPTS = (2048, 1024, 512, 128, 64, 16)
 MOE_SERVE_NEW = (64, 32)
 MOE_TF_PREFIX, MOE_TF_STEPS = 1024, 32
 MOE_SMALL_ARCHS = ("olmoe-1b-7b", "mixtral-8x7b")
+
+# The SSM, hybrid, VLM and audio paths. mamba2-1.3b (48 layers, d 2048,
+# d_inner 4096, 64 SSM heads of 64, state 128, vocab 50280) trains at
+# SSM_TRAIN_LAYERS of its 48 layers: without the reference's activation
+# checkpointing its saved activations come to ~1.3 GB a layer at 4 x 1024.
+# It serves at full depth in fp32 through generate.
+SSM_ARCH = "mamba2-1.3b"
+SSM_TRAIN_LAYERS = 24
+SSM_TRAIN_ARGV = ["--arch", SSM_ARCH, "--optimizer", "muonbp", "--period", "5",
+                  "--mesh-model", "8", "--batch", "4", "--seq", "1024", "--obs-block",
+                  "--steps", "6"]
+# The NS buckets the SSM path adds, on the small side (m <= n), at 24 layers
+# and an 8-way grid: the block phase's wdt blocks (24 x 8 of 2048 x 8), the
+# per-head scalar blocks (A_log, D, dt_bias: 3 x 8 of 24 x 8), wz/wx blocks
+# (2 x 24 x 8 of 2048 x 512) and the whole wb/wc units (2 x 24 of
+# 2048 x 128); the full phase's wz/wx/out_proj units (72 of 2048 x 4096, on
+# the tiled products). hymba's whole (32, 50) per-head scalars have a
+# 200-byte row stride and are packed for TMA.
+SSM_FUSED_BUCKETS = {"wdt blocks": (192, 8, 2048), "per-head scalar blocks": (24, 8, 24),
+                     "wb/wc units": (48, 128, 2048), "wz/wx blocks": (384, 512, 2048),
+                     "hymba per-head scalars, packed": (3, 32, 50)}
+SSM_TILED = (72, 2048, 4096)
+SSM_SERVE_BATCH, SSM_SERVE_PROMPT, SSM_SERVE_NEW = 4, 2048, 64
+# hymba-1.5b, internvl2-1b and whisper-small at full width and depth: two
+# MuonBP steps (full, block) at batch 2 x 1024, then greedy generate after a
+# 1024-token prompt (internvl2: behind its 256 vision tokens; whisper: over
+# 1500 encoded frames), checked against teacher forcing; hymba also decodes
+# past its 1024-token window on the ring cache against the dense cache.
+ARCHS_TRAINED = ("hymba-1.5b", "internvl2-1b", "whisper-small")
+ARCHS_ARGV = ["--optimizer", "muonbp", "--period", "5", "--mesh-model", "8", "--batch", "2",
+              "--seq", "1024", "--obs-block", "--steps", "2"]
+ARCHS_PROMPT, ARCHS_NEW = 1024, 16
+NEW_ARCHS = ("mamba2-1.3b", "hymba-1.5b", "internvl2-1b", "whisper-small")
 
 # Tolerances, relative to max|plain|. Single products: the kernels' 3xTF32
 # tensor-core sums (tiled and fused alike), in another order than cuBLAS's
@@ -475,7 +534,7 @@ def matrix_optimizer(label: str, block_specs, strategy):
 
 
 def check_update(label: str, run, phases, breakdown: dict, tag: str = "",
-                 profile: bool = False) -> None:
+                 profile: bool = False, batch_shape=(4, 1024)) -> None:
     """The path's matrix update from the kernels against the plain versions.
 
     Both start from the run's final optimizer state and the same gradients;
@@ -491,12 +550,12 @@ def check_update(label: str, run, phases, breakdown: dict, tag: str = "",
     from repro_torch.core import label_tree
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import normuon
+    from repro_torch.launch.train import device_batch
     from repro_torch.training.train_step import loss_and_grads
 
     tag = tag or f"train:{label}"
     params, cfg = run.state.params, run.cfg
-    batch = next(iter(SyntheticLM(cfg, 4, 1024, seed=1)))
-    batch = {k: torch.from_numpy(v).to(device="cuda", dtype=torch.long) for k, v in batch.items()}
+    batch = device_batch(next(iter(SyntheticLM(cfg, *batch_shape, seed=1))), "cuda")
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1584,6 +1643,416 @@ def serve_kill_drill(tmp: str) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def train_path(tag: str, argv: list, cfg, required=MAIN_PATH_KERNELS):
+    """Drive the launcher over ``argv`` (``cfg``: a depth cut or None) with
+    every kernel count set to 0 just before and read just after; a line a
+    step with its loss, wall, launches and NS buckets. Returns (run,
+    counts, per-step counts, peak bytes)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.core.muon import phase_for_step
+    from repro_torch.launch import train
+    from repro_torch.obs import get_bus
+
+    per_step, last = [], {}
+
+    def on_step(rec):
+        counts = dict(kernels.launch_counts())
+        counts["packed"] = kernels.packed_launches()
+        counts.update({k: v for k, v in get_bus().counters.items() if k.startswith("ns_launch.")})
+        step = {k: v - last.get(k, 0) for k, v in counts.items()}
+        last.update(counts)
+        per_step.append((rec["phase"], step))
+        buckets = sum(v for k, v in step.items() if k.startswith("ns_launch."))
+        launches = {k: v for k, v in step.items() if not k.startswith("ns_launch.")}
+        log(f"[{tag}] step {rec['step']} phase {rec['phase']} loss {rec['loss']:.4f} "
+            f"wall {rec['dur_s']:.3f} s (--obs-block) launches {launches} NS buckets {buckets}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[{tag}] python -m repro_torch.launch.train {' '.join(argv)}"
+        + (f", cfg num_layers={cfg.num_layers}" if cfg is not None else ""))
+    kernels.reset_launch_counts()
+    run = train.run(argv, cfg=cfg, on_step=on_step)
+    counts = dict(kernels.launch_counts())
+    packed = kernels.packed_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in tree_lib.leaves(run.state.params))
+    log(f"[{tag}] {n_params} parameters; launches on the path: {counts}, {packed} of them "
+        f"packed an operand (checked against the plain chain in the update below); peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    phases = [r["phase"] for r in run.records]
+    if phases != [phase_for_step(t, 5) for t in range(len(phases))]:
+        fail(f"{tag}: unexpected phases {phases}")
+    if not all(r["loss"] == r["loss"] and abs(r["loss"]) != float("inf") for r in run.records):
+        fail(f"{tag}: non-finite loss {[r['loss'] for r in run.records]}")
+    for name in required:
+        if counts[name] <= 0:
+            fail(f"{tag}: kernel {name} never launched on its path")
+    for phase in dict.fromkeys(phases):
+        step = next(c for p, c in per_step if p == phase)
+        log(f"[{tag}] a {phase} step: launches "
+            f"{ {k: v for k, v in step.items() if not k.startswith('ns_launch.')} }, NS buckets "
+            f"{ {k.rsplit('.', 1)[1]: v for k, v in step.items() if k.startswith('ns_launch.')} }")
+    return run, counts, per_step, peak
+
+
+def phase_train_ssm(smi: str, errors: dict) -> None:
+    """MuonBP on mamba2-1.3b at full width, cut to SSM_TRAIN_LAYERS layers:
+    six steps through the launcher with the 8-way grid, the update from the
+    kernels against the plain versions in both phases, and the kernels at
+    the bucket shapes the SSM path adds."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_TRAIN_LAYERS)
+    run, _, _, train_peak = train_path("train_ssm", SSM_TRAIN_ARGV, cfg)
+    records = run.records
+    walls = {p: [r["dur_s"] for r in records[1:] if r["phase"] == p] for p in ("block", "full")}
+    breakdown = {"loss": [r["loss"] for r in records],
+                 "step_wall_s": [r["dur_s"] for r in records],
+                 "phases": [r["phase"] for r in records], "steady_step_wall_s": walls}
+    check_update("muonbp", run, ("block", "full"), breakdown, tag="train_ssm")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train_ssm] breakdown {json.dumps(breakdown)}")
+    del run
+    torch.cuda.empty_cache()
+    ssm_buckets(errors)
+    log(f"[train_ssm] card: {smi}; {SSM_TRAIN_LAYERS} of {get_config(SSM_ARCH).num_layers} "
+        f"layers; peak memory {peak / 2**30:.2f} GiB (the six steps {train_peak / 2**30:.2f} "
+        f"GiB); phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def ssm_buckets(errors: dict) -> None:
+    """Each NS kernel against its plain version at the bucket shapes the SSM
+    paths add, and its time beside the plain version's and the bound."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.newton_schulz import PAPER_COEFFS
+    from repro_torch.kernels.newton_schulz import fused
+    from repro_torch.kernels.newton_schulz import newton_schulz as tiled
+
+    a, b, c = PAPER_COEFFS
+    times = {}
+
+    def check(name, label, out, ref, tol):
+        err, rel = rel_err(out, ref)
+        log(f"[train_ssm] {name} {label}: max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g}) "
+            f"{'ok' if rel <= tol else 'FAIL'}")
+        errors[name] = max(errors.get(name, 0.0), err)
+        if not rel <= tol:
+            fail(f"{name} {label} disagrees with its plain version")
+        return err, rel
+
+    def timed(label, fn, plain, flops, nbytes, iters, **extra):
+        ms, plain_ms = cuda_ms(fn, iters), cuda_ms(plain, iters)
+        bms, kind = bound_ms(TC_PASSES * flops, nbytes, TF32_FLOPS)
+        times[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": kind,
+                        **extra}
+        log(f"[train_ssm] time {label}: {ms:.3f} ms (plain {plain_ms:.3f}, 3xTF32 bound "
+            f"{bms:.3f} ms by {kind}, {bms / ms:.1%} of bound)")
+
+    for i, (what, shape) in enumerate(SSM_FUSED_BUCKETS.items()):
+        x = unit_inputs(shape, 80 + i)
+        label = f"{'x'.join(map(str, shape))} ({what})"
+        before = kernels.packed_launches()
+        out = fused.ns_chain(x, PAPER_COEFFS, NS_STEPS)
+        packed = kernels.packed_launches() - before
+        err, rel = check("ns_fused_chain", f"{label} x{NS_STEPS} steps", out,
+                         fused.ns_chain_plain(x, PAPER_COEFFS, NS_STEPS), CHAIN_TOL)
+        timed(f"ns_fused_chain {label} x{NS_STEPS}",
+              lambda: fused.ns_chain(x, PAPER_COEFFS, NS_STEPS),
+              lambda: fused.ns_chain_plain(x, PAPER_COEFFS, NS_STEPS),
+              NS_STEPS * ns_step_flops(*shape), 4.0 * 2 * x.numel(), 3,
+              max_abs_err=err, rel_err=rel, packed=packed)
+        del x, out
+    torch.cuda.empty_cache()
+
+    B, m, n = SSM_TILED
+    x = unit_inputs(SSM_TILED, 90)
+    xt = x.transpose(-1, -2)
+    label = f"{B}x{m}x{n}"
+    gram = tiled.matmul(x, xt, symmetric=True)
+    e1 = check("ns_matmul", f"gram {label}", gram, tiled.matmul_plain(x, xt), PRODUCT_TOL)
+    poly = tiled.fma_matmul(gram, gram, gram, alpha=b, beta=c, symmetric=True)
+    e2 = check("ns_fma_matmul", f"poly bA+cA^2 {B}x{m}x{m}", poly,
+               tiled.fma_matmul_plain(gram, gram, gram, alpha=b, beta=c), PRODUCT_TOL)
+    e3 = check("ns_fma_matmul", f"update aX+PX {label}",
+               tiled.fma_matmul(poly, x, x, alpha=a, beta=1.0),
+               tiled.fma_matmul_plain(poly, x, x, alpha=a, beta=1.0), PRODUCT_TOL)
+    timed(f"ns_matmul gram {label}", lambda: tiled.matmul(x, xt, symmetric=True),
+          lambda: tiled.matmul_plain(x, xt), B * m * (m + 1.0) * n,
+          4.0 * (B * m * n + B * m * m), 3, max_abs_err=e1[0], rel_err=e1[1])
+    timed(f"ns_fma_matmul poly {B}x{m}x{m}",
+          lambda: tiled.fma_matmul(gram, gram, gram, alpha=b, beta=c, symmetric=True),
+          lambda: tiled.fma_matmul_plain(gram, gram, gram, alpha=b, beta=c),
+          B * m * m * (m + 1.0), 4.0 * 2 * B * m * m, 3, max_abs_err=e2[0], rel_err=e2[1])
+    timed(f"ns_fma_matmul update {label}", lambda: tiled.fma_matmul(poly, x, x, alpha=a, beta=1.0),
+          lambda: tiled.fma_matmul_plain(poly, x, x, alpha=a, beta=1.0), 2.0 * B * m * m * n,
+          4.0 * (B * m * m + 2 * B * m * n), 3, max_abs_err=e3[0], rel_err=e3[1])
+    del x, xt, gram, poly
+    torch.cuda.empty_cache()
+    log(f"[train_ssm] times at the SSM bucket shapes: {json.dumps(times)}")
+
+
+def decode_against_forward(tag: str, params, cfg, prompt, extras: dict, new: int,
+                           ring: bool = False) -> dict:
+    """Prefill ``prompt`` (and the stub ``extras``), then ``new`` greedy
+    decode steps on an fp32 cache, each fed the token it chose, timed one by
+    one; the logits against the forward over the prompt and the fed tokens
+    (teacher forcing) to DECODE_TOL of max|logit|. ``ring``: the same steps
+    on a ring cache of the window filled from the same prefill, against the
+    dense cache. Returns the walls and the decoded tokens."""
+    import torch
+
+    from repro_torch.models.encdec import encode
+    from repro_torch.models.model import decode_step, forward, prefill
+    from repro_torch.serving.serve_step import cache_from_prefill
+
+    V = cfg.vision_tokens
+    bsz, plen = prompt.shape
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():
+        (logits_p, pcache), prefill_s = synced(
+            lambda: prefill(params, {"tokens": prompt, **extras}, cfg))
+        caches = {"dense": cache_from_prefill(pcache, cfg, V + plen + new, dtype=torch.float32)}
+        if ring:
+            caches["ring"] = cache_from_prefill(pcache, cfg, cfg.window_size,
+                                                dtype=torch.float32)
+        del pcache
+        enc = encode(params["encoder"], extras["audio_frames"], cfg) if cfg.encoder_seq else None
+        first = torch.argmax(logits_p[:, -1:, :].to(torch.float32), dim=-1)
+        out = {"prefill_s": prefill_s, "walls": []}
+        for kind, cache in caches.items():
+            token, fed, rows = first, [], [logits_p[:, -1].to(torch.float32)]
+            for i in range(new):
+                fed.append(token)
+                (lg, cache), wall = synced(lambda: decode_step(
+                    params, token, cache, V + plen + i, cfg, ring_cache=kind == "ring",
+                    encoder_out=enc))
+                rows.append(lg[:, 0].to(torch.float32))
+                token = torch.argmax(rows[-1], dim=-1)[:, None]
+                if kind == "dense":
+                    out["walls"].append(wall)
+            out[kind] = (torch.stack(rows, 1), torch.cat(fed, 1))
+            del cache
+        del logits_p
+        logits, fed = out["dense"]
+        seq = torch.cat([prompt, fed], 1)
+        full = forward(params, seq, cfg, extra_embeds=extras.get("vision_embeds"),
+                       encoder_frames=extras.get("audio_frames"))
+        full = full[:, V + plen - 1:].to(torch.float32)
+        err = float((logits - full).abs().max())
+        rel = err / float(full.abs().max())
+        log(f"[{tag}] decode after a {plen}-token prefill (batch {bsz}), {new} steps on an fp32 "
+            f"cache, against teacher forcing over {V + plen + new} positions: max abs diff "
+            f"{err:.3e}, {rel:.3e} of max|logit| (tol {DECODE_TOL:g})")
+        if not rel <= DECODE_TOL:
+            fail(f"{tag}: decode disagrees with teacher forcing")
+        if ring:
+            r_logits, r_fed = out["ring"]
+            r_err = float((r_logits - logits).abs().max()) / float(logits.abs().max())
+            log(f"[{tag}] ring cache of {cfg.window_size} slots past the window (positions "
+                f"{V + plen}..{V + plen + new - 1}) against the dense cache: {r_err:.3e} of "
+                f"max|logit|, tokens equal: {torch.equal(r_fed, fed)}")
+            if not r_err <= DECODE_TOL:
+                fail(f"{tag}: the ring cache disagrees with the dense cache")
+        del full
+    out["tokens"] = fed
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_ssm(smi: str) -> None:
+    """mamba2-1.3b at full depth in fp32 through generate: batch 4, a
+    2048-token prompt, 64 new tokens; the same steps timed one by one and
+    held to teacher forcing; the decode step against its byte bound."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.models.transformer import ssm_dims
+    from repro_torch.serving.serve_step import generate
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SSM_ARCH)
+    params = init_params(cfg, seed=0, device="cuda")
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_lib.leaves(params))
+    dims = ssm_dims(cfg)
+    h_bytes = 4 * cfg.num_layers * SSM_SERVE_BATCH * dims.num_heads * dims.head_dim * \
+        dims.state_size
+    conv_bytes = 4 * cfg.num_layers * SSM_SERVE_BATCH * (dims.conv_kernel - 1) * \
+        (dims.d_inner + 2 * dims.state_size)
+    # A decode step reads every fp32 parameter once and reads and writes the state.
+    step_bound_ms = (param_bytes + 2 * (h_bytes + conv_bytes)) / HBM_BYTES_S * 1e3
+    log(f"[serve_ssm] full-depth {SSM_ARCH}: {param_bytes // 4} fp32 parameters "
+        f"({param_bytes / 1e9:.3f} GB); state {h_bytes + conv_bytes} bytes at batch "
+        f"{SSM_SERVE_BATCH}; decode step bound {step_bound_ms:.3f} ms")
+    gen = torch.Generator().manual_seed(13)
+    prompt = torch.randint(0, cfg.vocab_size, (SSM_SERVE_BATCH, SSM_SERVE_PROMPT),
+                           generator=gen).to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = generate(params, prompt, cfg, max_new_tokens=SSM_SERVE_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if tokens.shape != (SSM_SERVE_BATCH, SSM_SERVE_NEW):
+        fail(f"serve_ssm: generate gave {tuple(tokens.shape)}")
+    log(f"[serve_ssm] generate: {SSM_SERVE_BATCH} x {SSM_SERVE_PROMPT} prompt tokens, "
+        f"{SSM_SERVE_NEW} new, {gen_s:.3f} s")
+    res = decode_against_forward("serve_ssm", params, cfg, prompt, {}, SSM_SERVE_NEW)
+    same = torch.equal(res["tokens"], tokens)
+    walls = sorted(res["walls"])
+    p50, p95 = walls[len(walls) // 2], walls[min(len(walls) - 1, int(0.95 * len(walls)))]
+    log(f"[serve_ssm] prefill wall {res['prefill_s']:.4f} s; decode step p50 {p50 * 1e3:.3f} "
+        f"ms, p95 {p95 * 1e3:.3f} ms over {len(walls)} steps (synchronized), bound "
+        f"{step_bound_ms:.3f} ms ({step_bound_ms / (p50 * 1e3):.1%} of it at p50); "
+        f"{SSM_SERVE_BATCH / p50:.1f} tokens/s; the timed steps' tokens equal generate's: "
+        f"{same}")
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    log(f"[serve_ssm] card: {smi}; peak memory {peak / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_archs(smi: str) -> None:
+    """hymba-1.5b, internvl2-1b and whisper-small at full width: two MuonBP
+    steps each with the update checked, generate against teacher forcing
+    (hymba also on its ring cache), then the reduced models of all four new
+    archs on the card against the CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.serve_step import generate
+
+    t_phase = time.perf_counter()
+    for arch in ARCHS_TRAINED:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        tag = f"archs:{arch}"
+        # whisper's full phase sends every bucket to the fused chain.
+        required = ("ns_fused_chain",) if arch == "whisper-small" else MAIN_PATH_KERNELS
+        run, _, _, train_peak = train_path(tag, ["--arch", arch] + ARCHS_ARGV, None, required)
+        breakdown = {"loss": [r["loss"] for r in run.records],
+                     "step_wall_s": [r["dur_s"] for r in run.records],
+                     "phases": [r["phase"] for r in run.records]}
+        check_update("muonbp", run, ("full", "block"), breakdown, tag=tag, batch_shape=(2, 1024))
+        log(f"[{tag}] breakdown {json.dumps(breakdown)}")
+        del run
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0, device="cuda")
+        gen = torch.Generator().manual_seed(17)
+        prompt = torch.randint(0, cfg.vocab_size, (2, ARCHS_PROMPT), generator=gen).to("cuda")
+        extras = {}
+        if cfg.vision_tokens:
+            extras["vision_embeds"] = 0.02 * torch.randn(
+                (2, cfg.vision_tokens, cfg.d_model), generator=gen).to("cuda")
+        if cfg.encoder_seq:
+            extras["audio_frames"] = 0.02 * torch.randn(
+                (2, cfg.encoder_seq, cfg.d_model), generator=gen).to("cuda")
+        tokens = generate(params, prompt, cfg, max_new_tokens=ARCHS_NEW,
+                          max_len=cfg.vision_tokens + ARCHS_PROMPT + ARCHS_NEW,
+                          batch_extras=extras or None)
+        res = decode_against_forward(tag, params, cfg, prompt, extras, ARCHS_NEW,
+                                     ring=cfg.attention_pattern == "swa")
+        walls = sorted(res["walls"])
+        log(f"[{tag}] generate {ARCHS_NEW} tokens: equal to the timed steps' "
+            f"{torch.equal(res['tokens'], tokens)}; prefill wall {res['prefill_s']:.4f} s, "
+            f"decode step p50 {walls[len(walls) // 2] * 1e3:.3f} ms; peak memory "
+            f"{max(train_peak, torch.cuda.max_memory_allocated()) / 2**30:.2f} GiB; "
+            f"{time.perf_counter() - t_arch:.1f} s")
+        del params
+        torch.cuda.empty_cache()
+    for arch in NEW_ARCHS:
+        arch_small(arch)
+    log(f"[archs] card: {smi}; phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def arch_small(arch: str) -> None:
+    """The reduced model on the card against the CPU: three fp32 launcher
+    steps (losses to SMALL_LOSS_TOL), greedy generate of eight tokens (equal
+    but at a near-tie) and the forward's logits over the CPU's prompt and
+    tokens (to 1e-4)."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.serving.serve_step import generate
+
+    cfg = get_config(arch).reduced()
+    base = init_params(cfg, seed=0, device="cpu")
+    argv = ["--arch", arch, "--reduced", "--mesh-model", "4", "--steps", "3", "--period", "2",
+            "--batch", "2", "--seq", "32", "--compute-dtype", "float32", "--log-every", "3"]
+    losses = {dev: [r["loss"] for r in train.run(
+        argv + ["--device", dev], params=tree_lib.tree_map(lambda p: p.to(dev), base)).records]
+        for dev in ("cpu", "cuda")}
+    loss_rel = max(abs(g - c) / max(1.0, abs(c)) for g, c in zip(losses["cuda"], losses["cpu"]))
+    gen = torch.Generator().manual_seed(19)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+    extras = {}
+    if cfg.vision_tokens:
+        extras["vision_embeds"] = 0.1 * torch.randn((2, cfg.vision_tokens, cfg.d_model),
+                                                    generator=gen)
+    if cfg.encoder_seq:
+        extras["audio_frames"] = 0.1 * torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                                   generator=gen)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_lib.tree_map(lambda p: p.to(dev), base)
+        ex = {k: v.to(dev) for k, v in extras.items()}
+        runs[dev] = generate(params, prompt.to(dev), cfg, max_new_tokens=8,
+                             max_len=cfg.vision_tokens + 16, batch_extras=ex or None).cpu()
+        # Both devices' logits over the CPU's sequence.
+        with torch.no_grad():
+            runs[dev + "_logits"] = forward(
+                params, torch.cat([prompt, runs["cpu"]], 1).to(dev), cfg,
+                extra_embeds=ex.get("vision_embeds"), encoder_frames=ex.get("audio_frames")).cpu()
+    logit_err = float((runs["cuda_logits"] - runs["cpu_logits"]).abs().max())
+    verdicts = []
+    for r in range(2):
+        got, want = runs["cuda"][r].tolist(), runs["cpu"][r].tolist()
+        if got == want:
+            verdicts.append("equal")
+            continue
+        # The first differing token may differ only at a near-tie of the
+        # logits that chose it.
+        j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        row = runs["cpu_logits"][r, cfg.vision_tokens + 8 - 1 + j].to(torch.float32)
+        top = torch.topk(row, 2).values
+        gap = float(top[0] - top[1]) / float(row.abs().max())
+        if not gap < TIE_REL:
+            fail(f"reduced {arch} row {r}: token {j} differs where the top-2 gap is {gap:.3e}")
+        verdicts.append(f"near-tie at token {j} (gap {gap:.3e})")
+    log(f"[archs] reduced {arch}, card against CPU: losses {losses['cuda']} vs "
+        f"{losses['cpu']} (max rel {loss_rel:.3e}, tol {SMALL_LOSS_TOL:g}); logits over the "
+        f"CPU's generated sequence max abs diff {logit_err:.3e} (tol 1e-4); generate tokens "
+        f"{verdicts}")
+    if not loss_rel <= SMALL_LOSS_TOL or not logit_err <= 1e-4:
+        fail(f"reduced {arch} on the card disagrees with the CPU")
+
+
 def phase_times(errors: dict, launches: dict) -> list:
     import torch
 
@@ -1763,6 +2232,9 @@ def main() -> int:
     phase_reference()
     phase_serve(device["smi"])
     phase_serve_moe(device["smi"])
+    phase_train_ssm(device["smi"], errors)
+    phase_serve_ssm(device["smi"])
+    phase_archs(device["smi"])
     rows = phase_times(errors, launches)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     print(device["smi"], flush=True)

@@ -1,12 +1,16 @@
 """Data pipeline: synthetic LM stream and memmap-backed dataset (copy of
-``repro/data/pipeline.py``, dense models only).
+``repro/data/pipeline.py``).
 
 Numpy only, so the same seed yields the same batches in both packages:
 tokens follow a fixed random first-order Markov chain, so a model that
 learns the bigram structure drops well below the unigram entropy.
 ``MemmapDataset`` reads pre-tokenized uint16/uint32 binary files. Both
 produce ``{tokens, labels}`` with next-token labels, and both report their
-stream position (``state()``/``set_state()``) for checkpoints.
+stream position (``state()``/``set_state()``) for checkpoints. The
+synthetic stream also carries the stub modality inputs, drawn from its rng
+after the tokens in the reference's order: ``vision_embeds`` (B,
+vision_tokens, D) for a VLM and ``audio_frames`` (B, encoder_seq, D) for
+whisper, N(0, 0.02^2) float32.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from repro_torch.configs.base import ModelConfig
 
 
 class SyntheticLM:
-    """Seeded Markov-chain token stream of ``{tokens, labels}`` int32 batches."""
+    """Seeded Markov-chain token stream of ``{tokens, labels}`` int32 batches
+    (plus a VLM's or whisper's float32 stub inputs)."""
 
     def __init__(
         self,
@@ -66,9 +71,17 @@ class SyntheticLM:
         return out
 
     def __iter__(self) -> Iterator[dict]:
+        cfg = self.cfg
         while True:
             rows = self._sample_rows(self.batch)
-            yield {"tokens": rows[:, :-1], "labels": rows[:, 1:].copy()}
+            batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:].copy()}
+            if cfg.arch_type == "vlm":
+                batch["vision_embeds"] = 0.02 * self.rng.standard_normal(
+                    (self.batch, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+            if cfg.arch_type == "audio":
+                batch["audio_frames"] = 0.02 * self.rng.standard_normal(
+                    (self.batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+            yield batch
 
 
 class MemmapDataset:

@@ -39,6 +39,10 @@ Guarded, with snapshots and a resume:
       --period 5 --mesh-model 8 --steps 20 --batch 4 --seq 1024 --guard \\
       --checkpoint-every 5 --checkpoint-dir ckpt --log-file run.jsonl --resume
 
+``--arch`` takes every arch of the registry: dense, MoE, ``mamba2-1.3b``
+(SSM), ``hymba-1.5b`` (hybrid), ``internvl2-1b`` (VLM: the stream carries
+``vision_embeds``) and ``whisper-small`` (audio: ``audio_frames``).
+
 ``--optimizer-variant {muon,turbo_muon,normuon,dion}`` picks the optimizer
 variant (``core/variants.py``), as ``--optimizer dion`` picks Dion.
 ``--device cpu`` runs the same path on the CPU (every kernel wrapper then
@@ -255,6 +259,14 @@ def run(argv=None, *, params: Optional[dict] = None, cfg: Optional[ModelConfig] 
         bus.close()
 
 
+def device_batch(batch: dict, device) -> dict:
+    """A numpy batch on ``device``: token ids and labels as int64, a VLM's
+    or whisper's float32 stub inputs as they are."""
+    return {k: torch.from_numpy(v).to(device=device,
+                                      dtype=torch.long if v.dtype.kind in "iu" else None)
+            for k, v in batch.items()}
+
+
 def matrix_block_specs(params, cfg: ModelConfig, mesh_model: int) -> dict:
     """The MuonBP block grid of every Muon leaf (None for the AdamW leaves)
     on a declared ``{"model": mesh_model}`` tensor-parallel size."""
@@ -395,8 +407,7 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step) -> TrainR
     for step in range(start_step, args.steps):
         if prof_window is not None and step == prof_window[0]:
             profiler = _start_profiler(device)
-        batch = {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
-                 for k, v in next(pipe).items()}
+        batch = device_batch(next(pipe), device)
         phase = phase_for_step(step, period) if args.optimizer != "adamw" else "block"
         if forced_full and args.optimizer != "adamw":
             phase = "full"

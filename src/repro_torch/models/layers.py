@@ -1,4 +1,5 @@
-"""Shared model layers: RMSNorm, RoPE, GQA attention, gated MLPs.
+"""Shared model layers: RMSNorm, RoPE, sinusoidal positions, GQA attention
+(self and cross), gated MLPs.
 
 Counterpart of ``repro/models/layers.py``. Attention in the reference is
 plain jnp (an online softmax over KV blocks, ``layers.py:128``), not a
@@ -27,6 +28,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.to(torch.float32)).to(dtype)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with JAX's promotion: mixed float dtypes compute in the wider.
+
+    The reference's whisper encoder feeds fp32 frames through bf16 weights
+    in bf16 training, so its encoder and cross-attention K/V run in fp32;
+    torch refuses a product of mixed dtypes.
+    """
+    if x.dtype != w.dtype:
+        dtype = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dtype) @ w.to(dtype)
+    return x @ w
 
 
 def swiglu(x, wi, wg, wo):
@@ -60,6 +74,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor)
     x1, x2 = x[..., 0], x[..., 1]
     out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).reshape(shape)
     return out.to(dtype)
+
+
+def sinusoidal_positions(num_positions: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute position embeddings, (num_positions, dim) fp32."""
+    return sinusoidal_at(torch.arange(num_positions, device=device), dim)
+
+
+def sinusoidal_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """The rows ``positions`` (any shape) of :func:`sinusoidal_positions`'s
+    table, computed alone: (*positions.shape, dim), the same values."""
+    pos = positions.to(torch.float32)[..., None]
+    # fp32 throughout, as the reference: -log(1e4) rounded to fp32 first.
+    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32, device=positions.device))
+    inv = torch.exp(-log_base * torch.arange(
+        0, dim, 2, dtype=torch.float32, device=positions.device) / dim)
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _mask_scores(s, q_pos, k_pos, *, causal: bool, window, kv_len):
@@ -136,8 +167,9 @@ class DenseKV(NamedTuple):
 
 def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
                     positions, inv_freq, causal: bool = True, window=None,
-                    attn_softcap=None, kv_cache=None, cache_index=None, kv_len=None):
-    """Self-attention sub-block: projections + RoPE + attention + out-proj.
+                    attn_softcap=None, kv_cache=None, cache_index=None, kv_len=None,
+                    cross_kv=None):
+    """Attention sub-block: projections + RoPE + attention + out-proj.
 
     Returns ``(out, new_kv)``. Without a cache ``new_kv`` is the post-RoPE
     ``(k, v)``, the content prefill builds its cache from. With ``kv_cache``
@@ -147,15 +179,21 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
     whole cache from query position ``cache_index``, keys at and past
     ``kv_len`` masked (``cache_index + Sq`` unless given: the reference's
     override, which its ring cache sets to the ring's fill), and ``new_kv``
-    is what was attended over. Heads are head-major columns, the reference's single-device
-    layout; its 'hd' layout and cross-attention belong to the distributed
-    and encoder-decoder slices and are not ported yet.
+    is what was attended over.
+
+    With ``cross_kv`` (B, S_enc, D) this is cross-attention (whisper's
+    decoder): K/V come from the encoder output, with no RoPE, no causal
+    mask and no cache. Mixed dtypes promote (:func:`linear`), as in the
+    reference. Heads are head-major columns, the reference's single-device
+    layout; its 'hd' layout belongs to the distributed slice and is not
+    ported yet.
     """
     b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, num_heads, head_dim)
-    k = (x @ params["wk"]).reshape(b, s, num_kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(b, s, num_kv_heads, head_dim)
-    if inv_freq is not None:
+    kv_src = cross_kv if cross_kv is not None else x
+    q = linear(x, params["wq"]).reshape(b, s, num_heads, head_dim)
+    k = linear(kv_src, params["wk"]).reshape(b, kv_src.shape[1], num_kv_heads, head_dim)
+    v = linear(kv_src, params["wv"]).reshape(b, kv_src.shape[1], num_kv_heads, head_dim)
+    if inv_freq is not None and cross_kv is None:
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
     new_kv = (k, v)
@@ -164,6 +202,6 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
         k, v = new_kv = kv_cache.write(k, v, cache_index)
         q_offset = cache_index
         kv_len = cache_index + s if kv_len is None else kv_len
-    out = attention(q, k, v, causal=causal, window=window, attn_softcap=attn_softcap,
-                    q_offset=q_offset, kv_len=kv_len)
-    return out.reshape(b, s, num_heads * head_dim) @ params["wo"], new_kv
+    out = attention(q, k, v, causal=causal and cross_kv is None, window=window,
+                    attn_softcap=attn_softcap, q_offset=q_offset, kv_len=kv_len)
+    return linear(out.reshape(b, s, num_heads * head_dim), params["wo"]), new_kv

@@ -1,5 +1,9 @@
-"""Model API: init / loss / prefill / decode for the dense and MoE archs
-(counterpart of ``repro/models/model.py``)."""
+"""Model API: init / loss / prefill / decode for every arch
+(counterpart of ``repro/models/model.py``).
+
+A batch is ``{"tokens", "labels"}``, plus ``"vision_embeds"`` (B, V, D)
+for the VLM and ``"audio_frames"`` (B, S_enc, D) for whisper.
+"""
 
 from __future__ import annotations
 
@@ -25,8 +29,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """(loss, metrics): the masked CE, plus ``LB_COEF * load_balance +
     Z_COEF * z_loss`` for an MoE model, whose metrics then also carry the
-    layer-summed ``load_balance`` and ``z_loss``."""
-    logits, aux = forward(params, batch["tokens"], cfg, return_aux=True)
+    layer-summed ``load_balance`` and ``z_loss``. A VLM's logits at its
+    ``vision_tokens`` leading positions are dropped before the CE."""
+    logits, aux = forward(params, batch["tokens"], cfg, return_aux=True,
+                          extra_embeds=batch.get("vision_embeds"),
+                          encoder_frames=batch.get("audio_frames"))
+    if cfg.vision_tokens:
+        logits = logits[:, cfg.vision_tokens:, :]
     ce = cross_entropy(logits, batch["labels"])
     loss = ce
     metrics = {"ce": ce}
@@ -38,10 +47,13 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig):
-    """Full-sequence prefill of ``batch["tokens"]``: returns ``(logits, cache)``
-    (the reference returns its aux losses between them; a caller that wants
-    them calls ``forward(mode="prefill", return_aux=True)``)."""
-    return forward(params, batch["tokens"], cfg, mode="prefill")
+    """Full-sequence prefill of ``batch["tokens"]`` (and the batch's
+    ``vision_embeds`` / ``audio_frames``): returns ``(logits, cache)`` (the
+    reference returns its aux losses between them; a caller that wants them
+    calls ``forward(mode="prefill", return_aux=True)``)."""
+    return forward(params, batch["tokens"], cfg, mode="prefill",
+                   extra_embeds=batch.get("vision_embeds"),
+                   encoder_frames=batch.get("audio_frames"))
 
 
 __all__ = ["IGNORE_LABEL", "LB_COEF", "Z_COEF", "cross_entropy", "decode_step", "forward",

@@ -1,78 +1,117 @@
-"""Decoder LM assembly, dense and MoE (counterpart of ``repro/models/transformer.py``).
+"""Decoder LM assembly: dense, MoE, SSM, hybrid, VLM and audio layer stacks
+(counterpart of ``repro/models/transformer.py``).
 
 Parameters keep the reference's stacked ``(num_layers, ...)`` layout under
 the same path names (``layers/attn/wq``, ``layers/mlp/wi``,
-``layers/moe/router``, ``layers/norms/attn_norm``, ...). ``forward`` runs
-the train-mode (and prefill) pass as a Python loop over the stacked layers,
-in place of the reference's ``lax.scan``; ``decode_step`` runs one token
-through the same loop against a KV cache, written in place, or against the
-reference's ring cache. The reference's activation checkpointing changes no
-numbers and is not ported: the full-width models the card trains fit it
-without.
+``layers/moe/router``, ``layers/ssm/wx``, ``layers/hybrid/attn_scale``,
+``layers/cross/wq``, ``layers/norms/attn_norm``, ``encoder/...``). ``forward``
+runs the train-mode (and prefill) pass as a Python loop over the stacked
+layers, in place of the reference's ``lax.scan``; ``decode_step`` runs one
+token through the same loop against a cache: the KV buffers written in
+place (or the reference's ring cache), the SSM state replaced by the new
+state tensors. The reference's activation checkpointing changes no numbers
+and is not ported yet: the full-width dense and MoE models the card trains
+fit without it, and ``mamba2-1.3b`` trains there at a cut depth.
+
+Layers by ``arch_type``: dense and vlm (attention + MLP), moe (attention +
+MoE block), ssm (Mamba2 only), hybrid (hymba: attention and SSM on one
+normed input, ``0.5 * (attn * attn_scale + ssm * ssm_scale)``, then the
+MLP), audio (whisper's decoder: self-attention without RoPE, then
+cross-attention to the encoder's output, then the MLP; sinusoidal
+positions). A VLM prepends its ``extra_embeds`` to the token embeddings.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     DenseKV,
     attention_block,
     geglu,
     rms_norm,
     rope_frequencies,
+    sinusoidal_at,
+    sinusoidal_positions,
     softcap,
     swiglu,
 )
 from repro_torch.models.moe import moe_block
 
 NO_WINDOW = 2**30
+ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _dense_init(gen: torch.Generator, shape, device, dtype, scale: float = 0.02):
     return (scale * torch.randn(shape, generator=gen, device=device, dtype=torch.float32)).to(dtype)
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=torch.float32) -> dict:
-    """Dense or MoE parameters from a seeded ``torch.Generator`` on ``device``.
+def ssm_dims(cfg: ModelConfig) -> ssm_lib.SSMDims:
+    return ssm_lib.make_dims(cfg.d_model, cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                             expand=cfg.ssm_expand)
 
-    Same shapes, paths and init law (N(0, 0.02) matrices, unit norm gains)
-    as the reference; the random draws differ, so parity tests carry the
-    reference's own parameters over with ``repro_torch.interop``. An MoE
-    layer has the ``moe`` group (router (L, D, E), experts wi/wg
-    (L, E, D, F) and wo (L, E, F, D)) in place of ``mlp``.
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", dtype=torch.float32) -> dict:
+    """Parameters of any ported arch from a seeded ``torch.Generator`` on ``device``.
+
+    Same shapes, paths and init law (N(0, 0.02) matrices, unit norm gains,
+    the SSM's own constants) as the reference; the random draws differ, so
+    parity tests carry the reference's own parameters over with
+    ``repro_torch.interop``. An MoE layer has the ``moe`` group (router
+    (L, D, E), experts wi/wg (L, E, D, F) and wo (L, E, F, D)) in place of
+    ``mlp``; an SSM layer the ``ssm`` group (``ssm.init_ssm_params``,
+    stacked) and ``norms/ssm_norm``; hymba both attention and SSM and the
+    ``hybrid`` scales; whisper the ``encoder`` subtree, ``layers/cross`` and
+    ``norms/cross_norm``.
     """
-    if cfg.arch_type not in ("dense", "moe"):
-        raise NotImplementedError(f"arch_type {cfg.arch_type!r} is not ported yet")
+    arch = cfg.arch_type
+    if arch not in ARCH_TYPES:
+        raise NotImplementedError(f"arch_type {arch!r} is not ported")
     gen = torch.Generator(device=device).manual_seed(seed)
     L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
     Vp = cfg.padded_vocab
     init = lambda shape: _dense_init(gen, shape, device, dtype)
     ones = lambda shape: torch.ones(shape, device=device, dtype=dtype)
-    layers = {
-        "attn": {
-            "wq": init((L, D, cfg.q_dim)),
-            "wk": init((L, D, cfg.kv_dim)),
-            "wv": init((L, D, cfg.kv_dim)),
-            "wo": init((L, cfg.q_dim, D)),
-        },
-    }
-    if cfg.arch_type == "moe":
-        E = cfg.num_experts
-        layers["moe"] = {"router": init((L, D, E)), "wi": init((L, E, D, F)),
-                         "wg": init((L, E, D, F)), "wo": init((L, E, F, D))}
-    else:
+    layers: dict = {"norms": {}}
+    norms = layers["norms"]
+    if arch in ("dense", "moe", "vlm", "audio", "hybrid"):
+        layers["attn"] = {"wq": init((L, D, cfg.q_dim)), "wk": init((L, D, cfg.kv_dim)),
+                          "wv": init((L, D, cfg.kv_dim)), "wo": init((L, cfg.q_dim, D))}
+        norms["attn_norm"] = ones((L, D))
+        if cfg.use_post_norms:
+            norms["post_attn_norm"] = ones((L, D))
+    if arch in ("dense", "vlm", "audio", "hybrid"):
         layers["mlp"] = {"wi": init((L, D, F)), "wo": init((L, F, D))}
         if cfg.mlp_act in ("swiglu", "geglu"):
             layers["mlp"]["wg"] = init((L, D, F))
-    layers["norms"] = {"attn_norm": ones((L, D)), "mlp_norm": ones((L, D))}
-    if cfg.use_post_norms:
-        layers["norms"]["post_attn_norm"] = ones((L, D))
-        layers["norms"]["post_mlp_norm"] = ones((L, D))
+        norms["mlp_norm"] = ones((L, D))
+        if cfg.use_post_norms:
+            norms["post_mlp_norm"] = ones((L, D))
+    if arch == "moe":
+        E = cfg.num_experts
+        layers["moe"] = {"router": init((L, D, E)), "wi": init((L, E, D, F)),
+                         "wg": init((L, E, D, F)), "wo": init((L, E, F, D))}
+        norms["mlp_norm"] = ones((L, D))
+    if arch in ("ssm", "hybrid"):
+        layers["ssm"] = ssm_lib.init_ssm_params(gen, ssm_dims(cfg), lead=(L,), device=device,
+                                                dtype=dtype)
+        norms["ssm_norm"] = ones((L, D))
+    if arch == "hybrid":
+        layers["hybrid"] = {"attn_scale": ones((L, D)), "ssm_scale": ones((L, D))}
     params = {"embed": init((Vp, D)), "layers": layers, "final_norm": ones((D,))}
     if not cfg.tie_embeddings:
         params["lm_head"] = init((D, Vp))
+    if arch == "audio":
+        from repro_torch.models.encdec import init_encoder_params
+
+        params["encoder"] = init_encoder_params(gen, cfg, device=device, dtype=dtype)
+        layers["cross"] = {"wq": init((L, D, cfg.q_dim)), "wk": init((L, D, cfg.kv_dim)),
+                           "wv": init((L, D, cfg.kv_dim)), "wo": init((L, cfg.q_dim, D))}
+        norms["cross_norm"] = ones((L, D))
     return params
 
 
@@ -86,6 +125,14 @@ def window_flags(cfg: ModelConfig) -> list[int]:
     return [NO_WINDOW] * L
 
 
+def _inv_freq(cfg: ModelConfig, device):
+    """RoPE frequencies, or None: whisper's positions are sinusoidal and
+    mamba2 has no attention."""
+    if cfg.arch_type == "audio" or not cfg.num_heads:
+        return None
+    return rope_frequencies(cfg.head_dim, cfg.rope_theta, device=device)
+
+
 def _mlp_apply(x, mlp, cfg):
     if cfg.mlp_act == "swiglu":
         return swiglu(x, mlp["wi"], mlp["wg"], mlp["wo"])
@@ -94,40 +141,81 @@ def _mlp_apply(x, mlp, cfg):
     return torch.nn.functional.gelu(x @ mlp["wi"], approximate="tanh") @ mlp["wo"]
 
 
-def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, inv_freq,
-                  kv_cache=None, cache_index=None, kv_len=None, ring: bool = False,
-                  group_rows: bool = False):
-    """One decoder layer: pre-norm attention, then the MLP or the MoE block
-    (optional post norms).
+def _ssm_apply(h, layer, cfg, mode, ssm_state):
+    """The SSM branch in ``mode``: (out, new state or None)."""
+    dims = ssm_dims(cfg)
+    if mode == "decode":
+        return ssm_lib.ssm_decode_step(h, ssm_state, layer["ssm"], dims)
+    if mode == "prefill":
+        return ssm_lib.ssm_forward(h, layer["ssm"], dims, return_state=True)
+    return ssm_lib.ssm_forward(h, layer["ssm"], dims), None
 
-    Returns ``(x, new_kv, aux)``: ``new_kv`` is the post-RoPE K/V without a
-    cache (what prefill keeps), the attended cache with one (see
-    ``layers.attention_block``); ``aux`` is the MoE layer's fp32
-    ``(load_balance, z_loss)`` and None for an MLP layer (the reference's
-    zeros). ``ring`` attends over a ring cache: no causal or window mask,
-    only ``kv_len``. ``group_rows`` routes each row of the batch alone
-    (``moe.moe_block``).
+
+def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, inv_freq,
+                  mode: str = "train", kv_cache=None, ssm_state=None, cache_index=None,
+                  kv_len=None, ring: bool = False, group_rows: bool = False, cross_kv=None):
+    """One decoder layer: the mixer (attention, SSM, or both for hymba),
+    whisper's cross-attention, then the MLP or the MoE block.
+
+    ``mode``: 'train', 'prefill' (the SSM returns its state) or 'decode'
+    (one token against ``kv_cache`` and ``ssm_state``). Returns ``(x,
+    new_kv, new_ssm, aux)``: ``new_kv`` is the post-RoPE K/V without a cache
+    (what prefill keeps), the attended cache with one (see
+    ``layers.attention_block``), None without attention; ``new_ssm`` the
+    SSM state after the layer (prefill and decode) or None; ``aux`` the MoE
+    layer's fp32 ``(load_balance, z_loss)`` and None otherwise (the
+    reference's zeros). ``ring`` attends over a ring cache: no causal or
+    window mask, only ``kv_len``. ``group_rows`` routes each row of the
+    batch alone (``moe.moe_block``). ``cross_kv``: the encoder's output for
+    whisper's cross-attention.
     """
     norms = layer["norms"]
-    h = rms_norm(x, norms["attn_norm"])
-    attn_out, new_kv = attention_block(
-        h, layer["attn"], num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.head_dim, positions=positions, inv_freq=inv_freq,
-        window=None if ring else window, causal=not ring, attn_softcap=cfg.attn_softcap,
-        kv_cache=kv_cache, cache_index=cache_index, kv_len=kv_len,
-    )
-    if cfg.use_post_norms:
-        attn_out = rms_norm(attn_out, norms["post_attn_norm"])
-    x = x + attn_out
-    h = rms_norm(x, norms["mlp_norm"])
+    new_kv = new_ssm = None
+
+    def attend(h):
+        return attention_block(
+            h, layer["attn"], num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, positions=positions, inv_freq=inv_freq,
+            window=None if ring else window, causal=not ring, attn_softcap=cfg.attn_softcap,
+            kv_cache=kv_cache, cache_index=cache_index, kv_len=kv_len,
+        )
+
+    if "attn" in layer and "ssm" in layer:  # hymba: both branches on one normed input
+        h = rms_norm(x, norms["attn_norm"])
+        attn_out, new_kv = attend(h)
+        ssm_out, new_ssm = _ssm_apply(h, layer, cfg, mode, ssm_state)
+        scales = layer["hybrid"]
+        x = x + 0.5 * (attn_out * scales["attn_scale"] + ssm_out * scales["ssm_scale"])
+    elif "attn" in layer:
+        attn_out, new_kv = attend(rms_norm(x, norms["attn_norm"]))
+        if cfg.use_post_norms:
+            attn_out = rms_norm(attn_out, norms["post_attn_norm"])
+        x = x + attn_out
+    else:  # pure SSM (mamba2)
+        ssm_out, new_ssm = _ssm_apply(rms_norm(x, norms["ssm_norm"]), layer, cfg, mode,
+                                      ssm_state)
+        x = x + ssm_out
+
+    if cross_kv is not None:
+        cross_out, _ = attention_block(
+            rms_norm(x, norms["cross_norm"]), layer["cross"], num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, positions=positions,
+            inv_freq=None, attn_softcap=cfg.attn_softcap, cross_kv=cross_kv)
+        x = x + cross_out
+
+    aux = None
     if "moe" in layer:
-        out = moe_block(h, layer["moe"], top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                        router_style=cfg.router_style, group_rows=group_rows)
-        return x + out.y, new_kv, torch.stack([out.load_balance_loss, out.router_z_loss])
-    mlp_out = _mlp_apply(h, layer["mlp"], cfg)
-    if cfg.use_post_norms:
-        mlp_out = rms_norm(mlp_out, norms["post_mlp_norm"])
-    return x + mlp_out, new_kv, None
+        out = moe_block(rms_norm(x, norms["mlp_norm"]), layer["moe"], top_k=cfg.top_k,
+                        capacity_factor=cfg.capacity_factor, router_style=cfg.router_style,
+                        group_rows=group_rows)
+        x = x + out.y
+        aux = torch.stack([out.load_balance_loss, out.router_z_loss])
+    elif "mlp" in layer:
+        mlp_out = _mlp_apply(rms_norm(x, norms["mlp_norm"]), layer["mlp"], cfg)
+        if cfg.use_post_norms:
+            mlp_out = rms_norm(mlp_out, norms["post_mlp_norm"])
+        x = x + mlp_out
+    return x, new_kv, new_ssm, aux
 
 
 def _slice_layer(tree, i: int):
@@ -154,56 +242,99 @@ def _logits(params, x, cfg):
     return logits
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
-            return_aux: bool = False):
-    """Full-sequence forward: (B, S) token ids -> (B, S, Vp) logits.
+def _stack_states(states: list) -> dict:
+    return {k: torch.stack([s[k] for s in states]) for k in states[0]}
 
-    With ``mode="prefill"`` it returns ``(logits, cache)`` as well, the
-    cache ``{"kv": (k, v)}`` holding every layer's post-RoPE K/V stacked to
-    ``(L, B, S, Hkv, hd)`` in the compute dtype (the reference's
-    ``transformer.py:420-422``). The reference always returns its aux
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
+            return_aux: bool = False, extra_embeds: Optional[torch.Tensor] = None,
+            encoder_frames: Optional[torch.Tensor] = None):
+    """Full-sequence forward: (B, S) token ids -> (B, S', Vp) logits.
+
+    ``extra_embeds`` (B, V, D): a VLM's patch embeddings, prepended to the
+    text (S' = V + S; the positions cover them). ``encoder_frames``
+    (B, S_enc, D): whisper's frame embeddings, which the encoder turns into
+    the cross-attention's K/V source (required for the audio arch).
+
+    With ``mode="prefill"`` it returns ``(logits, cache)`` as well: ``"kv"``
+    holds every attention layer's post-RoPE K/V stacked to
+    ``(L, B, S', Hkv, hd)`` in the compute dtype (absent for mamba2), and
+    ``"ssm"`` every SSM layer's state stacked over the layers (``h`` fp32,
+    the conv windows in the compute dtype), the reference's
+    ``transformer.py:420-422``. The reference always returns its aux
     losses, ``(logits, aux[, cache])``; here ``return_aux=True`` gives
     exactly that, ``aux`` being ``{"load_balance", "z_loss"}``, each summed
-    over the layers (fp32 zeros for a dense model), and the default leaves
-    them out: ``logits`` or ``(logits, cache)``.
+    over the layers (fp32 zeros but for MoE), and the default leaves them
+    out: ``logits`` or ``(logits, cache)``.
     """
     x = _embed(params, tokens, cfg)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     b, seq = x.shape[:2]
     positions = torch.arange(seq, device=x.device)
-    inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, device=x.device)
+    inv_freq = _inv_freq(cfg, x.device)
+    cross_kv = None
+    if cfg.arch_type == "audio":
+        from repro_torch.models.encdec import encode
+
+        if encoder_frames is None:
+            raise ValueError("audio arch requires encoder_frames")
+        cross_kv = encode(params["encoder"], encoder_frames, cfg)
+        x = x + sinusoidal_positions(seq, cfg.d_model, device=x.device).to(x.dtype)[None]
     prefill = mode == "prefill"
-    if prefill:
+    has_kv = "attn" in params["layers"]
+    if prefill and has_kv:
         shape = (cfg.num_layers, b, seq, cfg.num_kv_heads, cfg.head_dim)
         ks = torch.empty(shape, dtype=x.dtype, device=x.device)
         vs = torch.empty(shape, dtype=x.dtype, device=x.device)
+    states = []
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
     for i, window in enumerate(window_flags(cfg)):
-        x, (k, v), layer_aux = decoder_layer(x, _slice_layer(params["layers"], i), cfg,
-                                             window=window, positions=positions,
-                                             inv_freq=inv_freq)
+        layer = _slice_layer(params["layers"], i)
+        x, kv, new_ssm, layer_aux = decoder_layer(
+            x, layer, cfg, window=window, positions=positions, inv_freq=inv_freq,
+            mode="prefill" if prefill else "train",
+            cross_kv=cross_kv if "cross" in layer else None)
         if layer_aux is not None:
             aux = aux + layer_aux
         if prefill:
-            ks[i], vs[i] = k, v
+            if has_kv:
+                ks[i], vs[i] = kv
+            if new_ssm is not None:
+                states.append(new_ssm)
     out = [_logits(params, x, cfg)]
     if return_aux:
         out.append({"load_balance": aux[0], "z_loss": aux[1]})
     if prefill:
-        out.append({"kv": (ks, vs)})
+        cache = {"kv": (ks, vs)} if has_kv else {}
+        if states:
+            cache["ssm"] = _stack_states(states)
+        out.append(cache)
     return out[0] if len(out) == 1 else tuple(out)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16,
                device="cuda") -> dict:
-    """Empty dense decode cache ``{"kv": (k, v)}``, each (L, B, max_len, Hkv, hd)."""
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"kv": (torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))}
+    """Empty decode cache: ``"kv"`` (k, v), each (L, B, max_len, Hkv, hd) in
+    ``dtype``, for every arch with attention; ``"ssm"`` for mamba2 and hymba:
+    ``h`` (L, B, H, P, N) fp32 and the conv windows (L, B, K-1, C) in
+    ``dtype``."""
+    cache: dict = {}
+    L = cfg.num_layers
+    if cfg.num_heads and cfg.arch_type != "ssm":
+        shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        cache["kv"] = (torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+    if cfg.arch_type in ("ssm", "hybrid"):
+        state = ssm_lib.init_decode_state(batch * L, ssm_dims(cfg), dtype=dtype, device=device)
+        cache["ssm"] = {k: v.reshape(L, batch, *v.shape[1:]) for k, v in state.items()}
+    return cache
 
 
 def decode_layers(params: dict, token: torch.Tensor, pos, cfg: ModelConfig, layer_kv, *,
                   cache_index=None, kv_len=None, ring: bool = False,
-                  group_rows: bool = False) -> torch.Tensor:
+                  group_rows: bool = False, ssm_cache: Optional[dict] = None,
+                  encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One token (B, 1) through every layer at position ``pos``.
 
     ``pos`` is an int, or a (B,) tensor of per-row positions (slots of a
@@ -214,7 +345,12 @@ def decode_layers(params: dict, token: torch.Tensor, pos, cfg: ModelConfig, laye
     what it returns, keys at and past ``kv_len`` (``cache_index + 1`` unless
     given) masked. ``ring`` drops the causal and window masks (the ring
     cache); ``group_rows`` routes each row's token alone through the MoE
-    layers. Returns the (B, 1, Vp) logits.
+    layers. ``ssm_cache``: the SSM state stacked over the layers
+    (``init_cache``'s ``"ssm"``), whose tensors are replaced by the state
+    after the step. ``encoder_out``: whisper's encoder output, for the
+    cross-attention (required when the layers have it); whisper's position
+    embedding is row ``pos`` of the sinusoidal table. Returns the (B, 1, Vp)
+    logits.
     """
     x = _embed(params, token, cfg)
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
@@ -223,40 +359,56 @@ def decode_layers(params: dict, token: torch.Tensor, pos, cfg: ModelConfig, laye
         positions = pos + torch.arange(1, device=x.device)
     if cache_index is None:
         cache_index = pos
-    inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, device=x.device)
+    if cfg.arch_type == "audio":
+        x = x + sinusoidal_at(positions, cfg.d_model).to(x.dtype)
+        if encoder_out is None:
+            raise ValueError("audio arch decodes against encoder_out")
+    inv_freq = _inv_freq(cfg, x.device)
+    states = []
     for i, window in enumerate(window_flags(cfg)):
-        x, _, _ = decoder_layer(x, _slice_layer(params["layers"], i), cfg,
-                                window=window, positions=positions, inv_freq=inv_freq,
-                                kv_cache=layer_kv(i), cache_index=cache_index, kv_len=kv_len,
-                                ring=ring, group_rows=group_rows)
+        layer = _slice_layer(params["layers"], i)
+        x, _, new_ssm, _ = decoder_layer(
+            x, layer, cfg, window=window, positions=positions, inv_freq=inv_freq,
+            mode="decode", kv_cache=layer_kv(i) if "attn" in layer else None,
+            ssm_state=_slice_layer(ssm_cache, i) if "ssm" in layer else None,
+            cache_index=cache_index, kv_len=kv_len, ring=ring, group_rows=group_rows,
+            cross_kv=encoder_out if "cross" in layer else None)
+        if new_ssm is not None:
+            states.append(new_ssm)
+    if states:
+        ssm_cache.update(_stack_states(states))
     return _logits(params, x, cfg)
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: dict, pos, cfg: ModelConfig, *,
-                ring_cache: bool = False):
+                ring_cache: bool = False, encoder_out: Optional[torch.Tensor] = None):
     """One decode step against a dense cache. Returns ((B, 1, Vp) logits, cache).
 
-    ``cache`` is :func:`init_cache`'s; the token's K/V are written into it
-    in place at ``pos`` (an int, or (B,) per-row positions), so the returned
-    cache is the one given. MoE layers route the batch as one group, as the
-    reference's decode does.
+    ``cache`` is :func:`init_cache`'s (or ``serving.cache_from_prefill``'s);
+    the token's K/V are written into it in place at ``pos`` (an int, or
+    (B,) per-row positions) and its SSM state replaced by the state after
+    the step, so the returned cache is the one given. MoE layers route the
+    batch as one group, as the reference's decode does. ``encoder_out``:
+    whisper's encoder output (``encdec.encode``).
 
-    ``ring_cache=True`` (uniform sliding-window archs only), as the
-    reference: the buffer holds ``T`` = ``cache["kv"][0].shape[2]`` slots
-    (the window), the token is written at ``pos % T``, and attention runs
-    over the ``min(pos + 1, T)`` slots filled so far with no causal or
+    ``ring_cache=True`` (uniform sliding-window archs only: mixtral, hymba),
+    as the reference: the buffer holds ``T`` = ``cache["kv"][0].shape[2]``
+    slots (the window), the token is written at ``pos % T``, and attention
+    runs over the ``min(pos + 1, T)`` slots filled so far with no causal or
     window mask: RoPE was applied at absolute positions before caching, so
     eviction alone keeps the window.
     """
-    ck, cv = cache["kv"]
+    kv = cache.get("kv")
     cache_index = kv_len = None
     if ring_cache:
         if cfg.attention_pattern != "swa":
             raise ValueError("ring_cache requires a uniform sliding-window arch")
-        cache_len = ck.shape[2]
+        cache_len = kv[0].shape[2]
         cache_index = pos % cache_len
         kv_len = (torch.clamp(pos + 1, max=cache_len) if isinstance(pos, torch.Tensor)
                   else min(pos + 1, cache_len))
-    logits = decode_layers(params, token, pos, cfg, lambda i: DenseKV(ck[i], cv[i]),
-                           cache_index=cache_index, kv_len=kv_len, ring=ring_cache)
+    layer_kv = (lambda i: DenseKV(kv[0][i], kv[1][i])) if kv is not None else None
+    logits = decode_layers(params, token, pos, cfg, layer_kv, cache_index=cache_index,
+                           kv_len=kv_len, ring=ring_cache, ssm_cache=cache.get("ssm"),
+                           encoder_out=encoder_out)
     return logits, cache

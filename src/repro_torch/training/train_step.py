@@ -55,7 +55,10 @@ def loss_and_grads(params, batch, cfg, compute_dtype=torch.bfloat16, bf16_grads:
         compute = cast_tree(tree_lib.unflatten([(k, t) for (k, _), t in zip(flat, leaves)]),
                             compute_dtype)
     loss, metrics = loss_fn(compute, batch, cfg)
-    grads = torch.autograd.grad(loss, leaves)
+    # A leaf the loss does not read (hymba's ssm_norm: its hybrid layer
+    # norms once, with attn_norm) gets zeros, as jax.grad gives it.
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return loss.detach(), metrics, tree_lib.unflatten([(k, g) for (k, _), g in zip(flat, grads)])
 
 

@@ -605,3 +605,87 @@ def test_moe_block_is_deterministic_on_the_card(card):
         (out.y.float().square().sum() + out.load_balance_loss + out.router_z_loss).backward()
         runs.append([out.y, xs.grad] + [ws[k].grad for k in sorted(ws)])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ---------------------------------------------------------------------------
+# The SSM, hybrid, VLM and audio architectures
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ["mamba2-1.3b", "hymba-1.5b", "internvl2-1b", "whisper-small"]
+
+
+@pytest.mark.parametrize("shape,packed", [((3, 32, 50), True), ((192, 8, 2048), False),
+                                          ((24, 8, 24), False), ((48, 128, 2048), False)])
+def test_fused_chain_at_the_ssm_unit_shapes_matches_plain(card, shape, packed):
+    """hymba's whole (32, 50) per-head scalar units (a 200-byte row stride,
+    which TMA cannot take: packed), mamba2's 8 x 2048 wdt blocks and 8 x 24
+    per-head scalar blocks of an 8-way grid at 24 layers, and its whole
+    128 x 2048 wb / wc units."""
+    x = _rand(shape, 70, card)
+    x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    _assert_rel(fused.ns_chain(x, PAPER_COEFFS, 5), fused.ns_chain_plain(x, PAPER_COEFFS, 5),
+                CHAIN_TOL)
+    assert fused.ns_chain.launches == 1 and fused.ns_chain.packed_launches == int(packed)
+
+
+def _small_arch(arch, device):
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(arch).reduced()
+    return cfg, tree_lib.tree_map(lambda p: p.to(device), init_params(cfg, seed=0, device="cpu"))
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_reduced_arch_training_on_the_card_tracks_the_cpu(card, arch):
+    from repro_torch.launch import train
+
+    _, base = _small_arch(arch, "cpu")
+    argv = ["--arch", arch, "--reduced", "--mesh-model", "4", "--steps", "3", "--period", "2",
+            "--batch", "2", "--seq", "32", "--compute-dtype", "float32"]
+    cpu = train.run(argv + ["--device", "cpu"], params=base).records
+    gpu = train.run(argv + ["--device", "cuda"], params=_small_arch(arch, card)[1]).records
+    assert kernels.launch_counts()["ns_fused_chain"] > 0
+    # fp32, 1e-3 of each loss as the dense run's above.
+    assert max(abs(g["loss"] - c["loss"]) / max(1.0, abs(c["loss"]))
+               for g, c in zip(gpu, cpu)) <= 1e-3
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_reduced_arch_decode_on_the_card_tracks_the_cpu(card, arch):
+    """Prefill and eight decode steps on an fp32 cache, and greedy generate
+    tokens, card against CPU: logits to 1e-4, tokens equal."""
+    from repro_torch.models.encdec import encode
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.serving.serve_step import cache_from_prefill, generate
+
+    gen = torch.Generator().manual_seed(3)
+    cfg, _ = _small_arch(arch, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    extras = {}
+    if cfg.vision_tokens:
+        extras["vision_embeds"] = 0.1 * torch.randn((2, cfg.vision_tokens, cfg.d_model),
+                                                    generator=gen)
+    if cfg.encoder_seq:
+        extras["audio_frames"] = 0.1 * torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                                   generator=gen)
+    V = cfg.vision_tokens
+    outs, toks = {}, {}
+    for device in ("cpu", card):
+        cfg, params = _small_arch(arch, device)
+        ex = {k: v.to(device) for k, v in extras.items()}
+        with torch.no_grad():
+            logits_p, pcache = prefill(params, {"tokens": tokens[:, :8].to(device), **ex}, cfg)
+            cache = cache_from_prefill(pcache, cfg, V + 16, dtype=torch.float32)
+            enc = encode(params["encoder"], ex["audio_frames"], cfg) if cfg.encoder_seq else None
+            steps = [logits_p]
+            for t in range(8, 16):
+                steps.append(decode_step(params, tokens[:, t:t + 1].to(device), cache, V + t,
+                                         cfg, encoder_out=enc)[0])
+        outs[str(device)] = steps
+        toks[str(device)] = generate(params, tokens[:, :8].to(device), cfg, max_new_tokens=8,
+                                     max_len=V + 16, batch_extras=ex or None).cpu()
+    for a, b in zip(outs["cpu"], outs[str(card)]):
+        assert b.is_cuda and float((b.cpu() - a).abs().max()) <= 1e-4
+    assert torch.equal(toks["cpu"], toks[str(card)])

@@ -210,11 +210,14 @@ def test_serve_step_samples_only_with_a_generator():
 
 
 def test_unported_archs_raise():
+    """Every arch of the reference's registry is ported: an unknown name
+    raises, as an unknown arch_type does, and the engine still serves only
+    the dense and MoE archs, as the reference's."""
     with pytest.raises(KeyError, match="gemma2-9b"):
-        get_config("mamba2-1.3b")
-    ssm = dataclasses.replace(get_config("granite-8b").reduced(), arch_type="ssm")
+        get_config("mamba3-unknown")
+    encoder = dataclasses.replace(get_config("granite-8b").reduced(), arch_type="encoder")
     with pytest.raises(NotImplementedError):
-        init_params(ssm, device="cpu")
+        init_params(encoder, device="cpu")
     _, _, cfg, params = _models("granite-8b")
     with pytest.raises(NotImplementedError, match="dense"):
         ServingEngine(params, dataclasses.replace(cfg, arch_type="ssm"))
