@@ -9,7 +9,8 @@ It builds the port's hand-written CUDA kernels from ``src/repro_torch`` and
 drives the port end to end: the MuonBP baseline and the optimizer variants
 NorMuon, Turbo-Muon and Dion on the dense model, MuonBP on the
 Mixture-of-Experts model, and serving of both; MuonBP training and
-generate on the SSM, hybrid, VLM and audio models.
+generate on the SSM, hybrid, VLM and audio models; the distributed
+optimizer on four ranks that share the card.
 
   1. device   -- the card's name and power limit (nvidia-smi), device count;
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
@@ -120,7 +121,22 @@ generate on the SSM, hybrid, VLM and audio models.
                  1024-token prompt against teacher forcing, hymba also past
                  its 1024-token window on the ring cache against the dense
                  cache; the four reduced models on the card against the CPU;
- 13. times    -- each kernel, its plain version and the one-call PyTorch
+ 13. distributed -- four ranks share the card through gloo (NCCL refuses two
+                 ranks on one GPU), through the launcher on a data=2,model=2
+                 mesh with ZeRO-1 (the kernels built once, here, before any
+                 rank starts): full-width muonbp-960m cut to 8 of its 12
+                 layers, six steps, and NorMuon with the flatten fallback at
+                 3 layers, two steps; batch 2 x 1024 a rank, bf16. Every
+                 rank's loss each step, its collective trace against
+                 plan_comm to the byte (no optimizer collective on block
+                 steps), its launches, peak memory, momentum shards and
+                 spans (fwd+bwd, grad reduce, update by pipeline stage,
+                 apply gathers, replica gather); the update on the run's
+                 state and fresh gradients against the single-process update
+                 on rank 0, both phases, and pipelined against barrier
+                 (torch.equal). gloo copies through the host: these times
+                 measure no link;
+ 14. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
                  the least time the card could take for the same work; the
                  tiled Gram with its B operand K-major and N-major (the
@@ -135,8 +151,10 @@ Its last two lines are the kernels JSON and the device JSON.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -321,6 +339,29 @@ RESUME_LOSS_TOL = 1e-3
 CHAOS_ARGV = ["--arch", "muonbp-960m", "--reduced", "--steps", "6", "--batch", "2", "--seq",
               "64", "--period", "3", "--mesh-model", "4", "--guard", "--checkpoint-every", "2",
               "--keep-checkpoints", "2", "--log-every", "1"]
+
+
+# The distributed phase: DIST_RANKS ranks share the one card through gloo
+# (NCCL refuses two ranks on one GPU), through the launcher on a
+# data=2,model=2 mesh with ZeRO-1, batch 2 x 1024 a rank. Run A: full-width
+# muonbp-960m cut to DIST_A_LAYERS of its 12 layers, six steps: the port
+# saves every activation (the fp32 attention scores too), so a rank peaks at
+# 16.0 GiB at 8 layers and 17.5 GiB at 10. At 12 four ranks ran out of the
+# 80 GB (17.1 GiB allocated a rank, the allocator's expandable segments on),
+# and 10 left too little room: one run passed, the next ran out in a rank's
+# backward (16.6 GiB allocated, the card full). Run B: NorMuon
+# with the flatten fallback at 3 of 12 layers (3 does not divide 2: padded
+# lead, padded row statistics), two steps.
+DIST_RANKS = 4
+DIST_A_LAYERS = 8
+DIST_ARGV = ["--arch", "muonbp-960m", "--optimizer", "muonbp", "--period", "5", "--batch",
+             "4", "--seq", "1024", "--mesh", "data=2,model=2", "--zero1", "--dist-backend",
+             "gloo", "--obs-block", "--log-every", "1"]
+DIST_RUNS = (
+    ("A", [], 6, DIST_A_LAYERS, MAIN_PATH_KERNELS),
+    ("B", ["--optimizer-variant", "normuon", "--zero1-flatten"], 2, 3,
+     MAIN_PATH_KERNELS + ("normuon",)),
+)
 
 
 def log(msg: str) -> None:
@@ -2053,6 +2094,251 @@ def arch_small(arch: str) -> None:
         fail(f"reduced {arch} on the card disagrees with the CPU")
 
 
+def dist_rank(rank: int, port: int, label: str, extra: list, steps: int, layers,
+              out_dir: str) -> None:
+    """One rank of the distributed phase (started by torch.multiprocessing):
+    the launcher on the mesh, then the checks of :func:`dist_checks`; the
+    results go to ``out_dir/rank<r>.json``. An exception fails the rank."""
+    sys.path.insert(0, str(SRC))
+    # Four processes share the card: expandable segments keep each one's
+    # cached but unused blocks small (read at the rank's first allocation).
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = str(rank)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=DIST_RANKS)
+    try:
+        res = dist_checks(rank, label, extra, steps, layers)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        import traceback
+
+        # A peer that dies takes the others' collectives down with it: each
+        # rank's own error is kept for the parent to print.
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_checks(rank: int, label: str, extra: list, steps: int, layers) -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core import label_tree, muon
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import assert_matches_plan_by_axes, plan_comm
+    from repro_torch.distributed import zero1 as zero1_lib
+    from repro_torch.launch import train
+    from repro_torch.obs import MemorySink
+    from repro_torch.sharding import specs as sh
+    from repro_torch.training.train_step import loss_and_grads, reduce_grads
+
+    cfg = get_config("muonbp-960m")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    variant = "normuon" if "normuon" in extra else None
+    flatten = "--zero1-flatten" in extra
+    sink = MemorySink()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem = []
+    run = train.run(DIST_ARGV + extra + ["--steps", str(steps)], cfg=cfg, sinks=[sink],
+                    on_step=lambda rec: mem.append(torch.cuda.max_memory_allocated()))
+    res = {"launches": dict(kernels.launch_counts()),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "losses": [r["loss"] for r in run.records],
+           "phases": [r["phase"] for r in run.records],
+           "step_wall_s": [r["dur_s"] for r in run.records], "peak_by_step": mem}
+    engine, params = run.engine, run.state.params
+    trace = engine.comm.trace
+    sizes = engine.axis_sizes
+    labels = label_tree(params)
+    plan = plan_comm(params, sh.param_specs(params, cfg, sizes), sizes,
+                     block_specs=run.block_specs, zero1=True, zero1_flatten=flatten)
+    res["plan"] = {ph: plan.predicted_bytes(ph) for ph in ("block", "full", "apply")}
+    res["trace_errors"] = []
+    res["per_step"] = []
+    for step, phase in enumerate(res["phases"]):
+        for phases in (phase, "apply"):
+            try:
+                assert_matches_plan_by_axes(trace, plan, phases, step=step)
+            except AssertionError as e:
+                res["trace_errors"].append(f"step {step}: {e}")
+        res["per_step"].append({cls: trace.total_bytes(cls, step=step) for cls in (
+            "block", "full", "apply", "grad_reduce", "replica_gather", "normuon")})
+    spans: dict = {}
+    for r in sink.records:
+        if r.get("event") == "span":
+            spans.setdefault(r["name"], []).append(r["dur_s"])
+    res["spans"] = spans
+    muon_state = run.state.opt_state.inner["muon"]
+    res["muon_state_bytes"] = zero1_lib.state_bytes(muon_state)
+    # ZeRO-1 splits the stacks (ndim >= 3); the 2-D norm gains stay whole.
+    label_of = dict(tree_lib.flatten_with_path(labels))
+    stacks = [k for k, p in tree_lib.flatten_with_path(params)
+              if label_of[k] == "muon" and p.dim() >= 3]
+    res["muon_stack_bytes"] = sum(
+        muon_state.momentum[k].numel() * 4 for k in stacks)
+    res["unsharded_stack_bytes"] = sum(
+        4 * math.prod(engine.state_shape_for(k, tuple(dict(
+            tree_lib.flatten_with_path(params))[k].shape))) for k in stacks)
+
+    # The update on the run's state and fresh gradients (this rank's rows,
+    # reduced over the data axes), against the single-process update.
+    pipe = SyntheticLM(cfg, 4, 1024, seed=1)
+    rows = train._batch_rows(engine, 4)
+    batch = train.device_batch({k: v[rows] for k, v in next(iter(pipe)).items()}, "cuda")
+    loss, metrics, grads = loss_and_grads(params, batch, cfg)
+    reduce_grads(engine, loss, metrics, grads)
+    del batch
+    only = lambda t: tree_lib.tree_map(lambda x, l: x if l == "muon" else None, t, labels)
+    g_m, p_m = only(grads), only(params)
+    del grads
+    opt_kw = dict(period=5, weight_decay=0.1, block_specs=run.block_specs, variant=variant)
+    # The single process keeps no flatten pad: drop the (zero) pad layers.
+    full_state = zero1_lib.gather_state(muon_state, p_m, engine, phase="check")
+    lead = {k: p.shape[0] for k, p in tree_lib.flatten_with_path(p_m)}
+    unpad = lambda d: d if d is None else {k: v[:lead[k]] for k, v in d.items()}
+    full_state = full_state._replace(momentum=unpad(full_state.momentum),
+                                     second_moment=unpad(full_state.second_moment))
+    res["update"] = {}
+    for phase in ("full", "block"):
+        outs = {}
+        for schedule in (("pipelined", "barrier") if phase == "full" else ("pipelined",)):
+            opt = muon(0.02, 0.02, comm=engine, full_schedule=schedule, **opt_kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            upd, _ = opt.update(g_m, muon_state, p_m, phase)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            outs[schedule] = {k: engine.replicate(k, engine.to_param_layout(k, u))
+                              for k, u in tree_lib.flatten_with_path(upd)}
+            res["update"][f"{phase}_{schedule}_ms"] = ms
+            del upd
+        if "barrier" in outs:
+            res["update"]["pipelined_equals_barrier"] = all(
+                torch.equal(outs["pipelined"][k], outs["barrier"][k]) for k in outs["barrier"])
+            del outs["barrier"]
+        got = outs["pipelined"]
+        res["update"][f"{phase}_checksum"] = sum(float(v.double().abs().sum())
+                                                 for v in got.values())
+        if rank == 0:
+            ref, _ = muon(0.02, 0.02, **opt_kw).update(g_m, full_state, p_m, phase)
+            err = max(float((got[k].double() - v.double()).abs().max())
+                      for k, v in tree_lib.flatten_with_path(ref))
+            scale = max(float(v.abs().max()) for _, v in tree_lib.flatten_with_path(ref))
+            res["update"][f"{phase}_rel_err"] = err / scale
+            del ref
+        del got, outs
+        torch.cuda.empty_cache()
+    res["check_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def phase_distributed(smi: str) -> None:
+    """Four ranks on the one card, gloo, through the launcher on a
+    data=2,model=2 mesh with ZeRO-1: run A, full-width muonbp-960m, six steps
+    (full, block x4, full); run B, NorMuon with the flatten fallback at 3 of
+    its 12 layers (3 does not divide 2), two steps. Every rank's exit code is
+    checked. gloo copies through the host: its times measure no link."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    for label, extra, steps, layers, required in DIST_RUNS:
+        t_run = time.perf_counter()
+        tag = f"distributed:{label}"
+        # The ranks need the card's memory: tensors of earlier phases that
+        # only a reference cycle keeps go first, then the parent's cache.
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"[{tag}] before the ranks: card {free / 2**30:.2f} GiB free of "
+            f"{total / 2**30:.2f}; this process {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        log(f"[{tag}] {DIST_RANKS} ranks (gloo, one card): python -m repro_torch.launch.train "
+            f"{' '.join(DIST_ARGV + extra)} --steps {steps}"
+            + (f", cfg num_layers={layers}" if layers else ""))
+        with tempfile.TemporaryDirectory() as out_dir:
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            # join=True raises if any rank raised or exited non-zero.
+            try:
+                mp.start_processes(dist_rank, args=(port, label, extra, steps, layers, out_dir),
+                                   nprocs=DIST_RANKS, start_method="spawn", join=True)
+            except Exception:
+                for r in range(DIST_RANKS):
+                    err = os.path.join(out_dir, f"rank{r}.err")
+                    if os.path.exists(err):
+                        log(f"[{tag}] rank {r} failed:\n{open(err).read()}")
+                raise
+            res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+                   for r in range(DIST_RANKS)]
+        r0 = res[0]
+        log(f"[{tag}] losses {r0['losses']} phases {r0['phases']}")
+        if any(r["losses"] != r0["losses"] for r in res):
+            fail(f"{tag}: the ranks' losses differ: {[r['losses'] for r in res]}")
+        if not all(v == v and abs(v) != float("inf") for v in r0["losses"]):
+            fail(f"{tag}: non-finite loss")
+        log(f"[{tag}] plan_comm a rank: {r0['plan']} B")
+        for rank, r in enumerate(res):
+            if r["trace_errors"]:
+                fail(f"{tag}: rank {rank}'s trace disagrees with the plan: {r['trace_errors']}")
+            for step, (phase, b) in enumerate(zip(r["phases"], r["per_step"])):
+                if phase == "block" and b["block"] != 0:
+                    fail(f"{tag}: rank {rank} block step {step} moved {b['block']} B")
+            for name in required:
+                if r["launches"].get(name, 0) <= 0:
+                    fail(f"{tag}: rank {rank} never launched {name} on the path")
+            upd = r["update"]
+            if not upd["pipelined_equals_barrier"]:
+                fail(f"{tag}: rank {rank}'s pipelined full update differs from the barrier's")
+            for phase in ("full", "block"):
+                if upd[f"{phase}_checksum"] != r0["update"][f"{phase}_checksum"]:
+                    fail(f"{tag}: rank {rank}'s {phase} update differs from rank 0's")
+            log(f"[{tag}] rank {rank}: peak memory {r['peak_bytes'] / 2**30:.2f} GiB (by step "
+                f"{[round(b / 2**30, 2) for b in r['peak_by_step']]}; with the checks "
+                f"{r['check_peak_bytes'] / 2**30:.2f} GiB), muon state "
+                f"{r['muon_state_bytes']} B, its stacks {r['muon_stack_bytes']} B of "
+                f"{r['unsharded_stack_bytes']} B unsharded, launches {r['launches']}, step "
+                f"walls {r['step_wall_s']}")
+            for step, b in enumerate(r["per_step"]):
+                log(f"[{tag}] rank {rank} step {step} ({r['phases'][step]}): bytes {b}")
+            if 4 * r["muon_stack_bytes"] != r["unsharded_stack_bytes"]:
+                fail(f"{tag}: rank {rank} holds {r['muon_stack_bytes']} B of the muon "
+                     f"stacks' momentum, not a quarter of {r['unsharded_stack_bytes']}")
+        for phase in ("full", "block"):
+            rel = r0["update"][f"{phase}_rel_err"]
+            log(f"[{tag}] {phase} update, 4 ranks vs one process (kernels both): rel {rel:.3e} "
+                f"(tol {UPDATE_TOL:g}); {r0['update'][f'{phase}_pipelined_ms']:.1f} ms on the "
+                f"mesh" + (f", barrier {r0['update']['full_barrier_ms']:.1f} ms"
+                           if phase == "full" else ""))
+            if not rel <= UPDATE_TOL:
+                fail(f"{tag}: the {phase} update on the mesh disagrees with one process")
+        for rank, r in enumerate(res):
+            split = {name: [round(v, 4) for v in vals] for name, vals in sorted(r["spans"].items())
+                     if name.startswith(("train.", "muonbp."))}
+            log(f"[{tag}] rank {rank} spans (s, --obs-block): {json.dumps(split)}")
+        log(f"[{tag}] {time.perf_counter() - t_run:.1f} s; times measure no link (gloo copies "
+            f"through the host); card: {smi}")
+    log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_times(errors: dict, launches: dict) -> list:
     import torch
 
@@ -2235,6 +2521,7 @@ def main() -> int:
     phase_train_ssm(device["smi"], errors)
     phase_serve_ssm(device["smi"])
     phase_archs(device["smi"])
+    phase_distributed(device["smi"])
     rows = phase_times(errors, launches)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     print(device["smi"], flush=True)

@@ -6,7 +6,7 @@ hybrid, VLM and audio), which the port's model, training and serving paths
 run; ``PAPER_CONFIGS`` the paper's Llama-style training models.
 """
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, InputShape, ModelConfig, NSEngineConfig
 from repro_torch.configs.gemma2_9b import CONFIG as _gemma2
 from repro_torch.configs.granite_8b import CONFIG as _granite
 from repro_torch.configs.hymba_1_5b import CONFIG as _hymba
@@ -36,4 +36,5 @@ def get_config(name: str) -> ModelConfig:
     )
 
 
-__all__ = ["ARCHS", "ModelConfig", "PAPER_CONFIGS", "get_config"]
+__all__ = ["ARCHS", "InputShape", "ModelConfig", "NSEngineConfig", "PAPER_CONFIGS", "SHAPES",
+           "get_config"]

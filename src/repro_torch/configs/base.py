@@ -70,6 +70,18 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.arch_type == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long-context shape (``SHAPES["long_500k"]``)."""
+        return self.arch_type in ("ssm", "hybrid") or self.attention_pattern in (
+            "swa",
+            "alternating",
+        )
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family, tiny dims (same rule as the reference)."""
         d_model = min(self.d_model, 256)
@@ -97,3 +109,57 @@ class ModelConfig:
             vision_tokens=min(self.vision_tokens, 16) if self.vision_tokens else 0,
             window_size=min(self.window_size, 64),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class NSEngineConfig:
+    """Newton-Schulz execution knobs (counterpart of the reference's).
+
+    ``strategy`` pins the kernel of every bucket ("auto" lets the compiled
+    UpdateProgram plan per bucket; ``kernels.dispatch.STRATEGIES`` and
+    "plain"); ``bucketing`` toggles the shape-bucketed program;
+    ``full_schedule`` is the distributed engine's full-step schedule
+    ("pipelined": bucket i+1's gathers in flight while bucket i
+    orthogonalizes, the default; "barrier": gather all, NS all, write back
+    all); ``variant`` the optimizer variant (``core/variants.py``). The
+    reference's ``backend`` ("jnp" | "pallas") has no counterpart: the
+    device a tensor lies on picks kernel or plain version.
+    Env overrides: ``REPRO_NS_STRATEGY``, ``REPRO_NS_BUCKETING=0``,
+    ``REPRO_FULL_SCHEDULE``, ``REPRO_OPTIMIZER_VARIANT``; the launcher
+    builds its optimizer from them, each flag beating its variable
+    (``launch.train.engine_config``).
+    """
+
+    strategy: str = "auto"
+    bucketing: bool = True
+    full_schedule: str = "pipelined"
+    variant: str = "muon"
+
+    @classmethod
+    def from_env(cls) -> "NSEngineConfig":
+        import os
+
+        return cls(
+            strategy=os.environ.get("REPRO_NS_STRATEGY", cls.strategy),
+            bucketing=os.environ.get("REPRO_NS_BUCKETING", "1").lower()
+            not in ("0", "false", "off"),
+            full_schedule=os.environ.get("REPRO_FULL_SCHEDULE", cls.full_schedule),
+            variant=os.environ.get("REPRO_OPTIMIZER_VARIANT", cls.variant),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", "train", 4096, 256),
+    "train_smoke": InputShape("train_smoke", "train", 128, 8),
+    "prefill_32k": InputShape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": InputShape("decode_32k", "decode", 32768, 128),
+    "long_500k": InputShape("long_500k", "decode", 524288, 1),
+}

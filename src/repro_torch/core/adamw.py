@@ -2,6 +2,12 @@
 
 The scalar/1-D/embedding optimizer inside the combined Muon setups, with
 decoupled weight decay and global-norm clipping of its own gradients.
+
+With ``comm=`` (``distributed.engine.ShardMapEngine``) the moments live in
+each leaf's momentum spec (ZeRO-1 splits the embedding's and the head's
+lead dim): the clipping norm is taken on the full, data-reduced gradients
+every rank holds, then each rank cuts its shard; the updates come back in
+the momentum layout, as ``core.muon``'s.
 """
 
 from __future__ import annotations
@@ -28,14 +34,17 @@ def adamw(
     eps: float = 1e-8,
     weight_decay: float = 0.0,
     grad_clip: float | None = 1.0,
+    comm=None,
 ) -> Optimizer:
     lr_fn = _as_schedule(learning_rate)
+    local = (lambda k, x: x) if comm is None else comm.shard
 
     def init(params) -> AdamWState:
         flat = tree_lib.flatten_with_path(params)
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        shape = lambda k, p: tuple(p.shape) if comm is None else comm.local_shape(k, p.shape)
+        zeros = lambda k, p: torch.zeros(shape(k, p), dtype=torch.float32, device=p.device)
         return AdamWState(
-            mu={k: zeros(p) for k, p in flat}, nu={k: zeros(p) for k, p in flat}, count=0
+            mu={k: zeros(k, p) for k, p in flat}, nu={k: zeros(k, p) for k, p in flat}, count=0
         )
 
     @torch.no_grad()
@@ -50,6 +59,7 @@ def adamw(
             gnorm = torch.sqrt(sum(torch.sum(g * g) for g in gs.values()))
             scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
             gs = {k: g * scale for k, g in gs.items()}
+        gs = {k: local(k, g) for k, g in gs.items()}
         new_mu = {k: b1 * state.mu[k] + (1 - b1) * g for k, g in gs.items()}
         new_nu = {k: b2 * state.nu[k] + (1 - b2) * (g * g) for k, g in gs.items()}
         c1 = 1 - b1 ** count
@@ -59,7 +69,7 @@ def adamw(
             p = p_by_key[k]
             upd = -lr * (new_mu[k] / c1) / (torch.sqrt(new_nu[k] / c2) + eps)
             if weight_decay:
-                upd = upd - lr * weight_decay * p.to(torch.float32)
+                upd = upd - lr * weight_decay * local(k, p.to(torch.float32))
             items.append((k, upd.to(p.dtype)))
         return tree_lib.unflatten(items), AdamWState(mu=new_mu, nu=new_nu, count=count)
 

@@ -18,7 +18,7 @@ strings the reference uses.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -103,3 +103,38 @@ def unpack_bucket(packed: torch.Tensor, plans: Sequence[LeafPlan], mode: str) ->
             offset += plan.units
         return out
     return [restore_leaf(packed[pos], plan) for pos, plan in enumerate(plans)]
+
+
+def plan_buckets(leaves: Sequence, specs: Sequence[Optional[blocking.BlockSpec2D]],
+                 mode: str = "concat") -> dict[BucketKey, list[int]]:
+    """Bucket key -> leaf indices, without touching data (``leaves`` may be
+    anything with ``.shape`` and ``.dtype``)."""
+    buckets: dict[BucketKey, list[int]] = {}
+    for idx, (leaf, spec) in enumerate(zip(leaves, specs)):
+        plan = plan_leaf(tuple(leaf.shape), leaf.dtype, spec, mode)
+        buckets.setdefault(plan.key, []).append(idx)
+    return buckets
+
+
+def bucketed_orthogonalize(leaves: Sequence[torch.Tensor],
+                           specs: Sequence[Optional[blocking.BlockSpec2D]],
+                           orth: Callable[[torch.Tensor], torch.Tensor],
+                           mode: str = "concat") -> list[torch.Tensor]:
+    """Orthogonalize every leaf with one ``orth`` call per shape bucket.
+
+    ``specs`` are per-leaf block grids (None, or ``num_blocks == 1``, for a
+    whole matrix); ``orth`` gets each packed bucket. Returns the leaves in
+    their shapes and order.
+    """
+    plans = [plan_leaf(tuple(leaf.shape), leaf.dtype, spec, mode)
+             for leaf, spec in zip(leaves, specs)]
+    buckets: dict[BucketKey, list[int]] = {}
+    for idx, plan in enumerate(plans):
+        buckets.setdefault(plan.key, []).append(idx)
+    results: list = [None] * len(leaves)
+    for members in buckets.values():
+        parts = [partition_leaf(leaves[i], plans[i]) for i in members]
+        orthed = orth(pack_bucket(parts, mode))
+        for i, out in zip(members, unpack_bucket(orthed, [plans[i] for i in members], mode)):
+            results[i] = out
+    return results

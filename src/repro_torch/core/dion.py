@@ -71,14 +71,21 @@ def dion(
     ns_strategy: Optional[str] = None,
     ns_steps: int = 6,
     period: Optional[int] = None,
+    comm=None,
 ) -> Optimizer:
     """Build the Dion low-rank optimizer as a compiled update program.
 
     ``bucketing``/``ns_strategy``/``ns_steps`` configure the program that
     orthonormalizes the projected factors, as for ``muon``. ``period`` is
     accepted and ignored: Dion runs the same power iteration every step, so
-    'block' and 'full' do the same work.
+    'block' and 'full' do the same work. ``comm`` (a distributed engine)
+    raises: Dion on a mesh of ranks needs the reference's
+    ``_FactorEngineView``, which a later slice of the port brings.
     """
+    if comm is not None:
+        raise NotImplementedError(
+            "Dion on a mesh of ranks (--mesh) needs the reference's _FactorEngineView "
+            "(src/repro/core/dion.py), which a later slice of the port brings")
     lr_fn = _as_schedule(learning_rate)
     mu = momentum
     del period

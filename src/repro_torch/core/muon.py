@@ -20,11 +20,23 @@ row normalization, ``kernels/normuon.py``, refreshed on full steps).
 
 Trees are nested dicts (``repro_torch.tree``); ``None`` leaves are masked
 out, as ``core.combine`` hands each sub-optimizer its own parameters.
+
+With ``comm=`` (``distributed.engine.ShardMapEngine``) each rank holds only
+its shards: ``init`` allocates the momentum (and NorMuon's row statistics)
+in the leaf's momentum spec -- lead-padded under the ZeRO-1 flatten
+fallback -- and ``update`` takes the full, data-reduced gradients every rank
+holds, cuts this rank's shard of them, runs the program compiled against
+the engine (block steps on the local shards, full steps through the
+engine's gathers) and returns the updates in the momentum layout. The
+engine's ``to_param_layout`` and ``replicate`` bring them back
+(``training/train_step.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -99,6 +111,8 @@ def muon(
     block_specs: Optional[dict] = None,
     bucketing: bool = True,
     ns_strategy: Optional[str] = None,
+    comm: Optional[Any] = None,
+    full_schedule: Optional[str] = None,
     variant: Any = None,
 ) -> Optimizer:
     """Build the Muon-family optimizer (paper Algorithm 1).
@@ -107,7 +121,10 @@ def muon(
     :class:`blocking.BlockSpec2D` (or None) matching params;
     ``ns_strategy`` pins every bucket's kernel (``dispatch.STRATEGIES``,
     ``"plain"`` for the plain PyTorch chain; None plans per bucket).
-    ``variant`` is a name of ``core.variants.VARIANTS`` ("muon" |
+    ``comm`` is the distributed engine (see the module docstring) and
+    ``full_schedule`` its full-step schedule, ``"pipelined"`` (the default;
+    None reads ``REPRO_FULL_SCHEDULE``) or ``"barrier"``; without an engine
+    it has no effect. ``variant`` is a name of ``core.variants.VARIANTS`` ("muon" |
     "turbo_muon" | "normuon"), a ``VariantSpec``, or None for the baseline;
     a low-rank variant raises ``ValueError`` (build it with
     ``variants.build_variant``).
@@ -122,6 +139,13 @@ def muon(
     lr_full_fn = _as_schedule(lr_full)
     lr_block_fn = _as_schedule(lr_block if lr_block is not None else lr_full)
     mu = momentum
+    if full_schedule is None:
+        full_schedule = os.environ.get("REPRO_FULL_SCHEDULE", "pipelined")
+    if full_schedule not in program_lib.FULL_SCHEDULES:
+        raise ValueError(f"full_schedule must be one of {program_lib.FULL_SCHEDULES}, "
+                         f"got {full_schedule!r}")
+    if full_schedule == "staggered":
+        raise NotImplementedError(f"full_schedule='staggered' {program_lib.NOT_PORTED}")
     bs_by_path = dict(tree_lib.flatten_with_path(block_specs)) if block_specs else {}
     programs: dict = {}
 
@@ -130,10 +154,20 @@ def muon(
         if key not in programs:
             programs[key] = program_lib.compile_program(
                 leaf_specs, bucketing=bucketing, backend=backend, strategy=ns_strategy,
-                ns_steps=eff_ns_steps, precondition=vspec.precondition,
-                epilogue=vspec.epilogue,
+                engine=comm, full_schedule=full_schedule, ns_steps=eff_ns_steps,
+                precondition=vspec.precondition, epilogue=vspec.epilogue,
             )
         return programs[key]
+
+    def _state_shape(path, shape) -> tuple:
+        # Lead-padded under the engine's ZeRO-1 flatten fallback.
+        return tuple(shape) if comm is None else comm.state_shape_for(path, tuple(shape))
+
+    def _local(path, x: torch.Tensor) -> torch.Tensor:
+        # This rank's momentum-spec shard of a full tensor.
+        if comm is None:
+            return x
+        return comm.shard(path, _pad_lead(x, _state_shape(path, x.shape)[0]))
 
     def _orth(u: torch.Tensor, strategy: Optional[str] = None) -> torch.Tensor:
         if vspec.precondition == "spectral_scale":
@@ -149,18 +183,23 @@ def muon(
             u, steps=eff_ns_steps, coeffs=ns_coeffs, strategy=strategy
         )
 
+    def _shard_shape(path, shape) -> tuple:
+        if comm is None:
+            return tuple(shape)
+        return comm.local_shape(path, tuple(shape))
+
     def init(params) -> OptState:
         flat = tree_lib.flatten_with_path(params)
         zeros = lambda shape, p: torch.zeros(shape, dtype=torch.float32, device=p.device)
         second = vcount = None
         if vspec.epilogue == "neuron_norm":
-            # One statistic per output neuron (row): the leaf shape with its
-            # last dim collapsed; sub-matrix leaves keep theirs (skipped).
-            second = {path: zeros(p.shape[:-1] + (1,) if p.dim() >= 2 else p.shape, p)
+            # One statistic per output neuron (row) of the (padded) state:
+            # the shard shape with its last dim collapsed.
+            second = {path: zeros(_row_stat_shape(_shard_shape(path, p.shape)), p)
                       for path, p in flat}
             vcount = {path: 0 for path, _ in flat}
-        return OptState(momentum={path: zeros(p.shape, p) for path, p in flat}, count=0,
-                        second_moment=second, vcount=vcount)
+        return OptState(momentum={path: zeros(_shard_shape(path, p.shape), p) for path, p in flat},
+                        count=0, second_moment=second, vcount=vcount)
 
     @torch.no_grad()
     def update(grads, state: OptState, params, phase: str = "block"):
@@ -172,18 +211,21 @@ def muon(
 
         flat = tree_lib.flatten_with_path(grads)
         keys = [path for path, _ in flat]
-        g_leaves = [g.to(torch.float32) for _, g in flat]
+        full_shapes = [tuple(g.shape) for _, g in flat]
+        g_leaves = [_local(k, g.to(torch.float32)) for k, g in flat]
         m_leaves = [mu * state.momentum[k] + g for k, g in zip(keys, g_leaves)]
         p_by_key = dict(tree_lib.flatten_with_path(params))
         p_leaves = [p_by_key[k] for k in keys]
         u_leaves = [g + mu * m for g, m in zip(g_leaves, m_leaves)] if nesterov else m_leaves
 
+        # The program is compiled on the (padded) global state shapes; with
+        # an engine it runs on this rank's shards of them.
         leaf_specs = tuple(
             program_lib.LeafSpec(
-                key=k, shape=tuple(u.shape), dtype=dtype_name(u.dtype),
+                key=k, shape=_state_shape(k, shape), dtype=dtype_name(u.dtype),
                 block=bs_by_path.get(k),
             )
-            for k, u in zip(keys, u_leaves)
+            for k, shape, u in zip(keys, full_shapes, u_leaves)
         )
         backend = u_leaves[0].device.type if u_leaves else "cpu"
         program = _program_for(leaf_specs, backend)
@@ -201,6 +243,7 @@ def muon(
                 o_leaves[i], new_second[k], new_vcount[k] = normuon_lib.apply_neuron_norm(
                     o_leaves[i], new_second[k], new_vcount[k], beta2=vspec.beta2,
                     eps=vspec.stat_eps, refresh=phase == "full",
+                    reduce=_shard_reduce(comm, k, full_shapes[i]),
                 )
 
         upd_items = []
@@ -209,13 +252,38 @@ def muon(
             scale = _rms_scale(m_eff, n_eff, rms_target) if rms_match else 1.0
             upd = -lr * scale * o
             if weight_decay:
-                upd = upd - lr * weight_decay * p.to(torch.float32)
+                upd = upd - lr * weight_decay * _local(k, p.to(torch.float32))
             upd_items.append((k, upd.to(p.dtype)))
         new_m = dict(zip(keys, m_leaves))
         return tree_lib.unflatten(upd_items), OptState(
             momentum=new_m, count=count, second_moment=new_second, vcount=new_vcount)
 
     return Optimizer(init=init, update=update)
+
+
+def _pad_lead(x: torch.Tensor, lead: int) -> torch.Tensor:
+    """``x`` zero-padded on its lead dim to ``lead`` rows (the ZeRO-1 flatten
+    fallback's padded layers, which stay exactly zero)."""
+    if x.dim() == 0 or x.shape[0] == lead:
+        return x
+    return torch.cat([x, x.new_zeros((lead - x.shape[0], *x.shape[1:]))])
+
+
+def _row_stat_shape(shape: tuple) -> tuple:
+    """NorMuon's row statistics: one per output neuron (row), the shape with
+    its last dim collapsed; sub-matrix leaves keep theirs (skipped)."""
+    return tuple(shape[:-1]) + (1,) if len(shape) >= 2 else tuple(shape)
+
+
+def _shard_reduce(comm, key, shape: tuple):
+    """NorMuon's sums over a leaf sharded by the engine, or None."""
+    if comm is None or not comm.is_sharded(key, len(shape)):
+        return None
+    ndim = len(shape)
+    return normuon_lib.ShardReduce(
+        rows=(lambda t: comm.row_sum(key, t)) if comm.rows_split(key, ndim) else None,
+        total=lambda t: comm.leaf_sum(key, t, ndim),
+        n=int(shape[-1]), numel=int(math.prod(shape)))
 
 
 def block_muon(lr_block, **kw) -> Optimizer:

@@ -1,17 +1,29 @@
 """UpdateProgram: the MuonBP update compiled once, interpreted every step.
 
-Counterpart of the single-device subset of ``repro/core/program.py``: no
-distributed engine, no layer_shard, no staggered schedule. From static
-leaf information (shapes, dtypes, block grids) the compiler fixes, per
-phase, the ordered list of :class:`BucketOp`\\ s -- pack -> orthogonalize
-(kernel plan) -> unpack -- and each leaf's RMS-matching effective dims, so
-``muon.update`` merely interprets the program.
+Counterpart of ``repro/core/program.py``. From static leaf information
+(shapes, dtypes, block grids, and with a distributed engine its momentum
+specs) the compiler fixes, per phase, the ordered list of
+:class:`BucketOp`\\ s -- pack -> orthogonalize (kernel plan) -> unpack --
+and each leaf's RMS-matching effective dims, so ``muon.update`` merely
+interprets the program.
 
-Full phases pack in ``concat`` mode, block phases in ``stack`` mode, exactly
-as the reference's GSPMD compiler does, so bucket keys, packed shapes and
-effective dims match the reference leaf for leaf. Each bucket's
-:class:`KernelPlan` records the strategy ``dispatch.plan_strategy`` chose
-for the packed shape at compile time.
+Without an engine, full phases pack in ``concat`` mode and block phases in
+``stack`` mode, as the reference's single-device (GSPMD) compiler does, so
+bucket keys, packed shapes and effective dims match the reference leaf for
+leaf. With an engine (``distributed/engine.py``), the program is planned on
+each rank's local shard shapes, as the reference's ``_compile_phase_engine``:
+everything is rank-local, so every bucket concat-packs one batched NS chain
+per distinct local unit shape; a leaf that must be whole for NS carries a
+``gather`` :class:`CommOp` (full steps, and sharded leaves with no usable
+block grid), a ZeRO-1 flatten-fallback leaf an ``apply`` CommOp, each
+priced in ``distributed/plan.py``'s result-buffer convention; and the full
+phase compiles a :class:`PipelineSchedule` (``full_schedule='pipelined'``):
+stage ``s`` gathers bucket ``s``, orthogonalizes bucket ``s-1`` and slices
+bucket ``s-2`` back. Each bucket's :class:`KernelPlan` records the strategy
+``dispatch.plan_strategy`` chose for the packed shape at compile time.
+
+The reference's layer_shard split and staggered schedules are not in this
+port yet: asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +37,15 @@ from repro_torch.core import blocking
 from repro_torch.core import bucketing as bucketing_lib
 
 PathKey = tuple[str, ...]
+FP32_BYTES = 4  # NS inputs are fp32 (momentum dtype): plan.py's convention
+
+# Full-phase schedules of the engine: 'barrier' gathers every leaf, runs
+# every bucket, slices everything back; 'pipelined' overlaps per-bucket
+# gathers with the NS of the bucket before. The reference's 'staggered'
+# raises here (a later slice of the port).
+FULL_SCHEDULES = ("barrier", "pipelined", "staggered")
+NOT_PORTED = ("is not in this slice of the port; the staggered and layer_shard "
+              "schedules come in a later one")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +60,34 @@ class LeafSpec:
     @property
     def blocked(self) -> bool:
         return self.block is not None and self.block.num_blocks > 1
+
+
+@dataclasses.dataclass(frozen=True)
+class CommOp:
+    """One predicted communication step of the program.
+
+    ``kind``: ``'gather'`` -- a leaf's all-gather of its trailing (matrix)
+    dims before packing (engine full steps, and block steps of sharded
+    leaves with no usable block grid); the slice back after NS is local.
+    ``'apply'`` -- the writeback of a ZeRO-1 flatten-fallback leaf: one
+    all-gather per ZeRO axis restores the padded stack's lead dim, the pad
+    slice after is local; priced in the plan's 'apply' phase.
+    ``collectives`` are ``(op, axes, per_rank_result_bytes)`` tuples in the
+    convention of ``distributed.plan.Collective``.
+    """
+
+    kind: str
+    axes: tuple[str, ...] = ()
+    collectives: tuple[tuple[str, tuple[str, ...], int], ...] = ()
+
+    @property
+    def predicted_bytes(self) -> int:
+        return sum(b for _, _, b in self.collectives)
+
+    def predicted_link_bytes(self, link: str) -> int:
+        from repro_torch.distributed.plan import link_class
+
+        return sum(b for _, axes, b in self.collectives if link_class(axes) == link)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +118,24 @@ class KernelPlan:
 
 @dataclasses.dataclass(frozen=True)
 class LeafExec:
-    """Per-leaf execution record for one phase."""
+    """Per-leaf execution record for one phase.
+
+    ``spec`` and ``gather`` are set in engine mode; ``apply``/``out_spec``/
+    ``lead`` only for ZeRO-1 flatten-fallback leaves: the writeback gathers
+    the padded stack's lead dim over the ZeRO axes (``apply``), slices it
+    back to ``lead`` layers, and the update leaves in the param layout
+    (``out_spec``).
+    """
 
     index: int                              # position in the flat muon-leaf list
-    plan: bucketing_lib.LeafPlan            # pack plan
+    plan: bucketing_lib.LeafPlan            # pack plan on the local shape
     eff_dims: tuple[int, int]               # RMS-matching dims for this phase
     dtype: str = "float32"                  # leaf dtype (cast-epilogue target)
+    spec: Optional[tuple] = None            # normalized momentum spec (engine)
+    gather: Optional[CommOp] = None         # engine-mode pre-pack gather
+    apply: Optional[CommOp] = None          # flatten-fallback writeback gather
+    out_spec: Optional[tuple] = None        # out layout when != spec (fallback)
+    lead: Optional[int] = None              # unpadded lead dim (fallback)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,10 +151,105 @@ class BucketOp:
 
 
 @dataclasses.dataclass(frozen=True)
+class PipelineStage:
+    """One stage of the pipelined full step: gather i+1 / NS i / slice i-1.
+
+    ``gathers`` and ``writeback`` are flat leaf indices; ``compute`` indexes
+    ``PhaseProgram.ops``. ``gather_bytes`` is what this stage's gathers
+    move (plan.py's convention), ``overlap_bytes`` what the concurrent NS
+    chain can hide at the modeled rates (``plan.overlappable_ns_bytes``),
+    per link class; the exposed bytes are their clamped difference.
+    """
+
+    index: int
+    gathers: tuple[int, ...]
+    compute: Optional[int]
+    writeback: tuple[int, ...]
+    gather_bytes: int = 0
+    overlap_bytes: int = 0
+    dcn_gather_bytes: int = 0
+    dcn_overlap_bytes: int = 0
+
+    @property
+    def ici_gather_bytes(self) -> int:
+        return self.gather_bytes - self.dcn_gather_bytes
+
+    @property
+    def exposed_bytes(self) -> int:
+        return (max(0, self.ici_gather_bytes - self.overlap_bytes)
+                + max(0, self.dcn_gather_bytes - self.dcn_overlap_bytes))
+
+    @property
+    def exposed_dcn_bytes(self) -> int:
+        return max(0, self.dcn_gather_bytes - self.dcn_overlap_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineSchedule:
+    """The compiled full-step pipeline: bucket order and stages.
+
+    ``order`` is the ops[] execution order, largest gathers first (the
+    inter-pod bytes the primary key), gather-free buckets last. Stage *s*
+    issues the gathers of ``order[s]``, orthogonalizes ``order[s-1]`` and
+    writes back ``order[s-2]``, so at most two buckets' gathered momentum is
+    live.
+    """
+
+    order: tuple[int, ...]
+    stages: tuple[PipelineStage, ...]
+
+    @property
+    def gather_bytes(self) -> int:
+        return sum(s.gather_bytes for s in self.stages)
+
+    @property
+    def exposed_bytes(self) -> int:
+        return sum(s.exposed_bytes for s in self.stages)
+
+    @property
+    def dcn_gather_bytes(self) -> int:
+        return sum(s.dcn_gather_bytes for s in self.stages)
+
+    @property
+    def exposed_dcn_bytes(self) -> int:
+        return sum(s.exposed_dcn_bytes for s in self.stages)
+
+    def describe(self) -> list[str]:
+        dcn = (f" (inter-pod: exposed {self.exposed_dcn_bytes} of "
+               f"{self.dcn_gather_bytes} B)" if self.dcn_gather_bytes else "")
+        lines = [f"pipelined: {len(self.stages)} stage(s) over {len(self.order)} "
+                 f"bucket(s); exposed {self.exposed_bytes} of {self.gather_bytes} "
+                 f"gathered B" + dcn]
+        for s in self.stages:
+            parts = []
+            if s.gathers:
+                link = f", {s.dcn_gather_bytes} B dcn" if s.dcn_gather_bytes else ""
+                parts.append(f"gather {len(s.gathers)} leaf/leaves ({s.gather_bytes} B{link})")
+            if s.compute is not None:
+                parts.append(f"ns op{s.compute} (hides {s.overlap_bytes} B)")
+            if s.writeback:
+                parts.append(f"writeback {len(s.writeback)} leaf/leaves")
+            lines.append(f"  s{s.index}: " + (" | ".join(parts) if parts else "idle")
+                         + (f" -> exposed {s.exposed_bytes} B" if s.gathers else ""))
+        return lines
+
+
+@dataclasses.dataclass(frozen=True)
 class PhaseProgram:
     phase: str
     leaf_execs: tuple[LeafExec, ...]        # index order == muon leaf order
     ops: tuple[BucketOp, ...]
+    schedule: Optional[PipelineSchedule] = None   # engine-mode pipelined fulls
+
+    def predicted_comm_bytes(self) -> int:
+        """Predicted collective bytes a step of this phase (plan.py's
+        convention): the leaf gathers; the flatten writeback belongs to the
+        plan's 'apply' (:meth:`predicted_apply_bytes`)."""
+        return sum(le.gather.predicted_bytes for le in self.leaf_execs if le.gather)
+
+    def predicted_apply_bytes(self) -> int:
+        """ZeRO-1 flatten-fallback writeback bytes (the plan's 'apply')."""
+        return sum(le.apply.predicted_bytes for le in self.leaf_execs if le.apply)
 
     def eff_dims(self, index: int) -> tuple[int, int]:
         return self.leaf_execs[index].eff_dims
@@ -105,16 +261,49 @@ class UpdateProgram:
 
     leaf_specs: tuple[LeafSpec, ...]
     phases: dict                            # 'block' | 'full' -> PhaseProgram
+    engine: Optional[Any] = None            # distributed engine (duck-typed)
 
     def phase(self, name: str) -> PhaseProgram:
         return self.phases[name]
 
     def execute(self, phase: str, u_leaves: Sequence, orth: Callable) -> list:
         """Run one phase over the NS inputs; ``orth(x, strategy=...)`` is bound
-        to steps and coefficients."""
+        to steps and coefficients. With an engine, ``u_leaves`` are this
+        rank's shards and the engine runs the phase's gathers and slices."""
         if not u_leaves:
             return []
-        return execute_ops(self.phases[phase].ops, list(u_leaves), orth)
+        prog = self.phases[phase]
+        if self.engine is not None:
+            return self.engine.run_program(prog, list(u_leaves), orth)
+        return execute_ops(prog.ops, list(u_leaves), orth)
+
+    def summary(self) -> str:
+        """Human-readable program listing (for docs and debugging)."""
+        lines = []
+        for name, prog in self.phases.items():
+            apply_b = prog.predicted_apply_bytes()
+            lines.append(f"{name}: {len(prog.ops)} bucket op(s), predicted comm "
+                         f"{prog.predicted_comm_bytes()} B"
+                         + (f" (+{apply_b} B zero1 apply)" if apply_b else ""))
+            for op in prog.ops:
+                comm = "gather" if any(le.gather for le in op.leaves) else "none"
+                merged = (f" merge={'+'.join(op.kernel.merged_dtypes)}"
+                          if op.kernel.merged_dtypes else "")
+                variant = ""
+                if op.kernel.ns_steps is not None:
+                    variant += f" K={op.kernel.ns_steps}"
+                if op.kernel.precondition:
+                    variant += f" pre={op.kernel.precondition}"
+                if op.kernel.epilogue:
+                    variant += f" epi={op.kernel.epilogue}"
+                lines.append(f"  [{op.mode}] {len(op.leaves)} leaf/leaves -> "
+                             f"{op.packed_shape} {op.kernel.backend}/{op.kernel.strategy}"
+                             f"{merged}{variant} comm={comm}")
+            if prog.schedule is not None:
+                lines += ["  " + line for line in prog.schedule.describe()]
+            elif name == "full":
+                lines.append("  schedule: barrier")
+        return "\n".join(lines)
 
 
 def execute_op(op: BucketOp, leaves: Sequence, orth: Callable) -> list[tuple[int, Any]]:
@@ -231,12 +420,149 @@ def _compile_phase(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketing: boo
     return PhaseProgram(phase=phase, leaf_execs=tuple(leaf_execs), ops=tuple(ops))
 
 
+def _gather_comm(spec, shape: tuple, sizes: dict) -> Optional[CommOp]:
+    """Predicted all-gather of the trailing dims (plan.py's convention):
+    the canonical ``plan.trailing_gather_collectives`` sequence, one
+    collective a mesh axis, minor first, as the engine issues them."""
+    from repro_torch.distributed.plan import trailing_gather_collectives
+    from repro_torch.sharding.specs import local_shape, spec_entries, spec_entry_size
+
+    entries = spec_entries(spec, len(shape))
+    if spec_entry_size(entries[-2], sizes) * spec_entry_size(entries[-1], sizes) == 1:
+        return None
+    local = 1
+    for d in local_shape(spec, shape, sizes):
+        local *= d
+    collectives = trailing_gather_collectives(local, (entries[-2], entries[-1]), sizes)
+    axes = tuple(name for _, (name,), _ in collectives)
+    return CommOp(kind="gather", axes=axes, collectives=collectives)
+
+
+def _op_gather_bytes(op: BucketOp) -> int:
+    return sum(le.gather.predicted_bytes for le in op.leaves if le.gather)
+
+
+def _op_gather_link_bytes(op: BucketOp, link: str) -> int:
+    return sum(le.gather.predicted_link_bytes(link) for le in op.leaves if le.gather)
+
+
+def _compile_schedule(ops: Sequence[BucketOp], ns_steps: int) -> Optional[PipelineSchedule]:
+    """The per-bucket pipeline of an engine-mode phase, as the reference's.
+
+    Buckets run in descending gather bytes, inter-pod bytes first; stage
+    ``s`` gathers ``order[s]``, orthogonalizes ``order[s-1]``, writes back
+    ``order[s-2]``: ``len(ops) + 2`` stages (a gather-only prologue and a
+    writeback-only epilogue), each priced per link class.
+    """
+    if not ops:
+        return None
+    from repro_torch.distributed import plan as plan_lib
+
+    order = tuple(sorted(range(len(ops)), key=lambda i: (
+        -_op_gather_link_bytes(ops[i], "dcn"), -_op_gather_bytes(ops[i]), i)))
+    n = len(order)
+    stages = []
+    for s in range(n + 2):
+        g_op = order[s] if s < n else None
+        c_op = order[s - 1] if 1 <= s <= n else None
+        w_op = order[s - 2] if 2 <= s <= n + 1 else None
+        stages.append(PipelineStage(
+            index=s,
+            gathers=tuple(le.index for le in ops[g_op].leaves if le.gather is not None)
+            if g_op is not None else (),
+            compute=c_op,
+            writeback=tuple(le.index for le in ops[w_op].leaves) if w_op is not None else (),
+            gather_bytes=_op_gather_bytes(ops[g_op]) if g_op is not None else 0,
+            overlap_bytes=plan_lib.overlappable_ns_bytes(ops[c_op].packed_shape, ns_steps)
+            if c_op is not None else 0,
+            dcn_gather_bytes=_op_gather_link_bytes(ops[g_op], "dcn") if g_op is not None else 0,
+            dcn_overlap_bytes=plan_lib.overlappable_ns_bytes(
+                ops[c_op].packed_shape, ns_steps, link="dcn") if c_op is not None else 0,
+        ))
+    return PipelineSchedule(order=order, stages=tuple(stages))
+
+
+def _compile_phase_engine(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketing: bool,
+                          backend: str, strategy: Optional[str], engine: Any,
+                          full_schedule: str, stages: dict) -> PhaseProgram:
+    """Engine mode: plan on each rank's local (post-gather) shapes.
+
+    Every array is rank-local, so packing is always ``concat`` and bucket
+    keys are local unit shapes. A leaf that is due whole (full phase, or no
+    usable block grid) gathers its trailing dims; a blocked leaf runs NS on
+    its shard, blocked locally by the residual factor where its block grid
+    is finer than its shard grid (a replicated param carrying a block spec).
+    """
+    from repro_torch.distributed.plan import lead_gather_collectives
+    from repro_torch.sharding.specs import local_shape, spec_entries, spec_entry_size
+
+    sizes = dict(engine.axis_sizes)
+    mode = "concat"
+    leaf_execs: list[LeafExec] = []
+    for i, ls in enumerate(leaf_specs):
+        spec = engine.spec_for(ls.key, len(ls.shape))
+        entries = spec_entries(spec, len(ls.shape))
+        r = spec_entry_size(entries[-2], sizes)
+        c = spec_entry_size(entries[-1], sizes)
+        shard_shape = local_shape(spec, ls.shape, sizes)
+        m, n = int(ls.shape[-2]), int(ls.shape[-1])
+        gather = None
+        if phase == "full" or not ls.blocked:
+            # Gather the trailing dims back to global; lead dims stay local
+            # (ZeRO-1 keeps each rank on its own layers).
+            gather = _gather_comm(spec, ls.shape, sizes)
+            body_shape = (*shard_shape[:-2], m, n)
+            spec2d = None
+            eff = (m, n)
+        else:
+            bs = ls.block
+            if bs.r % r or bs.c % c:
+                raise ValueError(f"block grid {bs} incompatible with shard grid ({r}, {c})")
+            rr, rc = bs.r // r, bs.c // c
+            body_shape = shard_shape
+            spec2d = blocking.BlockSpec2D(rr, rc) if rr * rc > 1 else None
+            eff = (m // bs.r, n // bs.c)
+        plan = bucketing_lib.plan_leaf(body_shape, ls.dtype, spec2d, mode)
+        apply_op = out_spec = lead = None
+        fl = engine.flatten_for(ls.key)
+        if fl is not None:
+            if int(ls.shape[0]) != fl.padded_lead:
+                raise ValueError(f"flatten-fallback leaf {ls.key} has lead dim {ls.shape[0]}, "
+                                 f"expected padded {fl.padded_lead}")
+            trailing_elems = 1
+            for dim in shard_shape[1:]:
+                trailing_elems *= int(dim)
+            apply_op = CommOp(kind="apply", axes=fl.axes, collectives=lead_gather_collectives(
+                int(shard_shape[0]), trailing_elems, fl.axes, sizes))
+            out_spec = (None, *entries[1:])
+            lead = fl.lead
+        leaf_execs.append(LeafExec(index=i, plan=plan, eff_dims=eff, dtype=ls.dtype,
+                                   spec=tuple(entries), gather=gather, apply=apply_op,
+                                   out_spec=out_spec, lead=lead))
+
+    ops = []
+    for key, members, compute_dtype, merged in _group_buckets(leaf_execs, mode, bucketing):
+        packed = _packed_shape([le.plan for le in members], mode)
+        ops.append(BucketOp(
+            bucket_key=key, leaves=tuple(members), mode=mode,
+            kernel=_kernel_plan(packed, backend, strategy, merged, **stages),
+            packed_shape=packed, compute_dtype=compute_dtype,
+        ))
+    pipelined = phase == "full" and full_schedule == "pipelined"
+    schedule = _compile_schedule(ops, stages["ns_steps"]) if pipelined else None
+    return PhaseProgram(phase=phase, leaf_execs=tuple(leaf_execs), ops=tuple(ops),
+                        schedule=schedule)
+
+
 def compile_program(
     leaf_specs: Sequence[LeafSpec],
     *,
     bucketing: bool = True,
     backend: str = "cuda",
     strategy: Optional[str] = None,
+    engine: Optional[Any] = None,
+    layer_shard: Optional[tuple] = None,
+    full_schedule: str = "pipelined",
     ns_steps: int = 5,
     precondition: Optional[str] = None,
     epilogue: Optional[str] = None,
@@ -246,13 +572,29 @@ def compile_program(
     ``bucketing=False`` compiles the degenerate one-bucket-per-leaf program;
     ``backend`` is the device type the program runs on; ``strategy`` pins
     every bucket's kernel (``None``/"auto" plans per packed shape).
-    ``ns_steps`` is the effective chain length K and ``precondition`` /
-    ``epilogue`` the variant's stage names, recorded on every KernelPlan.
+    ``engine`` (``distributed.engine.ShardMapEngine``, duck-typed: it needs
+    ``axis_sizes``, ``spec_for``, ``flatten_for`` and ``run_program``)
+    compiles the explicit-comm program on local shapes, whose full phase
+    gets a :class:`PipelineSchedule` under ``full_schedule='pipelined'``
+    (``'barrier'``: gather all, NS all, write back all). ``ns_steps`` is the
+    effective chain length K and ``precondition`` / ``epilogue`` the
+    variant's stage names, recorded on every KernelPlan. ``layer_shard``
+    and ``full_schedule='staggered'`` raise ``NotImplementedError``.
     """
+    if full_schedule not in FULL_SCHEDULES:
+        raise ValueError(f"full_schedule must be one of {FULL_SCHEDULES}, got {full_schedule!r}")
+    if full_schedule == "staggered":
+        raise NotImplementedError(f"full_schedule='staggered' {NOT_PORTED}")
+    if layer_shard is not None:
+        raise NotImplementedError(f"layer_shard {NOT_PORTED}")
     stages = dict(ns_steps=ns_steps, precondition=precondition, epilogue=epilogue)
-    phases = {
-        phase: _compile_phase(leaf_specs, phase, bucketing=bucketing,
-                              backend=backend, strategy=strategy, stages=stages)
-        for phase in ("block", "full")
-    }
-    return UpdateProgram(leaf_specs=tuple(leaf_specs), phases=phases)
+    phases = {}
+    for phase in ("block", "full"):
+        if engine is not None:
+            phases[phase] = _compile_phase_engine(
+                leaf_specs, phase, bucketing=bucketing, backend=backend, strategy=strategy,
+                engine=engine, full_schedule=full_schedule, stages=stages)
+        else:
+            phases[phase] = _compile_phase(leaf_specs, phase, bucketing=bucketing,
+                                           backend=backend, strategy=strategy, stages=stages)
+    return UpdateProgram(leaf_specs=tuple(leaf_specs), phases=phases, engine=engine)

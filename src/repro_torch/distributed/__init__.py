@@ -1,0 +1,52 @@
+"""Distributed MuonBP on ``torch.distributed``: the communication plan, the
+explicit engine with zero-collective block steps, ZeRO-1 state sharding and
+the collective trace (counterpart of ``repro/distributed``)."""
+
+from repro_torch.distributed.audit import (
+    CollectiveEvent,
+    Collectives,
+    CollectiveTrace,
+    assert_matches_plan,
+    assert_matches_plan_by_axes,
+    bytes_by_axes,
+    bytes_by_link,
+)
+from repro_torch.distributed.engine import ShardMapEngine, make_engine
+from repro_torch.distributed.plan import (
+    DCN_AXES,
+    LINKS,
+    MODELED_LINK_BYTES_PER_S,
+    Collective,
+    CommPlan,
+    LeafCommPlan,
+    assign_stagger_offsets,
+    layer_shard_collectives,
+    link_class,
+    ns_chain_flops,
+    overlappable_ns_bytes,
+    plan_comm,
+)
+
+__all__ = [
+    "assert_matches_plan",
+    "assert_matches_plan_by_axes",
+    "assign_stagger_offsets",
+    "bytes_by_axes",
+    "bytes_by_link",
+    "Collective",
+    "CollectiveEvent",
+    "Collectives",
+    "CollectiveTrace",
+    "CommPlan",
+    "DCN_AXES",
+    "layer_shard_collectives",
+    "LeafCommPlan",
+    "link_class",
+    "LINKS",
+    "make_engine",
+    "MODELED_LINK_BYTES_PER_S",
+    "ns_chain_flops",
+    "overlappable_ns_bytes",
+    "plan_comm",
+    "ShardMapEngine",
+]

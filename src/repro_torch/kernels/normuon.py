@@ -21,6 +21,8 @@ the statistic refreshes only on full steps; every step applies it.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple, Optional
+
 import numpy as np
 import torch
 
@@ -106,8 +108,24 @@ def bias_correction(count: int, beta2: float) -> float:
                      np.float32(1e-12)))
 
 
+class ShardReduce(NamedTuple):
+    """NorMuon's sums over a leaf split across ranks (``muon(comm=...)``).
+
+    ``rows(t)`` sums per-row partial sums over the ranks that share the rows
+    (None where the rows are whole on each rank); ``total(t)`` sums partial
+    sums over every rank holding a piece of the leaf; ``n`` is the global
+    row length and ``numel`` the global (unpadded) element count.
+    """
+
+    rows: Optional[Callable[[torch.Tensor], torch.Tensor]]
+    total: Callable[[torch.Tensor], torch.Tensor]
+    n: int
+    numel: int
+
+
 def apply_neuron_norm(o: torch.Tensor, v: torch.Tensor, count: int, *, beta2: float,
-                      eps: float, refresh: bool) -> tuple[torch.Tensor, torch.Tensor, int]:
+                      eps: float, refresh: bool,
+                      reduce: Optional[ShardReduce] = None) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Leaf-level NorMuon epilogue: ``(o, v, count) -> (o', v', count')``.
 
     ``o`` is the orthogonalized update (any leading dims), ``v`` its row
@@ -117,6 +135,12 @@ def apply_neuron_norm(o: torch.Tensor, v: torch.Tensor, count: int, *, beta2: fl
     the host-integer refresh counter. Before any refresh the statistics are
     all zero and the reference passes the raw update through; the counter is
     a host integer here, so that guard skips the kernel instead.
+
+    ``reduce`` is given for a rank's shard of a leaf split across ranks:
+    where the rows are split, a refresh sums the row partial sums over the
+    ranks before the kernel divides (the kernel's own refresh sums one
+    rank's columns only); the RMS rescale's two means are global sums over
+    the global element count, the pad rows contributing zeros.
     """
     new_count = count + 1 if refresh else count
     if new_count == 0:
@@ -128,8 +152,13 @@ def apply_neuron_norm(o: torch.Tensor, v: torch.Tensor, count: int, *, beta2: fl
     m, n = x.shape[-2], x.shape[-1]
     x3 = x.reshape(-1, m, n).contiguous()
     v3 = head.to(torch.float32).reshape(-1, m, 1).contiguous()
+    kernel_refresh = refresh
+    if refresh and reduce is not None and reduce.rows is not None:
+        row = reduce.rows(torch.sum(x3 * x3, dim=-1, keepdim=True)) * (1.0 / float(reduce.n))
+        v3 = beta2 * v3 + (1.0 - beta2) * row
+        kernel_refresh = False
     y3, vn3 = neuron_norm(x3, v3, bias_correction(new_count, beta2), beta2=beta2, eps=eps,
-                          refresh=refresh)
+                          refresh=kernel_refresh)
     y = y3.reshape(x.shape)
     if refresh:
         v_new = vn3.reshape(head.shape)
@@ -141,7 +170,11 @@ def apply_neuron_norm(o: torch.Tensor, v: torch.Tensor, count: int, *, beta2: fl
     # RMS-preserving rescale: the per-row division changes the update's
     # magnitude, which the two-stepsize rule was tuned for, so restore the
     # leaf's global RMS.
-    num = torch.mean(torch.square(x)) + _TINY
-    den = torch.mean(torch.square(y)) + _TINY
+    if reduce is None:
+        num = torch.mean(torch.square(x)) + _TINY
+        den = torch.mean(torch.square(y)) + _TINY
+    else:
+        sums = reduce.total(torch.stack([torch.sum(torch.square(x)), torch.sum(torch.square(y))]))
+        num, den = sums / float(reduce.numel) + _TINY
     y = y * torch.sqrt(num / den)
     return y.to(orig_dtype), v_new, new_count

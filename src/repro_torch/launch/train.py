@@ -1,10 +1,30 @@
-"""Training launcher of the port: config-driven MuonBP pretraining on one GPU.
+"""Training launcher of the port: config-driven MuonBP pretraining.
 
-Counterpart of ``repro/launch/train.py`` for one device and the synchronous
-schedule, with the reference's flag names and defaults. ``--mesh-model N``
+Counterpart of ``repro/launch/train.py`` for the synchronous schedule, with
+the reference's flag names and defaults. On one process ``--mesh-model N``
 declares the tensor-parallel size whose shards define the MuonBP blocks, so
 one GPU runs the paper's N-way block grids. The phase schedule is driven
 here: ``step % P == 0`` runs 'full', every other step 'block'.
+
+``--mesh pod=2,data=2,model=2`` (or ``"2,2"`` for data,model) runs on a
+mesh of ranks, one process a rank, started by ``python -m
+torch.distributed.run`` (which sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK`` and the rendezvous address); the world size must equal the
+mesh's product. ``--dist-backend`` names the ``torch.distributed`` backend:
+``nccl`` when each rank has a card of its own (more ranks than visible cards
+raises before the process group starts), ``gloo`` (the default) when ranks
+share a card or run on the CPU. A rank's device is ``cuda:{LOCAL_RANK %
+device_count}``. The optimizer runs on the explicit engine
+(``--comm-engine shard_map``, ``distributed/engine.py``: block steps on each
+rank's shards with zero optimizer collectives, full steps through one
+gather a sharded matrix, ``--full-schedule pipelined|barrier``);
+``--zero1`` splits the optimizer state over the data axes and
+``--zero1-flatten`` adds the lead-padded fallback. ``--comm-engine gspmd``
+raises: eager PyTorch has no partitioner. Every rank runs the whole model
+on its slice of the batch (``--batch`` is the global batch); see
+``training/train_step.py`` for the gradient reduce, the 'apply' gathers and
+the replica gather. Only rank 0 prints step lines and writes
+``--log-file``; a rank that fails raises, which fails the run.
 
 Resilience: ``--guard`` runs the optimizer apply behind the health check of
 ``training/resilience.py`` (skip on NaN/Inf or a loss spike) and drives the
@@ -34,6 +54,11 @@ Example (one H100, full-width muonbp-960m):
   PYTHONPATH=src python -m repro_torch.launch.train --arch muonbp-960m \\
       --optimizer muonbp --period 5 --mesh-model 8 --steps 6 --batch 4 --seq 1024
 
+Four ranks on the CPU, ZeRO-1:
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --reduced --device cpu --mesh data=2,model=2 \\
+      --zero1 --steps 6 --batch 4 --seq 32
+
 Guarded, with snapshots and a resume:
   PYTHONPATH=src python -m repro_torch.launch.train --arch muonbp-960m \\
       --period 5 --mesh-model 8 --steps 20 --batch 4 --seq 1024 --guard \\
@@ -62,7 +87,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import tree as tree_lib
-from repro_torch.configs import ModelConfig, get_config
+from repro_torch.configs import ModelConfig, NSEngineConfig, get_config
 from repro_torch.core import adamw, block_muon, combine, label_tree, muon, muon_full
 from repro_torch.core import variants as variants_lib
 from repro_torch.core.muon import phase_for_step
@@ -84,19 +109,22 @@ AUX_METRICS = ("load_balance", "z_loss")
 
 def build_optimizer(name, params, *, lr, adam_lr, period, schedule_fn=None,
                     block_specs=None, rank=64, weight_decay=0.1, ns_strategy=None,
-                    bucketing=True, variant=None):
+                    bucketing=True, variant=None, comm=None, full_schedule=None):
     """(combined optimizer, effective period) as the reference builds them.
 
     ``--optimizer dion`` and the ``dion`` variant build the same low-rank
-    program, whose period is 1 (the same work every step).
+    program, whose period is 1 (the same work every step). ``comm`` is the
+    distributed engine (Dion refuses it), ``full_schedule`` its full-step
+    schedule.
     """
     labels = label_tree(params)
     lr_s = schedule_fn(lr) if schedule_fn else lr
     adam_s = schedule_fn(adam_lr) if schedule_fn else adam_lr
     vspec = variants_lib.get(variant)
-    ns_kw = dict(bucketing=bucketing, ns_strategy=ns_strategy)
+    ns_kw = dict(bucketing=bucketing, ns_strategy=ns_strategy, comm=comm,
+                 full_schedule=full_schedule)
     if name == "adamw":
-        return combine({"adamw": adamw(adam_s, weight_decay=weight_decay)},
+        return combine({"adamw": adamw(adam_s, weight_decay=weight_decay, comm=comm)},
                        tree_lib.tree_map(lambda _: "adamw", labels)), None
     if name == "dion" or vspec.low_rank:
         matrix_opt = variants_lib.build_variant("dion", lr_s, rank=rank,
@@ -115,8 +143,24 @@ def build_optimizer(name, params, *, lr, adam_lr, period, schedule_fn=None,
     else:
         raise ValueError(name)
     period_eff = {"muon": 1, "blockmuon": None, "dion": 1, "muonbp": period}[name]
-    return combine({"muon": matrix_opt, "adamw": adamw(adam_s, weight_decay=weight_decay)},
+    return combine({"muon": matrix_opt,
+                    "adamw": adamw(adam_s, weight_decay=weight_decay, comm=comm)},
                    labels), period_eff
+
+
+def engine_config(args: argparse.Namespace) -> NSEngineConfig:
+    """``NSEngineConfig.from_env()`` with the flags given on top of it, as
+    the reference's launcher resolves it (a flag beats its env variable)."""
+    ns = NSEngineConfig.from_env()
+    if args.ns_strategy:
+        ns = dataclasses.replace(ns, strategy=args.ns_strategy)
+    if args.no_ns_bucketing:
+        ns = dataclasses.replace(ns, bucketing=False)
+    if args.full_schedule:
+        ns = dataclasses.replace(ns, full_schedule=args.full_schedule)
+    if args.optimizer_variant:
+        ns = dataclasses.replace(ns, variant=args.optimizer_variant)
+    return ns
 
 
 def parser() -> argparse.ArgumentParser:
@@ -129,7 +173,8 @@ def parser() -> argparse.ArgumentParser:
                     help="optimizer variant (core/variants.py): 'muon' baseline, "
                          "'turbo_muon' spectral pre-scale + K-2 NS steps, 'normuon' "
                          "neuron-wise second-moment epilogue, 'dion' low-rank (it "
-                         "replaces the matrix optimizer); default: the baseline")
+                         "replaces the matrix optimizer); default: REPRO_OPTIMIZER_VARIANT, "
+                         "else the baseline")
     ap.add_argument("--period", type=int, default=5)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -139,13 +184,35 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--schedule", default="wsd", choices=["wsd", "cosine", "const"])
     ap.add_argument("--ns-strategy", default=None,
                     choices=["auto", "plain", "fused_chain", "fused_iter", "tiled"],
-                    help="pin the per-bucket NS kernel strategy (default: auto, "
-                         "the update program picks per bucket)")
+                    help="pin the per-bucket NS kernel strategy (default: "
+                         "REPRO_NS_STRATEGY, else auto: the update program picks per "
+                         "bucket)")
     ap.add_argument("--no-ns-bucketing", action="store_true",
-                    help="one NS chain per parameter instead of per shape bucket")
+                    help="one NS chain per parameter instead of per shape bucket "
+                         "(as REPRO_NS_BUCKETING=0)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="declared tensor-parallel size; its shards are the MuonBP blocks")
+                    help="declared tensor-parallel size on one process; its shards are "
+                         "the MuonBP blocks")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh of ranks, e.g. 'pod=2,data=2,model=2' or '4,2' (data,model); "
+                         "one process a rank (torch.distributed.run); overrides --mesh-model")
+    ap.add_argument("--dist-backend", default="gloo", choices=["gloo", "nccl"],
+                    help="torch.distributed backend under --mesh: nccl needs a card a "
+                         "rank; gloo runs ranks that share a card or the CPU")
+    ap.add_argument("--comm-engine", default="shard_map", choices=["shard_map", "gspmd"],
+                    help="optimizer comm engine under --mesh: the explicit engine "
+                         "(distributed/engine.py); 'gspmd' raises (eager PyTorch has "
+                         "no partitioner)")
+    ap.add_argument("--full-schedule", default=None, choices=["pipelined", "barrier"],
+                    help="the engine's full-step schedule (default: REPRO_FULL_SCHEDULE, "
+                         "else pipelined: bucket i+1's gathers in flight during bucket "
+                         "i's NS; 'barrier': gather all, NS all, write back all)")
+    ap.add_argument("--zero1", action="store_true",
+                    help="shard optimizer state over the mesh's data axes (ZeRO-1)")
+    ap.add_argument("--zero1-flatten", action="store_true",
+                    help="with --zero1: lead-padded flatten-and-shard fallback for "
+                         "stacks whose layer count does not divide the data axes")
     ap.add_argument("--compute-dtype", default="bfloat16", choices=sorted(COMPUTE_DTYPES))
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
@@ -217,11 +284,13 @@ class TrainRun:
     block_specs: dict
     records: list
     counters: dict
+    engine: Any = None   # the distributed engine under --mesh (its trace on .comm)
 
 
 def run(argv=None, *, params: Optional[dict] = None, cfg: Optional[ModelConfig] = None,
         on_step: Optional[Callable[[dict], None]] = None,
-        before_step: Optional[Callable[[int, Any, dict], None]] = None) -> TrainRun:
+        before_step: Optional[Callable[[int, Any, dict], None]] = None,
+        sinks: Optional[list] = None) -> TrainRun:
     """Parse ``argv`` and train; returns the :class:`TrainRun`.
 
     ``params`` replaces the seeded initialization (tests start both packages
@@ -231,18 +300,34 @@ def run(argv=None, *, params: Optional[dict] = None, cfg: Optional[ModelConfig] 
     called just before each step runs, ``on_step(record)`` after it, once its
     loss has been read. An abort raises ``SystemExit(3)``. The bus, the NS
     dispatch hook and the active fault plan are installed for the run and
-    removed after it.
+    removed after it. ``sinks`` are added to the bus on every rank (a
+    caller's ``MemorySink``). Under ``--mesh`` the run starts the process
+    group from the launcher's environment unless one is running, and ends
+    what it started.
     """
     args = parser().parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass --device cpu to run on the CPU")
+    started = _start_world(args) if args.mesh else False
+    rank = 0
+    if args.mesh:
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank))
+                                  % torch.cuda.device_count())
+            torch.cuda.set_device(device)
 
     # Sink order matters: the durable JSONL sink comes FIRST, so every record
-    # a stdout parser (chaos_run) sees is already fsync'd on disk.
-    sinks: list = [JsonlSink(args.log_file)] if args.log_file else []
-    sinks.append(StdoutSink())
-    bus = Bus(sinks)
+    # a stdout parser (chaos_run) sees is already fsync'd on disk. Only rank
+    # 0 writes the trail and prints.
+    all_sinks: list = []
+    if rank == 0:
+        all_sinks = [JsonlSink(args.log_file)] if args.log_file else []
+        all_sinks.append(StdoutSink())
+    bus = Bus(all_sinks + list(sinks or ()))
     prev_bus = set_bus(bus)
     dispatch.set_launch_hook(
         lambda dev, strategy, shape: bus.inc(f"ns_launch.{dev}.{strategy}"))
@@ -251,13 +336,43 @@ def run(argv=None, *, params: Optional[dict] = None, cfg: Optional[ModelConfig] 
     try:
         bus.event("run_start", argv=list(sys.argv[1:] if argv is None else argv),
                   args=vars(args))
-        return _train(args, device, bus, plan, params, cfg, on_step, before_step)
+        return _train(args, device, bus, plan, params, cfg, on_step, before_step, rank)
     finally:
         faults_lib.set_active(None)
         dispatch.set_launch_hook(None)
         set_bus(prev_bus)
         bus.close()
+        if started:
+            import torch.distributed as dist
 
+            dist.destroy_process_group()
+
+
+def _start_world(args) -> bool:
+    """Start the process group of ``--mesh`` from the launcher's environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) unless one
+    is running; True when this call started it."""
+    import torch.distributed as dist
+
+    if args.comm_engine != "shard_map":
+        raise ValueError("--comm-engine gspmd has no counterpart in eager PyTorch (no "
+                         "partitioner); use the explicit engine, shard_map")
+    if args.guard:
+        raise ValueError("--guard with --mesh is not in this slice of the port")
+    if dist.is_initialized():
+        return False
+    if "WORLD_SIZE" not in os.environ:
+        raise RuntimeError("--mesh runs one process a rank: start it with "
+                           "python -m torch.distributed.run --nproc-per-node N ...")
+    world = int(os.environ["WORLD_SIZE"])
+    if args.dist_backend == "nccl":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if world > cards:
+            raise RuntimeError(f"--dist-backend nccl needs a card a rank: {world} ranks, "
+                               f"{cards} visible cards (ranks that share a card use gloo)")
+    dist.init_process_group(args.dist_backend, rank=int(os.environ["RANK"]),
+                            world_size=world)
+    return True
 
 def device_batch(batch: dict, device) -> dict:
     """A numpy batch on ``device``: token ids and labels as int64, a VLM's
@@ -267,36 +382,56 @@ def device_batch(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def matrix_block_specs(params, cfg: ModelConfig, mesh_model: int) -> dict:
+def matrix_block_specs(params, cfg: ModelConfig, mesh_model) -> dict:
     """The MuonBP block grid of every Muon leaf (None for the AdamW leaves)
-    on a declared ``{"model": mesh_model}`` tensor-parallel size."""
-    axis_sizes = {"model": mesh_model}
+    on a declared ``{"model": mesh_model}`` tensor-parallel size, or on the
+    ``{axis: size}`` dict of a mesh."""
+    axis_sizes = mesh_model if isinstance(mesh_model, dict) else {"model": mesh_model}
     bspecs = sh.block_specs_for(params, sh.param_specs(params, cfg, axis_sizes), axis_sizes)
     return tree_lib.tree_map(lambda b, l: b if l == "muon" else None, bspecs,
                              label_tree(params))
 
 
-def _train(args, device, bus, plan, params, cfg, on_step, before_step) -> TrainRun:
+def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> TrainRun:
     prof_window = parse_profile_window(args.profile_steps) if args.profile_steps else None
+    if args.zero1 and not args.mesh:
+        raise ValueError("--zero1 shards over a mesh of ranks: give --mesh")
+    if args.zero1_flatten and not args.zero1:
+        raise ValueError("--zero1-flatten needs --zero1")
     if cfg is None:
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
     if params is None:
         params = init_params(cfg, seed=args.seed, device=device)
-    axis_sizes = {"model": args.mesh_model}
-    bspecs = matrix_block_specs(params, cfg, args.mesh_model)
+    sync = ((lambda: torch.cuda.synchronize(device))
+            if args.obs_block and device.type == "cuda" else None)
+    engine = None
+    if args.mesh:
+        from repro_torch.distributed import make_engine
+        from repro_torch.launch.mesh import make_mesh_from_spec
+
+        mesh = make_mesh_from_spec(args.mesh, "cuda" if args.dist_backend == "nccl" else "cpu")
+        axis_sizes = sh.mesh_axis_sizes(mesh)
+        engine = make_engine(params, sh.param_specs(params, cfg, axis_sizes), mesh,
+                             zero1=args.zero1, zero1_flatten=args.zero1_flatten)
+        engine.sync = sync
+    else:
+        axis_sizes = {"model": args.mesh_model}
+    bspecs = matrix_block_specs(params, cfg, axis_sizes)
     labels = label_tree(params)
+    ns = engine_config(args)
 
     sched = {"wsd": lambda peak: wsd(peak, args.steps),
              "cosine": lambda peak: cosine(peak, args.steps),
              "const": None}[args.schedule]
     optimizer, period = build_optimizer(
         args.optimizer, params, lr=args.lr, adam_lr=args.adam_lr, period=args.period,
-        schedule_fn=sched, block_specs=bspecs, ns_strategy=args.ns_strategy,
-        bucketing=not args.no_ns_bucketing, variant=args.optimizer_variant,
+        schedule_fn=sched, block_specs=bspecs, ns_strategy=ns.strategy,
+        bucketing=ns.bucketing, variant=ns.variant, comm=engine,
+        full_schedule=ns.full_schedule,
     )
-    variant_name = variants_lib.get(args.optimizer_variant).name
+    variant_name = variants_lib.get(ns.variant).name
     n_muon_matrices = sum(
         1 for lab, p in zip(tree_lib.leaves(labels), tree_lib.leaves(params))
         if lab == "muon" and p.ndim >= 2)
@@ -308,18 +443,20 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step) -> TrainR
     state = init_train_state(params, optimizer, guard=args.guard)
     pipe_src = SyntheticLM(cfg, args.batch, args.seq, seed=args.seed)
     pipe = iter(pipe_src)
+    rows = _batch_rows(engine, args.batch)
     compute_dtype = COMPUTE_DTYPES[args.compute_dtype]
 
-    # Run metadata, the reference's fields for one device and the synchronous
-    # schedule: checked on resume, so a wrong-arch/optimizer/grid resume fails
-    # with a named mismatch instead of a shape error.
+    # Run metadata, the reference's fields for the synchronous schedule:
+    # checked on resume, so a wrong-arch/optimizer/mesh resume fails with a
+    # named mismatch instead of a shape error.
     run_meta = {
         "arch": cfg.name,
         "optimizer": args.optimizer,
         "variant": variant_name,
         "period": period,
-        "mesh": {"data": 1, "model": args.mesh_model},
-        "zero1": False,
+        "mesh": ({k: int(v) for k, v in axis_sizes.items()} if engine is not None
+                 else {"data": 1, "model": args.mesh_model}),
+        "zero1": bool(args.zero1),
         "seed": args.seed,
         "schedule": {"mode": "synchronous", "period": period, "offsets": None},
     }
@@ -332,9 +469,22 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step) -> TrainR
             "guard": resilience.guard_to_meta(state.guard),
         }
         with span(bus, "checkpoint.save", step=step):
-            path = checkpoint.save_snapshot(
-                args.checkpoint_dir, state.params, state.opt_state, step=step,
-                extra=extra, keep=args.keep_checkpoints)
+            opt_state = state.opt_state
+            if engine is not None:
+                # Snapshots are mesh-independent: full leaves, one writer.
+                from repro_torch.distributed import zero1 as zero1_lib
+
+                opt_state = zero1_lib.gather_state(opt_state, state.params, engine)
+            path = checkpoint.snapshot_path(args.checkpoint_dir, step)
+            if rank == 0:
+                path = checkpoint.save_snapshot(
+                    args.checkpoint_dir, state.params, opt_state, step=step,
+                    extra=extra, keep=args.keep_checkpoints)
+            del opt_state
+            if engine is not None:
+                import torch.distributed as dist
+
+                dist.barrier()
         bus.inc("checkpoint.saves")
         bus.emit({"event": "checkpoint", "step": step, "path": path})
 
@@ -351,9 +501,16 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step) -> TrainR
             if found is not None:
                 ck_path, meta = found
                 with span(bus, "checkpoint.restore"):
+                    shardings = None
+                    if engine is not None:
+                        from repro_torch.distributed import zero1 as zero1_lib
+
+                        shardings = zero1_lib.opt_shardings(state.opt_state, state.params,
+                                                            engine)
                     r_params, r_opt, saved_step = checkpoint.restore(
                         ck_path, state.params, state.opt_state, device=device,
-                        verify_checksums=False)  # latest_valid already verified
+                        verify_checksums=False,  # latest_valid already verified
+                        opt_shardings=shardings, engine=engine)
                 state = state._replace(
                     params=r_params, opt_state=r_opt, step=saved_step + 1,
                     guard=(resilience.guard_from_meta(meta.get("guard"), device)
@@ -368,9 +525,11 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step) -> TrainR
             bus.emit({"event": "resume", "step": 0, "snapshot": None})
 
     n_params = sum(p.numel() for p in tree_lib.leaves(params))
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M optimizer={args.optimizer} "
-          f"variant={variant_name} period={period} mesh={axis_sizes} device={device}",
-          flush=True)
+    if rank == 0:
+        print(f"arch={cfg.name} params={n_params / 1e6:.1f}M optimizer={args.optimizer} "
+              f"variant={variant_name} period={period} mesh={axis_sizes} device={device}"
+              + (f" zero1={args.zero1} zero1_flatten={args.zero1_flatten} "
+                 f"backend={args.dist_backend}" if engine is not None else ""), flush=True)
 
     escalator = (
         resilience.Escalator(resilience.EscalationPolicy(
@@ -386,8 +545,6 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step) -> TrainR
         # on skips that happened before the preemption.
         escalator._last_total = int(state.guard.skipped)
 
-    sync = ((lambda: torch.cuda.synchronize(device))
-            if args.obs_block and device.type == "cuda" else None)
     profiler = None
     records = []
 
@@ -407,7 +564,7 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step) -> TrainR
     for step in range(start_step, args.steps):
         if prof_window is not None and step == prof_window[0]:
             profiler = _start_profiler(device)
-        batch = device_batch(next(pipe), device)
+        batch = device_batch({k: v[rows] for k, v in next(pipe).items()}, device)
         phase = phase_for_step(step, period) if args.optimizer != "adamw" else "block"
         if forced_full and args.optimizer != "adamw":
             phase = "full"
@@ -417,12 +574,14 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step) -> TrainR
         fault = plan.grad_fault(step) if plan else None
         if before_step is not None:
             before_step(step, state, batch)
+        if engine is not None:
+            engine.comm.trace.step = step
         with span(bus, "step", sync=sync, step=step, phase=phase, residue=residue,
                   due=due) as sp:
             with stage_scope(f"muonbp.{phase}"):
                 state, metrics = train_step(state, batch, cfg=cfg, optimizer=optimizer,
                                             phase=phase, compute_dtype=compute_dtype,
-                                            guard=guard_cfg, fault=fault)
+                                            guard=guard_cfg, fault=fault, engine=engine)
         if profiler is not None and step == prof_window[1] - 1:
             _stop_profiler(profiler, args.profile_dir, prof_window)
             profiler = None
@@ -470,7 +629,21 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step) -> TrainR
             raise SystemExit(3)
     finish("ok")
     return TrainRun(cfg=cfg, state=state, block_specs=bspecs, records=records,
-                    counters=dict(bus.counters))
+                    counters=dict(bus.counters), engine=engine)
+
+
+def _batch_rows(engine, batch: int) -> slice:
+    """This rank's rows of the global batch: its slice over the data axes
+    (every rank of one data coordinate reads the same rows)."""
+    if engine is None:
+        return slice(None)
+    axes = sh.data_axes_for(engine.axis_sizes)
+    n = engine.comm.size(axes)
+    if batch % n:
+        raise ValueError(f"--batch {batch} does not divide over the data axes "
+                         f"{axes} ({n} ranks)")
+    i = engine.comm.index(axes)
+    return slice(i * (batch // n), (i + 1) * (batch // n))
 
 
 def _start_profiler(device):

@@ -32,6 +32,7 @@ from repro_torch.obs.bus import (  # noqa: F401
 from repro_torch.obs.spans import (  # noqa: F401
     Span,
     percentiles,
+    record_span,
     span,
     stage_scope,
 )

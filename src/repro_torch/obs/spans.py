@@ -88,6 +88,14 @@ def span(
             bus.emit(rec)
 
 
+def record_span(bus: bus_lib.Bus | None, name: str, dur_s: float, **attrs: Any) -> None:
+    """Emit a span record for a duration measured elsewhere (e.g. a
+    collective's wall read around the call)."""
+    if bus is None:
+        return
+    bus.emit({"event": "span", "name": name, "dur_s": round(float(dur_s), 6), **attrs})
+
+
 def stage_scope(name: str):
     """A named region of a ``torch.profiler`` trace; no effect on results."""
     return torch.profiler.record_function(name)

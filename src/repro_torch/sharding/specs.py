@@ -1,13 +1,17 @@
 """Partition specs and MuonBP block grids of every arch, without a mesh.
 
-Counterpart of the single-device rules of ``repro/sharding/specs.py``
-(``attn_layouts``, ``param_specs``, ``block_specs_for``). The reference
-reads only the mesh's axis names and sizes; here they are a declared
-``{axis: size}`` dict, so ``{"model": 8}`` gives the paper's 8-way
-tensor-parallel block grids on one GPU (the reference's ``--mesh-model 8``).
+Counterpart of ``repro/sharding/specs.py``. The reference reads only the
+mesh's axis names and sizes; every rule here reads an ``{axis: size}``
+dict, or a live ``torch.distributed`` ``DeviceMesh`` through
+:func:`mesh_axis_sizes`. ``{"model": 8}`` gives the paper's 8-way
+tensor-parallel block grids on one GPU (the reference's ``--mesh-model 8``);
+a ``('pod', 'data', 'model')`` mesh of ranks gives the distributed layout
+(``distributed/``): the ZeRO-1 momentum specs, the flatten fallback, the
+batch and cache specs.
 
-A partition spec is a tuple with one entry per dim: ``None`` or an axis
-name. Megatron-style rules over the ``model`` axis:
+A partition spec is a tuple with one entry per dim: ``None``, an axis
+name, or a tuple of axis names (major to minor). Megatron-style rules over
+the ``model`` axis:
 
 * embeddings vocab-parallel; lm_head column(vocab)-parallel;
 * attention (and whisper's cross-attention and encoder attention):
@@ -27,14 +31,68 @@ name. Megatron-style rules over the ``model`` axis:
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import math
+from typing import Optional, Union
 
 from repro_torch import tree as tree_lib
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core.blocking import block_spec_from_partition
 from repro_torch.models.transformer import ssm_dims
 
 MODEL_AXIS = "model"
+DATA_AXES = ("pod", "data")
+
+
+def mesh_axis_sizes(mesh) -> dict[str, int]:
+    """``{axis: size}`` of a mesh: a dict passes through (copied), a
+    ``DeviceMesh`` gives its dim names and sizes in order."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def data_axes_for(mesh) -> tuple[str, ...]:
+    sizes = mesh_axis_sizes(mesh)
+    return tuple(a for a in DATA_AXES if a in sizes)
+
+
+def path_names(path) -> list[str]:
+    """Path components as strings (the port's paths are already tuples of str)."""
+    return [str(k) for k in path]
+
+
+def path_str(path) -> str:
+    """Canonical 'a/b/c' key of a tree path."""
+    return "/".join(path_names(path))
+
+
+def spec_entry_names(entry) -> tuple:
+    """Axis names of one spec entry (None -> ())."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def spec_entry_size(entry, sizes: dict[str, int]) -> int:
+    """Total shard factor of one spec entry on a mesh."""
+    size = 1
+    for name in spec_entry_names(entry):
+        size *= sizes.get(name, 1)
+    return size
+
+
+def spec_entries(spec, ndim: int) -> list:
+    """The spec's entries padded with None to ``ndim``."""
+    entries = list(spec) if spec is not None else []
+    return entries + [None] * (ndim - len(entries))
+
+
+def local_shape(spec, shape, sizes: dict[str, int]) -> tuple:
+    """Per-rank shard shape of a tensor with partition spec ``spec``: the
+    global -> local rule shared by the plan, the engine and the program."""
+    return tuple(d // spec_entry_size(e, sizes)
+                 for d, e in zip(shape, spec_entries(spec, len(shape))))
 
 
 def _divides(n: int, m: int) -> bool:
@@ -56,9 +114,10 @@ def attn_layouts(cfg: ModelConfig, model_size: int) -> tuple[Optional[str], Opti
     return layout(cfg.num_heads), layout(cfg.num_kv_heads)
 
 
-def param_specs(params, cfg: ModelConfig, axis_sizes: dict[str, int]) -> dict:
-    """Tree of partition-spec tuples matching ``params``."""
-    m = axis_sizes.get(MODEL_AXIS, 1)
+def param_specs(params, cfg: ModelConfig, axis_sizes) -> dict:
+    """Tree of partition-spec tuples matching ``params`` (``axis_sizes``: a
+    dict or a ``DeviceMesh``)."""
+    m = mesh_axis_sizes(axis_sizes).get(MODEL_AXIS, 1)
     ql, kvl = attn_layouts(cfg, m)
     dims = ssm_dims(cfg) if cfg.arch_type in ("ssm", "hybrid") else None
     heads_ok = dims is not None and _divides(dims.num_heads, m)
@@ -112,8 +171,189 @@ def param_specs(params, cfg: ModelConfig, axis_sizes: dict[str, int]) -> dict:
     return tree_lib.map_with_path(spec, params)
 
 
-def block_specs_for(params, specs, axis_sizes: dict[str, int]) -> dict:
+def block_specs_for(params, specs, axis_sizes) -> dict:
     """MuonBP block grid per param: blocks = model-parallel shards."""
+    sizes = mesh_axis_sizes(axis_sizes)
     return tree_lib.tree_map(
-        lambda p, s: block_spec_from_partition(s, tuple(p.shape), axis_sizes), params, specs
+        lambda p, s: block_spec_from_partition(s, tuple(p.shape), sizes), params, specs
     )
+
+
+ZeroAxes = Union[str, tuple]
+
+
+def zero1_axes(mesh_axis_sizes: dict[str, int],
+               axis: Optional[ZeroAxes] = None) -> tuple[str, ...]:
+    """The ZeRO-1 axes: ``None`` resolves to the mesh's data axes, major to
+    minor (``('pod', 'data')`` on a multi-pod mesh); a name or a tuple
+    passes through as a tuple."""
+    if axis is None:
+        return tuple(a for a in DATA_AXES if a in mesh_axis_sizes)
+    if isinstance(axis, str):
+        return (axis,)
+    return tuple(axis)
+
+
+def _zero1_entry(axes: tuple[str, ...]):
+    """Spec entry of the ZeRO-1 lead dim (a name for one axis)."""
+    return _axes_entry(axes)
+
+
+def momentum_spec(spec, shape, mesh_axis_sizes: dict[str, int], *, zero1: bool = False,
+                  zero1_axis: Optional[ZeroAxes] = "data", label: str = "muon") -> tuple:
+    """Optimizer-state spec of a param with spec ``spec``.
+
+    The param's layout; with ``zero1`` the unsharded *lead* dim is also
+    split over the ZeRO axes where their extent divides it. A muon leaf
+    qualifies only with a stack dim (ndim >= 3): its trailing two dims are
+    the MuonBP blocks. Any other label (AdamW's coordinate-wise state)
+    qualifies from ndim 2, so the embedding and head state shard too. When
+    the full extent does not divide the lead dim, major axes are dropped
+    one at a time until a dividing suffix remains; only when none divides
+    is the rule a no-op (:func:`zero1_flatten_info` plans the fallback).
+    """
+    entries = spec_entries(spec, len(shape))
+    min_ndim = 3 if label == "muon" else 2
+    if zero1 and len(shape) >= min_ndim and entries[0] is None:
+        axes = zero1_axes(mesh_axis_sizes, zero1_axis)
+        while axes:
+            d = math.prod(mesh_axis_sizes.get(a, 1) for a in axes)
+            if d > 1 and shape[0] % d == 0:
+                entries[0] = _zero1_entry(axes)
+                break
+            axes = axes[1:]
+    return tuple(entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlattenSpec:
+    """ZeRO-1 flatten-and-shard fallback of one leaf.
+
+    When the lead dim does not divide the ZeRO extent (granite's 36 layers
+    on 16 data ranks), the momentum is stored with its lead dim ceil-padded
+    to a multiple of the extent and split over ``axes``: each rank holds
+    whole layers, so block steps stay local. Pad layers are zero and stay
+    zero (``mu*0 + 0``; a zero matrix orthogonalizes to zero).
+    """
+
+    axes: tuple[str, ...]   # ZeRO axes, major to minor
+    factor: int             # product of the axes' sizes
+    lead: int               # original lead dim
+    padded_lead: int        # ceil(lead / factor) * factor
+
+    @property
+    def pad(self) -> int:
+        return self.padded_lead - self.lead
+
+    def padded_shape(self, shape) -> tuple:
+        return (self.padded_lead, *tuple(shape)[1:])
+
+
+def zero1_flatten_info(spec, shape, mesh_axis_sizes: dict[str, int], *,
+                       zero1_axis: Optional[ZeroAxes] = "data",
+                       label: str = "muon") -> Optional[FlattenSpec]:
+    """The flatten fallback of a leaf, iff the full ZeRO extent does not
+    divide its lead dim: None for non-muon leaves, leaves under 3 dims, a
+    lead dim already sharded, trivial ZeRO axes or a dividing extent.
+    Callers that enable the fallback check it before :func:`momentum_spec`.
+    """
+    shape = tuple(shape)
+    if label != "muon" or len(shape) < 3:
+        return None
+    if spec_entries(spec, len(shape))[0] is not None:
+        return None
+    axes = zero1_axes(mesh_axis_sizes, zero1_axis)
+    d = math.prod(mesh_axis_sizes.get(a, 1) for a in axes)
+    if d <= 1 or shape[0] % d == 0:
+        return None
+    padded = -(-shape[0] // d) * d
+    return FlattenSpec(axes=axes, factor=d, lead=shape[0], padded_lead=padded)
+
+
+def flatten_momentum_spec(spec, shape, info: FlattenSpec) -> tuple:
+    """Momentum spec of a flatten-fallback leaf (of its padded shape)."""
+    entries = spec_entries(spec, len(tuple(shape)))
+    entries[0] = _zero1_entry(info.axes)
+    return tuple(entries)
+
+
+# ---------------------------------------------------------------------------
+# Input / cache specs
+# ---------------------------------------------------------------------------
+
+def _axes_entry(axes: tuple):
+    """A spec entry of several axes: None, the name of one, or the tuple
+    (a one-axis tuple normalizes to its name, as the reference's specs do)."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def batch_axes_for(global_batch: int, mesh) -> tuple[str, ...]:
+    """Largest prefix of the data axes that divides the batch."""
+    sizes = mesh_axis_sizes(mesh)
+    axes: list[str] = []
+    prod = 1
+    for a in data_axes_for(sizes):
+        if global_batch % (prod * sizes[a]) == 0:
+            axes.append(a)
+            prod *= sizes[a]
+    return tuple(axes)
+
+
+def input_batch_specs(cfg: ModelConfig, shape: InputShape, mesh) -> dict:
+    """Specs of the input batch dict: the batch dim over the data axes."""
+    b = _axes_entry(batch_axes_for(shape.global_batch, mesh))
+    specs = {"tokens": (b, None)}
+    if shape.kind == "train":
+        specs["labels"] = (b, None)
+    if cfg.arch_type == "vlm":
+        specs["vision_embeds"] = (b, None, None)
+    if cfg.arch_type == "audio":
+        specs["audio_frames"] = (b, None, None)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, shape: InputShape, mesh, kv_seq_shard: bool = False,
+                cache_len: Optional[int] = None) -> dict:
+    """Specs of the decode cache of ``transformer.init_cache``.
+
+    ``kv_seq_shard`` shards the cache's sequence dim over the model axis in
+    place of heads / head_dim; a batch of one shards it over the data axes.
+    """
+    sizes = mesh_axis_sizes(mesh)
+    m = sizes.get(MODEL_AXIS, 1)
+    baxes = batch_axes_for(shape.global_batch, sizes)
+    b = _axes_entry(baxes)
+    eff_len = cache_len or shape.seq_len
+    seq_axes = None
+    if not baxes:
+        data = data_axes_for(sizes)
+        prod = math.prod(sizes[a] for a in data) if data else 1
+        if data and eff_len % prod == 0:
+            seq_axes = _axes_entry(data)
+
+    specs: dict = {}
+    if cfg.num_heads and cfg.arch_type != "ssm":
+        _, kvl = attn_layouts(cfg, m)
+        if kv_seq_shard and seq_axes is None and eff_len % m == 0:
+            kv = (None, b, MODEL_AXIS, None, None)
+        elif kvl == "head":
+            kv = (None, b, seq_axes, MODEL_AXIS, None)
+        elif kvl == "hd":
+            kv = (None, b, seq_axes, None, MODEL_AXIS)
+        else:
+            kv = (None, b, seq_axes, None, None)
+        specs["kv"] = (kv, kv)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        dims = ssm_dims(cfg)
+        heads_ok = _divides(dims.num_heads, m)
+        h_axis = MODEL_AXIS if heads_ok else None
+        inner_axis = MODEL_AXIS if heads_ok and _divides(dims.d_inner, m) else None
+        specs["ssm"] = {
+            "h": (None, b, h_axis, None, None),
+            "conv_x": (None, b, None, inner_axis),
+            "conv_b": (None, b, None, None),
+            "conv_c": (None, b, None, None),
+        }
+    return specs

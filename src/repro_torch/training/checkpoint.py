@@ -73,7 +73,7 @@ class CheckpointError(RuntimeError):
     """A snapshot is unreadable, corrupt, or doesn't match this run."""
 
 
-def _map_leaves(fn: Callable[[str, Any], Any], tree, parts: tuple = ()):
+def map_leaves(fn: Callable[[str, Any], Any], tree, parts: tuple = ()):
     """Rebuild ``tree`` with ``fn(key, leaf)`` at every leaf.
 
     ``key`` is the reference's checkpoint key of the leaf; leaves are
@@ -90,7 +90,7 @@ def _map_leaves(fn: Callable[[str, Any], Any], tree, parts: tuple = ()):
             if value is None:
                 new[name] = None
             elif kind == "node":
-                new[name] = _map_leaves(fn, value, at)
+                new[name] = map_leaves(fn, value, at)
             elif kind == "by_path":
                 new[name] = {path: fn("/".join(at + tuple(path)), value[path])
                              for path in sorted(value)}
@@ -98,7 +98,7 @@ def _map_leaves(fn: Callable[[str, Any], Any], tree, parts: tuple = ()):
                 new[name] = fn("/".join(at), value)
         return type(tree)(**new)
     if isinstance(tree, dict):
-        return {k: _map_leaves(fn, tree[k], parts + (str(k),)) for k in sorted(tree)}
+        return {k: map_leaves(fn, tree[k], parts + (str(k),)) for k in sorted(tree)}
     return fn("/".join(parts), tree)
 
 
@@ -112,7 +112,7 @@ def _host(leaf) -> np.ndarray:
 
 def _flatten(tree) -> dict[str, np.ndarray]:
     flat: dict[str, np.ndarray] = {}
-    _map_leaves(lambda key, leaf: flat.__setitem__(key, _host(leaf)), tree)
+    map_leaves(lambda key, leaf: flat.__setitem__(key, _host(leaf)), tree)
     return flat
 
 
@@ -264,8 +264,36 @@ def check_run_meta(meta: dict, expect: dict, path: str = "<snapshot>") -> None:
         )
 
 
-def _restore_leaf(arr: np.ndarray, leaf, key: str, device):
+def _fit_lead(arr: np.ndarray, shape: tuple, key: str) -> np.ndarray:
+    """A state leaf saved with (or without) the ZeRO-1 flatten fallback's
+    zero pad layers, fit to ``shape``'s lead dim: pad layers are dropped
+    (they must be zero) or added as zeros."""
+    if arr.shape == shape or not shape or arr.shape[1:] != shape[1:]:
+        return arr
+    if arr.shape[0] > shape[0]:
+        if np.any(arr[shape[0]:]):
+            raise ValueError(f"checkpoint leaf {key} has nonzero rows past lead {shape[0]}")
+        return arr[:shape[0]]
+    return np.concatenate([arr, np.zeros((shape[0] - arr.shape[0], *arr.shape[1:]),
+                                         arr.dtype)])
+
+
+def _restore_leaf(arr: np.ndarray, leaf, key: str, device, sharding=None, engine=None):
     shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
+    if sharding is not None and isinstance(leaf, torch.Tensor):
+        # A rank's shard: fit the full array to the leaf's full shape on
+        # this mesh, then cut this rank's piece as zero1.shard_state does.
+        from repro_torch.distributed.zero1 import shard_leaf
+
+        full = torch.from_numpy(_fit_lead(arr, tuple(sharding.shape), key))
+        out = shard_leaf(full, sharding, engine).to(
+            device=leaf.device if device is None else device, dtype=leaf.dtype)
+        if tuple(out.shape) != shape:
+            raise ValueError(f"checkpoint shard shape mismatch at {key}: "
+                             f"{tuple(out.shape)} vs {shape}")
+        return out
+    if key.startswith(".") or "/." in key:
+        arr = _fit_lead(arr, shape, key)  # optimizer state: mesh-independent leads
     if arr.shape != shape:
         raise ValueError(f"checkpoint shape mismatch at {key}: {arr.shape} vs {shape}")
     if isinstance(leaf, torch.Tensor):
@@ -277,9 +305,9 @@ def _restore_leaf(arr: np.ndarray, leaf, key: str, device):
 
 
 def _unflatten_into(template, flat: dict[str, np.ndarray], device=None,
-                    source: str = "checkpoint"):
+                    source: str = "checkpoint", shardings=None, engine=None):
     keys: list[str] = []
-    _map_leaves(lambda key, leaf: keys.append(key), template)
+    map_leaves(lambda key, leaf: keys.append(key), template)
     missing = sorted(set(keys) - set(flat))
     unexpected = sorted(set(flat) - set(keys))
     if missing or unexpected:
@@ -291,11 +319,16 @@ def _unflatten_into(template, flat: dict[str, np.ndarray], device=None,
             f"  unexpected in checkpoint ({len(unexpected)}): {unexpected[:8]}"
             f"{'...' if len(unexpected) > 8 else ''}"
         )
-    return _map_leaves(lambda key, leaf: _restore_leaf(flat[key], leaf, key, device), template)
+    by_key: dict = {}
+    if shardings is not None:
+        map_leaves(lambda key, s: by_key.__setitem__(key, s), shardings)
+    return map_leaves(lambda key, leaf: _restore_leaf(flat[key], leaf, key, device,
+                                                      by_key.get(key), engine), template)
 
 
 def restore(path: str, params_template: Any, opt_template: Any = None, *, device=None,
-            verify_checksums: bool = True, expect_run: Optional[dict] = None):
+            verify_checksums: bool = True, expect_run: Optional[dict] = None,
+            opt_shardings: Any = None, engine: Any = None):
     """Returns (params, opt_state or None, step).
 
     The templates give the structure, shapes and dtypes (a fresh
@@ -304,6 +337,13 @@ def restore(path: str, params_template: Any, opt_template: Any = None, *, device
     checksum manifest first (``verify_checksums=False`` skips the CRC pass,
     e.g. after an explicit :func:`verify`) and, with ``expect_run``, the run
     metadata.
+
+    Snapshots are mesh-independent: the optimizer state is saved as full
+    leaves (``distributed.zero1.gather_state``). With ``opt_shardings``
+    (``distributed.zero1.opt_shardings`` of the template) and the
+    ``engine``, each full leaf is cut to the template's shard on this rank.
+    An optimizer leaf saved with or without the flatten fallback's zero pad
+    layers is fit to the template's lead dim either way.
     """
     if verify_checksums:
         verify(path, expect_run=expect_run)
@@ -315,7 +355,7 @@ def restore(path: str, params_template: Any, opt_template: Any = None, *, device
     opt_file = os.path.join(path, "opt_state.npz")
     if opt_template is not None and os.path.exists(opt_file):
         opt_state = _unflatten_into(opt_template, _load_arrays(path, "opt_state.npz"), device,
-                                    source=opt_file)
+                                    source=opt_file, shardings=opt_shardings, engine=engine)
     return params, opt_state, load_meta(path)["step"]
 
 

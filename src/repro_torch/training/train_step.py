@@ -7,6 +7,18 @@ fp32. The MuonBP phase ('block' | 'full') is an argument, chosen per step
 by the launcher. ``guard=`` runs the optimizer apply behind the health
 check of ``training/resilience.py``; ``fault=`` injects a fault of
 ``training/faults.py`` into the step.
+
+``engine=`` (``distributed.engine.ShardMapEngine``, under the launcher's
+``--mesh``): every rank runs the whole model on its slice of the batch
+(the port's model is not tensor-parallel, where the reference's is). The
+gradients, the loss and the metrics are then averaged over the data axes
+(``grad_reduce``), which leaves them data-replicated as the reference's
+optimizer sees them; the optimizer cuts each rank's momentum-spec shard
+and returns its updates in that layout; the plan's 'apply' gathers bring
+them to the param layout and the replica gather over the model axes to the
+full tensor every rank adds to its replica. Each part runs in a span
+(``train.fwd_bwd``, ``train.grad_reduce``, ``train.update``,
+``train.apply``, ``train.replica_gather``).
 """
 
 from __future__ import annotations
@@ -20,6 +32,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.combine import apply_updates
 from repro_torch.core.muon import Optimizer
 from repro_torch.models.model import loss_fn
+from repro_torch.obs import get_bus, span
+from repro_torch.sharding.specs import data_axes_for
 from repro_torch.training import faults as faults_lib
 from repro_torch.training import resilience
 
@@ -74,6 +88,7 @@ def train_step(
     bf16_grads: bool = False,
     guard=None,
     fault=None,
+    engine=None,
 ) -> tuple[TrainState, dict]:
     """One optimization step. Returns (new_state, metrics).
 
@@ -89,7 +104,49 @@ def train_step(
 
     ``fault``: an optional in-step :class:`faults.Fault` (tests and the
     chaos drill only).
+
+    ``engine``: the distributed engine (see the module docstring).
     """
+    if engine is not None and guard is not None:
+        raise NotImplementedError("the guarded step on a mesh of ranks is not in this "
+                                  "slice of the port")
+    bus = get_bus()
+    sync = None if engine is None else engine.sync
+    with span(bus if engine is not None else None, "train.fwd_bwd", sync=sync):
+        loss, metrics, grads = _loss_and_grads(state, batch, cfg, compute_dtype, accum_steps,
+                                               bf16_grads)
+    if engine is not None:
+        with span(bus, "train.grad_reduce", sync=sync):
+            loss, metrics = reduce_grads(engine, loss, metrics, grads)
+    if fault is not None:
+        loss, grads, metrics = faults_lib.inject(fault, loss, grads, metrics)
+    with torch.no_grad():
+        grad_sq_norm = sum(torch.sum(g.to(torch.float32) ** 2) for g in tree_lib.leaves(grads))
+        metrics["grad_norm"] = torch.sqrt(grad_sq_norm)
+    if guard is not None:
+        gstate = state.guard
+        if gstate is None:
+            gstate = resilience.init_guard_state(loss.device)
+        new_params, new_opt_state, new_guard, healthy = resilience.guarded_update(
+            optimizer, guard, grads, state.opt_state, state.params, gstate, loss,
+            grad_sq_norm, phase)
+        metrics["healthy"] = healthy.to(torch.int32)
+        metrics["skipped"] = new_guard.skipped
+        metrics["ema_loss"] = resilience.debiased_ema(guard, new_guard)
+        metrics["lr_scale"] = new_guard.lr_scale
+        return TrainState(new_params, new_opt_state, state.step + 1, new_guard), metrics
+    with span(bus if engine is not None else None, "train.update", sync=sync):
+        updates, new_opt_state = optimizer.update(grads, state.opt_state, state.params, phase)
+    del grads
+    with torch.no_grad():
+        if engine is not None:
+            updates = full_updates(engine, updates, sync=sync)
+        new_params = apply_updates(state.params, updates)
+    return TrainState(new_params, new_opt_state, state.step + 1, state.guard), metrics
+
+
+def _loss_and_grads(state, batch, cfg, compute_dtype, accum_steps, bf16_grads):
+    """(loss, metrics, grads) of the step, over ``accum_steps`` microbatches."""
     if accum_steps > 1:
         micro = [
             {k: v.reshape(accum_steps, v.shape[0] // accum_steps, *v.shape[1:])[i]
@@ -110,25 +167,33 @@ def train_step(
                    for k in micro_metrics[0]}
     else:
         loss, metrics, grads = loss_and_grads(state.params, batch, cfg, compute_dtype, bf16_grads)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    if fault is not None:
-        loss, grads, metrics = faults_lib.inject(fault, loss, grads, metrics)
-    with torch.no_grad():
-        grad_sq_norm = sum(torch.sum(g.to(torch.float32) ** 2) for g in tree_lib.leaves(grads))
-        metrics["grad_norm"] = torch.sqrt(grad_sq_norm)
-    if guard is not None:
-        gstate = state.guard
-        if gstate is None:
-            gstate = resilience.init_guard_state(loss.device)
-        new_params, new_opt_state, new_guard, healthy = resilience.guarded_update(
-            optimizer, guard, grads, state.opt_state, state.params, gstate, loss,
-            grad_sq_norm, phase)
-        metrics["healthy"] = healthy.to(torch.int32)
-        metrics["skipped"] = new_guard.skipped
-        metrics["ema_loss"] = resilience.debiased_ema(guard, new_guard)
-        metrics["lr_scale"] = new_guard.lr_scale
-        return TrainState(new_params, new_opt_state, state.step + 1, new_guard), metrics
-    updates, new_opt_state = optimizer.update(grads, state.opt_state, state.params, phase)
-    with torch.no_grad():
-        new_params = apply_updates(state.params, updates)
-    return TrainState(new_params, new_opt_state, state.step + 1, state.guard), metrics
+    return loss, {k: v.detach() for k, v in metrics.items()}, grads
+
+
+@torch.no_grad()
+def reduce_grads(engine, loss, metrics: dict, grads) -> tuple:
+    """Average the gradients (in place), the loss and the metrics over the
+    data axes: the ``grad_reduce`` collectives. Returns (loss, metrics)."""
+    axes = tuple(a for a in data_axes_for(engine.axis_sizes) if engine.axis_sizes[a] > 1)
+    if not axes:
+        return loss, metrics
+    n = engine.comm.size(axes)
+    for g in tree_lib.leaves(grads):
+        engine.comm.all_reduce(g, axes, phase="grad_reduce").div_(n)
+    names = sorted(metrics)
+    vals = torch.stack([loss.to(torch.float32)] + [metrics[k].to(torch.float32) for k in names])
+    vals = engine.comm.all_reduce(vals, axes, phase="grad_reduce") / n
+    return vals[0], {k: vals[i + 1] for i, k in enumerate(names)}
+
+
+@torch.no_grad()
+def full_updates(engine, updates, sync=None):
+    """The optimizer's momentum-layout updates as the full tensors every rank
+    adds to its replica: the 'apply' gathers, then the replica gather."""
+    bus = get_bus()
+    flat = tree_lib.flatten_with_path(updates)
+    with span(bus, "train.apply", sync=sync):
+        flat = [(k, engine.to_param_layout(k, u)) for k, u in flat]
+    with span(bus, "train.replica_gather", sync=sync):
+        flat = [(k, engine.replicate(k, u)) for k, u in flat]
+    return tree_lib.unflatten(flat)

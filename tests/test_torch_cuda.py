@@ -689,3 +689,99 @@ def test_reduced_arch_decode_on_the_card_tracks_the_cpu(card, arch):
     for a, b in zip(outs["cpu"], outs[str(card)]):
         assert b.is_cuda and float((b.cpu() - a).abs().max()) <= 1e-4
     assert torch.equal(toks["cpu"], toks[str(card)])
+
+
+# The fused chain at the local block shapes of the distributed engine:
+# full-width muonbp-960m on data=2,model=2 with ZeRO-1 (wk/wv 12 x 192 x
+# 1536, wq/wo 6 x 768 x 1536, the norm gains 2 x 12 x 1536, on the small
+# side), and the flatten fallback's 3 padded-to-4 layers.
+@pytest.mark.parametrize("shape", [(12, 192, 1536), (6, 768, 1536), (2, 12, 1536),
+                                   (4, 192, 1536), (2, 768, 1536), (2, 3, 1536)])
+def test_fused_chain_at_the_engine_block_shapes_matches_plain(card, shape):
+    x = _rand(shape, 31, card)
+    x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    _assert_rel(fused.ns_chain(x, PAPER_COEFFS, 5), fused.ns_chain_plain(x, PAPER_COEFFS, 5),
+                CHAIN_TOL)
+
+
+def _gloo_rank(rank, port, queue):
+    """One rank of a 2-rank gloo world on the one card: a full and a block
+    step of the reduced model through the engine, updates gathered to full."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from repro_torch import tree as tree_lib
+        from repro_torch.distributed import make_engine
+        from repro_torch.launch.mesh import make_mesh_from_spec
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=2)
+        mesh = make_mesh_from_spec("model=2")
+        params, grads, opt, engine = _engine_case(mesh, make_engine)
+        state = opt.init(params)
+        outs = []
+        for phase in ("full", "block"):
+            upd, state = opt.update(grads, state, params, phase)
+            # numpy, not tensors: a tensor on a queue is shared through this
+            # process, which may have exited when the parent reads it.
+            outs.append({k: engine.replicate(k, engine.to_param_layout(k, u)).cpu().numpy()
+                         for k, u in tree_lib.flatten_with_path(upd)})
+        queue.put((rank, outs if rank == 0 else None))
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+
+
+def _engine_case(mesh, make_engine=None):
+    """The reduced muonbp-960m on the card, seeded gradients, combine(muon,
+    adamw) on ``mesh``'s block grid; with ``make_engine``, on an engine over
+    ``mesh`` (returned last)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core import adamw, combine, label_tree, muon
+    from repro_torch.launch.train import matrix_block_specs
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import specs as sh
+
+    cfg = get_config("muonbp-960m").reduced()
+    sizes = sh.mesh_axis_sizes(mesh)
+    params = init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    grads = tree_lib.tree_map(
+        lambda p: torch.randn(p.shape, generator=gen, device="cuda"), params)
+    comm = make_engine(params, sh.param_specs(params, cfg, sizes), mesh) if make_engine else None
+    opt = combine({"muon": muon(0.02, 0.02, period=5, weight_decay=0.1, comm=comm,
+                                block_specs=matrix_block_specs(params, cfg, sizes)),
+                   "adamw": adamw(0.008, weight_decay=0.1, comm=comm)}, label_tree(params))
+    return params, grads, opt, comm
+
+
+def test_gloo_world_of_two_on_the_card_matches_one_process(card):
+    """Two ranks share the card (gloo): the engine's full and block updates
+    against the single-process update from the kernels, CHAIN_TOL."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import tree as tree_lib
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = mp.start_processes(_gloo_rank, args=(port, queue), nprocs=2,
+                               start_method="spawn", join=False)
+    results = dict(queue.get(timeout=600) for _ in range(2))
+    procs.join()
+    for rank, res in results.items():
+        assert not isinstance(res, str), f"rank {rank} failed:\n{res}"
+    params, grads, opt, _ = _engine_case({"model": 2})
+    state = opt.init(params)
+    for phase, got in zip(("full", "block"), results[0]):
+        upd, state = opt.update(grads, state, params, phase)
+        for k, ref in tree_lib.flatten_with_path(upd):
+            _assert_rel(torch.from_numpy(got[k]).cuda(), ref, CHAIN_TOL)

@@ -306,3 +306,16 @@ def test_chaos_drill_resumes_after_a_kill_and_the_report_reads_its_trail(tmp_pat
     assert "resumes: 1" in text and "checkpoint.saves: 2" in text  # the relaunch's run_end
     missing = _module("repro_torch.scripts.obs_report", trail, "--require-event", "abort")
     assert missing.returncode == 1 and "'abort' absent" in missing.stderr
+
+
+def test_record_span_matches_reference():
+    """A duration measured elsewhere becomes the reference's span record."""
+    from repro_torch.obs import Bus, record_span
+
+    mem, j_mem = MemorySink(), j_bus.MemorySink()
+    for bus_, rec in ((Bus([mem]), record_span), (j_bus.Bus([j_mem]), j_spans.record_span)):
+        rec(bus_, "train.replica_gather", 1.23456789, step=3, bytes=12)
+        rec(None, "dropped", 1.0)
+    assert mem.records == j_mem.records == [
+        {"event": "span", "name": "train.replica_gather", "dur_s": 1.234568, "step": 3,
+         "bytes": 12}]

@@ -379,3 +379,72 @@ def test_launcher_dion_flag_and_variant_agree():
     turbo = train.run(argv + ["--optimizer-variant", "turbo_muon", "--period", "2"]).records
     assert [r["phase"] for r in turbo] == ["full", "block"]
     assert np.isfinite([r["loss"] for r in by_flag + turbo]).all()
+
+
+ENGINE_ENV = ("REPRO_NS_BACKEND", "REPRO_NS_STRATEGY", "REPRO_NS_BUCKETING",
+              "REPRO_FULL_SCHEDULE", "REPRO_OPTIMIZER_VARIANT")
+
+
+def _set_engine_env(monkeypatch, env: dict) -> None:
+    for name in ENGINE_ENV:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+
+
+@pytest.mark.parametrize("env", [
+    {},
+    {"REPRO_NS_STRATEGY": "fused_chain", "REPRO_NS_BUCKETING": "0",
+     "REPRO_FULL_SCHEDULE": "barrier", "REPRO_OPTIMIZER_VARIANT": "normuon"},
+    {"REPRO_NS_BUCKETING": "off", "REPRO_OPTIMIZER_VARIANT": "turbo_muon"},
+], ids=["defaults", "all_set", "bucketing_off"])
+def test_ns_engine_config_from_env_matches_reference(monkeypatch, env):
+    """Every field but the reference's ``backend`` (which has no counterpart)
+    reads the same environment the same way."""
+    from repro.configs.base import NSEngineConfig as JNSEngineConfig
+    from repro_torch.configs import NSEngineConfig
+
+    _set_engine_env(monkeypatch, env)
+    ref = dataclasses.asdict(JNSEngineConfig.from_env())
+    ref.pop("backend")
+    assert dataclasses.asdict(NSEngineConfig.from_env()) == ref
+
+
+def _launch_with_env(monkeypatch, env: dict, flags: list) -> tuple:
+    """(losses, NS dispatches by strategy, muon state) of two reduced
+    launcher steps (full, block) under ``env`` and ``flags``."""
+    _set_engine_env(monkeypatch, env)
+    run = train.run(["--reduced", "--steps", "2", "--batch", "1", "--seq", "16", "--period",
+                     "2", "--mesh-model", "2", "--device", "cpu", "--compute-dtype",
+                     "float32"] + flags)
+    launches = {k.split(".")[-1]: v for k, v in run.counters.items()
+                if k.startswith("ns_launch.")}
+    return [r["loss"] for r in run.records], launches, run.state.opt_state.inner["muon"]
+
+
+def test_launcher_applies_the_engine_env(monkeypatch):
+    """The reference's launcher builds its optimizer from
+    ``NSEngineConfig.from_env()``: the environment alone gives the run its
+    flags give."""
+    env = {"REPRO_NS_STRATEGY": "plain", "REPRO_NS_BUCKETING": "0",
+           "REPRO_OPTIMIZER_VARIANT": "normuon"}
+    by_env = _launch_with_env(monkeypatch, env, [])
+    by_flags = _launch_with_env(monkeypatch, {}, ["--ns-strategy", "plain", "--no-ns-bucketing",
+                                                  "--optimizer-variant", "normuon"])
+    assert by_env[0] == by_flags[0] and by_env[1] == by_flags[1]
+    assert set(by_env[1]) == {"plain"}
+    assert by_env[2].vcount   # NorMuon's row statistics
+
+
+@pytest.mark.parametrize("flags, want", [
+    ([], dict(strategy="plain", bucketing=False, full_schedule="barrier", variant="normuon")),
+    (["--ns-strategy", "auto", "--full-schedule", "pipelined", "--optimizer-variant", "muon"],
+     dict(strategy="auto", bucketing=False, full_schedule="pipelined", variant="muon")),
+], ids=["env", "flags_beat_env"])
+def test_engine_config_flags_beat_env(monkeypatch, flags, want):
+    from repro_torch.configs import NSEngineConfig
+
+    _set_engine_env(monkeypatch, {"REPRO_NS_STRATEGY": "plain", "REPRO_NS_BUCKETING": "0",
+                                  "REPRO_FULL_SCHEDULE": "barrier",
+                                  "REPRO_OPTIMIZER_VARIANT": "normuon"})
+    assert train.engine_config(train.parser().parse_args(flags)) == NSEngineConfig(**want)
