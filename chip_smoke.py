@@ -9,8 +9,9 @@ It builds the port's hand-written CUDA kernels from ``src/repro_torch`` and
 drives the port end to end: the MuonBP baseline and the optimizer variants
 NorMuon, Turbo-Muon and Dion on the dense model, MuonBP on the
 Mixture-of-Experts model, and serving of both; MuonBP training and
-generate on the SSM, hybrid, VLM and audio models; the distributed
-optimizer on four ranks that share the card.
+generate on the SSM, hybrid, VLM and audio models; the tensor-parallel
+dense model and the distributed optimizer on four ranks that share the
+card.
 
   1. device   -- the card's name and power limit (nvidia-smi), device count;
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
@@ -122,20 +123,29 @@ optimizer on four ranks that share the card.
                  its 1024-token window on the ring cache against the dense
                  cache; the four reduced models on the card against the CPU;
  13. distributed -- four ranks share the card through gloo (NCCL refuses two
-                 ranks on one GPU), through the launcher on a data=2,model=2
-                 mesh with ZeRO-1 (the kernels built once, here, before any
-                 rank starts): full-width muonbp-960m cut to 8 of its 12
-                 layers, six steps, and NorMuon with the flatten fallback at
-                 3 layers, two steps; batch 2 x 1024 a rank, bf16. Every
-                 rank's loss each step, its collective trace against
-                 plan_comm to the byte (no optimizer collective on block
-                 steps), its launches, peak memory, momentum shards and
-                 spans (fwd+bwd, grad reduce, update by pipeline stage,
-                 apply gathers, replica gather); the update on the run's
-                 state and fresh gradients against the single-process update
-                 on rank 0, both phases, and pipelined against barrier
-                 (torch.equal). gloo copies through the host: these times
-                 measure no link;
+                 ranks on one GPU), through the launcher (the kernels built
+                 once, here, before any rank starts), batch 2 x 1024 a rank,
+                 bf16, the dense model tensor-parallel (each rank holds and
+                 computes with its parameter shards): run A, full-width
+                 muonbp-960m at all 12 layers on data=2,model=2 with
+                 ZeRO-1, six steps, after one fp32 step (TF32 off) whose
+                 loss and gradients, joined on rank 0, are held against the
+                 single-process port's; run B, NorMuon with the flatten
+                 fallback at 3 layers, two steps; run C, 12 layers on
+                 model=4, three steps; run D, olmoe-1b-7b at 1 of 16
+                 layers on the replicated path (every rank a whole
+                 replica) on data=2,model=2 with ZeRO-1, two steps. Every
+                 rank's loss each step, its collective trace (the
+                 optimizer's against plan_comm to the byte, no optimizer
+                 collective on block steps; tp against tp_bytes, 0 B on
+                 run D; the gradient reduce against its shards; the
+                 replica gather 0 B on the tensor-parallel runs and the
+                 model-split updates' bytes on run D), the summed wall of each class of
+                 collectives a step, its launches, peak memory, momentum
+                 shards and spans; the update on the run's state and fresh
+                 gradients against the single-process update on rank 0, both
+                 phases, and pipelined against barrier (torch.equal). gloo
+                 copies through the host: these times measure no link;
  14. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
                  the least time the card could take for the same work; the
@@ -342,26 +352,43 @@ CHAOS_ARGV = ["--arch", "muonbp-960m", "--reduced", "--steps", "6", "--batch", "
 
 
 # The distributed phase: DIST_RANKS ranks share the one card through gloo
-# (NCCL refuses two ranks on one GPU), through the launcher on a
-# data=2,model=2 mesh with ZeRO-1, batch 2 x 1024 a rank. Run A: full-width
-# muonbp-960m cut to DIST_A_LAYERS of its 12 layers, six steps: the port
-# saves every activation (the fp32 attention scores too), so a rank peaks at
-# 16.0 GiB at 8 layers and 17.5 GiB at 10. At 12 four ranks ran out of the
-# 80 GB (17.1 GiB allocated a rank, the allocator's expandable segments on),
-# and 10 left too little room: one run passed, the next ran out in a rank's
-# backward (16.6 GiB allocated, the card full). Run B: NorMuon
-# with the flatten fallback at 3 of 12 layers (3 does not divide 2: padded
-# lead, padded row statistics), two steps.
+# (NCCL refuses two ranks on one GPU), through the launcher, batch 2 x 1024 a
+# rank, bf16. The dense model runs tensor-parallel: each rank holds and
+# computes with its param_specs shards, sequence-sharded between layers.
+# Run A: full-width muonbp-960m at all 12 layers on data=2,model=2 with
+# ZeRO-1, six steps. Run B: NorMuon with the flatten fallback at 3 of 12
+# layers (3 does not divide 2: padded lead, padded row statistics), two
+# steps. Run C: 12 layers on model=4 (the 4 KV heads split 4 ways), three
+# steps. Run D keeps the replicated path on the card: full-width
+# olmoe-1b-7b (MoE runs replicated, every rank a whole replica) on
+# data=2,model=2 with ZeRO-1, two steps, its replica gather held to the
+# bytes of the model-split updates. Before run A's ranks train, one fp32
+# step (TF32 off) on its first global batch and weights: the loss and every
+# gradient joined on rank 0 against the single-process port's, computed in
+# this process first.
 DIST_RANKS = 4
-DIST_A_LAYERS = 8
-DIST_ARGV = ["--arch", "muonbp-960m", "--optimizer", "muonbp", "--period", "5", "--batch",
-             "4", "--seq", "1024", "--mesh", "data=2,model=2", "--zero1", "--dist-backend",
+DIST_ARGV = ["--optimizer", "muonbp", "--period", "5", "--seq", "1024", "--dist-backend",
              "gloo", "--obs-block", "--log-every", "1"]
+DIST_SEQ, DIST_SEED = 1024, 0
+# Run D's depth: four whole replicas of olmoe-1b-7b share the card. At 1
+# layer a rank peaks at 15.02 GiB (NVIDIA H100 80GB HBM3, 700.00 W); each
+# more layer adds ~0.42 G parameters, ~6.7 GB a rank as fp32 parameters,
+# gradients, full updates and new parameters, so four ranks at 2 layers
+# would need ~91 GB of the card's 85 GB.
+DIST_D_LAYERS = 1
+# (label, arch, mesh, global batch, extra flags, steps, layers (None: all),
+# tensor-parallel, kernels that must launch)
 DIST_RUNS = (
-    ("A", [], 6, DIST_A_LAYERS, MAIN_PATH_KERNELS),
-    ("B", ["--optimizer-variant", "normuon", "--zero1-flatten"], 2, 3,
+    ("A", "muonbp-960m", "data=2,model=2", 4, ["--zero1"], 6, None, True, MAIN_PATH_KERNELS),
+    ("B", "muonbp-960m", "data=2,model=2", 4, ["--zero1", "--optimizer-variant", "normuon",
+                                               "--zero1-flatten"], 2, 3, True,
      MAIN_PATH_KERNELS + ("normuon",)),
+    ("C", "muonbp-960m", "model=4", 2, [], 3, None, True, MAIN_PATH_KERNELS),
+    ("D", MOE_ARCH, "data=2,model=2", 4, ["--zero1"], 2, DIST_D_LAYERS, False,
+     MAIN_PATH_KERNELS),
 )
+DIST_LOSS_TOL = 1e-5   # the fp32 step on the mesh vs one process, relative
+DIST_GRAD_TOL = 1e-4   # its gradients, max abs over the leaf's max|grad|
 
 
 def log(msg: str) -> None:
@@ -2094,11 +2121,25 @@ def arch_small(arch: str) -> None:
         fail(f"reduced {arch} on the card disagrees with the CPU")
 
 
-def dist_rank(rank: int, port: int, label: str, extra: list, steps: int, layers,
-              out_dir: str) -> None:
+def dist_argv(arch: str, mesh: str, batch: int, extra: list, steps: int) -> list:
+    return (["--arch", arch] + DIST_ARGV + ["--mesh", mesh, "--batch", str(batch)] + extra
+            + ["--steps", str(steps)])
+
+
+def dist_cfg(arch: str, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def dist_rank(rank: int, port: int, spec: tuple, out_dir: str) -> None:
     """One rank of the distributed phase (started by torch.multiprocessing):
-    the launcher on the mesh, then the checks of :func:`dist_checks`; the
-    results go to ``out_dir/rank<r>.json``. An exception fails the rank."""
+    run A's fp32 step check, the launcher on the mesh, then the checks of
+    :func:`dist_checks`; the results go to ``out_dir/rank<r>.json``. An
+    exception fails the rank."""
     sys.path.insert(0, str(SRC))
     # Four processes share the card: expandable segments keep each one's
     # cached but unused blocks small (read at the rank's first allocation).
@@ -2112,7 +2153,7 @@ def dist_rank(rank: int, port: int, label: str, extra: list, steps: int, layers,
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=DIST_RANKS)
     try:
-        res = dist_checks(rank, label, extra, steps, layers)
+        res = dist_checks(rank, spec, out_dir)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     except BaseException:
@@ -2127,56 +2168,160 @@ def dist_rank(rank: int, port: int, label: str, extra: list, steps: int, layers,
         dist.destroy_process_group()
 
 
-def dist_checks(rank: int, label: str, extra: list, steps: int, layers) -> dict:
-    import dataclasses
+def first_batch(cfg, argv: list, rows=slice(None)) -> dict:
+    """The launcher's first global batch for ``argv`` (its rows ``rows``) on
+    the card."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
 
+    args = train.parser().parse_args(argv)
+    batch = next(iter(SyntheticLM(cfg, args.batch, args.seq, seed=args.seed)))
+    return train.device_batch({k: v[rows] for k, v in batch.items()}, "cuda")
+
+
+def dist_fp32_reference(argv: list, path: str) -> None:
+    """The single-process port's fp32 loss and gradients (TF32 off) of run
+    A's first global batch on its weights (``--seed``), saved to ``path``."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+    from repro_torch.training.train_step import loss_and_grads
+
+    cfg = dist_cfg("muonbp-960m", None)
+    params = init_params(cfg, seed=train.parser().parse_args(argv).seed, device="cuda")
+    loss, _, grads = loss_and_grads(params, first_batch(cfg, argv), cfg, torch.float32)
+    torch.save({"loss": float(loss),
+                "grads": {"/".join(k): g.cpu() for k, g in tree_lib.flatten_with_path(grads)}},
+               path)
+    del params, grads
+    torch.cuda.empty_cache()
+
+
+def dist_fp32_check(rank: int, argv: list, ref_path: str) -> dict:
+    """One fp32 step (TF32 off) of the tensor-parallel model on this rank's
+    shards of the launcher's weights and rows: the loss, and every gradient
+    after the reduce joined and held on rank 0 against the single-process
+    port's (:func:`dist_fp32_reference`)."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import make_engine
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh_from_spec
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import specs as sh
+    from repro_torch.training.train_step import loss_and_grads, reduce_grads
+
+    args = train.parser().parse_args(argv)
+    cfg = dist_cfg("muonbp-960m", None)
+    mesh = make_mesh_from_spec(args.mesh)
+    sizes = sh.mesh_axis_sizes(mesh)
+    full = init_params(cfg, seed=args.seed, device="cuda")
+    engine = make_engine(full, sh.param_specs(full, cfg, sizes), mesh, tensor_parallel=True)
+    params = tree_lib.map_with_path(
+        lambda k, p: engine.cut(p, engine.pspec_by_path[k]).clone(), full)
+    del full
+    ctx = sh.make_ctx(cfg, engine, seq=args.seq)
+    batch = first_batch(cfg, argv, train._batch_rows(engine, args.batch))
+    loss, metrics, grads = loss_and_grads(params, batch, cfg, torch.float32, ctx=ctx)
+    loss, _ = reduce_grads(engine, loss, metrics, grads, ctx)
+    del params, batch
+    res = {"loss": float(loss), "tp_bytes": engine.comm.trace.total_bytes("tp")}
+    ref = torch.load(ref_path, mmap=True) if rank == 0 else None
+    rel = {}
+    for k, g in tree_lib.flatten_with_path(grads):
+        whole = engine.join(g, engine.pspec_by_path[k], phase="check")
+        if rank == 0:
+            r = ref["grads"]["/".join(k)].to("cuda")
+            rel["/".join(k)] = (float((whole - r).abs().max())
+                                / max(float(r.abs().max()), 1e-30))
+        del whole
+    if rank == 0:
+        res["ref_loss"], res["grad_rel"] = ref["loss"], rel
+    del grads, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     import torch
 
     from repro_torch import kernels
     from repro_torch import tree as tree_lib
-    from repro_torch.configs import get_config
     from repro_torch.core import label_tree, muon
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.distributed import assert_matches_plan_by_axes, plan_comm
+    from repro_torch.distributed import assert_matches_plan_by_axes, plan_comm, tp_bytes
     from repro_torch.distributed import zero1 as zero1_lib
     from repro_torch.launch import train
     from repro_torch.obs import MemorySink
     from repro_torch.sharding import specs as sh
     from repro_torch.training.train_step import loss_and_grads, reduce_grads
 
-    cfg = get_config("muonbp-960m")
-    if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+    label, arch, mesh, batch, extra, steps, layers, _, _ = spec
+    argv = dist_argv(arch, mesh, batch, extra, steps)
+    cfg = dist_cfg(arch, layers)
     variant = "normuon" if "normuon" in extra else None
-    flatten = "--zero1-flatten" in extra
+    zero1, flatten = "--zero1" in extra, "--zero1-flatten" in extra
+    res = {}
+    if label == "A":
+        res["fp32"] = dist_fp32_check(rank, argv, os.path.join(out_dir, "fp32_ref.pt"))
     sink = MemorySink()
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     mem = []
-    run = train.run(DIST_ARGV + extra + ["--steps", str(steps)], cfg=cfg, sinks=[sink],
+    run = train.run(argv, cfg=cfg, sinks=[sink],
                     on_step=lambda rec: mem.append(torch.cuda.max_memory_allocated()))
-    res = {"launches": dict(kernels.launch_counts()),
-           "peak_bytes": torch.cuda.max_memory_allocated(),
-           "losses": [r["loss"] for r in run.records],
-           "phases": [r["phase"] for r in run.records],
-           "step_wall_s": [r["dur_s"] for r in run.records], "peak_by_step": mem}
-    engine, params = run.engine, run.state.params
+    res.update({"launches": dict(kernels.launch_counts()),
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "losses": [r["loss"] for r in run.records],
+                "phases": [r["phase"] for r in run.records],
+                "step_wall_s": [r["dur_s"] for r in run.records], "peak_by_step": mem})
+    engine, params, ctx = run.engine, run.state.params, run.ctx
+    res["tensor_parallel"] = tp = engine.tensor_parallel
     trace = engine.comm.trace
     sizes = engine.axis_sizes
     labels = label_tree(params)
-    plan = plan_comm(params, sh.param_specs(params, cfg, sizes), sizes,
-                     block_specs=run.block_specs, zero1=True, zero1_flatten=flatten)
+    # The plan reads the leaves' global shapes; the ranks hold shards.
+    shapes = tree_lib.map_with_path(
+        lambda k, p: torch.empty(engine.full_shape(k, p.shape), device="meta"), params)
+    plan = plan_comm(shapes, sh.param_specs(shapes, cfg, sizes), sizes,
+                     block_specs=run.block_specs, zero1=zero1, zero1_flatten=flatten)
+    data = math.prod(v for a, v in sizes.items() if a != "model")
     res["plan"] = {ph: plan.predicted_bytes(ph) for ph in ("block", "full", "apply")}
+    res["tp_pred"] = tp_bytes(cfg, batch // data, DIST_SEQ, sizes)
+    shard_bytes = sum(p.numel() * p.element_size() for p in tree_lib.leaves(params))
+    # The gradient reduce: every shard (on the replicated path, every whole
+    # leaf), then one vector of the loss and its metrics (ce; MoE's
+    # load_balance and z_loss; loss).
+    n_vals = 1 + 2 + (2 if cfg.num_experts else 0)
+    res["grad_reduce_pred"] = shard_bytes + 4 * n_vals if data > 1 else 0
+    # The replica gather (the replicated path only): each model-split leaf's
+    # fp32 update gathered into the whole leaf.
+    res["replica_pred"] = 0 if tp else sum(
+        p.numel() * 4 for k, p in tree_lib.flatten_with_path(params)
+        if engine.model_split(k, p.dim()))
     res["trace_errors"] = []
     res["per_step"] = []
+    res["wall_per_step"] = []
     for step, phase in enumerate(res["phases"]):
         for phases in (phase, "apply"):
             try:
                 assert_matches_plan_by_axes(trace, plan, phases, step=step)
             except AssertionError as e:
                 res["trace_errors"].append(f"step {step}: {e}")
-        res["per_step"].append({cls: trace.total_bytes(cls, step=step) for cls in (
-            "block", "full", "apply", "grad_reduce", "replica_gather", "normuon")})
+        b = {cls: trace.total_bytes(cls, step=step) for cls in (
+            "block", "full", "apply", "grad_reduce", "tp", "norm", "replica_gather", "normuon")}
+        res["per_step"].append(b)
+        # The full steps' gathers are asynchronous (no wall of their own):
+        # the muonbp.full.s<i>.gather spans time them.
+        res["wall_per_step"].append({cls: trace.wall_s(cls, step=step) for cls in (
+            "tp", "grad_reduce", "apply", "replica_gather")})
+        for cls, want in (("tp", res["tp_pred"]), ("grad_reduce", res["grad_reduce_pred"]),
+                          ("replica_gather", res["replica_pred"])):
+            if b[cls] != want:
+                res["trace_errors"].append(f"step {step}: {cls} moved {b[cls]} B, not {want}")
     spans: dict = {}
     for r in sink.records:
         if r.get("event") == "span":
@@ -2184,34 +2329,47 @@ def dist_checks(rank: int, label: str, extra: list, steps: int, layers) -> dict:
     res["spans"] = spans
     muon_state = run.state.opt_state.inner["muon"]
     res["muon_state_bytes"] = zero1_lib.state_bytes(muon_state)
-    # ZeRO-1 splits the stacks (ndim >= 3); the 2-D norm gains stay whole.
+    # The stacks (ndim >= 3) split over model and ZeRO-1's data axes (a
+    # lead dim of 1 stays whole); the 2-D norm gains stay whole.
     label_of = dict(tree_lib.flatten_with_path(labels))
-    stacks = [k for k, p in tree_lib.flatten_with_path(params)
-              if label_of[k] == "muon" and p.dim() >= 3]
-    res["muon_stack_bytes"] = sum(
-        muon_state.momentum[k].numel() * 4 for k in stacks)
+    p_by_key = dict(tree_lib.flatten_with_path(params))
+    stacks = [k for k, p in p_by_key.items() if label_of[k] == "muon" and p.dim() >= 3]
+    res["muon_stack_bytes"] = sum(muon_state.momentum[k].numel() * 4 for k in stacks)
+    res["planned_stack_bytes"] = sum(
+        4 * math.prod(engine.local_shape(k, engine.full_shape(k, p_by_key[k].shape)))
+        for k in stacks)
     res["unsharded_stack_bytes"] = sum(
-        4 * math.prod(engine.state_shape_for(k, tuple(dict(
-            tree_lib.flatten_with_path(params))[k].shape))) for k in stacks)
+        4 * math.prod(engine.state_shape_for(k, engine.full_shape(k, p_by_key[k].shape)))
+        for k in stacks)
 
-    # The update on the run's state and fresh gradients (this rank's rows,
-    # reduced over the data axes), against the single-process update.
-    pipe = SyntheticLM(cfg, 4, 1024, seed=1)
-    rows = train._batch_rows(engine, 4)
-    batch = train.device_batch({k: v[rows] for k, v in next(iter(pipe)).items()}, "cuda")
-    loss, metrics, grads = loss_and_grads(params, batch, cfg)
-    reduce_grads(engine, loss, metrics, grads)
-    del batch
+    # The update on the run's state and fresh gradients (this rank's rows
+    # and shards, reduced), joined, against the single-process update on
+    # the joined gradients, parameters and state. On the replicated path the
+    # rank holds whole leaves, and its updates pay the replica gather.
+    rows = train._batch_rows(engine, batch)
+    fresh = next(iter(SyntheticLM(cfg, batch, DIST_SEQ, seed=1)))
+    fresh = train.device_batch({k: v[rows] for k, v in fresh.items()}, "cuda")
+    loss, metrics, grads = loss_and_grads(params, fresh, cfg, ctx=ctx)
+    reduce_grads(engine, loss, metrics, grads, ctx)
+    del fresh
     only = lambda t: tree_lib.tree_map(lambda x, l: x if l == "muon" else None, t, labels)
     g_m, p_m = only(grads), only(params)
     del grads
+    join = ((lambda k, t: engine.join(t, engine.pspec_by_path[k], phase="check")) if tp
+            else (lambda k, t: t))
+    whole = ((lambda k, u: join(k, engine.to_param_layout(k, u))) if tp
+             else (lambda k, u: engine.replicate(k, engine.to_param_layout(k, u))))
+    whole_g = {k: join(k, g) for k, g in tree_lib.flatten_with_path(g_m)}
+    whole_p = {k: join(k, p) for k, p in tree_lib.flatten_with_path(p_m)}
     opt_kw = dict(period=5, weight_decay=0.1, block_specs=run.block_specs, variant=variant)
     # The single process keeps no flatten pad: drop the (zero) pad layers.
     full_state = zero1_lib.gather_state(muon_state, p_m, engine, phase="check")
-    lead = {k: p.shape[0] for k, p in tree_lib.flatten_with_path(p_m)}
+    lead = {k: p.shape[0] for k, p in whole_p.items()}
     unpad = lambda d: d if d is None else {k: v[:lead[k]] for k, v in d.items()}
     full_state = full_state._replace(momentum=unpad(full_state.momentum),
                                      second_moment=unpad(full_state.second_moment))
+    if rank:
+        del whole_g, whole_p, full_state
     res["update"] = {}
     for phase in ("full", "block"):
         outs = {}
@@ -2222,8 +2380,7 @@ def dist_checks(rank: int, label: str, extra: list, steps: int, layers) -> dict:
             upd, _ = opt.update(g_m, muon_state, p_m, phase)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            outs[schedule] = {k: engine.replicate(k, engine.to_param_layout(k, u))
-                              for k, u in tree_lib.flatten_with_path(upd)}
+            outs[schedule] = {k: whole(k, u) for k, u in tree_lib.flatten_with_path(upd)}
             res["update"][f"{phase}_{schedule}_ms"] = ms
             del upd
         if "barrier" in outs:
@@ -2234,7 +2391,10 @@ def dist_checks(rank: int, label: str, extra: list, steps: int, layers) -> dict:
         res["update"][f"{phase}_checksum"] = sum(float(v.double().abs().sum())
                                                  for v in got.values())
         if rank == 0:
-            ref, _ = muon(0.02, 0.02, **opt_kw).update(g_m, full_state, p_m, phase)
+            ref, _ = muon(0.02, 0.02, **opt_kw).update(tree_lib.unflatten(list(whole_g.items())),
+                                                       full_state,
+                                                       tree_lib.unflatten(list(whole_p.items())),
+                                                       phase)
             err = max(float((got[k].double() - v.double()).abs().max())
                       for k, v in tree_lib.flatten_with_path(ref))
             scale = max(float(v.abs().max()) for _, v in tree_lib.flatten_with_path(ref))
@@ -2247,11 +2407,15 @@ def dist_checks(rank: int, label: str, extra: list, steps: int, layers) -> dict:
 
 
 def phase_distributed(smi: str) -> None:
-    """Four ranks on the one card, gloo, through the launcher on a
-    data=2,model=2 mesh with ZeRO-1: run A, full-width muonbp-960m, six steps
-    (full, block x4, full); run B, NorMuon with the flatten fallback at 3 of
-    its 12 layers (3 does not divide 2), two steps. Every rank's exit code is
-    checked. gloo copies through the host: its times measure no link."""
+    """Four ranks on the one card, gloo, through the launcher, the dense
+    model tensor-parallel: run A, full-width muonbp-960m at 12 layers on
+    data=2,model=2 with ZeRO-1, six steps (full, block x4, full), after the
+    fp32 step held against one process; run B, NorMuon with the flatten
+    fallback at 3 of its 12 layers, two steps; run C, 12 layers on model=4,
+    three steps. Run D, olmoe-1b-7b at DIST_D_LAYERS layers on the
+    replicated path, data=2,model=2 with ZeRO-1, two steps. Every rank's
+    exit code is checked. gloo copies through the host: its times measure
+    no link."""
     import gc
     import tempfile
 
@@ -2259,7 +2423,8 @@ def phase_distributed(smi: str) -> None:
     import torch.multiprocessing as mp
 
     t_phase = time.perf_counter()
-    for label, extra, steps, layers, required in DIST_RUNS:
+    for spec in DIST_RUNS:
+        label, arch, mesh, batch, extra, steps, layers, want_tp, required = spec
         t_run = time.perf_counter()
         tag = f"distributed:{label}"
         # The ranks need the card's memory: tensors of earlier phases that
@@ -2270,16 +2435,23 @@ def phase_distributed(smi: str) -> None:
         log(f"[{tag}] before the ranks: card {free / 2**30:.2f} GiB free of "
             f"{total / 2**30:.2f}; this process {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        argv = dist_argv(arch, mesh, batch, extra, steps)
         log(f"[{tag}] {DIST_RANKS} ranks (gloo, one card): python -m repro_torch.launch.train "
-            f"{' '.join(DIST_ARGV + extra)} --steps {steps}"
-            + (f", cfg num_layers={layers}" if layers else ""))
+            f"{' '.join(argv)}" + (f", cfg num_layers={layers}" if layers else ""))
         with tempfile.TemporaryDirectory() as out_dir:
+            if label == "A":
+                t0 = time.perf_counter()
+                dist_fp32_reference(argv, os.path.join(out_dir, "fp32_ref.pt"))
+                gc.collect()
+                torch.cuda.empty_cache()
+                log(f"[{tag}] fp32 single-process reference step: "
+                    f"{time.perf_counter() - t0:.1f} s, freed before the ranks start")
             with socket.socket() as sock:
                 sock.bind(("localhost", 0))
                 port = sock.getsockname()[1]
             # join=True raises if any rank raised or exited non-zero.
             try:
-                mp.start_processes(dist_rank, args=(port, label, extra, steps, layers, out_dir),
+                mp.start_processes(dist_rank, args=(port, spec, out_dir),
                                    nprocs=DIST_RANKS, start_method="spawn", join=True)
             except Exception:
                 for r in range(DIST_RANKS):
@@ -2295,10 +2467,31 @@ def phase_distributed(smi: str) -> None:
             fail(f"{tag}: the ranks' losses differ: {[r['losses'] for r in res]}")
         if not all(v == v and abs(v) != float("inf") for v in r0["losses"]):
             fail(f"{tag}: non-finite loss")
-        log(f"[{tag}] plan_comm a rank: {r0['plan']} B")
+        if any(r["tensor_parallel"] != want_tp for r in res):
+            fail(f"{tag}: {arch} ran " + ("replicated" if want_tp else "tensor-parallel"))
+        if "fp32" in r0:
+            fp = r0["fp32"]
+            loss_rel = abs(fp["loss"] - fp["ref_loss"]) / abs(fp["ref_loss"])
+            worst = max(fp["grad_rel"], key=fp["grad_rel"].get)
+            log(f"[{tag}] fp32 step on the mesh vs one process: loss {fp['loss']!r} vs "
+                f"{fp['ref_loss']!r} (rel {loss_rel:.3e}, tol {DIST_LOSS_TOL:g}); gradients "
+                f"joined on rank 0, worst leaf {worst} {fp['grad_rel'][worst]:.3e} of its "
+                f"max|grad| (tol {DIST_GRAD_TOL:g}); tp {fp['tp_bytes']} B")
+            if any(r["fp32"]["loss"] != fp["loss"] for r in res):
+                fail(f"{tag}: the ranks' fp32 losses differ")
+            if not loss_rel <= DIST_LOSS_TOL:
+                fail(f"{tag}: the fp32 loss on the mesh disagrees with one process")
+            if not fp["grad_rel"][worst] <= DIST_GRAD_TOL:
+                fail(f"{tag}: the fp32 gradient of {worst} disagrees with one process")
+        log(f"[{tag}] {'tensor-parallel' if want_tp else 'replicated'}; plan_comm a rank: "
+            f"{r0['plan']} B; tp_bytes a rank and step {r0['tp_pred']} B; grad_reduce a rank "
+            f"and step {r0['grad_reduce_pred']} B; replica gather a rank and step "
+            f"{r0['replica_pred']} B")
+        if not want_tp and not r0["replica_pred"]:
+            fail(f"{tag}: the replicated run predicts no replica gather")
         for rank, r in enumerate(res):
             if r["trace_errors"]:
-                fail(f"{tag}: rank {rank}'s trace disagrees with the plan: {r['trace_errors']}")
+                fail(f"{tag}: rank {rank}'s trace disagrees: {r['trace_errors']}")
             for step, (phase, b) in enumerate(zip(r["phases"], r["per_step"])):
                 if phase == "block" and b["block"] != 0:
                     fail(f"{tag}: rank {rank} block step {step} moved {b['block']} B")
@@ -2317,11 +2510,19 @@ def phase_distributed(smi: str) -> None:
                 f"{r['muon_state_bytes']} B, its stacks {r['muon_stack_bytes']} B of "
                 f"{r['unsharded_stack_bytes']} B unsharded, launches {r['launches']}, step "
                 f"walls {r['step_wall_s']}")
-            for step, b in enumerate(r["per_step"]):
-                log(f"[{tag}] rank {rank} step {step} ({r['phases'][step]}): bytes {b}")
-            if 4 * r["muon_stack_bytes"] != r["unsharded_stack_bytes"]:
+            for step, (b, w) in enumerate(zip(r["per_step"], r["wall_per_step"])):
+                log(f"[{tag}] rank {rank} step {step} ({r['phases'][step]}): bytes {b}; "
+                    f"collective walls (s, summed, --obs-block) "
+                    f"{json.dumps({k: round(v, 4) for k, v in w.items()})}")
+            if r["muon_stack_bytes"] != r["planned_stack_bytes"]:
+                fail(f"{tag}: rank {rank} holds {r['muon_stack_bytes']} B of the muon "
+                     f"stacks' momentum, not its shards' {r['planned_stack_bytes']}")
+            if want_tp and 4 * r["muon_stack_bytes"] != r["unsharded_stack_bytes"]:
                 fail(f"{tag}: rank {rank} holds {r['muon_stack_bytes']} B of the muon "
                      f"stacks' momentum, not a quarter of {r['unsharded_stack_bytes']}")
+            if ("train.replica_gather" in r["spans"]) == want_tp:
+                fail(f"{tag}: rank {rank}'s spans {'have' if want_tp else 'lack'} "
+                     "train.replica_gather")
         for phase in ("full", "block"):
             rel = r0["update"][f"{phase}_rel_err"]
             log(f"[{tag}] {phase} update, 4 ranks vs one process (kernels both): rel {rel:.3e} "

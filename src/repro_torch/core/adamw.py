@@ -5,9 +5,11 @@ decoupled weight decay and global-norm clipping of its own gradients.
 
 With ``comm=`` (``distributed.engine.ShardMapEngine``) the moments live in
 each leaf's momentum spec (ZeRO-1 splits the embedding's and the head's
-lead dim): the clipping norm is taken on the full, data-reduced gradients
-every rank holds, then each rank cuts its shard; the updates come back in
-the momentum layout, as ``core.muon``'s.
+lead dim): the clipping norm is taken over the whole AdamW group on the
+data-reduced gradients as the rank holds them (on the tensor-parallel path
+the vocab-split embedding's and head's shards are summed over the model
+axis, ``engine.global_sq_sum``), then each rank cuts its shard; the
+updates come back in the momentum layout, as ``core.muon``'s.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ def adamw(
 
     def init(params) -> AdamWState:
         flat = tree_lib.flatten_with_path(params)
-        shape = lambda k, p: tuple(p.shape) if comm is None else comm.local_shape(k, p.shape)
+        shape = lambda k, p: (tuple(p.shape) if comm is None
+                              else comm.local_shape(k, comm.full_shape(k, p.shape)))
         zeros = lambda k, p: torch.zeros(shape(k, p), dtype=torch.float32, device=p.device)
         return AdamWState(
             mu={k: zeros(k, p) for k, p in flat}, nu={k: zeros(k, p) for k, p in flat}, count=0
@@ -56,7 +59,10 @@ def adamw(
         p_by_key = dict(tree_lib.flatten_with_path(params))
         gs = {k: g.to(torch.float32) for k, g in flat}
         if grad_clip is not None and gs:
-            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in gs.values()))
+            if comm is not None:
+                gnorm = torch.sqrt(comm.global_sq_sum(gs.items()))
+            else:
+                gnorm = torch.sqrt(sum(torch.sum(g * g) for g in gs.values()))
             scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
             gs = {k: g * scale for k, g in gs.items()}
         gs = {k: local(k, g) for k, g in gs.items()}

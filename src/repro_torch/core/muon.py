@@ -24,12 +24,14 @@ out, as ``core.combine`` hands each sub-optimizer its own parameters.
 With ``comm=`` (``distributed.engine.ShardMapEngine``) each rank holds only
 its shards: ``init`` allocates the momentum (and NorMuon's row statistics)
 in the leaf's momentum spec -- lead-padded under the ZeRO-1 flatten
-fallback -- and ``update`` takes the full, data-reduced gradients every rank
-holds, cuts this rank's shard of them, runs the program compiled against
-the engine (block steps on the local shards, full steps through the
-engine's gathers) and returns the updates in the momentum layout. The
-engine's ``to_param_layout`` and ``replicate`` bring them back
-(``training/train_step.py``).
+fallback -- and ``update`` takes the data-reduced gradients as the rank
+holds them (its param-layout shards on the tensor-parallel path, the full
+tensors on the replicated one), cuts this rank's momentum shard of them
+(``engine.shard``), runs the program compiled against the engine on the
+leaves' global shapes (block steps on the local shards, full steps through
+the engine's gathers) and returns the updates in the momentum layout. The
+engine's ``to_param_layout`` (and, replicated, ``replicate``) bring them
+back (``training/train_step.py``).
 """
 
 from __future__ import annotations
@@ -164,7 +166,7 @@ def muon(
         return tuple(shape) if comm is None else comm.state_shape_for(path, tuple(shape))
 
     def _local(path, x: torch.Tensor) -> torch.Tensor:
-        # This rank's momentum-spec shard of a full tensor.
+        # This rank's momentum-spec shard of a tensor as the rank holds it.
         if comm is None:
             return x
         return comm.shard(path, _pad_lead(x, _state_shape(path, x.shape)[0]))
@@ -184,9 +186,10 @@ def muon(
         )
 
     def _shard_shape(path, shape) -> tuple:
+        # The momentum shard's shape from the shape the rank holds.
         if comm is None:
             return tuple(shape)
-        return comm.local_shape(path, tuple(shape))
+        return comm.local_shape(path, comm.full_shape(path, shape))
 
     def init(params) -> OptState:
         flat = tree_lib.flatten_with_path(params)
@@ -211,7 +214,8 @@ def muon(
 
         flat = tree_lib.flatten_with_path(grads)
         keys = [path for path, _ in flat]
-        full_shapes = [tuple(g.shape) for _, g in flat]
+        full_shapes = [tuple(g.shape) if comm is None else comm.full_shape(k, g.shape)
+                       for k, g in flat]
         g_leaves = [_local(k, g.to(torch.float32)) for k, g in flat]
         m_leaves = [mu * state.momentum[k] + g for k, g in zip(keys, g_leaves)]
         p_by_key = dict(tree_lib.flatten_with_path(params))

@@ -1,6 +1,7 @@
 """Distributed MuonBP on ``torch.distributed``: the communication plan, the
-explicit engine with zero-collective block steps, ZeRO-1 state sharding and
-the collective trace (counterpart of ``repro/distributed``)."""
+explicit engine with zero-collective block steps, ZeRO-1 state sharding,
+the collective trace (counterpart of ``repro/distributed``) and the
+tensor-parallel model's collectives (``tensor_parallel``)."""
 
 from repro_torch.distributed.audit import (
     CollectiveEvent,
@@ -25,6 +26,7 @@ from repro_torch.distributed.plan import (
     ns_chain_flops,
     overlappable_ns_bytes,
     plan_comm,
+    tp_bytes,
 )
 
 __all__ = [
@@ -49,4 +51,5 @@ __all__ = [
     "overlappable_ns_bytes",
     "plan_comm",
     "ShardMapEngine",
+    "tp_bytes",
 ]

@@ -12,11 +12,16 @@ have no counterpart.
 
 Phases: the plan's three (``'block'``, ``'full'``, ``'apply'``) and the
 classes the plan does not price, kept apart: ``'grad_reduce'`` (the
-data-parallel gradient all-reduce), ``'replica_gather'`` (each rank's
-updated shards gathered back into its full replica: the port runs the
-whole model on every rank, where the reference's model is tensor-parallel
-and pays no such gather), ``'normuon'`` (NorMuon's row and RMS sums of
-sharded leaves) and ``'checkpoint'`` (state gathered for a snapshot).
+data-parallel gradient all-reduce), ``'tp'`` (the tensor-parallel
+forward and backward of ``distributed/tensor_parallel.py`` and the sum of
+the replicated leaves' gradients over the model axis; ``plan.tp_bytes``
+counts them), ``'norm'`` (the model-axis sums of the global gradient
+norms on that path), ``'replica_gather'`` (each rank's updated shards
+gathered back into its full replica: only the replicated path, which runs
+the whole model on every rank, pays it; the reference's model is
+tensor-parallel and pays no such gather), ``'normuon'`` (NorMuon's row and
+RMS sums of sharded leaves) and ``'checkpoint'`` (state gathered for a
+snapshot).
 :func:`bytes_by_axes`, :func:`bytes_by_link`, :func:`assert_matches_plan`
 and :func:`assert_matches_plan_by_axes` read the trace.
 
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Optional
 
 import torch
@@ -40,13 +46,16 @@ from repro_torch.distributed.plan import CommPlan, link_class
 
 GATHER = "all-gather"
 REDUCE = "all-reduce"
+REDUCE_SCATTER = "reduce-scatter"
 
 
 @dataclasses.dataclass(frozen=True)
 class CollectiveEvent:
     """One collective as issued: its phase class, kind, mesh axes, link
-    class, per-rank result bytes, pipeline stage (None outside one) and
-    the step it ran in."""
+    class, per-rank result bytes, pipeline stage (None outside one), the
+    step it ran in and its host wall in seconds (None for an asynchronous
+    gather; with the wrapper's ``sync`` set, as under ``--obs-block``, it
+    covers the device work before and after too)."""
 
     phase: str
     kind: str
@@ -55,6 +64,7 @@ class CollectiveEvent:
     bytes: int
     stage: Optional[int] = None
     step: Optional[int] = None
+    wall_s: Optional[float] = None
 
 
 class CollectiveTrace:
@@ -65,11 +75,15 @@ class CollectiveTrace:
         self.step: Optional[int] = None
 
     def record(self, phase: str, kind: str, axes, nbytes: int,
-               stage: Optional[int] = None) -> None:
+               stage: Optional[int] = None, wall_s: Optional[float] = None) -> None:
         axes = tuple(axes)
         self.events.append(CollectiveEvent(phase=phase, kind=kind, axes=axes,
                                            link=link_class(axes), bytes=int(nbytes),
-                                           stage=stage, step=self.step))
+                                           stage=stage, step=self.step, wall_s=wall_s))
+
+    def wall_s(self, phases=None, *, step: Optional[int] = None) -> float:
+        """The summed host wall of the synchronous collectives selected."""
+        return sum(e.wall_s for e in self.select(phases, step=step) if e.wall_s is not None)
 
     def select(self, phases=None, *, step: Optional[int] = None, kinds=None) -> list:
         if isinstance(phases, str):
@@ -102,10 +116,15 @@ class Collectives:
     :class:`CollectiveTrace`) collects the events.
     Tensors go to the backend where they lie: gloo takes CUDA tensors (it
     copies them through the host), NCCL takes them on each rank's card.
+    gloo's reduce-scatter takes CUDA tensors too (torch 2.11 on the H100
+    machine; ``tests/test_torch_cuda.py`` holds it). ``sync``, when set,
+    runs before and after each synchronous collective, so its recorded wall
+    covers the device (the launcher sets it under ``--obs-block``).
     """
 
     def __init__(self, mesh):
         self.mesh = mesh
+        self.sync = None
         self.trace = CollectiveTrace()
         self.axis_names = tuple(mesh.mesh_dim_names)
         self.axis_sizes = dict(zip(self.axis_names, mesh.mesh.shape))
@@ -157,10 +176,12 @@ class Collectives:
         # all_gather_into_tensor warns that it is deprecated from torch 2.13;
         # all_gather_single is the same call there.
         gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        t0 = self._start()
         handle = gather(out, src, group=self.group(axes), async_op=async_op)
         shape = list(x.shape)
         shape[dim] *= k
-        self.trace.record(phase, GATHER, axes, math.prod(shape) * x.element_size(), stage)
+        self.trace.record(phase, GATHER, axes, math.prod(shape) * x.element_size(), stage,
+                          wall_s=None if async_op else self._wall(t0))
 
         def finish() -> torch.Tensor:
             return out.view(k, *src.shape).movedim(0, dim).reshape(shape) if dim else out
@@ -170,14 +191,48 @@ class Collectives:
         return finish()
 
     def all_reduce(self, x: torch.Tensor, axes, *, phase: str,
-                   stage: Optional[int] = None) -> torch.Tensor:
-        """Sum ``x`` over ``axes``; returns the summed tensor."""
+                   stage: Optional[int] = None, op: str = "sum") -> torch.Tensor:
+        """Reduce ``x`` in place over ``axes`` (``op`` 'sum' or 'max');
+        returns it."""
         import torch.distributed as dist
 
         axes = tuple(axes)
-        dist.all_reduce(x, group=self.group(axes))
-        self.trace.record(phase, REDUCE, axes, x.numel() * x.element_size(), stage)
+        t0 = self._start()
+        dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
+                        group=self.group(axes))
+        self.trace.record(phase, REDUCE, axes, x.numel() * x.element_size(), stage,
+                          wall_s=self._wall(t0))
         return x
+
+    def reduce_scatter(self, x: torch.Tensor, axes, *, dim: int = 0,
+                       phase: str) -> torch.Tensor:
+        """Sum ``x`` over ``axes`` and keep this rank's slice of ``dim`` (the
+        axes' linear index, major to minor); ``x`` is left as it was."""
+        import torch.distributed as dist
+
+        axes = tuple(axes)
+        dim = dim % x.dim()
+        n = x.shape[dim] // self.size(axes)
+        src = x.movedim(dim, 0).contiguous()
+        out = torch.empty((n, *src.shape[1:]), dtype=src.dtype, device=src.device)
+        # reduce_scatter_tensor warns that it is deprecated from torch 2.13;
+        # reduce_scatter_single is the same call there.
+        scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+        t0 = self._start()
+        scatter(out, src, group=self.group(axes))
+        self.trace.record(phase, REDUCE_SCATTER, axes, out.numel() * out.element_size(),
+                          wall_s=self._wall(t0))
+        return out.movedim(0, dim)
+
+    def _start(self) -> float:
+        if self.sync is not None:
+            self.sync()
+        return time.perf_counter()
+
+    def _wall(self, t0: float) -> float:
+        if self.sync is not None:
+            self.sync()
+        return time.perf_counter() - t0
 
 
 def bytes_by_axes(trace: CollectiveTrace, phases, *, kinds=(GATHER,),

@@ -39,10 +39,16 @@ epilogue, which works on each rank's own layers) in the momentum layout;
 the ZeRO axes, or the flatten fallback's per-axis gathers and the pad
 slice -- and :meth:`replicate` the replica gather over the model axes.
 
-The port's model is not tensor-parallel: every rank runs the whole model
-on its slice of the batch, with full parameters and data-reduced full
-gradients. :meth:`shard` cuts such a full tensor (a flatten leaf's lead
-dim zero-padded first) to this rank's shard of its momentum spec.
+The parameters and gradients a rank holds come in one of two layouts
+(``sharding.specs.mesh_path``). On the tensor-parallel path
+(``tensor_parallel=True``, the dense models) they are the rank's
+param-layout shards, which the model computes with: :meth:`shard` cuts
+them over the axes the momentum spec adds (ZeRO-1's), the 'apply' gathers
+bring updates back to that layout, and nothing is replicated. On the
+replicated path every rank runs the whole model on its slice of the batch,
+with full parameters and data-reduced full gradients: :meth:`shard` cuts
+the full tensor (a flatten leaf's lead dim zero-padded first) to the
+momentum spec, and :meth:`replicate` pays the replica gather.
 """
 
 from __future__ import annotations
@@ -73,8 +79,10 @@ class ShardMapEngine:
     param spec and ``flatten_by_path`` to the ``FlattenSpec`` of flatten-
     fallback leaves. ``mesh`` is a ``DeviceMesh``, or an ``{axis: size}``
     dict for a program compiled and priced without ranks; ``comm`` (the
-    collective wrapper) is None then, and running raises. ``sync``, when
-    set, runs at the end of each stage span (device completion).
+    collective wrapper) is None then, and running raises. The wrapper's
+    ``sync``, when set, also runs at the end of each stage span (device
+    completion). ``tensor_parallel``: the ranks hold param-layout shards
+    (see the module docstring); ``sharding.specs.make_ctx`` reads it.
     """
 
     mesh: Any
@@ -82,7 +90,7 @@ class ShardMapEngine:
     pspec_by_path: dict = dataclasses.field(default_factory=dict)
     flatten_by_path: dict = dataclasses.field(default_factory=dict)
     comm: Any = None
-    sync: Optional[Callable[[], Any]] = None
+    tensor_parallel: bool = False
 
     @property
     def axis_sizes(self) -> dict[str, int]:
@@ -102,9 +110,44 @@ class ShardMapEngine:
         return tuple(shape) if fl is None else fl.padded_shape(shape)
 
     def local_shape(self, key: PathKey, shape: tuple) -> tuple:
-        """This rank's shard shape of the leaf's state."""
+        """This rank's shard shape of the leaf's state (``shape``: the
+        leaf's global shape)."""
         full = self.state_shape_for(key, shape)
         return sh.local_shape(self.spec_for(key, len(full)), full, self.axis_sizes)
+
+    def full_shape(self, key: PathKey, shape) -> tuple:
+        """A leaf's global shape from the shape a rank holds: its param-layout
+        shard on the tensor-parallel path, the whole leaf otherwise."""
+        if not self.tensor_parallel:
+            return tuple(shape)
+        spec = spec_entries(self.pspec_by_path.get(tuple(key)), len(shape))
+        return tuple(d * _factor(e, self.axis_sizes) for d, e in zip(shape, spec))
+
+    def model_split(self, key: PathKey, ndim: int) -> bool:
+        """Whether the leaf's param spec splits it over the model axis."""
+        spec = spec_entries(self.pspec_by_path.get(tuple(key)), ndim)
+        return any(sh.MODEL_AXIS in _names(e) and self.axis_sizes.get(sh.MODEL_AXIS, 1) > 1
+                   for e in spec)
+
+    @torch.no_grad()
+    def global_sq_sum(self, items) -> torch.Tensor:
+        """The sum of squares over ``(key, tensor)`` leaves as the rank holds
+        them, over the whole model: on the tensor-parallel path a leaf split
+        over the model axis adds its shard's part, summed over that axis
+        (one all-reduce, phase ``'norm'``); the replicated leaves count once.
+        On the replicated path, the plain sum."""
+        items = list(items)
+        sq = lambda t: torch.sum(t.to(torch.float32) ** 2)
+        if not self.tensor_parallel:
+            return sum(sq(t) for _, t in items)
+        split = [sq(t) for k, t in items if self.model_split(k, t.dim())]
+        whole = [sq(t) for k, t in items if not self.model_split(k, t.dim())]
+        total = sum(whole) if whole else None
+        if split:
+            part = self._comm().all_reduce(torch.stack(split).sum(), (sh.MODEL_AXIS,),
+                                           phase="norm")
+            total = part if total is None else total + part
+        return total
 
     # -- cutting and gathering ------------------------------------------------
 
@@ -139,9 +182,16 @@ class ShardMapEngine:
         return x
 
     def shard(self, key: PathKey, x: torch.Tensor) -> torch.Tensor:
-        """This rank's momentum-spec shard of a full state-shaped tensor (a
-        flatten leaf's lead dim already padded, ``muon._pad_lead``)."""
-        return self.cut(x, self.spec_for(key, x.dim()))
+        """This rank's momentum-spec shard of a gradient or parameter as the
+        rank holds it (a flatten leaf's lead dim already padded,
+        ``muon._pad_lead``): the full tensor on the replicated path; on the
+        tensor-parallel path its param-layout shard, cut over the axes the
+        momentum spec adds."""
+        spec = self.spec_for(key, x.dim())
+        if self.tensor_parallel:
+            pspec = spec_entries(self.pspec_by_path.get(tuple(key)), x.dim())
+            spec = tuple(None if p is not None else u for u, p in zip(spec, pspec))
+        return self.cut(x, spec)
 
     def cut(self, x: torch.Tensor, spec) -> torch.Tensor:
         """This rank's shard of a full tensor laid out by ``spec``."""
@@ -172,8 +222,9 @@ class ShardMapEngine:
         return u
 
     def replicate(self, key: PathKey, u: torch.Tensor) -> torch.Tensor:
-        """The replica gather: a param-layout tensor gathered over its
-        model-sharded dims into the full tensor every rank holds."""
+        """The replica gather (the replicated path only): a param-layout
+        tensor gathered over its model-sharded dims into the full tensor
+        every rank holds."""
         if u.dim() == 0:
             return u
         return self._gather(u, self.pspec_by_path.get(tuple(key)), range(u.dim()),
@@ -210,7 +261,8 @@ class ShardMapEngine:
     @contextlib.contextmanager
     def _scope(self, name: str):
         """A stage's span on the bus and its ``torch.profiler`` region."""
-        with span(get_bus(), name, sync=self.sync), stage_scope(name):
+        sync = None if self.comm is None else self.comm.sync
+        with span(get_bus(), name, sync=sync), stage_scope(name):
             yield
 
     def run_program(self, prog, u_leaves: Sequence[torch.Tensor], orth: Callable) -> list:
@@ -298,7 +350,7 @@ class _TrailingGather:
 
 
 def make_engine(params: Any, pspecs: Any, mesh, *, zero1: bool = False, zero1_axis=None,
-                zero1_flatten: bool = False) -> ShardMapEngine:
+                zero1_flatten: bool = False, tensor_parallel: bool = False) -> ShardMapEngine:
     """Build a :class:`ShardMapEngine` from the param tree and its specs.
 
     ``params`` may be tensors or anything with ``.shape``. With ``zero1``
@@ -310,7 +362,8 @@ def make_engine(params: Any, pspecs: Any, mesh, *, zero1: bool = False, zero1_ax
     rule: unlike the reference's engine, which serves the Muon leaves only,
     this one also holds the AdamW state's shards. On a ``DeviceMesh`` the
     engine gets a new ``audit.Collectives``, whose trace records every
-    collective it issues.
+    collective it issues. ``params`` have the global shapes; ``tensor_parallel`` says the
+    ranks will hold their param-layout shards of them.
     """
     from repro_torch.core.combine import default_label_fn
     from repro_torch.distributed.audit import Collectives
@@ -338,4 +391,4 @@ def make_engine(params: Any, pspecs: Any, mesh, *, zero1: bool = False, zero1_ax
                                             label=label)
     comm = None if isinstance(mesh, dict) else Collectives(mesh)
     return ShardMapEngine(mesh=mesh, uspec_by_path=uspecs, pspec_by_path=pspec_out,
-                          flatten_by_path=flatten, comm=comm)
+                          flatten_by_path=flatten, comm=comm, tensor_parallel=tensor_parallel)

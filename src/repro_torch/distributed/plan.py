@@ -465,6 +465,43 @@ def plan_comm(params: Any, pspecs: Any, mesh, *, labels: Any = None,
     return CommPlan(axis_sizes=sizes, leaves=leaves)
 
 
+def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2) -> int:
+    """The ``'tp'`` collective bytes of one rank and training step of the
+    tensor-parallel dense model (``distributed/tensor_parallel.py``), from
+    the shapes; 0 where ``sharding.specs.mesh_path`` runs ``cfg`` replicated.
+
+    ``rows`` x ``seq`` tokens a rank (its data coordinate's rows),
+    activations of ``compute_bytes`` an element, the replicated leaves'
+    gradients fp32; result-buffer bytes, as the plan's (a reduce-scatter's
+    is the rank's slice). Counted: each layer's two sequence gathers
+    (attention and MLP in) and two reduces (their row-parallel ``wo`` out),
+    forward and backward, and on the 'hd' KV layout the K and V column
+    gathers; the embedding's reduce and the logits' gather; the cross
+    entropy's three (B, S) fp32 all-reduces; with a sequence-sharded
+    residual, the sum of the replicated leaves' gradients (the norm gains)
+    over the model axis.
+    """
+    sizes = sh.mesh_axis_sizes(axis_sizes)
+    if sh.mesh_path(cfg, sizes) != sh.TENSOR_PARALLEL:
+        return 0
+    m = sizes[sh.MODEL_AXIS]
+    seq_shard = sh.sequence_sharded(seq, m)
+    act = rows * seq * cfg.d_model * compute_bytes
+    # A sequence gather (or reduce) and its backward: all-gather and
+    # reduce-scatter when the residual is sequence-sharded, else one
+    # all-reduce (backward of the gather, forward of the reduce).
+    pair = act + act // m if seq_shard else act
+    per_layer = 4 * pair
+    if sh.attn_layouts(cfg, m)[1] == "hd":
+        kv = rows * seq * cfg.kv_dim * compute_bytes
+        per_layer += 2 * (kv + kv // m)
+    total = cfg.num_layers * per_layer + 2 * pair + 3 * rows * seq * FP32_BYTES
+    if seq_shard:
+        norms = 2 + (2 if cfg.use_post_norms else 0)
+        total += FP32_BYTES * (cfg.num_layers * norms * cfg.d_model + cfg.d_model)
+    return total
+
+
 # ---------------------------------------------------------------------------
 # Schedule + bucket-comm pricing (used by core/program.py's compiler)
 # ---------------------------------------------------------------------------

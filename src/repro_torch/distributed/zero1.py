@@ -18,7 +18,10 @@ param match (step counters) are replicated.
     leaf through :func:`shard_leaf`, the one cut that
     ``training.checkpoint.restore`` makes too;
   * :func:`gather_state` -- the full state from every rank's shards (a
-    snapshot's save).
+    snapshot's save);
+  * :func:`param_shardings` / :func:`gather_params` -- the same for the
+    parameters of the tensor-parallel path, which each rank holds in their
+    param layout.
 
 The reference's ``attach`` (abstract state with shardings for its dry
 run) and ``constrain`` (a sharding constraint inside a compiled step) have
@@ -75,8 +78,9 @@ def _layout(engine, key: str, leaf, index: dict) -> LeafSharding:
 
 def opt_shardings(a_opt: Any, a_params: Any, engine) -> Any:
     """``LeafSharding`` per leaf of ``a_opt`` (full-shaped or local shards),
-    from the engine's momentum specs."""
-    index = {path: tuple(p.shape) for path, p in tree_lib.flatten_with_path(a_params)}
+    from the engine's momentum specs (``a_params`` as the ranks hold them)."""
+    index = {path: engine.full_shape(path, p.shape)
+             for path, p in tree_lib.flatten_with_path(a_params)}
     return map_leaves(lambda key, leaf: _layout(engine, key, leaf, index), a_opt)
 
 
@@ -116,6 +120,26 @@ def gather_state(opt_state: Any, a_params: Any, engine, *,
     layouts = opt_shardings(opt_state, a_params, engine)
     return _zip_map(lambda x, s: engine.join(x, s.spec, phase=phase)
                     if isinstance(x, torch.Tensor) else x, opt_state, layouts)
+
+
+def param_shardings(a_params: Any, engine) -> Any:
+    """``LeafSharding`` (param spec, global shape) per parameter on the
+    tensor-parallel path; None on the replicated path, whose ranks hold
+    every parameter whole."""
+    if not engine.tensor_parallel:
+        return None
+    return tree_lib.map_with_path(
+        lambda path, p: LeafSharding(engine.pspec_by_path[path],
+                                     engine.full_shape(path, p.shape)), a_params)
+
+
+def gather_params(params: Any, engine, *, phase: str = "checkpoint") -> Any:
+    """The full parameters from every rank's param-layout shards (every rank
+    gets them); the tree itself on the replicated path."""
+    if not engine.tensor_parallel:
+        return params
+    return tree_lib.map_with_path(
+        lambda path, p: engine.join(p, engine.pspec_by_path[path], phase=phase), params)
 
 
 def state_bytes(opt_state: Any) -> int:

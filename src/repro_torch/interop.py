@@ -8,7 +8,9 @@ compare updates leaf by leaf. The optimizer state goes the same way, the
 whole combined state (AdamW's moments and the matrix optimizer's state) and
 the guard state included: Dion's start basis comes from ``jax.random``,
 which a ``torch.Generator`` cannot reproduce, so parity tests carry the
-reference's basis over.
+reference's basis over. :func:`shard_params` cuts a full tree into one
+tensor-parallel rank's parameter shards and :func:`join_params` joins the
+ranks' shards back.
 """
 
 from __future__ import annotations
@@ -46,6 +48,58 @@ def params_to_numpy(tree) -> dict:
         return t.numpy()
 
     return tree_lib.map_with_path(convert, tree)
+
+
+def _spec_slices(spec, shape, axis_sizes: dict, coords: dict) -> tuple:
+    """The slice of each dim a rank at ``coords`` holds of a leaf of
+    ``shape`` laid out by ``spec`` (an entry's axes major to minor)."""
+    from repro_torch.sharding import specs as sh
+
+    out = []
+    for d, entry in zip(shape, sh.spec_entries(spec, len(shape))):
+        idx, k = 0, 1
+        for name in sh.spec_entry_names(entry):
+            idx = idx * axis_sizes.get(name, 1) + coords.get(name, 0)
+            k *= axis_sizes.get(name, 1)
+        out.append(slice(idx * (d // k), (idx + 1) * (d // k)))
+    return tuple(out)
+
+
+def shard_params(tree, cfg, axis_sizes: dict, coords: dict, device="cuda") -> dict:
+    """The parameter shards one tensor-parallel rank holds: each leaf of a
+    full tree (the reference's numpy parameters, or tensors) cut by its
+    ``sharding.specs.param_specs`` entry at the rank's mesh ``coords``
+    (``{axis: index}``), as tensors on ``device``."""
+    from repro_torch.sharding import specs as sh
+
+    specs = sh.param_specs(tree, cfg, axis_sizes)
+    return tree_lib.map_with_path(
+        lambda path, leaf, spec: torch.as_tensor(np.ascontiguousarray(
+            np.asarray(leaf.detach().cpu() if isinstance(leaf, torch.Tensor) else leaf)[
+                _spec_slices(spec, leaf.shape, axis_sizes, coords)])).to(device),
+        tree, specs)
+
+
+def join_params(pieces, specs, axis_sizes: dict) -> dict:
+    """Inverse of :func:`shard_params`: the full numpy tree from ``[(coords,
+    tree of shards)]`` laid out by ``specs`` (the full tree's
+    ``param_specs``), one piece at least per model coordinate (ranks that
+    differ only along the data axes hold the same shards)."""
+    from repro_torch.sharding import specs as sh
+
+    host = lambda leaf: (params_to_numpy({"x": leaf})["x"] if isinstance(leaf, torch.Tensor)
+                         else np.asarray(leaf))
+    trees = [{k: host(v) for k, v in tree_lib.flatten_with_path(t)} for _, t in pieces]
+
+    def join(path, spec):
+        shard = trees[0][path]
+        full = np.zeros(tuple(d * sh.spec_entry_size(e, axis_sizes) for d, e in zip(
+            shard.shape, sh.spec_entries(spec, shard.ndim))), shard.dtype)
+        for (coords, _), flat in zip(pieces, trees):
+            full[_spec_slices(spec, full.shape, axis_sizes, coords)] = flat[path]
+        return full
+
+    return tree_lib.map_with_path(join, specs)
 
 
 def opt_state_from_numpy(state: dict, device="cuda"):

@@ -20,11 +20,18 @@ rank's shards with zero optimizer collectives, full steps through one
 gather a sharded matrix, ``--full-schedule pipelined|barrier``);
 ``--zero1`` splits the optimizer state over the data axes and
 ``--zero1-flatten`` adds the lead-padded fallback. ``--comm-engine gspmd``
-raises: eager PyTorch has no partitioner. Every rank runs the whole model
-on its slice of the batch (``--batch`` is the global batch); see
-``training/train_step.py`` for the gradient reduce, the 'apply' gathers and
-the replica gather. Only rank 0 prints step lines and writes
-``--log-file``; a rank that fails raises, which fails the run.
+raises: eager PyTorch has no partitioner. ``--batch`` is the global batch;
+the ranks of one data coordinate read the same rows. Before the first step
+the launcher decides the path (``sharding.specs.mesh_path``) and prints it:
+a dense model on a ``model`` axis larger than one runs tensor-parallel --
+every rank builds the full parameters from ``--seed`` (or takes the
+caller's) and keeps only its ``param_specs`` shards, which it computes
+with (``models/transformer.py``, ``distributed/tensor_parallel.py``) --
+and every other arch runs replicated, each rank holding the whole model.
+A head layout the port does not compute raises there. See
+``training/train_step.py`` for the gradient reduce, the 'apply' gathers
+and, replicated, the replica gather. Only rank 0 prints step lines and
+writes ``--log-file``; a rank that fails raises, which fails the run.
 
 Resilience: ``--guard`` runs the optimizer apply behind the health check of
 ``training/resilience.py`` (skip on NaN/Inf or a loss spike) and drives the
@@ -285,6 +292,7 @@ class TrainRun:
     records: list
     counters: dict
     engine: Any = None   # the distributed engine under --mesh (its trace on .comm)
+    ctx: Any = None      # the model's ShardCtx under --mesh
 
 
 def run(argv=None, *, params: Optional[dict] = None, cfg: Optional[ModelConfig] = None,
@@ -406,20 +414,35 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
         params = init_params(cfg, seed=args.seed, device=device)
     sync = ((lambda: torch.cuda.synchronize(device))
             if args.obs_block and device.type == "cuda" else None)
-    engine = None
+    engine = ctx = None
+    mesh_path = None
     if args.mesh:
         from repro_torch.distributed import make_engine
         from repro_torch.launch.mesh import make_mesh_from_spec
 
         mesh = make_mesh_from_spec(args.mesh, "cuda" if args.dist_backend == "nccl" else "cpu")
         axis_sizes = sh.mesh_axis_sizes(mesh)
+        mesh_path = sh.mesh_path(cfg, axis_sizes)
         engine = make_engine(params, sh.param_specs(params, cfg, axis_sizes), mesh,
-                             zero1=args.zero1, zero1_flatten=args.zero1_flatten)
-        engine.sync = sync
+                             zero1=args.zero1, zero1_flatten=args.zero1_flatten,
+                             tensor_parallel=mesh_path == sh.TENSOR_PARALLEL)
+        engine.comm.sync = sync
+        ctx = sh.make_ctx(cfg, engine, seq=args.seq)
+        if rank == 0:
+            print(f"mesh path: {mesh_path} (model axis {axis_sizes.get('model', 1)}, "
+                  f"Q layout {ctx.q_layout!r}, KV layout {ctx.kv_layout!r}, sequence-sharded "
+                  f"residual {ctx.seq_shard}); collectives: {args.dist_backend}'s own on "
+                  f"{device.type} tensors", flush=True)
     else:
         axis_sizes = {"model": args.mesh_model}
     bspecs = matrix_block_specs(params, cfg, axis_sizes)
     labels = label_tree(params)
+    n_params = sum(p.numel() for p in tree_lib.leaves(params))
+    if ctx is not None and ctx.tensor_parallel:
+        # Keep this rank's shards only: every rank built (or was given) the
+        # same full parameters.
+        params = tree_lib.map_with_path(
+            lambda path, p: engine.cut(p, engine.pspec_by_path[path]).clone(), params)
     ns = engine_config(args)
 
     sched = {"wsd": lambda peak: wsd(peak, args.steps),
@@ -460,6 +483,8 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
         "seed": args.seed,
         "schedule": {"mode": "synchronous", "period": period, "offsets": None},
     }
+    if mesh_path is not None:
+        run_meta["path"] = mesh_path
 
     def save_ckpt(step):
         extra = {
@@ -469,18 +494,19 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
             "guard": resilience.guard_to_meta(state.guard),
         }
         with span(bus, "checkpoint.save", step=step):
-            opt_state = state.opt_state
+            full_params, opt_state = state.params, state.opt_state
             if engine is not None:
                 # Snapshots are mesh-independent: full leaves, one writer.
                 from repro_torch.distributed import zero1 as zero1_lib
 
                 opt_state = zero1_lib.gather_state(opt_state, state.params, engine)
+                full_params = zero1_lib.gather_params(full_params, engine)
             path = checkpoint.snapshot_path(args.checkpoint_dir, step)
             if rank == 0:
                 path = checkpoint.save_snapshot(
-                    args.checkpoint_dir, state.params, opt_state, step=step,
+                    args.checkpoint_dir, full_params, opt_state, step=step,
                     extra=extra, keep=args.keep_checkpoints)
-            del opt_state
+            del full_params, opt_state
             if engine is not None:
                 import torch.distributed as dist
 
@@ -524,7 +550,6 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
         else:
             bus.emit({"event": "resume", "step": 0, "snapshot": None})
 
-    n_params = sum(p.numel() for p in tree_lib.leaves(params))
     if rank == 0:
         print(f"arch={cfg.name} params={n_params / 1e6:.1f}M optimizer={args.optimizer} "
               f"variant={variant_name} period={period} mesh={axis_sizes} device={device}"
@@ -581,7 +606,8 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
             with stage_scope(f"muonbp.{phase}"):
                 state, metrics = train_step(state, batch, cfg=cfg, optimizer=optimizer,
                                             phase=phase, compute_dtype=compute_dtype,
-                                            guard=guard_cfg, fault=fault, engine=engine)
+                                            guard=guard_cfg, fault=fault, engine=engine,
+                                            ctx=ctx)
         if profiler is not None and step == prof_window[1] - 1:
             _stop_profiler(profiler, args.profile_dir, prof_window)
             profiler = None
@@ -629,7 +655,7 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
             raise SystemExit(3)
     finish("ok")
     return TrainRun(cfg=cfg, state=state, block_specs=bspecs, records=records,
-                    counters=dict(bus.counters), engine=engine)
+                    counters=dict(bus.counters), engine=engine, ctx=ctx)
 
 
 def _batch_rows(engine, batch: int) -> slice:

@@ -165,10 +165,49 @@ class DenseKV(NamedTuple):
         return self.k, self.v
 
 
+def split_heads(t: torch.Tensor, n_heads: int, head_dim: int, layout: str) -> torch.Tensor:
+    """(B, S, n*hd) -> (B, S, n, hd), the reference's ``split_heads``.
+
+    layout='head': the columns are head-major (the standard order).
+    layout='hd': head_dim-major, the order in which a head count that does
+    not divide the model axis shards on head_dim (``sharding/specs.py``).
+    """
+    b, s, _ = t.shape
+    if layout == "hd":
+        return t.reshape(b, s, head_dim, n_heads).transpose(2, 3)
+    return t.reshape(b, s, n_heads, head_dim)
+
+
+def merge_heads(t: torch.Tensor, layout: str) -> torch.Tensor:
+    """Inverse of :func:`split_heads`: (B, S, n, hd) -> (B, S, n*hd)."""
+    b, s, h, hd = t.shape
+    if layout == "hd":
+        return t.transpose(2, 3).reshape(b, s, hd * h)
+    return t.reshape(b, s, h * hd)
+
+
+def _rank_kv(k, v, num_heads: int, num_kv_heads: int, head_dim: int, q_heads: int, ctx):
+    """The K/V heads a tensor-parallel rank's Q heads read, from its
+    projection columns: in 'head' its own heads, aligned with its Q heads;
+    in 'hd' (head_dim-major columns) every rank's columns gathered over the
+    model axis, split, and the KV head of each of its Q heads taken, one a
+    Q head."""
+    if ctx.kv_layout == "head":
+        local = k.shape[-1] // head_dim
+        return split_heads(k, local, head_dim, "head"), split_heads(v, local, head_dim, "head")
+    from repro_torch.distributed import tensor_parallel as tp
+
+    group = num_heads // num_kv_heads
+    index = (ctx.index * q_heads + torch.arange(q_heads, device=k.device)) // group
+    k = split_heads(tp.gather_cols(k, ctx), num_kv_heads, head_dim, "hd")
+    v = split_heads(tp.gather_cols(v, ctx), num_kv_heads, head_dim, "hd")
+    return k.index_select(2, index), v.index_select(2, index)
+
+
 def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
                     positions, inv_freq, causal: bool = True, window=None,
                     attn_softcap=None, kv_cache=None, cache_index=None, kv_len=None,
-                    cross_kv=None):
+                    cross_kv=None, ctx=None):
     """Attention sub-block: projections + RoPE + attention + out-proj.
 
     Returns ``(out, new_kv)``. Without a cache ``new_kv`` is the post-RoPE
@@ -184,15 +223,27 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
     With ``cross_kv`` (B, S_enc, D) this is cross-attention (whisper's
     decoder): K/V come from the encoder output, with no RoPE, no causal
     mask and no cache. Mixed dtypes promote (:func:`linear`), as in the
-    reference. Heads are head-major columns, the reference's single-device
-    layout; its 'hd' layout belongs to the distributed slice and is not
-    ported yet.
+    reference.
+
+    ``ctx`` (``sharding.specs.ShardCtx``, one device by default) gives the
+    columns' head layouts (:func:`split_heads`). Tensor-parallel, ``x`` is
+    the whole (sequence-gathered) input, ``wq``/``wk``/``wv`` are the
+    rank's columns (its heads), ``wo`` its rows, and the output is the
+    rank's partial sum of the out-projection, which the caller reduces.
     """
     b, s, _ = x.shape
+    q_layout = "head" if ctx is None else ctx.q_layout
+    kv_layout = "head" if ctx is None else ctx.kv_layout
     kv_src = cross_kv if cross_kv is not None else x
-    q = linear(x, params["wq"]).reshape(b, s, num_heads, head_dim)
-    k = linear(kv_src, params["wk"]).reshape(b, kv_src.shape[1], num_kv_heads, head_dim)
-    v = linear(kv_src, params["wv"]).reshape(b, kv_src.shape[1], num_kv_heads, head_dim)
+    q_heads = params["wq"].shape[-1] // head_dim
+    q = split_heads(linear(x, params["wq"]), q_heads, head_dim, q_layout)
+    k = linear(kv_src, params["wk"])
+    v = linear(kv_src, params["wv"])
+    if ctx is not None and ctx.tensor_parallel:
+        k, v = _rank_kv(k, v, num_heads, num_kv_heads, head_dim, q_heads, ctx)
+    else:
+        k = split_heads(k, num_kv_heads, head_dim, kv_layout)
+        v = split_heads(v, num_kv_heads, head_dim, kv_layout)
     if inv_freq is not None and cross_kv is None:
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
@@ -204,4 +255,4 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
         kv_len = cache_index + s if kv_len is None else kv_len
     out = attention(q, k, v, causal=causal and cross_kv is None, window=window,
                     attn_softcap=attn_softcap, q_offset=q_offset, kv_len=kv_len)
-    return linear(out.reshape(b, s, num_heads * head_dim), params["wo"]), new_kv
+    return linear(merge_heads(out, q_layout), params["wo"]), new_kv

@@ -26,17 +26,27 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.sum((lse - label_logit) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, ctx=None) -> tuple[torch.Tensor, dict]:
     """(loss, metrics): the masked CE, plus ``LB_COEF * load_balance +
     Z_COEF * z_loss`` for an MoE model, whose metrics then also carry the
     layer-summed ``load_balance`` and ``z_loss``. A VLM's logits at its
-    ``vision_tokens`` leading positions are dropped before the CE."""
+    ``vision_tokens`` leading positions are dropped before the CE.
+
+    ``ctx`` (``sharding.specs.ShardCtx``) is passed to ``forward``; on a
+    tensor-parallel rank the CE is the vocab-parallel one over the rank's
+    logit columns (``distributed.tensor_parallel.cross_entropy``), so the
+    whole (B, S, Vp) logits never exist."""
     logits, aux = forward(params, batch["tokens"], cfg, return_aux=True,
                           extra_embeds=batch.get("vision_embeds"),
-                          encoder_frames=batch.get("audio_frames"))
+                          encoder_frames=batch.get("audio_frames"), ctx=ctx)
     if cfg.vision_tokens:
         logits = logits[:, cfg.vision_tokens:, :]
-    ce = cross_entropy(logits, batch["labels"])
+    if ctx is not None and ctx.tensor_parallel:
+        from repro_torch.distributed import tensor_parallel
+
+        ce = tensor_parallel.cross_entropy(logits, batch["labels"], ctx, ignore=IGNORE_LABEL)
+    else:
+        ce = cross_entropy(logits, batch["labels"])
     loss = ce
     metrics = {"ce": ce}
     if cfg.num_experts:

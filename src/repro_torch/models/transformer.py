@@ -13,6 +13,16 @@ state tensors. The reference's activation checkpointing changes no numbers
 and is not ported yet: the full-width dense and MoE models the card trains
 fit without it, and ``mamba2-1.3b`` trains there at a cut depth.
 
+With a tensor-parallel ``ctx`` (``sharding.specs.ShardCtx``; dense models
+only) each rank holds its ``param_specs`` shards and ``forward`` computes
+with them, as the reference's model under GSPMD: the embedding
+vocab-parallel, Q/K/V and the MLP's wi/wg column-parallel (the rank's
+heads and d_ff columns), both ``wo`` row-parallel, the logits
+column-parallel over the vocab. Between layers the residual is
+sequence-sharded over the model axis where the reference's ``_seq_shard``
+shards it (``ctx.seq_shard``), so the norms run on the rank's sequence
+shard; ``distributed/tensor_parallel.py`` holds the collectives.
+
 Layers by ``arch_type``: dense and vlm (attention + MLP), moe (attention +
 MoE block), ssm (Mamba2 only), hybrid (hymba: attention and SSM on one
 normed input, ``0.5 * (attn * attn_scale + ssm * ssm_scale)``, then the
@@ -151,9 +161,18 @@ def _ssm_apply(h, layer, cfg, mode, ssm_state):
     return ssm_lib.ssm_forward(h, layer["ssm"], dims), None
 
 
+def _tp():
+    # Imported where the tensor-parallel path runs: the distributed package
+    # imports the specs, which import this module.
+    from repro_torch.distributed import tensor_parallel
+
+    return tensor_parallel
+
+
 def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, inv_freq,
                   mode: str = "train", kv_cache=None, ssm_state=None, cache_index=None,
-                  kv_len=None, ring: bool = False, group_rows: bool = False, cross_kv=None):
+                  kv_len=None, ring: bool = False, group_rows: bool = False, cross_kv=None,
+                  ctx=None):
     """One decoder layer: the mixer (attention, SSM, or both for hymba),
     whisper's cross-attention, then the MLP or the MoE block.
 
@@ -167,18 +186,26 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
     reference's zeros). ``ring`` attends over a ring cache: no causal or
     window mask, only ``kv_len``. ``group_rows`` routes each row of the
     batch alone (``moe.moe_block``). ``cross_kv``: the encoder's output for
-    whisper's cross-attention.
+    whisper's cross-attention. ``ctx``: the model's context; tensor-parallel
+    (a dense layer in 'train' mode), ``x`` is the rank's sequence shard of
+    the residual (or the whole of it, unsharded) and so is the output.
     """
     norms = layer["norms"]
     new_kv = new_ssm = None
+    tp = ctx is not None and ctx.tensor_parallel
+    # Into and out of a tensor-parallel branch: the sequence gather and the
+    # reduce of the row-parallel partial sums; the identity on one device.
+    enter = (lambda h: _tp().gather_seq(h, ctx)) if tp else (lambda h: h)
+    leave = (lambda h: _tp().reduce_seq(h, ctx)) if tp else (lambda h: h)
 
     def attend(h):
-        return attention_block(
-            h, layer["attn"], num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        out, kv = attention_block(
+            enter(h), layer["attn"], num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, positions=positions, inv_freq=inv_freq,
             window=None if ring else window, causal=not ring, attn_softcap=cfg.attn_softcap,
-            kv_cache=kv_cache, cache_index=cache_index, kv_len=kv_len,
+            kv_cache=kv_cache, cache_index=cache_index, kv_len=kv_len, ctx=ctx,
         )
+        return leave(out), kv
 
     if "attn" in layer and "ssm" in layer:  # hymba: both branches on one normed input
         h = rms_norm(x, norms["attn_norm"])
@@ -200,7 +227,7 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
         cross_out, _ = attention_block(
             rms_norm(x, norms["cross_norm"]), layer["cross"], num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, positions=positions,
-            inv_freq=None, attn_softcap=cfg.attn_softcap, cross_kv=cross_kv)
+            inv_freq=None, attn_softcap=cfg.attn_softcap, cross_kv=cross_kv, ctx=ctx)
         x = x + cross_out
 
     aux = None
@@ -211,7 +238,7 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
         x = x + out.y
         aux = torch.stack([out.load_balance_loss, out.router_z_loss])
     elif "mlp" in layer:
-        mlp_out = _mlp_apply(rms_norm(x, norms["mlp_norm"]), layer["mlp"], cfg)
+        mlp_out = leave(_mlp_apply(enter(rms_norm(x, norms["mlp_norm"])), layer["mlp"], cfg))
         if cfg.use_post_norms:
             mlp_out = rms_norm(mlp_out, norms["post_mlp_norm"])
         x = x + mlp_out
@@ -224,8 +251,11 @@ def _slice_layer(tree, i: int):
     return tree[i]
 
 
-def _embed(params, tokens, cfg):
-    x = params["embed"][tokens]
+def _embed(params, tokens, cfg, ctx=None):
+    if ctx is not None and ctx.tensor_parallel:
+        x = _tp().embed_lookup(params["embed"], tokens, ctx)
+    else:
+        x = params["embed"][tokens]
     if cfg.embed_scale:
         # A fill on the device, not a host tensor copied over: the copy
         # would make the host wait for the device at every step.
@@ -233,8 +263,12 @@ def _embed(params, tokens, cfg):
     return x
 
 
-def _logits(params, x, cfg):
+def _logits(params, x, cfg, ctx=None):
+    """The final norm and the head; tensor-parallel, the norm runs on the
+    rank's sequence shard and the logits are the rank's vocab columns."""
     x = rms_norm(x, params["final_norm"])
+    if ctx is not None and ctx.tensor_parallel:
+        x = _tp().gather_seq(x, ctx)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
     if cfg.final_softcap is not None:
@@ -248,7 +282,7 @@ def _stack_states(states: list) -> dict:
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
             return_aux: bool = False, extra_embeds: Optional[torch.Tensor] = None,
-            encoder_frames: Optional[torch.Tensor] = None):
+            encoder_frames: Optional[torch.Tensor] = None, ctx=None):
     """Full-sequence forward: (B, S) token ids -> (B, S', Vp) logits.
 
     ``extra_embeds`` (B, V, D): a VLM's patch embeddings, prepended to the
@@ -266,11 +300,27 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
     exactly that, ``aux`` being ``{"load_balance", "z_loss"}``, each summed
     over the layers (fp32 zeros but for MoE), and the default leaves them
     out: ``logits`` or ``(logits, cache)``.
+
+    ``ctx`` (``sharding.specs.ShardCtx``): the heads' layouts on one device;
+    tensor-parallel (dense, 'train' mode), ``params`` are the rank's shards,
+    ``tokens`` the rows of its data coordinate, and the logits the rank's
+    (B, S, Vp/m) vocab columns.
     """
-    x = _embed(params, tokens, cfg)
+    tp = ctx is not None and ctx.tensor_parallel
+    if tp:
+        if cfg.arch_type != "dense" or mode != "train":
+            raise NotImplementedError(f"the tensor-parallel forward runs dense models in "
+                                      f"'train' mode, not {cfg.arch_type} in {mode!r}")
+        from repro_torch.sharding.specs import sequence_sharded
+
+        if ctx.seq_shard != sequence_sharded(tokens.shape[1], ctx.size):
+            raise ValueError(f"the context's seq_shard={ctx.seq_shard} was made for another "
+                             f"sequence length than {tokens.shape[1]}")
+    x = _embed(params, tokens, cfg, ctx)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-    b, seq = x.shape[:2]
+    # The whole sequence: a tensor-parallel rank's residual holds its shard.
+    b, seq = x.shape[0], tokens.shape[1] + (0 if extra_embeds is None else extra_embeds.shape[1])
     positions = torch.arange(seq, device=x.device)
     inv_freq = _inv_freq(cfg, x.device)
     cross_kv = None
@@ -294,7 +344,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
         x, kv, new_ssm, layer_aux = decoder_layer(
             x, layer, cfg, window=window, positions=positions, inv_freq=inv_freq,
             mode="prefill" if prefill else "train",
-            cross_kv=cross_kv if "cross" in layer else None)
+            cross_kv=cross_kv if "cross" in layer else None, ctx=ctx)
         if layer_aux is not None:
             aux = aux + layer_aux
         if prefill:
@@ -302,7 +352,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
                 ks[i], vs[i] = kv
             if new_ssm is not None:
                 states.append(new_ssm)
-    out = [_logits(params, x, cfg)]
+    out = [_logits(params, x, cfg, ctx)]
     if return_aux:
         out.append({"load_balance": aux[0], "z_loss": aux[1]})
     if prefill:

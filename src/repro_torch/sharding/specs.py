@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import InputShape, ModelConfig
@@ -112,6 +112,98 @@ def attn_layouts(cfg: ModelConfig, model_size: int) -> tuple[Optional[str], Opti
         return None
 
     return layout(cfg.num_heads), layout(cfg.num_kv_heads)
+
+
+TENSOR_PARALLEL, REPLICATED = "tensor_parallel", "replicated"
+
+
+def mesh_path(cfg: ModelConfig, axis_sizes) -> str:
+    """How a mesh of ranks runs ``cfg``: ``"tensor_parallel"`` (each rank
+    holds and computes with its ``param_specs`` shards) or ``"replicated"``
+    (each rank holds the whole model; its updates pay the replica gather).
+
+    A dense model on a ``model`` axis larger than one is tensor-parallel;
+    every other arch, and a mesh without a model split, is replicated. The
+    port computes the Q heads in the 'head' layout only, and the K/V heads
+    in 'head' or, on the tensor-parallel path, 'hd' (the reference's
+    ``split_heads``): any other layout raises here, naming it, so that no
+    mesh computes another head split than the reference's. The
+    tensor-parallel path also needs the padded vocab and ``d_ff`` to divide
+    the axis (their splits are what its collectives assume).
+    """
+    m = mesh_axis_sizes(axis_sizes).get(MODEL_AXIS, 1)
+    path = TENSOR_PARALLEL if cfg.arch_type == "dense" and m > 1 else REPLICATED
+    if not cfg.num_heads or cfg.arch_type == "ssm":
+        return path
+    ql, kvl = attn_layouts(cfg, m)
+    allowed_kv = ("head", "hd") if path == TENSOR_PARALLEL else ("head",)
+    if ql != "head" or kvl not in allowed_kv:
+        raise ValueError(
+            f"{cfg.name} on model={m}: Q layout {ql!r}, KV layout {kvl!r} "
+            f"({cfg.num_heads} Q / {cfg.num_kv_heads} KV heads of {cfg.head_dim}); the "
+            f"{path} path computes Q in 'head' and KV in {' or '.join(map(repr, allowed_kv))}")
+    if path == TENSOR_PARALLEL:
+        for name, n in (("padded vocab", cfg.padded_vocab), ("d_ff", cfg.d_ff)):
+            if not _divides(n, m):
+                raise ValueError(f"{cfg.name} on model={m}: the {name} {n} does not divide "
+                                 "the model axis")
+    return path
+
+
+def sequence_sharded(seq: int, model_size: int) -> bool:
+    """Whether the residual between layers is split over the model axis on
+    its sequence dim: the reference's ``_seq_shard`` (``S % model == 0`` and
+    ``S > 1``)."""
+    return model_size > 1 and seq > 1 and seq % model_size == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Distribution context threaded through the model code (counterpart of
+    the reference's ``transformer.ShardCtx``).
+
+    The default is one device. ``comm`` (``distributed.audit.Collectives``)
+    holds the mesh's groups; ``model_axes`` names the axis the weights split
+    over and ``index`` this rank's place on it, so a rank's heads, columns,
+    vocab rows and sequence shard are the ``index``-th of ``size``;
+    ``seq_shard`` says whether the residual is sequence-sharded. The layouts
+    give the head order of the Q and K/V projections' columns
+    (``layers.split_heads``), on one device too.
+    """
+
+    comm: Any = None
+    model_axes: tuple = ()
+    size: int = 1
+    index: int = 0
+    q_layout: str = "head"
+    kv_layout: str = "head"
+    seq_shard: bool = False
+
+    @property
+    def tensor_parallel(self) -> bool:
+        return self.size > 1
+
+
+def make_ctx(cfg: ModelConfig, engine=None, seq: Optional[int] = None) -> ShardCtx:
+    """The model's context on the mesh of ``engine``
+    (``distributed.engine.ShardMapEngine``) for sequences of ``seq`` tokens:
+    tensor-parallel where the engine is (its ``tensor_parallel``), else the
+    one-device context (the replicated path). Without an engine, one
+    device. An engine built tensor-parallel for a config :func:`mesh_path`
+    runs replicated raises."""
+    if engine is None or not engine.tensor_parallel:
+        return ShardCtx()
+    path = mesh_path(cfg, engine.axis_sizes)
+    if path != TENSOR_PARALLEL:
+        raise ValueError(f"{cfg.name}: the engine is tensor-parallel but the config runs "
+                         f"{path} on {engine.axis_sizes}")
+    if seq is None:
+        raise ValueError("a tensor-parallel context needs the sequence length")
+    comm, axes = engine.comm, (MODEL_AXIS,)
+    m = comm.size(axes)
+    ql, kvl = attn_layouts(cfg, m)
+    return ShardCtx(comm=comm, model_axes=axes, size=m, index=comm.index(axes),
+                    q_layout=ql, kv_layout=kvl, seq_shard=sequence_sharded(seq, m))
 
 
 def param_specs(params, cfg: ModelConfig, axis_sizes) -> dict:

@@ -338,10 +338,13 @@ def restore(path: str, params_template: Any, opt_template: Any = None, *, device
     e.g. after an explicit :func:`verify`) and, with ``expect_run``, the run
     metadata.
 
-    Snapshots are mesh-independent: the optimizer state is saved as full
-    leaves (``distributed.zero1.gather_state``). With ``opt_shardings``
+    Snapshots are mesh-independent: the parameters and the optimizer state
+    are saved as full leaves (``distributed.zero1.gather_params`` and
+    ``gather_state``). With ``opt_shardings``
     (``distributed.zero1.opt_shardings`` of the template) and the
-    ``engine``, each full leaf is cut to the template's shard on this rank.
+    ``engine``, each full leaf is cut to the template's shard on this rank;
+    on the tensor-parallel path (``engine.tensor_parallel``) each
+    parameter is cut to its param-layout shard the same way.
     An optimizer leaf saved with or without the flatten fallback's zero pad
     layers is fit to the template's lead dim either way.
     """
@@ -349,8 +352,14 @@ def restore(path: str, params_template: Any, opt_template: Any = None, *, device
         verify(path, expect_run=expect_run)
     elif expect_run is not None:
         check_run_meta(load_meta(path), expect_run, path=path)
+    param_shardings = None
+    if engine is not None:
+        from repro_torch.distributed.zero1 import param_shardings as _param_shardings
+
+        param_shardings = _param_shardings(params_template, engine)
     params = _unflatten_into(params_template, _load_arrays(path, "params.npz"), device,
-                             source=os.path.join(path, "params.npz"))
+                             source=os.path.join(path, "params.npz"),
+                             shardings=param_shardings, engine=engine)
     opt_state = None
     opt_file = os.path.join(path, "opt_state.npz")
     if opt_template is not None and os.path.exists(opt_file):

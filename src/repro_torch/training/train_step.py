@@ -9,16 +9,27 @@ check of ``training/resilience.py``; ``fault=`` injects a fault of
 ``training/faults.py`` into the step.
 
 ``engine=`` (``distributed.engine.ShardMapEngine``, under the launcher's
-``--mesh``): every rank runs the whole model on its slice of the batch
-(the port's model is not tensor-parallel, where the reference's is). The
-gradients, the loss and the metrics are then averaged over the data axes
-(``grad_reduce``), which leaves them data-replicated as the reference's
-optimizer sees them; the optimizer cuts each rank's momentum-spec shard
-and returns its updates in that layout; the plan's 'apply' gathers bring
-them to the param layout and the replica gather over the model axes to the
-full tensor every rank adds to its replica. Each part runs in a span
-(``train.fwd_bwd``, ``train.grad_reduce``, ``train.update``,
-``train.apply``, ``train.replica_gather``).
+``--mesh``) runs the step on a mesh of ranks, on one of two paths
+(``sharding.specs.mesh_path``):
+
+* tensor-parallel (``ctx=``, a tensor-parallel ``sharding.specs.ShardCtx``;
+  the dense models): each rank holds its param-layout shards and runs the
+  tensor-parallel forward and backward on the rows of its data coordinate,
+  so its gradients come out in the param layout. Where the residual is
+  sequence-sharded, each rank's gradient of a leaf the model axis does not
+  split (the norm gains) covers only its sequence shard: those are summed
+  over the model axis first (phase ``'tp'``). The gradients are then
+  averaged over the data axes (``grad_reduce``), the optimizer returns its
+  updates in the momentum layout and the plan's 'apply' gathers bring them
+  to the param layout each rank adds to its shards;
+* replicated (every other arch): every rank runs the whole model on its
+  slice of the batch, the full gradients are averaged over the data axes,
+  and after the 'apply' gathers the replica gather over the model axes
+  brings each update to the full tensor every rank adds to its replica.
+
+Each part runs in a span (``train.fwd_bwd``, ``train.grad_reduce``,
+``train.update``, ``train.apply``, and ``train.replica_gather`` on the
+replicated path).
 """
 
 from __future__ import annotations
@@ -56,8 +67,11 @@ def cast_tree(tree, dtype):
     return tree_lib.tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
 
 
-def loss_and_grads(params, batch, cfg, compute_dtype=torch.bfloat16, bf16_grads: bool = False):
-    """(loss, metrics, grads) with grads shaped like ``params``."""
+def loss_and_grads(params, batch, cfg, compute_dtype=torch.bfloat16, bf16_grads: bool = False,
+                   ctx=None):
+    """(loss, metrics, grads) with grads shaped like ``params`` (``ctx``:
+    the model's ``ShardCtx``; tensor-parallel, ``params`` are the rank's
+    shards and so are the grads)."""
     flat = tree_lib.flatten_with_path(params)
     if bf16_grads:
         # Differentiate w.r.t. the compute-dtype copies: grads arrive in
@@ -68,7 +82,7 @@ def loss_and_grads(params, batch, cfg, compute_dtype=torch.bfloat16, bf16_grads:
         leaves = [p.detach().requires_grad_(True) for _, p in flat]
         compute = cast_tree(tree_lib.unflatten([(k, t) for (k, _), t in zip(flat, leaves)]),
                             compute_dtype)
-    loss, metrics = loss_fn(compute, batch, cfg)
+    loss, metrics = loss_fn(compute, batch, cfg, ctx=ctx)
     # A leaf the loss does not read (hymba's ssm_norm: its hybrid layer
     # norms once, with attn_norm) gets zeros, as jax.grad gives it.
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -89,6 +103,7 @@ def train_step(
     guard=None,
     fault=None,
     engine=None,
+    ctx=None,
 ) -> tuple[TrainState, dict]:
     """One optimization step. Returns (new_state, metrics).
 
@@ -105,23 +120,28 @@ def train_step(
     ``fault``: an optional in-step :class:`faults.Fault` (tests and the
     chaos drill only).
 
-    ``engine``: the distributed engine (see the module docstring).
+    ``engine``: the distributed engine, and ``ctx`` the model's context on
+    its mesh (see the module docstring).
     """
     if engine is not None and guard is not None:
         raise NotImplementedError("the guarded step on a mesh of ranks is not in this "
                                   "slice of the port")
     bus = get_bus()
-    sync = None if engine is None else engine.sync
+    sync = None if engine is None else engine.comm.sync
     with span(bus if engine is not None else None, "train.fwd_bwd", sync=sync):
         loss, metrics, grads = _loss_and_grads(state, batch, cfg, compute_dtype, accum_steps,
-                                               bf16_grads)
+                                               bf16_grads, ctx)
     if engine is not None:
         with span(bus, "train.grad_reduce", sync=sync):
-            loss, metrics = reduce_grads(engine, loss, metrics, grads)
+            loss, metrics = reduce_grads(engine, loss, metrics, grads, ctx)
     if fault is not None:
         loss, grads, metrics = faults_lib.inject(fault, loss, grads, metrics)
     with torch.no_grad():
-        grad_sq_norm = sum(torch.sum(g.to(torch.float32) ** 2) for g in tree_lib.leaves(grads))
+        if engine is not None:
+            grad_sq_norm = engine.global_sq_sum(tree_lib.flatten_with_path(grads))
+        else:
+            grad_sq_norm = sum(torch.sum(g.to(torch.float32) ** 2)
+                               for g in tree_lib.leaves(grads))
         metrics["grad_norm"] = torch.sqrt(grad_sq_norm)
     if guard is not None:
         gstate = state.guard
@@ -145,7 +165,7 @@ def train_step(
     return TrainState(new_params, new_opt_state, state.step + 1, state.guard), metrics
 
 
-def _loss_and_grads(state, batch, cfg, compute_dtype, accum_steps, bf16_grads):
+def _loss_and_grads(state, batch, cfg, compute_dtype, accum_steps, bf16_grads, ctx):
     """(loss, metrics, grads) of the step, over ``accum_steps`` microbatches."""
     if accum_steps > 1:
         micro = [
@@ -156,7 +176,8 @@ def _loss_and_grads(state, batch, cfg, compute_dtype, accum_steps, bf16_grads):
         grads = None
         losses, micro_metrics = [], []
         for mb in micro:
-            loss_i, m_i, g = loss_and_grads(state.params, mb, cfg, compute_dtype, bf16_grads)
+            loss_i, m_i, g = loss_and_grads(state.params, mb, cfg, compute_dtype, bf16_grads,
+                                            ctx)
             g = tree_lib.tree_map(lambda x: x.to(torch.float32) / accum_steps, g)
             grads = g if grads is None else tree_lib.tree_map(torch.add, grads, g)
             losses.append(loss_i)
@@ -166,14 +187,23 @@ def _loss_and_grads(state, batch, cfg, compute_dtype, accum_steps, bf16_grads):
         metrics = {k: torch.stack([m[k].detach() for m in micro_metrics]).mean()
                    for k in micro_metrics[0]}
     else:
-        loss, metrics, grads = loss_and_grads(state.params, batch, cfg, compute_dtype, bf16_grads)
+        loss, metrics, grads = loss_and_grads(state.params, batch, cfg, compute_dtype, bf16_grads,
+                                              ctx)
     return loss, {k: v.detach() for k, v in metrics.items()}, grads
 
 
 @torch.no_grad()
-def reduce_grads(engine, loss, metrics: dict, grads) -> tuple:
+def reduce_grads(engine, loss, metrics: dict, grads, ctx=None) -> tuple:
     """Average the gradients (in place), the loss and the metrics over the
-    data axes: the ``grad_reduce`` collectives. Returns (loss, metrics)."""
+    data axes: the ``grad_reduce`` collectives. Returns (loss, metrics).
+
+    With a sequence-sharded tensor-parallel ``ctx``, the gradients of the
+    leaves the model axis does not split are first summed over it (phase
+    ``'tp'``): each rank's covers only its sequence shard's tokens."""
+    if ctx is not None and ctx.tensor_parallel and ctx.seq_shard:
+        for key, g in tree_lib.flatten_with_path(grads):
+            if not engine.model_split(key, g.dim()):
+                engine.comm.all_reduce(g, ctx.model_axes, phase="tp")
     axes = tuple(a for a in data_axes_for(engine.axis_sizes) if engine.axis_sizes[a] > 1)
     if not axes:
         return loss, metrics
@@ -188,12 +218,14 @@ def reduce_grads(engine, loss, metrics: dict, grads) -> tuple:
 
 @torch.no_grad()
 def full_updates(engine, updates, sync=None):
-    """The optimizer's momentum-layout updates as the full tensors every rank
-    adds to its replica: the 'apply' gathers, then the replica gather."""
+    """The optimizer's momentum-layout updates as the tensors each rank adds
+    to its parameters: the 'apply' gathers to the param layout, and on the
+    replicated path the replica gather to the full tensor."""
     bus = get_bus()
     flat = tree_lib.flatten_with_path(updates)
     with span(bus, "train.apply", sync=sync):
         flat = [(k, engine.to_param_layout(k, u)) for k, u in flat]
-    with span(bus, "train.replica_gather", sync=sync):
-        flat = [(k, engine.replicate(k, u)) for k, u in flat]
+    if not engine.tensor_parallel:
+        with span(bus, "train.replica_gather", sync=sync):
+            flat = [(k, engine.replicate(k, u)) for k, u in flat]
     return tree_lib.unflatten(flat)

@@ -785,3 +785,97 @@ def test_gloo_world_of_two_on_the_card_matches_one_process(card):
         upd, state = opt.update(grads, state, params, phase)
         for k, ref in tree_lib.flatten_with_path(upd):
             _assert_rel(torch.from_numpy(got[k]).cuda(), ref, CHAIN_TOL)
+
+
+def _gloo_tp_rank(rank, port, queue):
+    """One rank of a 2-rank gloo world on the one card, tensor-parallel on
+    ``model=2``: whether gloo's own reduce-scatter takes CUDA tensors, then
+    the reduced dense model's loss and gradients (fp32) on this rank's
+    shards."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from repro_torch import interop
+        from repro_torch.configs import get_config
+        from repro_torch.distributed import make_engine
+        from repro_torch.launch.mesh import make_mesh_from_spec
+        from repro_torch.models.model import init_params
+        from repro_torch.sharding import specs as sh
+        from repro_torch.training.train_step import loss_and_grads, reduce_grads
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=2)
+        out = torch.empty(2, device="cuda")
+        try:
+            scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+            scatter(out, torch.ones(4, device="cuda"))
+            native = bool(torch.equal(out.cpu(), torch.full((2,), 2.0)))
+        except (RuntimeError, ValueError, NotImplementedError):
+            native = False
+        mesh = make_mesh_from_spec("model=2")
+        cfg = get_config("muonbp-960m").reduced()
+        full = init_params(cfg, seed=0, device="cuda")
+        engine = make_engine(full, sh.param_specs(full, cfg, {"model": 2}), mesh,
+                             tensor_parallel=True)
+        params = interop.shard_params(full, cfg, {"model": 2}, engine.comm.coords, "cuda")
+        ctx = sh.make_ctx(cfg, engine, seq=32)
+        batch = _tp_batch(cfg, "cuda")
+        loss, metrics, grads = loss_and_grads(params, batch, cfg, torch.float32, ctx=ctx)
+        reduce_grads(engine, loss, metrics, grads, ctx)
+        queue.put((rank, {"native": native, "loss": float(loss), "coords": engine.comm.coords,
+                          "grads": interop.params_to_numpy(grads)}))
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+
+
+def _tp_batch(cfg, device):
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+    labels = torch.cat([tokens[:, 1:], torch.full((2, 1), -1)], dim=1)
+    return {"tokens": tokens.to(device), "labels": labels.to(device)}
+
+
+def test_gloo_tensor_parallel_step_on_the_card_matches_the_cpu(card):
+    """Two ranks share the card (gloo), tensor-parallel: gloo's own
+    reduce-scatter takes CUDA tensors (the collectives issue it), and the
+    loss and joined gradients equal the single-process CPU port's (fp32,
+    relative 1e-5 and 1e-5 of max|grad|)."""
+    import socket
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from repro_torch import interop
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import specs as sh
+    from repro_torch.training.train_step import loss_and_grads
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = mp.start_processes(_gloo_tp_rank, args=(port, queue), nprocs=2,
+                               start_method="spawn", join=False)
+    results = dict(queue.get(timeout=600) for _ in range(2))
+    procs.join()
+    for rank, res in results.items():
+        assert not isinstance(res, str), f"rank {rank} failed:\n{res}"
+    assert results[0]["native"] and results[1]["native"]
+    cfg = get_config("muonbp-960m").reduced()
+    full = init_params(cfg, seed=0, device="cuda")
+    cpu = tree_lib.tree_map(lambda p: p.cpu(), full)
+    loss, _, grads = loss_and_grads(cpu, _tp_batch(cfg, "cpu"), cfg, torch.float32)
+    assert abs(results[0]["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+    assert results[1]["loss"] == results[0]["loss"]
+    specs = sh.param_specs(cpu, cfg, {"model": 2})
+    joined = dict(tree_lib.flatten_with_path(interop.join_params(
+        [(r["coords"], r["grads"]) for r in results.values()], specs, {"model": 2})))
+    for k, ref in tree_lib.flatten_with_path(interop.params_to_numpy(grads)):
+        assert float(np.abs(joined[k] - ref).max()) <= 1e-5 * float(np.abs(ref).max()), k

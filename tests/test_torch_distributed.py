@@ -21,7 +21,8 @@ Held:
 * the collective trace against ``plan_comm``, to the byte: no optimizer
   collective on block steps, the full-step gathers and the 'apply' gathers
   per axis set as planned; the gradient reduce and the replica gather kept
-  apart;
+  apart (the launcher runs the dense model tensor-parallel: its trace has
+  the ``tp`` collectives and no replica gather);
 * momentum shards and the flatten fallback's pad layers (exactly zero);
 * the launcher under ``--mesh`` (fp32 compute) against the single-process
   launcher on the same global batch: losses to 1e-5 relative;
@@ -224,9 +225,11 @@ def _rank_cases(rank, world_size, port, world, params_np, grads_np, tmp) -> dict
         out["launch_trace"] = list(run.engine.comm.trace.events)
         full_state = zero1_lib.gather_state(run.state.opt_state, run.state.params, run.engine,
                                             phase="check")
+        # The dense model runs tensor-parallel: each rank holds its shards.
+        full_params = zero1_lib.gather_params(run.state.params, run.engine, phase="check")
         if rank == 0:
             out["final_state"] = checkpoint._flatten(full_state)
-            out["final_params"] = checkpoint._flatten(run.state.params)
+            out["final_params"] = checkpoint._flatten(full_params)
         out["spans"] = sorted({r["name"] for r in sink.records if r.get("event") == "span"})
 
         # A snapshot written on one process, cut into this rank's shards
@@ -245,7 +248,7 @@ def _rank_cases(rank, world_size, port, world, params_np, grads_np, tmp) -> dict
         # The same snapshot restored whole, then cut by zero1.shard_state:
         # the shards restore cut.
         full_t = zero1_lib.gather_state(opt_t, run.state.params, run.engine, phase="check")
-        _, full_r, _ = checkpoint.restore(snap, run.state.params, full_t)
+        _, full_r, _ = checkpoint.restore(snap, full_params, full_t)
         cut = checkpoint._flatten(zero1_lib.shard_state(full_r, run.state.params, run.engine))
         restored = checkpoint._flatten(r_opt)
         out["shard_state_is_restore"] = cut.keys() == restored.keys() and all(
@@ -371,7 +374,9 @@ def test_trace_matches_plan_to_the_byte(world_run):
                 assert_matches_plan_by_axes(trace, plan, (phase, "apply"), step=step)
                 if any(s > 1 for a, s in sizes.items() if a in ("pod", "data")):
                     assert trace.select("grad_reduce", step=step)
-                assert trace.select("replica_gather", step=step)
+                # The dense model runs tensor-parallel: no replica gather.
+                assert trace.select("tp", step=step)
+                assert not trace.select("replica_gather", step=step)
 
 
 def test_momentum_shards_and_pad_layers(world_run):
@@ -421,8 +426,8 @@ def test_launcher_on_a_mesh_matches_one_process(world_run):
     for rank, res in results.items():
         np.testing.assert_allclose(res["losses"], ref, rtol=LOSS_TOL, atol=0)
         assert res["losses"] == results[0]["losses"]
-    assert {"train.grad_reduce", "train.replica_gather", "muonbp.full.s1.ns"} <= set(
-        results[0]["spans"])
+    assert {"train.grad_reduce", "train.apply", "muonbp.full.s1.ns"} <= set(results[0]["spans"])
+    assert "train.replica_gather" not in results[0]["spans"]
 
 
 def test_snapshots_cross_between_mesh_and_one_process(world_run):
