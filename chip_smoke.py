@@ -10,8 +10,8 @@ drives the port end to end: the MuonBP baseline and the optimizer variants
 NorMuon, Turbo-Muon and Dion on the dense model, MuonBP on the
 Mixture-of-Experts model, and serving of both; MuonBP training and
 generate on the SSM, hybrid, VLM and audio models; the tensor-parallel
-dense model and the distributed optimizer on four ranks that share the
-card.
+dense and MoE models, the guarded step and the distributed optimizer on
+four ranks that share the card.
 
   1. device   -- the card's name and power limit (nvidia-smi), device count;
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
@@ -125,26 +125,36 @@ card.
  13. distributed -- four ranks share the card through gloo (NCCL refuses two
                  ranks on one GPU), through the launcher (the kernels built
                  once, here, before any rank starts), batch 2 x 1024 a rank,
-                 bf16, the dense model tensor-parallel (each rank holds and
-                 computes with its parameter shards): run A, full-width
-                 muonbp-960m at all 12 layers on data=2,model=2 with
-                 ZeRO-1, six steps, after one fp32 step (TF32 off) whose
-                 loss and gradients, joined on rank 0, are held against the
-                 single-process port's; run B, NorMuon with the flatten
-                 fallback at 3 layers, two steps; run C, 12 layers on
-                 model=4, three steps; run D, olmoe-1b-7b at 1 of 16
-                 layers on the replicated path (every rank a whole
-                 replica) on data=2,model=2 with ZeRO-1, two steps. Every
-                 rank's loss each step, its collective trace (the
-                 optimizer's against plan_comm to the byte, no optimizer
-                 collective on block steps; tp against tp_bytes, 0 B on
-                 run D; the gradient reduce against its shards; the
-                 replica gather 0 B on the tensor-parallel runs and the
-                 model-split updates' bytes on run D), the summed wall of each class of
-                 collectives a step, its launches, peak memory, momentum
-                 shards and spans; the update on the run's state and fresh
-                 gradients against the single-process update on rank 0, both
-                 phases, and pipelined against barrier (torch.equal). gloo
+                 bf16, the dense and MoE models tensor-parallel (each rank
+                 holds and computes with its parameter shards): run A,
+                 full-width muonbp-960m at all 12 layers on data=2,model=2
+                 with ZeRO-1, six steps, after one fp32 step (TF32 off)
+                 whose loss and gradients, joined on rank 0, are held
+                 against the single-process port's; run B, NorMuon with the
+                 flatten fallback at 3 layers, two steps; run C, 12 layers
+                 on model=4, three steps; run D, mamba2-1.3b at 4 of 48
+                 layers on the replicated path (every rank a whole replica)
+                 on data=2,model=2 with ZeRO-1, two steps; run E,
+                 olmoe-1b-7b at 2 of 16 layers tensor-parallel (the experts'
+                 d_ff split) on data=2,model=2 with ZeRO-1, three steps,
+                 after its fp32 step held against one process on each data
+                 shard's rows, routing flips counted; run F, muonbp-960m at
+                 3 layers guarded (NaN gradients at step 2, an 8x loss at
+                 step 4), six steps: both skipped on every rank with every
+                 state leaf torch.equal, no kernel launch and no optimizer
+                 collective, step 3 forced full, each healthy step equal
+                 to the unguarded mesh step bitwise. Every rank's loss each
+                 step, its collective trace (the optimizer's against
+                 plan_comm to the byte, no optimizer collective on block
+                 steps; tp against tp_bytes, 0 B on run D; the gradient
+                 reduce against its shards; the replica gather 0 B on the
+                 tensor-parallel runs and the model-split updates' bytes on
+                 run D; the guard's 4 B agreement a step on run F), the
+                 summed wall of each class of collectives a step, its
+                 launches, peak memory, momentum shards and spans; the
+                 update on the run's state and fresh gradients against the
+                 single-process update on rank 0, both phases (not on run
+                 E), and pipelined against barrier (torch.equal). gloo
                  copies through the host: these times measure no link;
  14. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
@@ -353,29 +363,50 @@ CHAOS_ARGV = ["--arch", "muonbp-960m", "--reduced", "--steps", "6", "--batch", "
 
 # The distributed phase: DIST_RANKS ranks share the one card through gloo
 # (NCCL refuses two ranks on one GPU), through the launcher, batch 2 x 1024 a
-# rank, bf16. The dense model runs tensor-parallel: each rank holds and
-# computes with its param_specs shards, sequence-sharded between layers.
+# rank, bf16. The dense and MoE models run tensor-parallel: each rank holds
+# and computes with its param_specs shards, sequence-sharded between layers.
 # Run A: full-width muonbp-960m at all 12 layers on data=2,model=2 with
 # ZeRO-1, six steps. Run B: NorMuon with the flatten fallback at 3 of 12
 # layers (3 does not divide 2: padded lead, padded row statistics), two
 # steps. Run C: 12 layers on model=4 (the 4 KV heads split 4 ways), three
 # steps. Run D keeps the replicated path on the card: full-width
-# olmoe-1b-7b (MoE runs replicated, every rank a whole replica) on
+# mamba2-1.3b (the SSM runs replicated, every rank a whole replica) on
 # data=2,model=2 with ZeRO-1, two steps, its replica gather held to the
-# bytes of the model-split updates. Before run A's ranks train, one fp32
-# step (TF32 off) on its first global batch and weights: the loss and every
-# gradient joined on rank 0 against the single-process port's, computed in
-# this process first.
+# bytes of the model-split updates. Run E: full-width olmoe-1b-7b
+# tensor-parallel (each rank the (E, D, F/2) expert shards) on
+# data=2,model=2 with ZeRO-1, three steps (full, block, full). Run F: the
+# guarded step on the mesh, muonbp-960m at 3 layers, --guard with NaN
+# gradients at step 2 and a loss spike at step 4, six steps. Before run A's
+# and run E's ranks train, one fp32 step (TF32 off) on the run's first
+# global batch and weights: the loss and every gradient joined on rank 0
+# against the single-process port's, computed in this process first (for
+# MoE on each data shard's rows and averaged, as the mesh routes each data
+# shard alone), and on run E each layer's routing against it.
 DIST_RANKS = 4
 DIST_ARGV = ["--optimizer", "muonbp", "--period", "5", "--seq", "1024", "--dist-backend",
              "gloo", "--obs-block", "--log-every", "1"]
 DIST_SEQ, DIST_SEED = 1024, 0
-# Run D's depth: four whole replicas of olmoe-1b-7b share the card. At 1
-# layer a rank peaks at 15.02 GiB (NVIDIA H100 80GB HBM3, 700.00 W); each
-# more layer adds ~0.42 G parameters, ~6.7 GB a rank as fp32 parameters,
-# gradients, full updates and new parameters, so four ranks at 2 layers
-# would need ~91 GB of the card's 85 GB.
-DIST_D_LAYERS = 1
+# Run D's depth: four whole replicas of mamba2-1.3b share the card (a layer
+# holds 25.8 M parameters, the embedding and head 206.6 M). At 4 of 48
+# layers a rank peaks at 7.88 GiB (NVIDIA H100 80GB HBM3, 700.00 W).
+DIST_D_LAYERS = 4
+# Run E's depth: olmoe-1b-7b's layer holds 419.6 M parameters, its
+# embedding and head 206.6 M; each rank builds them whole in fp32 (1.68 GB a
+# layer, 0.83 GB) before it keeps its half. At 2 of 16 layers a rank peaks
+# at 16.20 GiB (NVIDIA H100 80GB HBM3, 700.00 W), the first full step's
+# 14.25 GiB plus 1.95 at the second; four ranks at 3 layers would need an
+# estimated 70-88 GB of the card's 80.
+DIST_E_LAYERS = 2
+DIST_F_LAYERS = 3
+# Run F's faults and the steps they hit: NaN gradients at step 2 and an 8x
+# loss at step 4 (past the 2-step warmup) are skipped on every rank; the
+# escalation ladder forces step 3 to 'full'.
+DIST_F_FLAGS = ["--zero1", "--guard", "--guard-warmup", "2", "--fault-plan",
+                "nan_grads@2,spike_loss@4x8"]
+DIST_F_PHASES = ["full", "block", "block", "full", "block", "full"]
+DIST_F_SKIPPED = (2, 4)
+# The classes of collectives a skipped step may issue: no optimizer phase.
+DIST_SKIP_CLASSES = {"grad_reduce", "norm", "tp", "guard"}
 # (label, arch, mesh, global batch, extra flags, steps, layers (None: all),
 # tensor-parallel, kernels that must launch)
 DIST_RUNS = (
@@ -384,9 +415,24 @@ DIST_RUNS = (
                                                "--zero1-flatten"], 2, 3, True,
      MAIN_PATH_KERNELS + ("normuon",)),
     ("C", "muonbp-960m", "model=4", 2, [], 3, None, True, MAIN_PATH_KERNELS),
-    ("D", MOE_ARCH, "data=2,model=2", 4, ["--zero1"], 2, DIST_D_LAYERS, False,
+    ("D", "mamba2-1.3b", "data=2,model=2", 4, ["--zero1"], 2, DIST_D_LAYERS, False,
+     MAIN_PATH_KERNELS),
+    ("E", MOE_ARCH, "data=2,model=2", 4, ["--zero1", "--period", "2"], 3, DIST_E_LAYERS, True,
+     MAIN_PATH_KERNELS),
+    ("F", "muonbp-960m", "data=2,model=2", 4, DIST_F_FLAGS, 6, DIST_F_LAYERS, True,
      MAIN_PATH_KERNELS),
 )
+# The runs whose first global batch is held in fp32 against one process.
+DIST_FP32_RUNS = ("A", "E")
+# Run E's update is not joined on rank 0 against one process: its whole
+# gradients, parameters and optimizer state (~15 GB at 3 layers) do not fit
+# beside the four ranks' runs. tests/test_torch_moe_tensor_parallel.py
+# holds the MoE updates on the mesh against the reference.
+DIST_NO_UPDATE_CHECK = ("E",)
+# The runs whose Muon stacks all split four ways (model and ZeRO-1's data
+# axis, or model=4); the others hold what their specs give (E's router is
+# not split over model, F's 3 layers do not divide the data axis).
+DIST_QUARTER_STACKS = ("A", "B", "C")
 DIST_LOSS_TOL = 1e-5   # the fp32 step on the mesh vs one process, relative
 DIST_GRAD_TOL = 1e-4   # its gradients, max abs over the leaf's max|grad|
 
@@ -2137,9 +2183,9 @@ def dist_cfg(arch: str, layers):
 
 def dist_rank(rank: int, port: int, spec: tuple, out_dir: str) -> None:
     """One rank of the distributed phase (started by torch.multiprocessing):
-    run A's fp32 step check, the launcher on the mesh, then the checks of
-    :func:`dist_checks`; the results go to ``out_dir/rank<r>.json``. An
-    exception fails the rank."""
+    the fp32 step check (runs A and E), the launcher on the mesh, then the
+    checks of :func:`dist_checks`; the results go to ``out_dir/rank<r>.json``.
+    An exception fails the rank."""
     sys.path.insert(0, str(SRC))
     # Four processes share the card: expandable segments keep each one's
     # cached but unused blocks small (read at the rank's first allocation).
@@ -2179,9 +2225,39 @@ def first_batch(cfg, argv: list, rows=slice(None)) -> dict:
     return train.device_batch({k: v[rows] for k, v in batch.items()}, "cuda")
 
 
-def dist_fp32_reference(argv: list, path: str) -> None:
-    """The single-process port's fp32 loss and gradients (TF32 off) of run
-    A's first global batch on its weights (``--seed``), saved to ``path``."""
+class recorded_routes:
+    """Within it, every MoE layer's routing of the port is kept in ``self``
+    as it runs: ``(top_idx (T, k), router logits (T, E))`` on the host, in
+    layer order."""
+
+    def __init__(self):
+        self.routes = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_lib
+
+        self.route = route = moe_lib._route
+
+        def recording(logits, top_k, style):
+            gates, idx = route(logits, top_k, style)
+            self.routes.append((idx.reshape(-1, top_k).cpu(),
+                                logits.detach().reshape(-1, logits.shape[-1]).cpu()))
+            return gates, idx
+
+        moe_lib._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_lib
+
+        moe_lib._route = self.route
+
+
+def dist_fp32_reference(spec: tuple, path: str) -> None:
+    """The single-process port's fp32 loss and gradients (TF32 off) of the
+    run's first global batch on its weights (``--seed``), saved to ``path``.
+    An MoE model's are the mean over the data shards' rows, each routed
+    alone as on the mesh, whose routing is saved too."""
     import torch
 
     from repro_torch import tree as tree_lib
@@ -2189,21 +2265,61 @@ def dist_fp32_reference(argv: list, path: str) -> None:
     from repro_torch.models.model import init_params
     from repro_torch.training.train_step import loss_and_grads
 
-    cfg = dist_cfg("muonbp-960m", None)
+    label, arch, mesh, batch, extra, steps, layers, _, _ = spec
+    argv = dist_argv(arch, mesh, batch, extra, steps)
+    cfg = dist_cfg(arch, layers)
     params = init_params(cfg, seed=train.parser().parse_args(argv).seed, device="cuda")
-    loss, _, grads = loss_and_grads(params, first_batch(cfg, argv), cfg, torch.float32)
-    torch.save({"loss": float(loss),
+    if not cfg.num_experts:
+        loss, _, grads = loss_and_grads(params, first_batch(cfg, argv), cfg, torch.float32)
+        routes = None
+    else:
+        from repro_torch.launch.mesh import parse_mesh_spec
+
+        shards = math.prod(v for a, v in zip(*parse_mesh_spec(mesh)) if a != "model")
+        rows, losses, routes, grads = batch // shards, [], [], None
+        for d in range(shards):
+            with recorded_routes() as rec:
+                loss_d, _, g = loss_and_grads(
+                    params, first_batch(cfg, argv, slice(d * rows, (d + 1) * rows)), cfg,
+                    torch.float32)
+            routes.append(rec.routes)
+            losses.append(loss_d)
+            g = tree_lib.tree_map(lambda x: x / shards, g)
+            grads = g if grads is None else tree_lib.tree_map(torch.add, grads, g)
+            del g
+        loss = torch.stack(losses).mean()
+    torch.save({"loss": float(loss), "routes": routes,
                 "grads": {"/".join(k): g.cpu() for k, g in tree_lib.flatten_with_path(grads)}},
                path)
     del params, grads
     torch.cuda.empty_cache()
 
 
-def dist_fp32_check(rank: int, argv: list, ref_path: str) -> dict:
+def routing_flips(routes: list, ref: list, top_k: int) -> dict:
+    """Tokens whose top_k experts differ from the reference's, each layer,
+    with the reference's gap between its k-th and (k+1)-th router logits."""
+    import torch
+
+    out = {"layers": len(routes), "tokens": 0, "flips": 0, "max_gap": None}
+    if len(routes) != len(ref):
+        fail(f"{len(routes)} routed layers on the mesh, {len(ref)} in the reference")
+    for (idx, _), (r_idx, r_logits) in zip(routes, ref):
+        out["tokens"] += idx.shape[0]
+        flipped = (idx != r_idx).any(dim=-1)
+        if bool(flipped.any()):
+            top = torch.sort(r_logits[flipped], dim=-1, descending=True).values
+            gap = float((top[:, top_k - 1] - top[:, top_k]).max())
+            out["flips"] += int(flipped.sum())
+            out["max_gap"] = gap if out["max_gap"] is None else max(out["max_gap"], gap)
+    return out
+
+
+def dist_fp32_check(rank: int, spec: tuple, ref_path: str) -> dict:
     """One fp32 step (TF32 off) of the tensor-parallel model on this rank's
     shards of the launcher's weights and rows: the loss, and every gradient
     after the reduce joined and held on rank 0 against the single-process
-    port's (:func:`dist_fp32_reference`)."""
+    port's (:func:`dist_fp32_reference`); for MoE each layer's routing on
+    this rank against the reference's on its data shard."""
     import torch
 
     from repro_torch import tree as tree_lib
@@ -2214,8 +2330,10 @@ def dist_fp32_check(rank: int, argv: list, ref_path: str) -> dict:
     from repro_torch.sharding import specs as sh
     from repro_torch.training.train_step import loss_and_grads, reduce_grads
 
+    label, arch, mesh_spec, batch_size, extra, steps, layers, _, _ = spec
+    argv = dist_argv(arch, mesh_spec, batch_size, extra, steps)
     args = train.parser().parse_args(argv)
-    cfg = dist_cfg("muonbp-960m", None)
+    cfg = dist_cfg(arch, layers)
     mesh = make_mesh_from_spec(args.mesh)
     sizes = sh.mesh_axis_sizes(mesh)
     full = init_params(cfg, seed=args.seed, device="cuda")
@@ -2225,11 +2343,18 @@ def dist_fp32_check(rank: int, argv: list, ref_path: str) -> dict:
     del full
     ctx = sh.make_ctx(cfg, engine, seq=args.seq)
     batch = first_batch(cfg, argv, train._batch_rows(engine, args.batch))
-    loss, metrics, grads = loss_and_grads(params, batch, cfg, torch.float32, ctx=ctx)
+    with recorded_routes() as rec:
+        loss, metrics, grads = loss_and_grads(params, batch, cfg, torch.float32, ctx=ctx)
     loss, _ = reduce_grads(engine, loss, metrics, grads, ctx)
     del params, batch
     res = {"loss": float(loss), "tp_bytes": engine.comm.trace.total_bytes("tp")}
-    ref = torch.load(ref_path, mmap=True) if rank == 0 else None
+    ref = torch.load(ref_path, mmap=True)
+    if cfg.num_experts:
+        data = sh.data_axes_for(sizes)
+        res["routing"] = routing_flips(rec.routes, ref["routes"][engine.comm.index(data)],
+                                       cfg.top_k)
+    if rank:
+        ref = None
     rel = {}
     for k, g in tree_lib.flatten_with_path(grads):
         whole = engine.join(g, engine.pspec_by_path[k], phase="check")
@@ -2243,6 +2368,79 @@ def dist_fp32_check(rank: int, argv: list, ref_path: str) -> dict:
     del grads, ref
     torch.cuda.empty_cache()
     return res
+
+
+class GuardChecks:
+    """Run F's checks of the guarded step on the mesh, made as the launcher
+    runs. It wraps the launcher's ``train_step``: each step's state and
+    batch are kept just before the step, and its kernel launches counted
+    around it. Before the next step (and after the last) the step is
+    settled against the state it left: a skipped step must have left every
+    state leaf ``torch.equal``; a healthy one is run again without the
+    guard (the unguarded mesh step, on the kept state, batch and phase; its
+    collectives traced apart, its spans on a bus of its own, its launches
+    taken out of the run's), which must give that state bitwise."""
+
+    def __init__(self, train_mod):
+        self.train = train_mod
+        self.step_fn = train_mod.train_step
+        self.pending = None
+        self.replay_launches: dict = {}
+        self.results = {"healthy": {}, "launches": {}, "skip_equal": {}, "replay_equal": {}}
+        train_mod.train_step = self._step
+
+    def close(self) -> None:
+        self.train.train_step = self.step_fn
+
+    def _step(self, state, batch, **kw):
+        from repro_torch import kernels
+
+        step = state.step
+        self.pending = (step, clone_state(state), {k: v.clone() for k, v in batch.items()}, kw)
+        before = dict(kernels.launch_counts())
+        new, metrics = self.step_fn(state, batch, **kw)
+        after = kernels.launch_counts()
+        self.results["launches"][step] = sum(v - before.get(k, 0) for k, v in after.items())
+        self.results["healthy"][step] = int(metrics["healthy"])
+        return new, metrics
+
+    def before_step(self, step, state, batch) -> None:
+        self._settle(state)
+
+    def finish(self, run) -> None:
+        self._settle(run.state)
+        self.results = {k: [v[s] for s in sorted(v)] for k, v in self.results.items()}
+
+    def _settle(self, after) -> None:
+        import torch
+
+        from repro_torch import kernels
+        from repro_torch.obs import Bus, set_bus
+
+        if self.pending is None:
+            return
+        step, before, batch, kw = self.pending
+        self.pending = None
+        if not self.results["healthy"][step]:
+            self.results["skip_equal"][step] = states_equal(
+                (before.params, before.opt_state), (after.params, after.opt_state))
+            return
+        trace = kw["engine"].comm.trace
+        stamp, trace.step = trace.step, ("unguarded", step)
+        bus = set_bus(Bus([]))
+        counts = dict(kernels.launch_counts())
+        try:
+            new, _ = self.step_fn(before._replace(guard=None), batch,
+                                  **{**kw, "guard": None, "fault": None})
+        finally:
+            set_bus(bus)
+            trace.step = stamp
+        for k, v in kernels.launch_counts().items():
+            self.replay_launches[k] = self.replay_launches.get(k, 0) + v - counts.get(k, 0)
+        self.results["replay_equal"][step] = states_equal(
+            (new.params, new.opt_state), (after.params, after.opt_state))
+        del new, before
+        torch.cuda.empty_cache()
 
 
 def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
@@ -2264,19 +2462,34 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     cfg = dist_cfg(arch, layers)
     variant = "normuon" if "normuon" in extra else None
     zero1, flatten = "--zero1" in extra, "--zero1-flatten" in extra
+    guarded = "--guard" in extra
     res = {}
-    if label == "A":
-        res["fp32"] = dist_fp32_check(rank, argv, os.path.join(out_dir, "fp32_ref.pt"))
+    if label in DIST_FP32_RUNS:
+        res["fp32"] = dist_fp32_check(rank, spec, os.path.join(out_dir, "fp32_ref.pt"))
     sink = MemorySink()
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     mem = []
-    run = train.run(argv, cfg=cfg, sinks=[sink],
-                    on_step=lambda rec: mem.append(torch.cuda.max_memory_allocated()))
-    res.update({"launches": dict(kernels.launch_counts()),
+    guard = GuardChecks(train) if guarded else None
+    try:
+        run = train.run(argv, cfg=cfg, sinks=[sink],
+                        on_step=lambda rec: mem.append(torch.cuda.max_memory_allocated()),
+                        before_step=guard.before_step if guarded else None)
+    finally:
+        if guard is not None:
+            guard.close()
+    if guard is not None:
+        guard.finish(run)
+        res["guard"] = guard.results
+    launches = dict(kernels.launch_counts())
+    if guard is not None:
+        launches = {k: v - guard.replay_launches.get(k, 0) for k, v in launches.items()}
+    res.update({"launches": launches,
                 "peak_bytes": torch.cuda.max_memory_allocated(),
                 "losses": [r["loss"] for r in run.records],
                 "phases": [r["phase"] for r in run.records],
+                "healthy": [r.get("healthy", 1) for r in run.records],
+                "escalation": [r.get("escalation") for r in run.records],
                 "step_wall_s": [r["dur_s"] for r in run.records], "peak_by_step": mem})
     engine, params, ctx = run.engine, run.state.params, run.ctx
     res["tensor_parallel"] = tp = engine.tensor_parallel
@@ -2306,13 +2519,24 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     res["per_step"] = []
     res["wall_per_step"] = []
     for step, phase in enumerate(res["phases"]):
-        for phases in (phase, "apply"):
-            try:
-                assert_matches_plan_by_axes(trace, plan, phases, step=step)
-            except AssertionError as e:
-                res["trace_errors"].append(f"step {step}: {e}")
+        if res["healthy"][step]:
+            for phases in (phase, "apply"):
+                try:
+                    assert_matches_plan_by_axes(trace, plan, phases, step=step)
+                except AssertionError as e:
+                    res["trace_errors"].append(f"step {step}: {e}")
+        else:
+            # A step the guard skipped issues no optimizer collective.
+            classes = {e.phase for e in trace.select(None, step=step)}
+            if not classes <= DIST_SKIP_CLASSES:
+                res["trace_errors"].append(f"skipped step {step} issued {sorted(classes)}")
+        if guarded and [(e.kind, e.bytes) for e in trace.select("guard", step=step)] != [
+                ("all-reduce", 4)]:
+            res["trace_errors"].append(f"step {step}: the guard's agreement is not one 4 B "
+                                       "all-reduce")
         b = {cls: trace.total_bytes(cls, step=step) for cls in (
-            "block", "full", "apply", "grad_reduce", "tp", "norm", "replica_gather", "normuon")}
+            "block", "full", "apply", "grad_reduce", "tp", "norm", "replica_gather", "normuon",
+            "guard")}
         res["per_step"].append(b)
         # The full steps' gathers are asynchronous (no wall of their own):
         # the muonbp.full.s<i>.gather spans time them.
@@ -2346,6 +2570,10 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     # and shards, reduced), joined, against the single-process update on
     # the joined gradients, parameters and state. On the replicated path the
     # rank holds whole leaves, and its updates pay the replica gather.
+    if label in DIST_NO_UPDATE_CHECK:
+        res["update"] = None
+        res["check_peak_bytes"] = torch.cuda.max_memory_allocated()
+        return res
     rows = train._batch_rows(engine, batch)
     fresh = next(iter(SyntheticLM(cfg, batch, DIST_SEQ, seed=1)))
     fresh = train.device_batch({k: v[rows] for k, v in fresh.items()}, "cuda")
@@ -2406,16 +2634,49 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     return res
 
 
+def dist_guard_checks(tag: str, res: list) -> None:
+    """Run F: steps 2 and 4 skipped on every rank, each leaving every state
+    leaf torch.equal and launching no kernel, step 3 forced full, and each
+    healthy step equal to the unguarded mesh step bitwise."""
+    want_healthy = [int(t not in DIST_F_SKIPPED) for t in range(len(DIST_F_PHASES))]
+    for rank, r in enumerate(res):
+        g = r["guard"]
+        log(f"[{tag}] rank {rank}: phases {r['phases']}, healthy {r['healthy']}, escalation "
+            f"{r['escalation']}, kernel launches a step {g['launches']}")
+        if r["phases"] != DIST_F_PHASES or r["healthy"] != want_healthy:
+            fail(f"{tag}: rank {rank} ran {r['phases']} with healthy {r['healthy']}, not "
+                 f"{DIST_F_PHASES} with {want_healthy}")
+        if [r["escalation"][t] for t in DIST_F_SKIPPED] != ["force_full"] * len(DIST_F_SKIPPED):
+            fail(f"{tag}: rank {rank}'s escalation {r['escalation']}")
+        if (r["phases"], r["healthy"], r["escalation"]) != (
+                res[0]["phases"], res[0]["healthy"], res[0]["escalation"]):
+            fail(f"{tag}: rank {rank} took other branches than rank 0")
+        if g["skip_equal"] != [True] * len(DIST_F_SKIPPED):
+            fail(f"{tag}: rank {rank}: a skipped step changed the state ({g['skip_equal']})")
+        if any(g["launches"][t] for t in DIST_F_SKIPPED) or not g["launches"][1]:
+            fail(f"{tag}: rank {rank}'s kernel launches a step {g['launches']}: a skipped step "
+                 "launched, or the healthy block step did not")
+        if g["replay_equal"] != [True] * (len(DIST_F_PHASES) - len(DIST_F_SKIPPED)):
+            fail(f"{tag}: rank {rank}: a healthy guarded step differs from the unguarded mesh "
+                 f"step ({g['replay_equal']})")
+    log(f"[{tag}] every rank: steps {list(DIST_F_SKIPPED)} skipped, each leaving every state "
+        "leaf torch.equal with no kernel launch and no optimizer collective; step 3 forced "
+        "full; each healthy guarded step torch.equal to the unguarded mesh step")
+
+
 def phase_distributed(smi: str) -> None:
     """Four ranks on the one card, gloo, through the launcher, the dense
-    model tensor-parallel: run A, full-width muonbp-960m at 12 layers on
-    data=2,model=2 with ZeRO-1, six steps (full, block x4, full), after the
-    fp32 step held against one process; run B, NorMuon with the flatten
-    fallback at 3 of its 12 layers, two steps; run C, 12 layers on model=4,
-    three steps. Run D, olmoe-1b-7b at DIST_D_LAYERS layers on the
-    replicated path, data=2,model=2 with ZeRO-1, two steps. Every rank's
-    exit code is checked. gloo copies through the host: its times measure
-    no link."""
+    and MoE models tensor-parallel: run A, full-width muonbp-960m at 12
+    layers on data=2,model=2 with ZeRO-1, six steps (full, block x4, full),
+    after the fp32 step held against one process; run B, NorMuon with the
+    flatten fallback at 3 of its 12 layers, two steps; run C, 12 layers on
+    model=4, three steps. Run D, mamba2-1.3b at DIST_D_LAYERS layers on the
+    replicated path, data=2,model=2 with ZeRO-1, two steps. Run E,
+    olmoe-1b-7b at DIST_E_LAYERS layers tensor-parallel, data=2,model=2 with
+    ZeRO-1, three steps, after its fp32 step and routing held against one
+    process. Run F, the guarded step on the mesh (see
+    :func:`dist_guard_checks`). Every rank's exit code is checked. gloo
+    copies through the host: its times measure no link."""
     import gc
     import tempfile
 
@@ -2439,9 +2700,9 @@ def phase_distributed(smi: str) -> None:
         log(f"[{tag}] {DIST_RANKS} ranks (gloo, one card): python -m repro_torch.launch.train "
             f"{' '.join(argv)}" + (f", cfg num_layers={layers}" if layers else ""))
         with tempfile.TemporaryDirectory() as out_dir:
-            if label == "A":
+            if label in DIST_FP32_RUNS:
                 t0 = time.perf_counter()
-                dist_fp32_reference(argv, os.path.join(out_dir, "fp32_ref.pt"))
+                dist_fp32_reference(spec, os.path.join(out_dir, "fp32_ref.pt"))
                 gc.collect()
                 torch.cuda.empty_cache()
                 log(f"[{tag}] fp32 single-process reference step: "
@@ -2479,6 +2740,14 @@ def phase_distributed(smi: str) -> None:
                 f"max|grad| (tol {DIST_GRAD_TOL:g}); tp {fp['tp_bytes']} B")
             if any(r["fp32"]["loss"] != fp["loss"] for r in res):
                 fail(f"{tag}: the ranks' fp32 losses differ")
+            for rank, r in enumerate(res):
+                if "routing" in r["fp32"]:
+                    rt = r["fp32"]["routing"]
+                    log(f"[{tag}] rank {rank} routing vs one process on its data shard: "
+                        f"{rt['flips']} of {rt['tokens']} token routings flipped over "
+                        f"{rt['layers']} layers" + (f", the widest k-th/(k+1)-th router logit "
+                                                    f"gap among them {rt['max_gap']:.3e}"
+                                                    if rt["flips"] else ""))
             if not loss_rel <= DIST_LOSS_TOL:
                 fail(f"{tag}: the fp32 loss on the mesh disagrees with one process")
             if not fp["grad_rel"][worst] <= DIST_GRAD_TOL:
@@ -2489,6 +2758,8 @@ def phase_distributed(smi: str) -> None:
             f"{r0['replica_pred']} B")
         if not want_tp and not r0["replica_pred"]:
             fail(f"{tag}: the replicated run predicts no replica gather")
+        if "guard" in r0:
+            dist_guard_checks(tag, res)
         for rank, r in enumerate(res):
             if r["trace_errors"]:
                 fail(f"{tag}: rank {rank}'s trace disagrees: {r['trace_errors']}")
@@ -2499,9 +2770,9 @@ def phase_distributed(smi: str) -> None:
                 if r["launches"].get(name, 0) <= 0:
                     fail(f"{tag}: rank {rank} never launched {name} on the path")
             upd = r["update"]
-            if not upd["pipelined_equals_barrier"]:
+            if upd is not None and not upd["pipelined_equals_barrier"]:
                 fail(f"{tag}: rank {rank}'s pipelined full update differs from the barrier's")
-            for phase in ("full", "block"):
+            for phase in ("full", "block") if upd is not None else ():
                 if upd[f"{phase}_checksum"] != r0["update"][f"{phase}_checksum"]:
                     fail(f"{tag}: rank {rank}'s {phase} update differs from rank 0's")
             log(f"[{tag}] rank {rank}: peak memory {r['peak_bytes'] / 2**30:.2f} GiB (by step "
@@ -2517,13 +2788,14 @@ def phase_distributed(smi: str) -> None:
             if r["muon_stack_bytes"] != r["planned_stack_bytes"]:
                 fail(f"{tag}: rank {rank} holds {r['muon_stack_bytes']} B of the muon "
                      f"stacks' momentum, not its shards' {r['planned_stack_bytes']}")
-            if want_tp and 4 * r["muon_stack_bytes"] != r["unsharded_stack_bytes"]:
+            if label in DIST_QUARTER_STACKS and (4 * r["muon_stack_bytes"]
+                                                 != r["unsharded_stack_bytes"]):
                 fail(f"{tag}: rank {rank} holds {r['muon_stack_bytes']} B of the muon "
                      f"stacks' momentum, not a quarter of {r['unsharded_stack_bytes']}")
             if ("train.replica_gather" in r["spans"]) == want_tp:
                 fail(f"{tag}: rank {rank}'s spans {'have' if want_tp else 'lack'} "
                      "train.replica_gather")
-        for phase in ("full", "block"):
+        for phase in ("full", "block") if r0["update"] is not None else ():
             rel = r0["update"][f"{phase}_rel_err"]
             log(f"[{tag}] {phase} update, 4 ranks vs one process (kernels both): rel {rel:.3e} "
                 f"(tol {UPDATE_TOL:g}); {r0['update'][f'{phase}_pipelined_ms']:.1f} ms on the "

@@ -20,8 +20,9 @@ norms on that path), ``'replica_gather'`` (each rank's updated shards
 gathered back into its full replica: only the replicated path, which runs
 the whole model on every rank, pays it; the reference's model is
 tensor-parallel and pays no such gather), ``'normuon'`` (NorMuon's row and
-RMS sums of sharded leaves) and ``'checkpoint'`` (state gathered for a
-snapshot).
+RMS sums of sharded leaves), ``'guard'`` (the guarded step's health flag,
+agreed over the whole mesh: 4 B a step) and ``'checkpoint'`` (state
+gathered for a snapshot).
 :func:`bytes_by_axes`, :func:`bytes_by_link`, :func:`assert_matches_plan`
 and :func:`assert_matches_plan_by_axes` read the trace.
 
@@ -192,14 +193,14 @@ class Collectives:
 
     def all_reduce(self, x: torch.Tensor, axes, *, phase: str,
                    stage: Optional[int] = None, op: str = "sum") -> torch.Tensor:
-        """Reduce ``x`` in place over ``axes`` (``op`` 'sum' or 'max');
+        """Reduce ``x`` in place over ``axes`` (``op`` 'sum', 'max' or 'min');
         returns it."""
         import torch.distributed as dist
 
         axes = tuple(axes)
         t0 = self._start()
-        dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
-                        group=self.group(axes))
+        ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+        dist.all_reduce(x, op=ops[op], group=self.group(axes))
         self.trace.record(phase, REDUCE, axes, x.numel() * x.element_size(), stage,
                           wall_s=self._wall(t0))
         return x

@@ -41,7 +41,7 @@ slice -- and :meth:`replicate` the replica gather over the model axes.
 
 The parameters and gradients a rank holds come in one of two layouts
 (``sharding.specs.mesh_path``). On the tensor-parallel path
-(``tensor_parallel=True``, the dense models) they are the rank's
+(``tensor_parallel=True``, the dense and MoE models) they are the rank's
 param-layout shards, which the model computes with: :meth:`shard` cuts
 them over the axes the momentum spec adds (ZeRO-1's), the 'apply' gathers
 bring updates back to that layout, and nothing is replicated. On the

@@ -467,19 +467,22 @@ def plan_comm(params: Any, pspecs: Any, mesh, *, labels: Any = None,
 
 def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2) -> int:
     """The ``'tp'`` collective bytes of one rank and training step of the
-    tensor-parallel dense model (``distributed/tensor_parallel.py``), from
-    the shapes; 0 where ``sharding.specs.mesh_path`` runs ``cfg`` replicated.
+    tensor-parallel dense or MoE model (``distributed/tensor_parallel.py``),
+    from the shapes; 0 where ``sharding.specs.mesh_path`` runs ``cfg``
+    replicated.
 
     ``rows`` x ``seq`` tokens a rank (its data coordinate's rows),
     activations of ``compute_bytes`` an element, the replicated leaves'
     gradients fp32; result-buffer bytes, as the plan's (a reduce-scatter's
     is the rank's slice). Counted: each layer's two sequence gathers
-    (attention and MLP in) and two reduces (their row-parallel ``wo`` out),
-    forward and backward, and on the 'hd' KV layout the K and V column
-    gathers; the embedding's reduce and the logits' gather; the cross
-    entropy's three (B, S) fp32 all-reduces; with a sequence-sharded
-    residual, the sum of the replicated leaves' gradients (the norm gains)
-    over the model axis.
+    (attention and MLP or MoE in) and two reduces (their row-parallel
+    ``wo`` out, the MoE block's partial output after the combine), forward
+    and backward, and on the 'hd' KV layout the K and V column gathers; the
+    embedding's reduce and the logits' gather; the cross entropy's three
+    (B, S) fp32 all-reduces; the sum over the model axis of the gradients
+    ``tensor_parallel.grad_is_partial`` names: with a sequence-sharded
+    residual every replicated leaf's (the norm gains, an MoE model's
+    router), else the router's alone.
     """
     sizes = sh.mesh_axis_sizes(axis_sizes)
     if sh.mesh_path(cfg, sizes) != sh.TENSOR_PARALLEL:
@@ -499,6 +502,8 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2) ->
     if seq_shard:
         norms = 2 + (2 if cfg.use_post_norms else 0)
         total += FP32_BYTES * (cfg.num_layers * norms * cfg.d_model + cfg.d_model)
+    if cfg.num_experts:
+        total += FP32_BYTES * cfg.num_layers * cfg.d_model * cfg.num_experts
     return total
 
 

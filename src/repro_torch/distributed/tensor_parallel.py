@@ -1,4 +1,4 @@
-"""The collectives of the tensor-parallel dense model, as autograd functions.
+"""The collectives of the tensor-parallel model, as autograd functions.
 
 The reference's model is tensor-parallel under GSPMD, which inserts these
 collectives from the parameter and activation shardings
@@ -14,12 +14,21 @@ with its sequence parallelism):
   dim, reduce-scattered in the backward. Without sequence sharding it is
   the identity, and its backward all-reduces (every rank's partial
   gradient of the replicated input);
-* :func:`reduce_seq` -- out of the row-parallel ``wo`` (and the
-  vocab-parallel embedding): the partial sums reduce-scattered on the
-  sequence dim, all-gathered in the backward; without sequence sharding
-  an all-reduce, and the identity in the backward;
+* :func:`reduce_seq` -- out of the row-parallel ``wo``, the MoE block
+  (each rank's expert output over its ``d_ff`` slice, after the combine)
+  and the vocab-parallel embedding: the partial sums reduce-scattered on
+  the sequence dim, all-gathered in the backward; without sequence
+  sharding an all-reduce, and the identity in the backward;
 * :func:`gather_cols` -- the K/V projection columns of the 'hd' layout
   all-gathered over ``model``, reduce-scattered in the backward;
+* :func:`replica_mean` -- the mean over ``model`` of a value every rank
+  computes identically from the same gathered input (the MoE router's aux
+  losses): the copies are equal, so the forward is the value itself, and
+  the transpose gives each copy ``1/m`` of the cotangent, as JAX's
+  shard_map transpose does for an output replicated over an axis. Without
+  it, the sums over ``model`` that follow (the gathered input's
+  reduce-scatter, the router gradient's sum) would count the aux
+  gradient ``m`` times;
 * :func:`embed_lookup` -- the vocab-parallel lookup: tokens outside the
   rank's rows give zeros, and :func:`reduce_seq` sums the partial rows;
 * :func:`cross_entropy` -- the masked mean cross entropy over the rank's
@@ -87,6 +96,17 @@ class _GatherCols(torch.autograd.Function):
         return _reduce_scatter(g, fctx.ctx, -1), None
 
 
+class _ReplicaMean(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.size = ctx.size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g / fctx.size, None
+
+
 def gather_seq(x: torch.Tensor, ctx) -> torch.Tensor:
     """(B, S/m, D) -> (B, S, D) when sequence-sharded; see the module doc."""
     return _GatherSeq.apply(x, ctx)
@@ -100,6 +120,21 @@ def reduce_seq(x: torch.Tensor, ctx) -> torch.Tensor:
 def gather_cols(x: torch.Tensor, ctx) -> torch.Tensor:
     """(..., n/m) -> (..., n): every rank's columns, in rank order."""
     return _GatherCols.apply(x, ctx)
+
+
+def replica_mean(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The mean over ``model`` of ``x``, which every rank holds identically
+    (see the module doc): ``x`` itself, its gradient divided by ``m``."""
+    return _ReplicaMean.apply(x, ctx)
+
+
+def grad_is_partial(key, model_split: bool, ctx) -> bool:
+    """Whether a rank's gradient of the leaf ``key`` is a part of the whole
+    that the ranks of ``model`` sum: a leaf ``model`` does not split, when
+    the residual is sequence-sharded (it saw the rank's sequence shard
+    only), and the MoE router in either layout (it saw only the rank's
+    ``d_ff`` slice of the experts' output)."""
+    return not model_split and (ctx.seq_shard or key[-1] == "router")
 
 
 def vocab_range(rows: int, ctx) -> tuple[int, int]:

@@ -23,11 +23,11 @@ gather a sharded matrix, ``--full-schedule pipelined|barrier``);
 raises: eager PyTorch has no partitioner. ``--batch`` is the global batch;
 the ranks of one data coordinate read the same rows. Before the first step
 the launcher decides the path (``sharding.specs.mesh_path``) and prints it:
-a dense model on a ``model`` axis larger than one runs tensor-parallel --
-every rank builds the full parameters from ``--seed`` (or takes the
-caller's) and keeps only its ``param_specs`` shards, which it computes
-with (``models/transformer.py``, ``distributed/tensor_parallel.py``) --
-and every other arch runs replicated, each rank holding the whole model.
+a dense or MoE model on a ``model`` axis larger than one runs
+tensor-parallel -- every rank builds the full parameters from ``--seed``
+(or takes the caller's) and keeps only its ``param_specs`` shards, which it
+computes with (``models/transformer.py``, ``distributed/tensor_parallel.py``)
+-- and every other arch runs replicated, each rank holding the whole model.
 A head layout the port does not compute raises there. See
 ``training/train_step.py`` for the gradient reduce, the 'apply' gathers
 and, replicated, the replica gather. Only rank 0 prints step lines and
@@ -36,12 +36,14 @@ writes ``--log-file``; a rank that fails raises, which fails the run.
 Resilience: ``--guard`` runs the optimizer apply behind the health check of
 ``training/resilience.py`` (skip on NaN/Inf or a loss spike) and drives the
 escalation ladder from here -- skip -> force an early 'full'-phase step ->
-LR backoff -> checkpoint-and-abort (exit 3). ``--checkpoint-every`` writes
-atomic, checksummed snapshots in the reference's format (always including
-the final step) and ``--resume`` continues from the newest *valid* one: the
-step, the optimizer state, the data-stream position and the guard
-counters. ``--fault-plan`` injects deterministic faults for drills
-(``python -m repro_torch.scripts.chaos_run``).
+LR backoff -> checkpoint-and-abort (exit 3). Under ``--mesh`` every rank
+takes the branch the mesh agrees on, so the ladder fires on every rank at
+the same step, and an abort snapshots the mesh and exits 3 on each.
+``--checkpoint-every`` writes atomic, checksummed snapshots in the
+reference's format (always including the final step) and ``--resume``
+continues from the newest *valid* one: the step, the optimizer state, the
+data-stream position and the guard counters. ``--fault-plan`` injects
+deterministic faults for drills (``python -m repro_torch.scripts.chaos_run``).
 
 Telemetry flows through ``repro_torch.obs``: per-step lines, the
 checkpoint/resume/escalation/abort/skip_snapshot events, spans and counters
@@ -293,6 +295,7 @@ class TrainRun:
     counters: dict
     engine: Any = None   # the distributed engine under --mesh (its trace on .comm)
     ctx: Any = None      # the model's ShardCtx under --mesh
+    optimizer: Any = None  # the run's optimizer (its state is state.opt_state)
 
 
 def run(argv=None, *, params: Optional[dict] = None, cfg: Optional[ModelConfig] = None,
@@ -365,8 +368,6 @@ def _start_world(args) -> bool:
     if args.comm_engine != "shard_map":
         raise ValueError("--comm-engine gspmd has no counterpart in eager PyTorch (no "
                          "partitioner); use the explicit engine, shard_map")
-    if args.guard:
-        raise ValueError("--guard with --mesh is not in this slice of the port")
     if dist.is_initialized():
         return False
     if "WORLD_SIZE" not in os.environ:
@@ -655,7 +656,7 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
             raise SystemExit(3)
     finish("ok")
     return TrainRun(cfg=cfg, state=state, block_specs=bspecs, records=records,
-                    counters=dict(bus.counters), engine=engine, ctx=ctx)
+                    counters=dict(bus.counters), engine=engine, ctx=ctx, optimizer=optimizer)
 
 
 def _batch_rows(engine, batch: int) -> slice:

@@ -12,9 +12,23 @@ Capacity-based routing, GShard-style dropping, in the reference's order:
      token's ``top_k`` outputs summed in the activation dtype in
      expert-sorted order, as the reference's scatter-add leaves them.
 
-The reference wraps this in ``shard_map`` on a mesh; the port runs the
-mesh-free path (``moe_block(mesh=None)``). The reference's routing is plain
-``jnp``, with no Pallas kernel, so this module is plain PyTorch.
+The reference's routing is plain ``jnp``, with no Pallas kernel, so this
+module is plain PyTorch.
+
+Tensor-parallel (``ctx``, a tensor-parallel ``sharding.specs.ShardCtx``):
+the reference runs the block under ``shard_map``, each data shard's tokens
+routed locally and the experts' ``d_ff`` split over ``model``, with one
+psum of the ``(E, C, D)`` expert output before the combine
+(``repro/models/moe.py:98-104``). Here every model rank routes the whole
+sequence of its data coordinate's rows (the caller gathers it, so the
+capacity is the reference's per data shard), runs its ``(E, D, F/m)`` /
+``(E, F/m, D)`` expert shards and returns the partial output; the caller
+sums it over ``model`` after the combine (``tensor_parallel.reduce_seq``).
+The combine is linear in the expert output, so that is the same sum in
+another order, over ``rows * S`` rows instead of ``E * C``. The router
+logits, gates and aux losses are computed alike on every model rank; the
+aux losses go through ``tensor_parallel.replica_mean``, so the gradient
+sums over ``model`` count them once.
 
 Determinism. The reference scatter-adds; ``index_add_`` on CUDA adds
 atomically, so a bf16 sum would change from run to run. Here every
@@ -91,7 +105,8 @@ def _dispatch(flat_expert: torch.Tensor, num_experts: int, capacity: int):
 
 def _local_moe(x, router, wi, wg, wo, *, top_k: int, capacity_factor: float,
                router_style: str, group_rows: bool = False):
-    """x: (b, S, D); router (D, E); wi/wg (E, D, F); wo (E, F, D).
+    """x: (b, S, D); router (D, E); wi/wg (E, D, F); wo (E, F, D) (F: the
+    whole ``d_ff`` or a rank's slice, then ``y`` is the partial sum).
 
     Returns ``(y (b, S, D), load_balance, z_loss)``. The groups are the
     whole batch (the reference's ``_local_moe``) or, with ``group_rows``,
@@ -156,17 +171,28 @@ def _local_moe(x, router, wi, wg, wo, *, top_k: int, capacity_factor: float,
 
 
 def moe_block(x: torch.Tensor, params: dict, *, top_k: int, capacity_factor: float = 1.25,
-              router_style: str = "topk_softmax", group_rows: bool = False) -> MoEOutput:
+              router_style: str = "topk_softmax", group_rows: bool = False,
+              ctx=None) -> MoEOutput:
     """Apply the MoE FFN. params: router (D, E), wi/wg (E, D, F), wo (E, F, D).
 
     The reference's mesh-free path; ``group_rows`` routes each row of ``x``
-    alone (see the module doc).
+    alone (see the module doc). With a tensor-parallel ``ctx``, ``x`` is
+    the whole sequence of the rank's rows, the expert weights are the
+    rank's ``d_ff`` shards and ``y`` is its partial sum (see the module
+    doc).
     """
+    tp = ctx is not None and ctx.tensor_parallel
+    if tp and group_rows:
+        raise ValueError("row-grouped routing (serving) is single-device")
     y, lb, zl = _local_moe(
         x, params["router"], params["wi"], params["wg"], params["wo"],
         top_k=top_k, capacity_factor=capacity_factor, router_style=router_style,
         group_rows=group_rows,
     )
+    if tp:
+        from repro_torch.distributed import tensor_parallel
+
+        lb, zl = tensor_parallel.replica_mean(lb, ctx), tensor_parallel.replica_mean(zl, ctx)
     return MoEOutput(y, lb, zl)
 
 

@@ -13,12 +13,13 @@ state tensors. The reference's activation checkpointing changes no numbers
 and is not ported yet: the full-width dense and MoE models the card trains
 fit without it, and ``mamba2-1.3b`` trains there at a cut depth.
 
-With a tensor-parallel ``ctx`` (``sharding.specs.ShardCtx``; dense models
-only) each rank holds its ``param_specs`` shards and ``forward`` computes
+With a tensor-parallel ``ctx`` (``sharding.specs.ShardCtx``; dense and MoE
+models) each rank holds its ``param_specs`` shards and ``forward`` computes
 with them, as the reference's model under GSPMD: the embedding
 vocab-parallel, Q/K/V and the MLP's wi/wg column-parallel (the rank's
-heads and d_ff columns), both ``wo`` row-parallel, the logits
-column-parallel over the vocab. Between layers the residual is
+heads and d_ff columns), both ``wo`` row-parallel, the experts' ``d_ff``
+split as the reference's ``shard_map`` splits it (``models/moe.py``), the
+logits column-parallel over the vocab. Between layers the residual is
 sequence-sharded over the model axis where the reference's ``_seq_shard``
 shards it (``ctx.seq_shard``), so the norms run on the rank's sequence
 shard; ``distributed/tensor_parallel.py`` holds the collectives.
@@ -187,8 +188,10 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
     window mask, only ``kv_len``. ``group_rows`` routes each row of the
     batch alone (``moe.moe_block``). ``cross_kv``: the encoder's output for
     whisper's cross-attention. ``ctx``: the model's context; tensor-parallel
-    (a dense layer in 'train' mode), ``x`` is the rank's sequence shard of
-    the residual (or the whole of it, unsharded) and so is the output.
+    (a dense or MoE layer in 'train' mode), ``x`` is the rank's sequence
+    shard of the residual (or the whole of it, unsharded) and so is the
+    output; the MoE block routes the gathered sequence and its partial
+    output is reduced as the row-parallel ``wo``'s.
     """
     norms = layer["norms"]
     new_kv = new_ssm = None
@@ -232,10 +235,10 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
 
     aux = None
     if "moe" in layer:
-        out = moe_block(rms_norm(x, norms["mlp_norm"]), layer["moe"], top_k=cfg.top_k,
+        out = moe_block(enter(rms_norm(x, norms["mlp_norm"])), layer["moe"], top_k=cfg.top_k,
                         capacity_factor=cfg.capacity_factor, router_style=cfg.router_style,
-                        group_rows=group_rows)
-        x = x + out.y
+                        group_rows=group_rows, ctx=ctx)
+        x = x + leave(out.y)
         aux = torch.stack([out.load_balance_loss, out.router_z_loss])
     elif "mlp" in layer:
         mlp_out = leave(_mlp_apply(enter(rms_norm(x, norms["mlp_norm"])), layer["mlp"], cfg))
@@ -302,17 +305,17 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
     out: ``logits`` or ``(logits, cache)``.
 
     ``ctx`` (``sharding.specs.ShardCtx``): the heads' layouts on one device;
-    tensor-parallel (dense, 'train' mode), ``params`` are the rank's shards,
-    ``tokens`` the rows of its data coordinate, and the logits the rank's
-    (B, S, Vp/m) vocab columns.
+    tensor-parallel (dense or MoE, 'train' mode), ``params`` are the rank's
+    shards, ``tokens`` the rows of its data coordinate, and the logits the
+    rank's (B, S, Vp/m) vocab columns.
     """
     tp = ctx is not None and ctx.tensor_parallel
     if tp:
-        if cfg.arch_type != "dense" or mode != "train":
-            raise NotImplementedError(f"the tensor-parallel forward runs dense models in "
-                                      f"'train' mode, not {cfg.arch_type} in {mode!r}")
-        from repro_torch.sharding.specs import sequence_sharded
+        from repro_torch.sharding.specs import TP_ARCHS, sequence_sharded
 
+        if cfg.arch_type not in TP_ARCHS or mode != "train":
+            raise NotImplementedError(f"the tensor-parallel forward runs {' and '.join(TP_ARCHS)} "
+                                      f"models in 'train' mode, not {cfg.arch_type} in {mode!r}")
         if ctx.seq_shard != sequence_sharded(tokens.shape[1], ctx.size):
             raise ValueError(f"the context's seq_shard={ctx.seq_shard} was made for another "
                              f"sequence length than {tokens.shape[1]}")

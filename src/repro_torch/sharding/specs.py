@@ -115,6 +115,8 @@ def attn_layouts(cfg: ModelConfig, model_size: int) -> tuple[Optional[str], Opti
 
 
 TENSOR_PARALLEL, REPLICATED = "tensor_parallel", "replicated"
+# The archs the tensor-parallel path runs.
+TP_ARCHS = ("dense", "moe")
 
 
 def mesh_path(cfg: ModelConfig, axis_sizes) -> str:
@@ -122,17 +124,20 @@ def mesh_path(cfg: ModelConfig, axis_sizes) -> str:
     holds and computes with its ``param_specs`` shards) or ``"replicated"``
     (each rank holds the whole model; its updates pay the replica gather).
 
-    A dense model on a ``model`` axis larger than one is tensor-parallel;
-    every other arch, and a mesh without a model split, is replicated. The
-    port computes the Q heads in the 'head' layout only, and the K/V heads
-    in 'head' or, on the tensor-parallel path, 'hd' (the reference's
-    ``split_heads``): any other layout raises here, naming it, so that no
-    mesh computes another head split than the reference's. The
-    tensor-parallel path also needs the padded vocab and ``d_ff`` to divide
-    the axis (their splits are what its collectives assume).
+    A dense or MoE model on a ``model`` axis larger than one is
+    tensor-parallel; every other arch, and a mesh without a model split, is
+    replicated. The port computes the Q heads in the 'head' layout only,
+    and the K/V heads in 'head' or, on the tensor-parallel path, 'hd' (the
+    reference's ``split_heads``): any other layout raises here, naming it,
+    so that no mesh computes another head split than the reference's. The
+    tensor-parallel path also needs the padded vocab and ``d_ff`` (an MoE
+    model's expert ``d_ff``) to divide the axis (their splits are what its
+    collectives assume). The reference keeps the experts replicated where
+    their ``d_ff`` does not divide (``repro/models/moe.py:141-145``); the
+    port does not run that case and raises, naming the expert ``d_ff``.
     """
     m = mesh_axis_sizes(axis_sizes).get(MODEL_AXIS, 1)
-    path = TENSOR_PARALLEL if cfg.arch_type == "dense" and m > 1 else REPLICATED
+    path = TENSOR_PARALLEL if cfg.arch_type in TP_ARCHS and m > 1 else REPLICATED
     if not cfg.num_heads or cfg.arch_type == "ssm":
         return path
     ql, kvl = attn_layouts(cfg, m)
@@ -143,7 +148,8 @@ def mesh_path(cfg: ModelConfig, axis_sizes) -> str:
             f"({cfg.num_heads} Q / {cfg.num_kv_heads} KV heads of {cfg.head_dim}); the "
             f"{path} path computes Q in 'head' and KV in {' or '.join(map(repr, allowed_kv))}")
     if path == TENSOR_PARALLEL:
-        for name, n in (("padded vocab", cfg.padded_vocab), ("d_ff", cfg.d_ff)):
+        ff = "expert d_ff" if cfg.arch_type == "moe" else "d_ff"
+        for name, n in (("padded vocab", cfg.padded_vocab), (ff, cfg.d_ff)):
             if not _divides(n, m):
                 raise ValueError(f"{cfg.name} on model={m}: the {name} {n} does not divide "
                                  "the model axis")
@@ -250,6 +256,7 @@ def param_specs(params, cfg: ModelConfig, axis_sizes) -> dict:
             if name == "wo":
                 return row(leaf)
         if group == "ssm":
+            # gate_norm never gets here: the "norm" rule replicates it first, as in the reference.
             # Weights shard on d_inner whenever it divides, even where the
             # head count does not (hymba's 50 heads), as in the reference.
             if name in ("wz", "wx", "conv_x", "conv_x_bias"):

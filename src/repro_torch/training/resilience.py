@@ -14,6 +14,14 @@ steps after it; this module detects both and reacts:
   exactly the unguarded update (bitwise: the same computation, and the
   escalation ``lr_scale`` multiplier is exact at 1.0); unhealthy steps
   leave params and optimizer state untouched and bump the skip counter.
+  On a mesh of ranks (``engine=``) the predicate is agreed over the whole
+  mesh before the host reads it: one all-reduce (MIN) of the int32 flag,
+  phase ``'guard'``. The reference's ``lax.cond`` reads global scalars
+  under its partitioner; here the loss and the gradient norm are already
+  reduced alike on every rank, and the agreement makes every rank take the
+  same branch by construction, not by equal rounding. A skipped step then
+  issues no optimizer collective (``block``, ``full``, ``apply``,
+  ``replica_gather``) on any rank.
 
 * **Escalation ladder** (:class:`Escalator`): the launcher reads the
   cumulative skip counter each step and walks skip -> force an early
@@ -34,6 +42,7 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.core.combine import apply_updates
+from repro_torch.obs import get_bus, span
 
 
 class GuardState(NamedTuple):
@@ -104,7 +113,7 @@ def fold_observation(cfg: GuardConfig, gstate: GuardState, loss: torch.Tensor,
 @torch.no_grad()
 def guarded_update(optimizer, cfg: GuardConfig, grads, opt_state, params,
                    gstate: GuardState, loss: torch.Tensor, grad_sq_norm: torch.Tensor,
-                   phase: str):
+                   phase: str, engine=None):
     """The optimizer apply behind the health predicate.
 
     Returns ``(new_params, new_opt_state, new_guard_state, healthy)``. A
@@ -112,12 +121,32 @@ def guarded_update(optimizer, cfg: GuardConfig, grads, opt_state, params,
     as the unguarded step does (times ``lr_scale``, exact for 1.0); an
     unhealthy one returns params and optimizer state untouched -- momentum
     is NOT advanced past a corrupt gradient -- and launches nothing.
+
+    ``engine`` (``distributed.engine.ShardMapEngine``): the step runs on a
+    mesh of ranks. The predicate is agreed over all of it first (one
+    all-reduce, MIN, of the int32 flag, phase ``'guard'``); a healthy
+    step is the unguarded mesh step, in its spans: ``optimizer.update``,
+    the ``lr_scale`` product, ``train_step.full_updates`` (the 'apply'
+    gathers, and the replica gather on the replicated path), then the add.
     """
     healthy = health_check(cfg, loss, grad_sq_norm, gstate)
+    if engine is not None:
+        flag = healthy.to(torch.int32).reshape(1)
+        engine.comm.all_reduce(flag, tuple(engine.axis_sizes), phase="guard", op="min")
+        healthy = flag[0].to(torch.bool)
     if bool(healthy):  # the one host read of the predicate
-        updates, new_opt_state = optimizer.update(grads, opt_state, params, phase)
+        bus = sync = None
+        if engine is not None:
+            bus, sync = get_bus(), engine.comm.sync
+        with span(bus, "train.update", sync=sync):
+            updates, new_opt_state = optimizer.update(grads, opt_state, params, phase)
         scale = gstate.lr_scale
         updates = tree_lib.tree_map(lambda u: scale.to(u.dtype) * u, updates)
+        if engine is not None:
+            # Imported here: train_step imports this module.
+            from repro_torch.training.train_step import full_updates
+
+            updates = full_updates(engine, updates, sync=sync)
         new_params = apply_updates(params, updates)
     else:
         new_params, new_opt_state = params, opt_state

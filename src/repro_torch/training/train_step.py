@@ -13,12 +13,13 @@ check of ``training/resilience.py``; ``fault=`` injects a fault of
 (``sharding.specs.mesh_path``):
 
 * tensor-parallel (``ctx=``, a tensor-parallel ``sharding.specs.ShardCtx``;
-  the dense models): each rank holds its param-layout shards and runs the
-  tensor-parallel forward and backward on the rows of its data coordinate,
-  so its gradients come out in the param layout. Where the residual is
-  sequence-sharded, each rank's gradient of a leaf the model axis does not
-  split (the norm gains) covers only its sequence shard: those are summed
-  over the model axis first (phase ``'tp'``). The gradients are then
+  the dense and MoE models): each rank holds its param-layout shards and
+  runs the tensor-parallel forward and backward on the rows of its data
+  coordinate, so its gradients come out in the param layout. Where the
+  residual is sequence-sharded, each rank's gradient of a leaf the model
+  axis does not split (the norm gains) covers only its sequence shard, and
+  an MoE router's sees only the rank's ``d_ff`` slice of the experts: those
+  are summed over the model axis first (phase ``'tp'``). The gradients are then
   averaged over the data axes (``grad_reduce``), the optimizer returns its
   updates in the momentum layout and the plan's 'apply' gathers bring them
   to the param layout each rank adds to its shards;
@@ -29,7 +30,8 @@ check of ``training/resilience.py``; ``fault=`` injects a fault of
 
 Each part runs in a span (``train.fwd_bwd``, ``train.grad_reduce``,
 ``train.update``, ``train.apply``, and ``train.replica_gather`` on the
-replicated path).
+replicated path), the guarded step's too; a step the guard skips runs the
+first two only.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.combine import apply_updates
 from repro_torch.core.muon import Optimizer
+from repro_torch.distributed.tensor_parallel import grad_is_partial
 from repro_torch.models.model import loss_fn
 from repro_torch.obs import get_bus, span
 from repro_torch.sharding.specs import data_axes_for
@@ -121,11 +124,9 @@ def train_step(
     chaos drill only).
 
     ``engine``: the distributed engine, and ``ctx`` the model's context on
-    its mesh (see the module docstring).
+    its mesh (see the module docstring). With ``guard`` too, every rank
+    takes the branch the mesh agreed on (``resilience.guarded_update``).
     """
-    if engine is not None and guard is not None:
-        raise NotImplementedError("the guarded step on a mesh of ranks is not in this "
-                                  "slice of the port")
     bus = get_bus()
     sync = None if engine is None else engine.comm.sync
     with span(bus if engine is not None else None, "train.fwd_bwd", sync=sync):
@@ -149,7 +150,7 @@ def train_step(
             gstate = resilience.init_guard_state(loss.device)
         new_params, new_opt_state, new_guard, healthy = resilience.guarded_update(
             optimizer, guard, grads, state.opt_state, state.params, gstate, loss,
-            grad_sq_norm, phase)
+            grad_sq_norm, phase, engine=engine)
         metrics["healthy"] = healthy.to(torch.int32)
         metrics["skipped"] = new_guard.skipped
         metrics["ema_loss"] = resilience.debiased_ema(guard, new_guard)
@@ -197,12 +198,14 @@ def reduce_grads(engine, loss, metrics: dict, grads, ctx=None) -> tuple:
     """Average the gradients (in place), the loss and the metrics over the
     data axes: the ``grad_reduce`` collectives. Returns (loss, metrics).
 
-    With a sequence-sharded tensor-parallel ``ctx``, the gradients of the
-    leaves the model axis does not split are first summed over it (phase
-    ``'tp'``): each rank's covers only its sequence shard's tokens."""
-    if ctx is not None and ctx.tensor_parallel and ctx.seq_shard:
+    With a tensor-parallel ``ctx``, the gradients that are partial over
+    the model axis (``tensor_parallel.grad_is_partial``: with a
+    sequence-sharded residual every leaf the axis does not split, each
+    rank's covering its sequence shard's tokens; the MoE router in either
+    layout) are first summed over it (phase ``'tp'``)."""
+    if ctx is not None and ctx.tensor_parallel:
         for key, g in tree_lib.flatten_with_path(grads):
-            if not engine.model_split(key, g.dim()):
+            if grad_is_partial(key, engine.model_split(key, g.dim()), ctx):
                 engine.comm.all_reduce(g, ctx.model_axes, phase="tp")
     axes = tuple(a for a in data_axes_for(engine.axis_sizes) if engine.axis_sizes[a] > 1)
     if not axes:

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from repro.configs import get_config as j_get_config
 from repro.core import BlockSpec2D as JBlockSpec2D
@@ -61,7 +62,8 @@ def _params():
 
 
 def _env():
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    # The port's processes on one intra-op thread, as this one (torch_cpu).
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     for name in ("REPRO_KILL_IN_SAVE", "REPRO_KILL_MID_SAVE"):
         env.pop(name, None)
     return env

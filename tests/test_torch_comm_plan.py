@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 from jax.sharding import Mesh, PartitionSpec as P
 
 from repro.configs import get_config as j_get_config

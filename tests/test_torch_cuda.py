@@ -879,3 +879,81 @@ def test_gloo_tensor_parallel_step_on_the_card_matches_the_cpu(card):
         [(r["coords"], r["grads"]) for r in results.values()], specs, {"model": 2})))
     for k, ref in tree_lib.flatten_with_path(interop.params_to_numpy(grads)):
         assert float(np.abs(joined[k] - ref).max()) <= 1e-5 * float(np.abs(ref).max()), k
+
+
+MOE_TP_ARGV = ["--arch", "olmoe-1b-7b", "--reduced", "--steps", "3", "--batch", "2", "--seq",
+               "32", "--period", "2", "--compute-dtype", "float32", "--schedule", "const"]
+
+
+def _moe_tp_weights():
+    """The reduced olmoe-1b-7b's weights from seed 0, drawn on the CPU (the
+    card's generator draws other numbers from the same seed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    return init_params(get_config("olmoe-1b-7b").reduced(), seed=0, device="cpu")
+
+
+def _gloo_moe_tp_rank(rank, port, queue):
+    """One rank of a 2-rank gloo world on the one card: the launcher trains
+    the reduced olmoe-1b-7b tensor-parallel on ``model=2`` (each rank its
+    half of every expert's d_ff), on CUDA tensors."""
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from repro_torch import tree as tree_lib
+        from repro_torch.launch import train
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        os.environ["LOCAL_RANK"] = str(rank)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=2)
+        params = tree_lib.tree_map(lambda p: p.to("cuda"), _moe_tp_weights())
+        run = train.run(MOE_TP_ARGV + ["--mesh", "model=2"], params=params)
+        queue.put((rank, {"tensor_parallel": run.engine.tensor_parallel,
+                          "wi": tuple(run.state.params["layers"]["moe"]["wi"].shape),
+                          "device": str(run.state.params["layers"]["moe"]["wi"].device),
+                          "records": [{k: r[k] for k in ("loss", "load_balance", "z_loss")}
+                                      for r in run.records]}))
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+
+
+def test_gloo_moe_tensor_parallel_training_on_the_card_tracks_the_cpu(card):
+    """Two ranks share the card (gloo) and train the reduced olmoe-1b-7b
+    tensor-parallel through the launcher, the kernels on the expert shards:
+    the loss and both aux metrics of every step within 1e-3 (relative) of
+    one CPU process's run from the same weights (seed 0) on the same block
+    grid."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = mp.start_processes(_gloo_moe_tp_rank, args=(port, queue), nprocs=2,
+                               start_method="spawn", join=False)
+    results = dict(queue.get(timeout=600) for _ in range(2))
+    procs.join()
+    for rank, res in results.items():
+        assert not isinstance(res, str), f"rank {rank} failed:\n{res}"
+    cfg = get_config("olmoe-1b-7b").reduced()
+    cpu = train.run(MOE_TP_ARGV + ["--device", "cpu", "--mesh-model", "2"],
+                    params=_moe_tp_weights())
+    for res in results.values():
+        assert res["tensor_parallel"] and res["device"].startswith("cuda")
+        assert res["wi"] == (cfg.num_layers, cfg.num_experts, cfg.d_model, cfg.d_ff // 2)
+        assert res["records"] == results[0]["records"]
+        for got, ref in zip(res["records"], cpu.records):
+            for k, v in got.items():
+                assert abs(v - ref[k]) <= 1e-3 * abs(ref[k]), (k, v, ref[k])

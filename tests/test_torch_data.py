@@ -9,6 +9,7 @@ import json
 import os
 
 import numpy as np
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from repro.configs import get_config as j_get_config
 from repro.data.pipeline import MemmapDataset as JMemmapDataset

@@ -12,7 +12,8 @@ reference's own bound in ``tests/test_decode_consistency.py``). The two
 frameworks sum in other orders (the reference's prefill runs an online
 softmax over KV blocks, the port a full softmax), a few fp32 ulps a
 reduction. Greedy tokens are compared exactly: the reduced models' top-2
-logit gaps are far above that rounding.
+logit gaps are far above that rounding. The reference's calls run jitted:
+its eager op-by-op dispatch takes ~20x longer on the CPU.
 """
 
 import dataclasses
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from conftest import tiny_cfg
 from repro.models.model import decode_step as j_decode_step
@@ -74,9 +76,10 @@ def _close(out, expect, tol=TOL):
 def test_forward_and_prefill_cache_match_reference(case):
     jcfg, jparams, cfg, params = _models(case)
     tokens = _tokens(cfg)
-    j_logits, _ = j_forward(jparams, jnp.asarray(tokens), jcfg)
+    j_logits, _ = jax.jit(lambda p, t: j_forward(p, t, jcfg))(jparams, jnp.asarray(tokens))
     _close(forward(params, _t(tokens), cfg), j_logits)
-    jl, _, jc = j_prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg)
+    jl, _, jc = jax.jit(lambda p, b: j_prefill(p, b, jcfg))(jparams,
+                                                           {"tokens": jnp.asarray(tokens)})
     with torch.no_grad():
         logits, cache = prefill(params, {"tokens": _t(tokens)}, cfg)
     _close(logits, jl)
@@ -101,10 +104,10 @@ def test_incremental_decode_matches_reference_and_forward(case):
     full = forward(params, _t(tokens), cfg)
     jcache = j_init_cache(jcfg, B, S, dtype=jnp.float32)
     cache = init_cache(cfg, B, S, dtype=torch.float32, device="cpu")
+    j_step = jax.jit(lambda p, tok, c, pos: j_decode_step(p, tok, c, pos, jcfg))
     with torch.no_grad():
         for t in range(S):
-            jl, jcache = j_decode_step(jparams, jnp.asarray(tokens[:, t:t + 1]), jcache,
-                                       jnp.int32(t), jcfg)
+            jl, jcache = j_step(jparams, jnp.asarray(tokens[:, t:t + 1]), jcache, jnp.int32(t))
             logits, cache = decode_step(params, _t(tokens[:, t:t + 1]), cache, t, cfg)
             assert logits.shape == (B, 1, cfg.padded_vocab)
             _close(logits, jl)

@@ -1,10 +1,12 @@
 """The distributed MuonBP engine on multi-process ``gloo`` worlds on the CPU.
 
 Each world runs once per module (a fixture spawns its ranks, which run
-every case and hand back results): ``model=2`` (2 ranks), ``data=2,model=2``
-with ZeRO-1, ``data=2,model=2`` with the ZeRO-1 flatten fallback at 3
-layers (NorMuon, padded row statistics), and ``pod=2,model=2`` with ZeRO-1
-over ``pod`` (Turbo-Muon). Everything runs the reduced muonbp-960m from the
+every case and hand back results): ``model=2`` (2 ranks) and
+``data=2,model=2`` with ZeRO-1 here; ``data=2,model=2`` with the ZeRO-1
+flatten fallback at 3 layers (NorMuon, padded row statistics) and
+``pod=2,model=2`` with ZeRO-1 over ``pod`` (Turbo-Muon) in
+``tests/test_torch_distributed_fallback.py``, whose one world of four ranks
+runs both meshes with these checks. Everything runs the reduced muonbp-960m from the
 reference's weights, fp32, on the kernels' plain versions.
 
 Held:
@@ -44,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from repro.configs import get_config as j_get_config
 from repro.core import BlockSpec2D as JBlockSpec2D
@@ -132,17 +135,26 @@ def _launch_argv(world: World) -> list:
 # The ranks
 # ---------------------------------------------------------------------------
 
-def _rank_main(rank, world_size, port, name, params_np, grads_np, tmp, queue):
+def _rank_main(rank, world_size, port, names, cases, queue):
+    """One rank of a world that runs the cases of the worlds ``names`` (one
+    spec each, all of ``world_size`` ranks), one after the other."""
+    import torch.distributed as dist
+
     try:
-        queue.put((rank, _rank_cases(rank, world_size, port, WORLDS[name], params_np,
-                                     grads_np, tmp)))
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=world_size)
+        try:
+            out = {name: _rank_cases(rank, WORLDS[name], *cases[name]) for name in names}
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, out))
     except BaseException:
         queue.put((rank, {"error": traceback.format_exc()}))
 
 
-def _rank_cases(rank, world_size, port, world, params_np, grads_np, tmp) -> dict:
-    import torch.distributed as dist
-
+def _rank_cases(rank, world, params_np, grads_np, tmp) -> dict:
     from repro_torch.core import adamw, combine
     from repro_torch.distributed import make_engine
     from repro_torch.distributed import zero1 as zero1_lib
@@ -150,142 +162,150 @@ def _rank_cases(rank, world_size, port, world, params_np, grads_np, tmp) -> dict
     from repro_torch.launch.mesh import make_local_mesh, make_mesh_from_spec
     from repro_torch.obs import MemorySink
 
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=world_size)
     out: dict = {}
+    mesh = make_mesh_from_spec(world.spec)
+    sizes = sh.mesh_axis_sizes(mesh)
+    if "pod" not in sizes:   # the same mesh over the whole world
+        local = make_local_mesh(model=sizes["model"])
+        out["local_mesh"] = sh.mesh_axis_sizes(local) == {"data": 1, **sizes}
+    cfg = _cfg(world)
+    params = interop.params_from_numpy(params_np, device="cpu")
+    grads = interop.params_from_numpy(grads_np, device="cpu")
+    labels = label_tree(params)
+    pspecs = sh.param_specs(params, cfg, sizes)
+    bspecs = _block_specs(params, cfg, sizes)
+    kw = dict(zero1=world.zero1, zero1_flatten=world.flatten)
+    engine = make_engine(params, pspecs, mesh, **kw)
+    trace = engine.comm.trace
+
+    # The update, both schedules, every variant of the world.
+    for variant in world.variants:
+        for schedule in ("pipelined", "barrier"):
+            opt = combine({"muon": muon(0.02, 0.02, period=5, weight_decay=0.1,
+                                        block_specs=bspecs, comm=engine,
+                                        full_schedule=schedule, variant=variant),
+                           "adamw": adamw(0.008, weight_decay=0.1, comm=engine)}, labels)
+            state = opt.init(params)
+            shapes = {k: tuple(v.shape) for k, v in state.inner["muon"].momentum.items()}
+            for step, phase in enumerate(PHASES):
+                trace.step = (variant, schedule, step)
+                upd, state = opt.update(grads, state, params, phase)
+                full = {k: engine.replicate(k, engine.to_param_layout(k, u))
+                        for k, u in tree_lib.flatten_with_path(upd)}
+                if rank == 0:
+                    out[("update", variant, schedule, step)] = {
+                        k: v.numpy().copy() for k, v in full.items()}
+            pad_zero = True
+            for k, m in state.inner["muon"].momentum.items():
+                fl = engine.flatten_for(k)
+                if fl is not None:   # this rank's rows past the true lead
+                    start = engine.comm.index(fl.axes) * m.shape[0]
+                    pad_zero &= not bool(m[max(0, fl.lead - start):].any())
+            out[("momentum", variant)] = (shapes, pad_zero)
+    out["trace"] = list(trace.events)
+
+    # A gather and a cut over both axes at once, each dim in turn.
+    names = tuple(sizes)
+    base = torch.arange(4 * 8 * 12, dtype=torch.float32).reshape(4, 8, 12)
+    for dim in range(3):
+        spec = [None, None, None]
+        spec[dim] = names
+        piece = engine.cut(base, tuple(spec))
+        whole = engine.join(piece, tuple(spec), phase="check")
+        out[("roundtrip", dim)] = bool(torch.equal(whole, base))
+        joint = engine.comm.all_gather(piece, names, dim=dim, phase="check")
+        out[("joint", dim)] = bool(torch.equal(joint, base))
+
+    # Dion refuses the mesh.
     try:
-        mesh = make_mesh_from_spec(world.spec)
-        sizes = sh.mesh_axis_sizes(mesh)
-        if "pod" not in sizes:   # the same mesh over the whole world
-            local = make_local_mesh(model=sizes["model"])
-            out["local_mesh"] = sh.mesh_axis_sizes(local) == {"data": 1, **sizes}
-        cfg = _cfg(world)
-        params = interop.params_from_numpy(params_np, device="cpu")
-        grads = interop.params_from_numpy(grads_np, device="cpu")
-        labels = label_tree(params)
-        pspecs = sh.param_specs(params, cfg, sizes)
-        bspecs = _block_specs(params, cfg, sizes)
-        kw = dict(zero1=world.zero1, zero1_flatten=world.flatten)
-        engine = make_engine(params, pspecs, mesh, **kw)
-        trace = engine.comm.trace
+        train.build_optimizer("dion", params, lr=0.02, adam_lr=0.008, period=5,
+                              comm=engine)
+        out["dion"] = None
+    except NotImplementedError as e:
+        out["dion"] = str(e)
 
-        # The update, both schedules, every variant of the world.
-        for variant in world.variants:
-            for schedule in ("pipelined", "barrier"):
-                opt = combine({"muon": muon(0.02, 0.02, period=5, weight_decay=0.1,
-                                            block_specs=bspecs, comm=engine,
-                                            full_schedule=schedule, variant=variant),
-                               "adamw": adamw(0.008, weight_decay=0.1, comm=engine)}, labels)
-                state = opt.init(params)
-                shapes = {k: tuple(v.shape) for k, v in state.inner["muon"].momentum.items()}
-                for step, phase in enumerate(PHASES):
-                    trace.step = (variant, schedule, step)
-                    upd, state = opt.update(grads, state, params, phase)
-                    full = {k: engine.replicate(k, engine.to_param_layout(k, u))
-                            for k, u in tree_lib.flatten_with_path(upd)}
-                    if rank == 0:
-                        out[("update", variant, schedule, step)] = {
-                            k: v.numpy().copy() for k, v in full.items()}
-                pad_zero = True
-                for k, m in state.inner["muon"].momentum.items():
-                    fl = engine.flatten_for(k)
-                    if fl is not None:   # this rank's rows past the true lead
-                        start = engine.comm.index(fl.axes) * m.shape[0]
-                        pad_zero &= not bool(m[max(0, fl.lead - start):].any())
-                out[("momentum", variant)] = (shapes, pad_zero)
-        out["trace"] = list(trace.events)
+    # The launcher on the mesh, a snapshot every 2 steps.
+    ckpt = os.path.join(tmp, "mesh_ckpt")
+    argv = _launch_argv(world) + ["--checkpoint-every", "2", "--checkpoint-dir", ckpt]
+    sink = MemorySink()
+    run = train.run(argv, cfg=cfg, sinks=[sink])
+    out["losses"] = [r["loss"] for r in run.records]
+    out["launch_trace"] = list(run.engine.comm.trace.events)
+    full_state = zero1_lib.gather_state(run.state.opt_state, run.state.params, run.engine,
+                                        phase="check")
+    # The dense model runs tensor-parallel: each rank holds its shards.
+    full_params = zero1_lib.gather_params(run.state.params, run.engine, phase="check")
+    if rank == 0:
+        out["final_state"] = checkpoint._flatten(full_state)
+        out["final_params"] = checkpoint._flatten(full_params)
+    out["spans"] = sorted({r["name"] for r in sink.records if r.get("event") == "span"})
 
-        # A gather and a cut over both axes at once, each dim in turn.
-        names = tuple(sizes)
-        base = torch.arange(4 * 8 * 12, dtype=torch.float32).reshape(4, 8, 12)
-        for dim in range(3):
-            spec = [None, None, None]
-            spec[dim] = names
-            piece = engine.cut(base, tuple(spec))
-            whole = engine.join(piece, tuple(spec), phase="check")
-            out[("roundtrip", dim)] = bool(torch.equal(whole, base))
-            joint = engine.comm.all_gather(piece, names, dim=dim, phase="check")
-            out[("joint", dim)] = bool(torch.equal(joint, base))
-
-        # Dion refuses the mesh.
-        try:
-            train.build_optimizer("dion", params, lr=0.02, adam_lr=0.008, period=5,
-                                  comm=engine)
-            out["dion"] = None
-        except NotImplementedError as e:
-            out["dion"] = str(e)
-
-        # The launcher on the mesh, a snapshot every 2 steps.
-        ckpt = os.path.join(tmp, "mesh_ckpt")
-        argv = _launch_argv(world) + ["--checkpoint-every", "2", "--checkpoint-dir", ckpt]
-        sink = MemorySink()
-        run = train.run(argv, cfg=cfg, sinks=[sink])
-        out["losses"] = [r["loss"] for r in run.records]
-        out["launch_trace"] = list(run.engine.comm.trace.events)
-        full_state = zero1_lib.gather_state(run.state.opt_state, run.state.params, run.engine,
-                                            phase="check")
-        # The dense model runs tensor-parallel: each rank holds its shards.
-        full_params = zero1_lib.gather_params(run.state.params, run.engine, phase="check")
-        if rank == 0:
-            out["final_state"] = checkpoint._flatten(full_state)
-            out["final_params"] = checkpoint._flatten(full_params)
-        out["spans"] = sorted({r["name"] for r in sink.records if r.get("event") == "span"})
-
-        # A snapshot written on one process, cut into this rank's shards
-        # (the run's own state is the template).
-        snap = checkpoint.list_snapshots(os.path.join(tmp, "single_ckpt"))[-1][1]
-        opt_t = run.state.opt_state
-        shardings = zero1_lib.opt_shardings(opt_t, run.state.params, run.engine)
-        _, r_opt, _ = checkpoint.restore(snap, run.state.params, opt_t,
-                                         opt_shardings=shardings, engine=run.engine)
-        flat_disk = dict(np.load(os.path.join(snap, "opt_state.npz")))
-        back = checkpoint._flatten(zero1_lib.gather_state(r_opt, run.state.params, run.engine,
-                                                         phase="check"))
-        out["restore_into_mesh"] = all(
-            np.array_equal(arr, checkpoint._fit_lead(flat_disk[k], arr.shape, k))
-            for k, arr in back.items())
-        # The same snapshot restored whole, then cut by zero1.shard_state:
-        # the shards restore cut.
-        full_t = zero1_lib.gather_state(opt_t, run.state.params, run.engine, phase="check")
-        _, full_r, _ = checkpoint.restore(snap, full_params, full_t)
-        cut = checkpoint._flatten(zero1_lib.shard_state(full_r, run.state.params, run.engine))
-        restored = checkpoint._flatten(r_opt)
-        out["shard_state_is_restore"] = cut.keys() == restored.keys() and all(
-            np.array_equal(cut[k], restored[k]) for k in cut)
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
+    # A snapshot written on one process, cut into this rank's shards
+    # (the run's own state is the template).
+    snap = checkpoint.list_snapshots(os.path.join(tmp, "single_ckpt"))[-1][1]
+    opt_t = run.state.opt_state
+    shardings = zero1_lib.opt_shardings(opt_t, run.state.params, run.engine)
+    _, r_opt, _ = checkpoint.restore(snap, run.state.params, opt_t,
+                                     opt_shardings=shardings, engine=run.engine)
+    flat_disk = dict(np.load(os.path.join(snap, "opt_state.npz")))
+    back = checkpoint._flatten(zero1_lib.gather_state(r_opt, run.state.params, run.engine,
+                                                     phase="check"))
+    out["restore_into_mesh"] = all(
+        np.array_equal(arr, checkpoint._fit_lead(flat_disk[k], arr.shape, k))
+        for k, arr in back.items())
+    # The same snapshot restored whole, then cut by zero1.shard_state:
+    # the shards restore cut.
+    full_t = zero1_lib.gather_state(opt_t, run.state.params, run.engine, phase="check")
+    _, full_r, _ = checkpoint.restore(snap, full_params, full_t)
+    cut = checkpoint._flatten(zero1_lib.shard_state(full_r, run.state.params, run.engine))
+    restored = checkpoint._flatten(r_opt)
+    out["shard_state_is_restore"] = cut.keys() == restored.keys() and all(
+        np.array_equal(cut[k], restored[k]) for k in cut)
     return out
 
 
-@pytest.fixture(scope="module", params=sorted(WORLDS))
-def world_run(request, tmp_path_factory):
-    name = request.param
-    world = WORLDS[name]
-    params_np, grads_np = _case(world)
-    tmp = str(tmp_path_factory.mktemp(name))
+def run_worlds(names, tmp_path_factory) -> dict:
+    """Spawn one gloo world of the worlds ``names`` (their meshes of one
+    size) whose ranks run every name's cases in turn; each name's results
+    as ``world_run`` gives them. Before it, each name's single-process
+    launcher run, which the launcher on its mesh is held to, with the
+    snapshot its ranks restore."""
     from repro_torch.launch import train
 
-    # The single-process run the launcher on the mesh is held to, with the
-    # snapshot the ranks restore.
-    single = train.run(LAUNCH + ["--mesh-model", str(_sizes(world).get("model", 1)),
-                                 "--checkpoint-every", "2", "--checkpoint-dir",
-                                 os.path.join(tmp, "single_ckpt")], cfg=_cfg(world))
-    n = int(np.prod(list(_sizes(world).values())))
+    cases, singles = {}, {}
+    for name in names:
+        world = WORLDS[name]
+        params_np, grads_np = _case(world)
+        tmp = str(tmp_path_factory.mktemp(name))
+        singles[name] = train.run(LAUNCH + ["--mesh-model", str(_sizes(world).get("model", 1)),
+                                            "--checkpoint-every", "2", "--checkpoint-dir",
+                                            os.path.join(tmp, "single_ckpt")], cfg=_cfg(world))
+        cases[name] = (params_np, grads_np, tmp)
+    sizes = {int(np.prod(list(_sizes(WORLDS[name]).values()))) for name in names}
+    assert len(sizes) == 1, f"{names}: one world runs meshes of one size"
+    n = sizes.pop()
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = mp.start_processes(_rank_main, args=(n, _free_port(), name, params_np, grads_np,
-                                                 tmp, queue),
+    procs = mp.start_processes(_rank_main, args=(n, _free_port(), tuple(names), cases, queue),
                                nprocs=n, start_method="spawn", join=False)
-    results = {}
-    for _ in range(n):
-        rank, res = queue.get(timeout=600)
-        results[rank] = res
+    results = dict(queue.get(timeout=600) for _ in range(n))
     procs.join()
     for rank, res in results.items():
         assert "error" not in res, f"rank {rank} failed:\n{res['error']}"
-    return name, world, params_np, grads_np, results, tmp, [r["loss"] for r in single.records]
+    return {name: (name, WORLDS[name], *cases[name][:2],
+                   {rank: res[name] for rank, res in results.items()}, cases[name][2],
+                   [r["loss"] for r in singles[name].records])
+            for name in names}
+
+
+# The worlds of this module; tests/test_torch_distributed_fallback.py runs
+# the others, with these checks.
+NAMES = ("data2_model2_zero1", "model2")
+
+
+@pytest.fixture(scope="module", params=NAMES)
+def world_run(request, tmp_path_factory):
+    return run_worlds((request.param,), tmp_path_factory)[request.param]
 
 
 # ---------------------------------------------------------------------------

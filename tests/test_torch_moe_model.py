@@ -1,6 +1,9 @@
 """The port's MoE models against the JAX package: reduced ``olmoe-1b-7b``
 (64 experts top-8, softmax-then-top-k; reduced to 4 experts top-2) and
 ``mixtral-8x7b`` (8 experts top-2, top-k-then-softmax, sliding window).
+Parameters, forward, loss, grids and bucket plans here; decode in
+``tests/test_torch_moe_decode.py`` and training in
+``tests/test_torch_moe_train.py``, on this module's setup.
 
 Both packages start from the reference's parameters, carried over by
 ``repro_torch.interop``, and see the same numpy tokens. Tolerances, each
@@ -20,10 +23,12 @@ with its reason:
   AdamW's to 1e-4 (its first step is -lr g / (|g| + eps), so a rounding
   difference in a gradient entry near 0 moves a weight by up to lr);
 * block grids and bucket plans: shape arithmetic, compared exactly.
+
+The reference's calls run jitted (``_jit``): its eager op-by-op dispatch
+takes ~20x longer on the CPU.
 """
 
 import dataclasses
-import json
 import types
 
 import jax
@@ -31,50 +36,47 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from conftest import tiny_cfg
 from repro.configs import get_config as j_get_config
-from repro.core import BlockSpec2D as JBlockSpec2D
-from repro.core import adamw as j_adamw
 from repro.core import blocking as j_blocking
-from repro.core import combine as j_combine
-from repro.core import label_tree as j_label_tree
-from repro.core import muon as j_muon
 from repro.core import program as j_program
 from repro.models.model import decode_step as j_decode_step
-from repro.models.model import init_cache as j_init_cache
 from repro.models.model import init_params as j_init_params
 from repro.models.model import loss_fn as j_loss_fn
-from repro.models.model import prefill as j_prefill
 from repro.models.transformer import forward as j_forward
-from repro.serving.serve_step import generate as j_generate
 from repro.sharding import specs as j_specs
-from repro.training.train_step import init_train_state as j_init_train_state
-from repro.training.train_step import train_step as j_train_step
 from repro_torch import interop
 from repro_torch import tree as tree_lib
 from repro_torch.configs import get_config
-from repro_torch.core import adamw, combine, label_tree, muon, program
-from repro_torch.launch import train
+from repro_torch.core import label_tree, muon, program
 from repro_torch.models.model import (
     LB_COEF,
     Z_COEF,
     decode_step,
     forward,
-    init_cache,
     init_params,
     loss_fn,
     prefill,
 )
-from repro_torch.obs.bus import read_jsonl
-from repro_torch.serving.serve_step import cache_from_prefill, generate
 from repro_torch.sharding import specs
-from repro_torch.training.train_step import init_train_state, train_step
 
 TOL = 1e-4
 ARCHS = ["olmoe-1b-7b", "mixtral-8x7b"]
 B, S = 2, 16
 LR, ADAM_LR, PERIOD, MODEL = 0.02, 0.008, 5, 4
+
+
+def _jit(fn, *args, **kw):
+    """``fn(*args, **kw)`` of the reference, jitted over the pytrees
+    ``args`` (the configs, flags and optimizers bound in ``kw``)."""
+    return jax.jit(lambda *a: fn(*a, **kw))(*args)
+
+
+def _j_decode(jcfg, **kw):
+    """The reference's decode_step, jitted, for ``jcfg`` and ``kw``."""
+    return jax.jit(lambda p, tok, cache, pos: j_decode_step(p, tok, cache, pos, jcfg, **kw))
 
 
 def _models(name, **over):
@@ -132,7 +134,7 @@ def test_init_params_paths_shapes_and_law_match_reference(name):
 def test_forward_logits_and_aux_match_reference(name):
     jcfg, jparams, cfg, params = _models(name)
     tokens = _tokens(cfg)
-    j_logits, j_aux = j_forward(jparams, jnp.asarray(tokens), jcfg)
+    j_logits, j_aux = jax.jit(lambda p, t: j_forward(p, t, jcfg))(jparams, jnp.asarray(tokens))
     logits, aux = forward(params, _t(tokens), cfg, return_aux=True)
     _close(logits, j_logits)
     for k in ("load_balance", "z_loss"):
@@ -152,7 +154,8 @@ def test_loss_fn_metrics_match_reference(name, dtype, tol):
     jcfg, jparams, cfg, params = _models(name)
     batch = _batch(_tokens(cfg, seed=1))
     jp = jax.tree.map(lambda x: x.astype(getattr(jnp, dtype)), jparams)
-    j_loss, j_metrics = j_loss_fn(jp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
+    j_loss, j_metrics = jax.jit(lambda p, b: j_loss_fn(p, b, jcfg))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
     p = tree_lib.tree_map(lambda x: x.to(getattr(torch, dtype)), params)
     loss, metrics = loss_fn(p, {k: _t(v) for k, v in batch.items()}, cfg)
     assert set(metrics) == set(j_metrics) == {"ce", "load_balance", "z_loss", "loss"}
@@ -168,91 +171,6 @@ def test_dense_loss_has_no_aux_metrics():
     params = init_params(cfg, seed=0, device="cpu")
     _, metrics = loss_fn(params, {k: _t(v) for k, v in _batch(_tokens(cfg)).items()}, cfg)
     assert set(metrics) == {"ce", "loss"} and torch.equal(metrics["ce"], metrics["loss"])
-
-
-# ---------------------------------------------------------------------------
-# Prefill, decode, generate, the ring cache
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("name", ARCHS)
-def test_prefill_then_decode_matches_forward_dropless(name):
-    """prefill(prompt) -> decode continuation equals teacher forcing, and the
-    prefill's logits and cache equal the reference's."""
-    jcfg, jparams, cfg, params = _models(name, **_dropless(name))
-    tokens = _tokens(cfg, seed=2)
-    half = S // 2
-    full = forward(params, _t(tokens), cfg).detach().numpy()
-    jl, _, jc = j_prefill(jparams, {"tokens": jnp.asarray(tokens[:, :half])}, jcfg)
-    with torch.no_grad():
-        logits, pcache = prefill(params, {"tokens": _t(tokens[:, :half])}, cfg)
-        _close(logits, jl)
-        _close(pcache["kv"][0], jc["kv"][0])
-        cache = cache_from_prefill(pcache, cfg, S, dtype=torch.float32)
-        for t in range(half, S):
-            lg, cache = decode_step(params, _t(tokens[:, t:t + 1]), cache, t, cfg)
-            _close(lg, full[:, t:t + 1])
-
-
-@pytest.mark.parametrize("name", ARCHS)
-def test_incremental_decode_matches_reference_with_drops(name):
-    """Token-by-token decode of a batch of two at the default capacity, where
-    the batch-wide routing of each step can drop: every step's logits and
-    the final cache against the reference's decode_step."""
-    jcfg, jparams, cfg, params = _models(name)
-    tokens = _tokens(cfg, seed=3)
-    jcache = j_init_cache(jcfg, B, S, dtype=jnp.float32)
-    cache = init_cache(cfg, B, S, dtype=torch.float32, device="cpu")
-    with torch.no_grad():
-        for t in range(S):
-            jl, jcache = j_decode_step(jparams, jnp.asarray(tokens[:, t:t + 1]), jcache,
-                                       jnp.int32(t), jcfg)
-            lg, cache = decode_step(params, _t(tokens[:, t:t + 1]), cache, t, cfg)
-            _close(lg, jl)
-    _close(cache["kv"][0], jcache["kv"][0])
-
-
-@pytest.mark.parametrize("name", ARCHS)
-@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
-def test_generate_matches_reference_with_batch_wide_drops(name, capacity_factor):
-    """generate at B = 2 routes each decode step's batch as one group, as the
-    reference does: at capacity factor 0.5 a decode step's capacity is one
-    token an expert, so two rows sharing an expert drop one."""
-    jcfg, jparams, cfg, params = _models(name, capacity_factor=capacity_factor)
-    tokens = _tokens(cfg, seed=4, shape=(B, 8))
-    expect = np.asarray(j_generate(jparams, jnp.asarray(tokens), jcfg, max_new_tokens=8))
-    got = generate(params, _t(tokens), cfg, max_new_tokens=8)
-    np.testing.assert_array_equal(got.numpy(), expect)
-
-
-def test_ring_cache_matches_reference_and_forward():
-    """mixtral's ring cache (window 6, 20 tokens, so it wraps three times):
-    each step's logits against the reference's ring decode and against the
-    forward (``tests/test_perf_features.py:24``), dropless."""
-    jcfg, jparams, cfg, params = _models("mixtral-8x7b", capacity_factor=100.0, window_size=6)
-    tokens = _tokens(cfg, seed=5, shape=(1, 20))
-    full = forward(params, _t(tokens), cfg).detach().numpy()
-    jcache = j_init_cache(jcfg, 1, cfg.window_size, dtype=jnp.float32)
-    cache = init_cache(cfg, 1, cfg.window_size, dtype=torch.float32, device="cpu")
-    with torch.no_grad():
-        for t in range(20):
-            jl, jcache = j_decode_step(jparams, jnp.asarray(tokens[:, t:t + 1]), jcache,
-                                       jnp.int32(t), jcfg, ring_cache=True)
-            lg, cache = decode_step(params, _t(tokens[:, t:t + 1]), cache, t, cfg,
-                                    ring_cache=True)
-            _close(lg, jl)
-            _close(lg, full[:, t:t + 1])
-    assert cache["kv"][0].shape[2] == cfg.window_size
-    _close(cache["kv"][0], jcache["kv"][0])
-    # Per-row positions on the ring: row 0 runs on to position 19 over a
-    # full ring, row 1 stops at position 3 (a fill of 4), rewriting it.
-    two = init_cache(cfg, 2, cfg.window_size, dtype=torch.float32, device="cpu")
-    with torch.no_grad():
-        for t in range(20):
-            rows = [t, min(t, 3)]
-            lg, _ = decode_step(params, _t(tokens[0, rows])[:, None], two, torch.tensor(rows),
-                                cfg, ring_cache=True)
-    _close(lg[0], full[0, 19:20])
-    _close(lg[1], full[0, 3:4])
 
 
 # ---------------------------------------------------------------------------
@@ -369,127 +287,3 @@ def test_full_width_olmoe_program_shapes_and_kernels():
         (4, 64, 1024, 2048): "tiled",        # experts wo
         (2, 4, 2048): "fused_chain",         # norm gains
     }
-
-
-# ---------------------------------------------------------------------------
-# Training: one MuonBP step a phase, accumulation, interop, the launcher
-# ---------------------------------------------------------------------------
-
-def _optimizers(jparams, params, block_specs):
-    j_bspecs = tree_lib.tree_map(lambda b: JBlockSpec2D(b.r, b.c), block_specs)
-    j_opt = j_combine({"muon": j_muon(LR, period=PERIOD, block_specs=j_bspecs),
-                       "adamw": j_adamw(ADAM_LR)}, j_label_tree(jparams))
-    opt = combine({"muon": muon(LR, period=PERIOD, block_specs=block_specs),
-                   "adamw": adamw(ADAM_LR)}, label_tree(params))
-    return j_opt, opt
-
-
-def _assert_params_close(port_params, ref_params, params):
-    new = dict(tree_lib.flatten_with_path(interop.params_to_numpy(port_params)))
-    labels = dict(tree_lib.flatten_with_path(label_tree(params)))
-    for path, ref in tree_lib.flatten_with_path(jax.tree.map(np.asarray, ref_params)):
-        atol = 1e-5 if labels[path] == "muon" else 1e-4
-        np.testing.assert_allclose(new[path], ref, rtol=0, atol=atol, err_msg=str(path))
-
-
-def _step_inputs(name):
-    jcfg, jparams, cfg, params = _models(name)
-    block_specs = train.matrix_block_specs(params, cfg, MODEL)
-    batch = _batch(_tokens(cfg, seed=6, shape=(4, 16)))
-    return jcfg, jparams, cfg, params, block_specs, batch
-
-
-@pytest.mark.parametrize("name", ARCHS)
-@pytest.mark.parametrize("phase", ["full", "block"])
-def test_one_muonbp_step_matches_reference(name, phase):
-    """One fp32 step in each phase on the launcher's 4-way grid: metrics and
-    every updated weight against the reference's train_step (ShardCtx())."""
-    jcfg, jparams, cfg, params, block_specs, batch = _step_inputs(name)
-    grid = block_specs["layers"]["moe"]["wi"]
-    assert (grid.r, grid.c) == (1, MODEL)
-    j_opt, opt = _optimizers(jparams, params, block_specs)
-    j_state, j_metrics = j_train_step(
-        j_init_train_state(jparams, j_opt), {k: jnp.asarray(v) for k, v in batch.items()},
-        cfg=jcfg, optimizer=j_opt, phase=phase, compute_dtype=jnp.float32)
-    state, metrics = train_step(
-        init_train_state(params, opt), {k: _t(v) for k, v in batch.items()}, cfg=cfg,
-        optimizer=opt, phase=phase, compute_dtype=torch.float32)
-    for k in ("ce", "load_balance", "z_loss", "loss"):
-        assert abs(float(metrics[k]) - float(j_metrics[k])) <= TOL, k
-    assert float(metrics["grad_norm"]) == pytest.approx(float(j_metrics["grad_norm"]), rel=1e-4)
-    _assert_params_close(state.params, j_state.params, params)
-
-
-@pytest.mark.parametrize("name", ARCHS)
-def test_accumulation_averages_every_metric_as_the_reference(name):
-    """accum_steps = 2: every metric is the mean over the microbatches. The
-    MoE loss is not its CE, so a metric tree of {ce: loss, loss: loss}
-    fails here."""
-    jcfg, jparams, cfg, params, block_specs, batch = _step_inputs(name)
-    j_opt, opt = _optimizers(jparams, params, block_specs)
-    j_state, j_metrics = j_train_step(
-        j_init_train_state(jparams, j_opt), {k: jnp.asarray(v) for k, v in batch.items()},
-        cfg=jcfg, optimizer=j_opt, phase="full", compute_dtype=jnp.float32, accum_steps=2)
-    state, metrics = train_step(
-        init_train_state(params, opt), {k: _t(v) for k, v in batch.items()}, cfg=cfg,
-        optimizer=opt, phase="full", compute_dtype=torch.float32, accum_steps=2)
-    assert set(metrics) == set(j_metrics)
-    for k in ("ce", "load_balance", "z_loss", "loss"):
-        assert abs(float(metrics[k]) - float(j_metrics[k])) <= TOL, k
-    assert float(metrics["ce"]) != float(metrics["loss"])
-    _assert_params_close(state.params, j_state.params, params)
-
-
-def test_interop_carries_moe_params_and_optimizer_state():
-    """Parameters round-trip exactly; the reference's optimizer state after a
-    full step, carried over, gives the port's next (block) step the
-    reference's next step."""
-    name = "olmoe-1b-7b"
-    jcfg, jparams, cfg, params, block_specs, batch = _step_inputs(name)
-    back = interop.params_to_numpy(params)
-    for path, ref in tree_lib.flatten_with_path(jax.tree.map(np.asarray, jparams)):
-        np.testing.assert_array_equal(dict(tree_lib.flatten_with_path(back))[path], ref)
-    j_opt, opt = _optimizers(jparams, params, block_specs)
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    j_state, _ = j_train_step(j_init_train_state(jparams, j_opt), jbatch, cfg=jcfg,
-                              optimizer=j_opt, phase="full", compute_dtype=jnp.float32)
-    inner = {label: jax.tree.map(np.asarray, sub._asdict())
-             for label, sub in j_state.opt_state.inner.items()}
-    carried = interop.combined_state_from_numpy(inner, device="cpu")
-    momentum = carried.inner["muon"].momentum
-    assert momentum[("layers", "moe", "wi")].shape == (cfg.num_layers, cfg.num_experts,
-                                                       cfg.d_model, cfg.d_ff)
-    j_state2, _ = j_train_step(j_state, jbatch, cfg=jcfg, optimizer=j_opt, phase="block",
-                               compute_dtype=jnp.float32)
-    state = init_train_state(interop.params_from_numpy(jax.tree.map(np.asarray, j_state.params),
-                                                       device="cpu"), opt)
-    state = state._replace(opt_state=carried, step=1)
-    state2, _ = train_step(state, {k: _t(v) for k, v in batch.items()}, cfg=cfg, optimizer=opt,
-                           phase="block", compute_dtype=torch.float32)
-    _assert_params_close(state2.params, j_state2.params, params)
-    again = interop.combined_state_to_numpy(carried)
-    np.testing.assert_array_equal(again["muon"]["momentum"]["layers"]["moe"]["router"],
-                                  inner["muon"]["momentum"]["layers"]["moe"]["router"])
-
-
-@pytest.mark.parametrize("name", ARCHS)
-def test_launcher_runs_moe_archs_and_records_aux(name, tmp_path, capsys):
-    log = tmp_path / "run.jsonl"
-    argv = ["--arch", name, "--reduced", "--device", "cpu", "--steps", "3", "--batch", "2",
-            "--seq", "16", "--period", "2", "--mesh-model", "4", "--log-every", "1",
-            "--log-file", str(log)]
-    run = train.run(argv)
-    assert [r["phase"] for r in run.records] == ["full", "block", "full"]
-    for r in run.records:
-        assert np.isfinite([r["loss"], r["load_balance"], r["z_loss"]]).all()
-        assert r["load_balance"] > 0 and r["z_loss"] > 0
-    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines() if l.startswith("{")]
-    steps = [l for l in lines if "loss" in l and "event" not in l]
-    assert [round(r["load_balance"], 6) for r in run.records] == [l["load_balance"] for l in steps]
-    end = [r for r in read_jsonl(str(log)) if r.get("event") == "run_end"]
-    assert end[0]["load_balance"] == run.records[-1]["load_balance"]
-    assert end[0]["z_loss"] == run.records[-1]["z_loss"]
-    # A cut in depth through cfg=, which the reference has no flag for.
-    shallow = dataclasses.replace(get_config(name).reduced(), num_layers=1)
-    one = train.run(argv[:-2] + ["--steps", "1"], cfg=shallow)
-    assert one.state.params["layers"]["moe"]["wi"].shape[0] == 1

@@ -18,6 +18,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from conftest import tiny_cfg
 from repro.models.model import init_params as j_init_params

@@ -16,6 +16,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from repro.obs import bus as j_bus
 from repro.obs import spans as j_spans
@@ -278,7 +279,8 @@ def _module(name, *args, timeout=300):
     import subprocess
     import sys
 
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    # The port's processes on one intra-op thread, as this one (torch_cpu).
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "OMP_NUM_THREADS": "1"}
     for var in ("REPRO_KILL_IN_SAVE", "REPRO_KILL_MID_SAVE"):
         env.pop(var, None)
     return subprocess.run([sys.executable, "-m", name, *args], capture_output=True, text=True,

@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from conftest import tiny_cfg
 from repro.models.model import init_params as j_init_params
@@ -470,7 +471,9 @@ SIM_ARGV = ["--reduced", "--device", "cpu", "--steps", "10", "--rate", "1", "--s
 
 
 def _serve_sim(argv, cwd):
-    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    # The port's process on one intra-op thread, as this one (torch_cpu).
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
+           "OMP_NUM_THREADS": "1"}
     return subprocess.run([sys.executable, "-m", "repro_torch.scripts.serve_sim", *argv],
                           cwd=cwd, capture_output=True, text=True, timeout=600, env=env)
 

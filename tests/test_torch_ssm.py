@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from repro.models import ssm as j_ssm
 from repro_torch import interop

@@ -28,7 +28,7 @@ Through the launcher under ``--mesh``: the losses against one process
 (relative 1e-5; on 'hd' against the single-process step that computes the
 'hd' split), no replica gather, the gradient reduce moving exactly the
 shards, snapshots crossing between the mesh and one process bitwise; the
-reduced olmoe-1b-7b runs replicated (the replica gather, no ``'tp'``); a
+reduced mamba2-1.3b runs replicated (the replica gather, no ``'tp'``); a
 head layout the port does not compute raises, naming it.
 """
 
@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from repro.configs import get_config as j_get_config
 from repro.models.model import init_params as j_init_params
@@ -66,8 +67,10 @@ GRAD_TOL = 1e-5      # max abs over the leaf's max|grad|
 LAUNCH_TOL = 1e-5    # launcher on the mesh vs one process, relative
 LAUNCH = ["--reduced", "--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "16",
           "--period", "2", "--compute-dtype", "float32", "--schedule", "const"]
-MOE_LAUNCH = ["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu", "--steps", "2",
-              "--batch", "2", "--seq", "16", "--period", "2", "--compute-dtype", "float32"]
+REPLICATED_ARCH = "mamba2-1.3b"   # an arch the tensor-parallel path does not run yet
+REPLICATED_LAUNCH = ["--arch", REPLICATED_ARCH, "--reduced", "--device", "cpu", "--steps", "2",
+                     "--batch", "2", "--seq", "16", "--period", "2", "--compute-dtype",
+                     "float32"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,13 +79,14 @@ class World:
     seqs: tuple              # the first sequence-sharded, the second not
     zero1: bool = False
     launch: bool = False     # the dense launcher on the mesh
-    moe: bool = False        # the reduced olmoe-1b-7b, replicated
+    replicated: bool = False  # the reduced REPLICATED_ARCH, replicated
     refuse: bool = False     # a Q layout the port does not compute
     archs: tuple = (ARCH,)   # the configs held against the reference
 
 
 WORLDS = {
-    "model2": World("model=2", seqs=(16, 15), moe=True, refuse=True, archs=(ARCH, GEMMA)),
+    "model2": World("model=2", seqs=(16, 15), replicated=True, refuse=True,
+                    archs=(ARCH, GEMMA)),
     "data2_model2_zero1": World("data=2,model=2", seqs=(16, 15), zero1=True, launch=True),
     "model4_hd": World("model=4", seqs=(16, 18), launch=True),
 }
@@ -216,14 +220,14 @@ def _rank_cases(rank, world_size, port, world, params_np, tmp) -> dict:
                     torch.equal(a, b) for a, b in zip(tree_lib.leaves(r_params),
                                                       tree_lib.leaves(cut)))
 
-        if world.moe:
-            moe_cfg = get_config("olmoe-1b-7b").reduced()
-            run = train.run(MOE_LAUNCH + ["--mesh", world.spec], cfg=moe_cfg)
-            out["moe_losses"] = [r["loss"] for r in run.records]
-            out["moe_trace"] = list(run.engine.comm.trace.events)
-            out["moe_tensor_parallel"] = run.engine.tensor_parallel
+        if world.replicated:
+            rep_cfg = get_config(REPLICATED_ARCH).reduced()
+            run = train.run(REPLICATED_LAUNCH + ["--mesh", world.spec], cfg=rep_cfg)
+            out["rep_losses"] = [r["loss"] for r in run.records]
+            out["rep_trace"] = list(run.engine.comm.trace.events)
+            out["rep_tensor_parallel"] = run.engine.tensor_parallel
             # Each model-split leaf's fp32 update, gathered whole.
-            out["moe_replica_pred"] = sum(
+            out["rep_replica_pred"] = sum(
                 p.numel() * 4 for k, p in tree_lib.flatten_with_path(run.state.params)
                 if run.engine.model_split(k, p.dim()))
 
@@ -494,24 +498,25 @@ def test_snapshots_cross_between_mesh_and_one_process(worlds, params_np):
 
 
 def test_non_dense_arch_runs_replicated(worlds):
-    """The reduced olmoe-1b-7b on model=2 keeps the replicated path: the
-    replica gather of every model-split leaf's update each step and no
-    'tp', losses equal to one process's."""
+    """The reduced mamba2-1.3b on model=2 keeps the replicated path (the
+    SSM's tensor-parallel split is not ported yet): the replica gather of
+    every model-split leaf's update each step and no 'tp', losses equal to
+    one process's."""
     from repro_torch.distributed.audit import CollectiveTrace
     from repro_torch.launch import train
 
     results, _, _ = worlds["model2"]
-    single = train.run(MOE_LAUNCH + ["--mesh-model", "2"],
-                       cfg=get_config("olmoe-1b-7b").reduced())
+    single = train.run(REPLICATED_LAUNCH + ["--mesh-model", "2"],
+                       cfg=get_config(REPLICATED_ARCH).reduced())
     ref = [r["loss"] for r in single.records]
     for res in results.values():
-        assert res["moe_tensor_parallel"] is False
-        np.testing.assert_allclose(res["moe_losses"], ref, rtol=LAUNCH_TOL, atol=0)
+        assert res["rep_tensor_parallel"] is False
+        np.testing.assert_allclose(res["rep_losses"], ref, rtol=LAUNCH_TOL, atol=0)
         trace = CollectiveTrace()
-        trace.events = res["moe_trace"]
-        assert res["moe_replica_pred"] > 0
+        trace.events = res["rep_trace"]
+        assert res["rep_replica_pred"] > 0
         for step in range(len(ref)):
-            assert trace.total_bytes("replica_gather", step=step) == res["moe_replica_pred"]
+            assert trace.total_bytes("replica_gather", step=step) == res["rep_replica_pred"]
         assert not trace.select("tp")
 
 
@@ -540,7 +545,7 @@ def test_mesh_path_refuses_layouts(arch, overrides, model, match):
     (ARCH, {"model": 2}, sh.TENSOR_PARALLEL),
     (ARCH, {"data": 2, "model": 4}, sh.TENSOR_PARALLEL),
     (ARCH, {"data": 4, "model": 1}, sh.REPLICATED),
-    ("olmoe-1b-7b", {"model": 4}, sh.REPLICATED),
+    ("olmoe-1b-7b", {"model": 4}, sh.TENSOR_PARALLEL),
     ("mamba2-1.3b", {"model": 4}, sh.REPLICATED),
 ])
 def test_mesh_path_decides_from_the_config_and_the_axes(arch, sizes, path):
@@ -548,7 +553,7 @@ def test_mesh_path_decides_from_the_config_and_the_axes(arch, sizes, path):
 
 
 @pytest.mark.parametrize("arch,tensor_parallel,match", [
-    ("olmoe-1b-7b", True, "runs replicated"),
+    ("mamba2-1.3b", True, "runs replicated"),
     (ARCH, True, "sequence length"),
     (ARCH, False, None),
 ])
@@ -564,3 +569,15 @@ def test_make_ctx_follows_the_engine(arch, tensor_parallel, match):
         return
     with pytest.raises(ValueError, match=match):
         sh.make_ctx(get_config(arch).reduced(), engine)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_ssm_gate_norm_stays_replicated(arch):
+    """The name rule for norms comes before the SSM group's, so gate_norm is
+    replicated, as in the reference (whose column rule for it is never
+    reached), while the d_inner weights beside it split."""
+    cfg = get_config(arch).reduced()
+    params = jax.eval_shape(lambda: j_init_params(jax.random.PRNGKey(0), _cfg(arch, j_get_config)))
+    specs = sh.param_specs(params, cfg, {"model": 2})
+    assert specs["layers"]["ssm"]["gate_norm"] == (None, None)
+    assert specs["layers"]["ssm"]["wx"][-1] == sh.MODEL_AXIS

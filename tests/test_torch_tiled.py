@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from repro.core.newton_schulz import PAPER_COEFFS as J_PAPER
 from repro.kernels.newton_schulz import ops as j_ops

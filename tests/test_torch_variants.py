@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 from repro.configs import get_config as j_get_config
 from repro.core import BlockSpec2D as JBlockSpec2D
