@@ -125,14 +125,15 @@ four ranks that share the card.
  13. distributed -- four ranks share the card through gloo (NCCL refuses two
                  ranks on one GPU), through the launcher (the kernels built
                  once, here, before any rank starts), batch 2 x 1024 a rank,
-                 bf16, the dense and MoE models tensor-parallel (each rank
-                 holds and computes with its parameter shards): run A,
+                 bf16, the dense, MoE, SSM and hybrid models
+                 tensor-parallel (each rank holds and computes with its
+                 parameter shards): run A,
                  full-width muonbp-960m at all 12 layers on data=2,model=2
                  with ZeRO-1, six steps, after one fp32 step (TF32 off)
                  whose loss and gradients, joined on rank 0, are held
                  against the single-process port's; run B, NorMuon with the
                  flatten fallback at 3 layers, two steps; run C, 12 layers
-                 on model=4, three steps; run D, mamba2-1.3b at 4 of 48
+                 on model=4, three steps; run D, internvl2-1b at 4 of 24
                  layers on the replicated path (every rank a whole replica)
                  on data=2,model=2 with ZeRO-1, two steps; run E,
                  olmoe-1b-7b at 2 of 16 layers tensor-parallel (the experts'
@@ -143,7 +144,13 @@ four ranks that share the card.
                  step 4), six steps: both skipped on every rank with every
                  state leaf torch.equal, no kernel launch and no optimizer
                  collective, step 3 forced full, each healthy step equal
-                 to the unguarded mesh step bitwise. Every rank's loss each
+                 to the unguarded mesh step bitwise; run G, mamba2-1.3b at
+                 4 of 48 layers tensor-parallel (d_inner and the SSM heads
+                 split) on data=2,model=2 with ZeRO-1, and run H,
+                 hymba-1.5b at 4 of 32 layers tensor-parallel (Q and K/V
+                 in 'hd', 25 SSM heads a rank) on data=2,model=2, three
+                 steps each, after their fp32 step held against one
+                 process. Every rank's loss each
                  step, its collective trace (the optimizer's against
                  plan_comm to the byte, no optimizer collective on block
                  steps; tp against tp_bytes, 0 B on run D; the gradient
@@ -363,21 +370,27 @@ CHAOS_ARGV = ["--arch", "muonbp-960m", "--reduced", "--steps", "6", "--batch", "
 
 # The distributed phase: DIST_RANKS ranks share the one card through gloo
 # (NCCL refuses two ranks on one GPU), through the launcher, batch 2 x 1024 a
-# rank, bf16. The dense and MoE models run tensor-parallel: each rank holds
-# and computes with its param_specs shards, sequence-sharded between layers.
+# rank, bf16. The dense, MoE, SSM and hybrid models run tensor-parallel:
+# each rank holds and computes with its param_specs shards,
+# sequence-sharded between layers.
 # Run A: full-width muonbp-960m at all 12 layers on data=2,model=2 with
 # ZeRO-1, six steps. Run B: NorMuon with the flatten fallback at 3 of 12
 # layers (3 does not divide 2: padded lead, padded row statistics), two
 # steps. Run C: 12 layers on model=4 (the 4 KV heads split 4 ways), three
 # steps. Run D keeps the replicated path on the card: full-width
-# mamba2-1.3b (the SSM runs replicated, every rank a whole replica) on
+# internvl2-1b (the VLM runs replicated, every rank a whole replica) on
 # data=2,model=2 with ZeRO-1, two steps, its replica gather held to the
 # bytes of the model-split updates. Run E: full-width olmoe-1b-7b
 # tensor-parallel (each rank the (E, D, F/2) expert shards) on
 # data=2,model=2 with ZeRO-1, three steps (full, block, full). Run F: the
 # guarded step on the mesh, muonbp-960m at 3 layers, --guard with NaN
-# gradients at step 2 and a loss spike at step 4, six steps. Before run A's
-# and run E's ranks train, one fp32 step (TF32 off) on the run's first
+# gradients at step 2 and a loss spike at step 4, six steps. Run G:
+# full-width mamba2-1.3b tensor-parallel (each rank half of d_inner and of
+# the 64 SSM heads) on data=2,model=2 with ZeRO-1, three steps (full,
+# block, full). Run H: full-width hymba-1.5b tensor-parallel on
+# data=2,model=2 (Q 'hd' on its 25 heads, K/V 'hd' on its 5, 25 SSM heads a
+# rank), three steps. Before the ranks of runs A, E, G and H train, one
+# fp32 step (TF32 off) on the run's first
 # global batch and weights: the loss and every gradient joined on rank 0
 # against the single-process port's, computed in this process first (for
 # MoE on each data shard's rows and averaged, as the mesh routes each data
@@ -386,10 +399,17 @@ DIST_RANKS = 4
 DIST_ARGV = ["--optimizer", "muonbp", "--period", "5", "--seq", "1024", "--dist-backend",
              "gloo", "--obs-block", "--log-every", "1"]
 DIST_SEQ, DIST_SEED = 1024, 0
-# Run D's depth: four whole replicas of mamba2-1.3b share the card (a layer
-# holds 25.8 M parameters, the embedding and head 206.6 M). At 4 of 48
-# layers a rank peaks at 7.88 GiB (NVIDIA H100 80GB HBM3, 700.00 W).
+# Run D's depth: four whole replicas of internvl2-1b share the card (a
+# layer holds 14.9 M parameters, the embedding and head 272.0 M; 331.7 M at
+# 4 of 24 layers, about mamba2-1.3b's 310.0 M at 4 of 48, which run D ran
+# before the SSM went tensor-parallel).
 DIST_D_LAYERS = 4
+# Run G's depth: mamba2-1.3b at 4 of 48 layers, run D's old depth, so that
+# its block step compares with the replicated one's (the replica gather
+# gone); a rank holds 156.0 M of the 310.0 M parameters. Run H's: hymba-1.5b
+# at 4 of 32 layers, 147.9 M of 295.5 M parameters a rank.
+DIST_G_LAYERS = 4
+DIST_H_LAYERS = 4
 # Run E's depth: olmoe-1b-7b's layer holds 419.6 M parameters, its
 # embedding and head 206.6 M; each rank builds them whole in fp32 (1.68 GB a
 # layer, 0.83 GB) before it keeps its half. At 2 of 16 layers a rank peaks
@@ -415,15 +435,19 @@ DIST_RUNS = (
                                                "--zero1-flatten"], 2, 3, True,
      MAIN_PATH_KERNELS + ("normuon",)),
     ("C", "muonbp-960m", "model=4", 2, [], 3, None, True, MAIN_PATH_KERNELS),
-    ("D", "mamba2-1.3b", "data=2,model=2", 4, ["--zero1"], 2, DIST_D_LAYERS, False,
+    ("D", "internvl2-1b", "data=2,model=2", 4, ["--zero1"], 2, DIST_D_LAYERS, False,
      MAIN_PATH_KERNELS),
     ("E", MOE_ARCH, "data=2,model=2", 4, ["--zero1", "--period", "2"], 3, DIST_E_LAYERS, True,
      MAIN_PATH_KERNELS),
     ("F", "muonbp-960m", "data=2,model=2", 4, DIST_F_FLAGS, 6, DIST_F_LAYERS, True,
      MAIN_PATH_KERNELS),
+    ("G", "mamba2-1.3b", "data=2,model=2", 4, ["--zero1", "--period", "2"], 3, DIST_G_LAYERS,
+     True, MAIN_PATH_KERNELS),
+    ("H", "hymba-1.5b", "data=2,model=2", 4, ["--period", "2"], 3, DIST_H_LAYERS, True,
+     MAIN_PATH_KERNELS),
 )
 # The runs whose first global batch is held in fp32 against one process.
-DIST_FP32_RUNS = ("A", "E")
+DIST_FP32_RUNS = ("A", "E", "G", "H")
 # Run E's update is not joined on rank 0 against one process: its whole
 # gradients, parameters and optimizer state (~15 GB at 3 layers) do not fit
 # beside the four ranks' runs. tests/test_torch_moe_tensor_parallel.py
@@ -2183,7 +2207,7 @@ def dist_cfg(arch: str, layers):
 
 def dist_rank(rank: int, port: int, spec: tuple, out_dir: str) -> None:
     """One rank of the distributed phase (started by torch.multiprocessing):
-    the fp32 step check (runs A and E), the launcher on the mesh, then the
+    the fp32 step check (DIST_FP32_RUNS), the launcher on the mesh, then the
     checks of :func:`dist_checks`; the results go to ``out_dir/rank<r>.json``.
     An exception fails the rank."""
     sys.path.insert(0, str(SRC))
@@ -2255,33 +2279,39 @@ class recorded_routes:
 
 def dist_fp32_reference(spec: tuple, path: str) -> None:
     """The single-process port's fp32 loss and gradients (TF32 off) of the
-    run's first global batch on its weights (``--seed``), saved to ``path``.
-    An MoE model's are the mean over the data shards' rows, each routed
-    alone as on the mesh, whose routing is saved too."""
+    run's first global batch on its weights (``--seed``), saved to ``path``,
+    with the head layouts of the mesh's model axis (hymba's Q and K/V 'hd'
+    read the same weights' columns in another order). An MoE model's are
+    the mean over the data shards' rows, each routed alone as on the mesh,
+    whose routing is saved too."""
     import torch
 
     from repro_torch import tree as tree_lib
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import parse_mesh_spec
     from repro_torch.models.model import init_params
+    from repro_torch.sharding import specs as sh
     from repro_torch.training.train_step import loss_and_grads
 
     label, arch, mesh, batch, extra, steps, layers, _, _ = spec
     argv = dist_argv(arch, mesh, batch, extra, steps)
     cfg = dist_cfg(arch, layers)
+    sizes = dict(zip(*parse_mesh_spec(mesh)))
+    ql, kvl = sh.attn_layouts(cfg, sizes.get("model", 1))
+    ctx = sh.ShardCtx(q_layout=ql, kv_layout=kvl)
     params = init_params(cfg, seed=train.parser().parse_args(argv).seed, device="cuda")
     if not cfg.num_experts:
-        loss, _, grads = loss_and_grads(params, first_batch(cfg, argv), cfg, torch.float32)
+        loss, _, grads = loss_and_grads(params, first_batch(cfg, argv), cfg, torch.float32,
+                                        ctx=ctx)
         routes = None
     else:
-        from repro_torch.launch.mesh import parse_mesh_spec
-
-        shards = math.prod(v for a, v in zip(*parse_mesh_spec(mesh)) if a != "model")
+        shards = math.prod(v for a, v in sizes.items() if a != "model")
         rows, losses, routes, grads = batch // shards, [], [], None
         for d in range(shards):
             with recorded_routes() as rec:
                 loss_d, _, g = loss_and_grads(
                     params, first_batch(cfg, argv, slice(d * rows, (d + 1) * rows)), cfg,
-                    torch.float32)
+                    torch.float32, ctx=ctx)
             routes.append(rec.routes)
             losses.append(loss_d)
             g = tree_lib.tree_map(lambda x: x / shards, g)
@@ -2665,17 +2695,20 @@ def dist_guard_checks(tag: str, res: list) -> None:
 
 
 def phase_distributed(smi: str) -> None:
-    """Four ranks on the one card, gloo, through the launcher, the dense
-    and MoE models tensor-parallel: run A, full-width muonbp-960m at 12
+    """Four ranks on the one card, gloo, through the launcher, the dense,
+    MoE, SSM and hybrid models tensor-parallel: run A, full-width muonbp-960m at 12
     layers on data=2,model=2 with ZeRO-1, six steps (full, block x4, full),
     after the fp32 step held against one process; run B, NorMuon with the
     flatten fallback at 3 of its 12 layers, two steps; run C, 12 layers on
-    model=4, three steps. Run D, mamba2-1.3b at DIST_D_LAYERS layers on the
+    model=4, three steps. Run D, internvl2-1b at DIST_D_LAYERS layers on the
     replicated path, data=2,model=2 with ZeRO-1, two steps. Run E,
     olmoe-1b-7b at DIST_E_LAYERS layers tensor-parallel, data=2,model=2 with
     ZeRO-1, three steps, after its fp32 step and routing held against one
     process. Run F, the guarded step on the mesh (see
-    :func:`dist_guard_checks`). Every rank's exit code is checked. gloo
+    :func:`dist_guard_checks`). Runs G and H, mamba2-1.3b and hymba-1.5b at
+    DIST_G_LAYERS and DIST_H_LAYERS layers tensor-parallel, data=2,model=2
+    (G with ZeRO-1), three steps each after the fp32 step held against one
+    process. Every rank's exit code is checked. gloo
     copies through the host: its times measure no link."""
     import gc
     import tempfile

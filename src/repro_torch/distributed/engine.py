@@ -41,10 +41,11 @@ slice -- and :meth:`replicate` the replica gather over the model axes.
 
 The parameters and gradients a rank holds come in one of two layouts
 (``sharding.specs.mesh_path``). On the tensor-parallel path
-(``tensor_parallel=True``, the dense and MoE models) they are the rank's
-param-layout shards, which the model computes with: :meth:`shard` cuts
-them over the axes the momentum spec adds (ZeRO-1's), the 'apply' gathers
-bring updates back to that layout, and nothing is replicated. On the
+(``tensor_parallel=True``: the dense, MoE, SSM and hybrid models) they
+are the rank's param-layout shards, which the model computes with:
+:meth:`shard` cuts them over the axes the momentum spec adds (ZeRO-1's),
+the 'apply' gathers bring updates back to that layout, and nothing is
+replicated. On the
 replicated path every rank runs the whole model on its slice of the batch,
 with full parameters and data-reduced full gradients: :meth:`shard` cuts
 the full tensor (a flatten leaf's lead dim zero-padded first) to the

@@ -467,44 +467,71 @@ def plan_comm(params: Any, pspecs: Any, mesh, *, labels: Any = None,
 
 def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2) -> int:
     """The ``'tp'`` collective bytes of one rank and training step of the
-    tensor-parallel dense or MoE model (``distributed/tensor_parallel.py``),
-    from the shapes; 0 where ``sharding.specs.mesh_path`` runs ``cfg``
-    replicated.
+    tensor-parallel model (``distributed/tensor_parallel.py``), from the
+    shapes; 0 where ``sharding.specs.mesh_path`` runs ``cfg`` replicated.
 
     ``rows`` x ``seq`` tokens a rank (its data coordinate's rows),
     activations of ``compute_bytes`` an element, the replicated leaves'
     gradients fp32; result-buffer bytes, as the plan's (a reduce-scatter's
-    is the rank's slice). Counted: each layer's two sequence gathers
-    (attention and MLP or MoE in) and two reduces (their row-parallel
-    ``wo`` out, the MoE block's partial output after the combine), forward
-    and backward, and on the 'hd' KV layout the K and V column gathers; the
-    embedding's reduce and the logits' gather; the cross entropy's three
-    (B, S) fp32 all-reduces; the sum over the model axis of the gradients
-    ``tensor_parallel.grad_is_partial`` names: with a sequence-sharded
-    residual every replicated leaf's (the norm gains, an MoE model's
-    router), else the router's alone.
+    is the rank's slice). A sequence gather or reduce counts with its
+    backward: an all-gather and a reduce-scatter when the residual is
+    sequence-sharded, else one all-reduce. Counted:
+
+    * each layer's sequence gathers and reduces: two of each for a dense,
+      MoE or hybrid layer (into and out of the attention, the SSM or both,
+      then the MLP or MoE block), one of each for an SSM layer;
+    * on the 'hd' layouts, the column gathers and their reduce-scatters:
+      K and V's, and Q's;
+    * an SSM layer's gated-norm statistic: a (rows, S) fp32 all-reduce
+      forward and another backward;
+    * the embedding's reduce and the logits' gather; the cross entropy's
+      three (rows, S) fp32 all-reduces;
+    * the sum over the model axis of the gradients
+      ``tensor_parallel.grad_is_partial`` names: in either layout the MoE
+      router's, the SSM's ``wb``, ``wc``, B/C convs and biases and
+      ``gate_norm``, hymba's branch scales; with a sequence-sharded
+      residual every other replicated leaf's too (the norm gains).
     """
     sizes = sh.mesh_axis_sizes(axis_sizes)
     if sh.mesh_path(cfg, sizes) != sh.TENSOR_PARALLEL:
         return 0
     m = sizes[sh.MODEL_AXIS]
     seq_shard = sh.sequence_sharded(seq, m)
-    act = rows * seq * cfg.d_model * compute_bytes
-    # A sequence gather (or reduce) and its backward: all-gather and
-    # reduce-scatter when the residual is sequence-sharded, else one
-    # all-reduce (backward of the gather, forward of the reduce).
-    pair = act + act // m if seq_shard else act
-    per_layer = 4 * pair
-    if sh.attn_layouts(cfg, m)[1] == "hd":
-        kv = rows * seq * cfg.kv_dim * compute_bytes
-        per_layer += 2 * (kv + kv // m)
-    total = cfg.num_layers * per_layer + 2 * pair + 3 * rows * seq * FP32_BYTES
-    if seq_shard:
-        norms = 2 + (2 if cfg.use_post_norms else 0)
-        total += FP32_BYTES * (cfg.num_layers * norms * cfg.d_model + cfg.d_model)
-    if cfg.num_experts:
-        total += FP32_BYTES * cfg.num_layers * cfg.d_model * cfg.num_experts
-    return total
+    tokens = rows * seq
+    d, arch = cfg.d_model, cfg.arch_type
+
+    def pair(width: int) -> int:
+        """A gather (or reduce) of (rows, S, width) and its backward."""
+        act = tokens * width * compute_bytes
+        return act + act // m if seq_shard else act
+
+    def cols(width: int) -> int:
+        """A column gather of (rows, S, width) and its reduce-scatter."""
+        act = tokens * width * compute_bytes
+        return act + act // m
+
+    ssm = arch in ("ssm", "hybrid")
+    attn = bool(cfg.num_heads) and arch != "ssm"
+    per_layer = (2 if arch == "ssm" else 4) * pair(d)
+    # Elements a layer of the replicated leaves: partial in either layout,
+    # and partial only when the residual is sequence-sharded.
+    always = cfg.num_experts * d
+    norms = (2 * d if attn else 0) + (2 * d if cfg.use_post_norms else 0)
+    if attn:
+        ql, kvl = sh.attn_layouts(cfg, m)
+        per_layer += (2 * cols(cfg.kv_dim) if kvl == "hd" else 0) + (
+            cols(cfg.q_dim) if ql == "hd" else 0)
+    if ssm:
+        dims = sh.ssm_dims(cfg)
+        n, k = dims.state_size, dims.conv_kernel
+        per_layer += 2 * tokens * FP32_BYTES
+        always += 2 * (d * n + k * n + n) + dims.d_inner
+        norms += d
+    if arch == "hybrid":
+        always += 2 * d
+    partial = cfg.num_layers * always + (cfg.num_layers * norms + d if seq_shard else 0)
+    return (cfg.num_layers * per_layer + 2 * pair(d) + 3 * tokens * FP32_BYTES
+            + FP32_BYTES * partial)
 
 
 # ---------------------------------------------------------------------------

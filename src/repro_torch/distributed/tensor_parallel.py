@@ -19,8 +19,14 @@ with its sequence parallelism):
   and the vocab-parallel embedding: the partial sums reduce-scattered on
   the sequence dim, all-gathered in the backward; without sequence
   sharding an all-reduce, and the identity in the backward;
-* :func:`gather_cols` -- the K/V projection columns of the 'hd' layout
-  all-gathered over ``model``, reduce-scattered in the backward;
+* :func:`gather_cols` -- the Q and K/V projection columns of the 'hd'
+  layout all-gathered over ``model``, reduce-scattered in the backward;
+* :func:`sum_over_model` -- the SSM's gated-norm statistic: each rank's
+  ``(rows, S, 1)`` fp32 sum of squares over its ``d_inner`` slice,
+  all-reduced into the sum over the whole ``d_inner``. Its backward is an
+  all-reduce too: every rank normalizes its own columns by the sum, so
+  each rank's cotangent of it differs, and a rank's slice reaches all of
+  them;
 * :func:`replica_mean` -- the mean over ``model`` of a value every rank
   computes identically from the same gathered input (the MoE router's aux
   losses): the copies are equal, so the forward is the value itself, and
@@ -96,6 +102,17 @@ class _GatherCols(torch.autograd.Function):
         return _reduce_scatter(g, fctx.ctx, -1), None
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _all_reduce(x, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_reduce(g, fctx.ctx), None
+
+
 class _ReplicaMean(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, ctx):
@@ -122,19 +139,37 @@ def gather_cols(x: torch.Tensor, ctx) -> torch.Tensor:
     return _GatherCols.apply(x, ctx)
 
 
+def sum_over_model(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The sum over ``model`` of every rank's partial ``x``, on every rank
+    (see the module doc)."""
+    return _SumOverModel.apply(x, ctx)
+
+
 def replica_mean(x: torch.Tensor, ctx) -> torch.Tensor:
     """The mean over ``model`` of ``x``, which every rank holds identically
     (see the module doc): ``x`` itself, its gradient divided by ``m``."""
     return _ReplicaMean.apply(x, ctx)
 
 
+# Leaves every rank holds whole whose gradient on a rank covers only its
+# heads or columns, in either residual layout: the MoE router (it sees the
+# rank's d_ff slice of the experts' output); the SSM's B/C projections and
+# convs (read by the rank's heads only), its gate_norm (applied to the
+# rank's d_inner slice); hymba's branch scales (on the rank's partial sums).
+PARTIAL_IN_EITHER_LAYOUT = frozenset({
+    "router", "wb", "wc", "conv_b", "conv_b_bias", "conv_c", "conv_c_bias", "gate_norm",
+    "attn_scale", "ssm_scale"})
+
+
 def grad_is_partial(key, model_split: bool, ctx) -> bool:
     """Whether a rank's gradient of the leaf ``key`` is a part of the whole
     that the ranks of ``model`` sum: a leaf ``model`` does not split, when
     the residual is sequence-sharded (it saw the rank's sequence shard
-    only), and the MoE router in either layout (it saw only the rank's
-    ``d_ff`` slice of the experts' output)."""
-    return not model_split and (ctx.seq_shard or key[-1] == "router")
+    only), and in either layout the leaves of
+    :data:`PARTIAL_IN_EITHER_LAYOUT`: the MoE router; the SSM's ``wb``,
+    ``wc``, ``conv_b``, ``conv_b_bias``, ``conv_c``, ``conv_c_bias`` and
+    ``gate_norm``; hymba's ``attn_scale`` and ``ssm_scale``."""
+    return not model_split and (ctx.seq_shard or key[-1] in PARTIAL_IN_EITHER_LAYOUT)
 
 
 def vocab_range(rows: int, ctx) -> tuple[int, int]:

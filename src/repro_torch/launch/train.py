@@ -23,7 +23,7 @@ gather a sharded matrix, ``--full-schedule pipelined|barrier``);
 raises: eager PyTorch has no partitioner. ``--batch`` is the global batch;
 the ranks of one data coordinate read the same rows. Before the first step
 the launcher decides the path (``sharding.specs.mesh_path``) and prints it:
-a dense or MoE model on a ``model`` axis larger than one runs
+a dense, MoE, SSM or hybrid model on a ``model`` axis larger than one runs
 tensor-parallel -- every rank builds the full parameters from ``--seed``
 (or takes the caller's) and keeps only its ``param_specs`` shards, which it
 computes with (``models/transformer.py``, ``distributed/tensor_parallel.py``)

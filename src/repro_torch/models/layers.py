@@ -190,17 +190,20 @@ def _rank_kv(k, v, num_heads: int, num_kv_heads: int, head_dim: int, q_heads: in
     """The K/V heads a tensor-parallel rank's Q heads read, from its
     projection columns: in 'head' its own heads, aligned with its Q heads;
     in 'hd' (head_dim-major columns) every rank's columns gathered over the
-    model axis, split, and the KV head of each of its Q heads taken, one a
-    Q head."""
+    model axis and split; with Q in 'head' the KV head of each of the
+    rank's Q heads is then taken, one a Q head, and with Q in 'hd' (every
+    head on every rank) all of them."""
     if ctx.kv_layout == "head":
         local = k.shape[-1] // head_dim
         return split_heads(k, local, head_dim, "head"), split_heads(v, local, head_dim, "head")
     from repro_torch.distributed import tensor_parallel as tp
 
-    group = num_heads // num_kv_heads
-    index = (ctx.index * q_heads + torch.arange(q_heads, device=k.device)) // group
     k = split_heads(tp.gather_cols(k, ctx), num_kv_heads, head_dim, "hd")
     v = split_heads(tp.gather_cols(v, ctx), num_kv_heads, head_dim, "hd")
+    if ctx.q_layout == "hd":
+        return k, v
+    group = num_heads // num_kv_heads
+    index = (ctx.index * q_heads + torch.arange(q_heads, device=k.device)) // group
     return k.index_select(2, index), v.index_select(2, index)
 
 
@@ -228,18 +231,31 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
     ``ctx`` (``sharding.specs.ShardCtx``, one device by default) gives the
     columns' head layouts (:func:`split_heads`). Tensor-parallel, ``x`` is
     the whole (sequence-gathered) input, ``wq``/``wk``/``wv`` are the
-    rank's columns (its heads), ``wo`` its rows, and the output is the
-    rank's partial sum of the out-projection, which the caller reduces.
+    rank's columns, ``wo`` its rows, and the output is the rank's partial
+    sum of the out-projection, which the caller reduces. In the Q 'head'
+    layout the columns are the rank's heads. In Q 'hd' they are its
+    head_dim slice of every head: the rank gathers the Q columns over the
+    model axis (``tensor_parallel.gather_cols``), attends over every head
+    and keeps its own 'hd' slice of the merged output, the rows of ``wo``
+    it holds. So every rank repeats the whole attention, as the layout
+    implies: the reference's GSPMD gathers Q there too.
     """
     b, s, _ = x.shape
     q_layout = "head" if ctx is None else ctx.q_layout
     kv_layout = "head" if ctx is None else ctx.kv_layout
+    tp = ctx is not None and ctx.tensor_parallel
     kv_src = cross_kv if cross_kv is not None else x
-    q_heads = params["wq"].shape[-1] // head_dim
-    q = split_heads(linear(x, params["wq"]), q_heads, head_dim, q_layout)
+    q = linear(x, params["wq"])
+    q_cols = q.shape[-1]
+    if tp and q_layout == "hd":
+        from repro_torch.distributed import tensor_parallel
+
+        q = tensor_parallel.gather_cols(q, ctx)
+    q_heads = q.shape[-1] // head_dim
+    q = split_heads(q, q_heads, head_dim, q_layout)
     k = linear(kv_src, params["wk"])
     v = linear(kv_src, params["wv"])
-    if ctx is not None and ctx.tensor_parallel:
+    if tp:
         k, v = _rank_kv(k, v, num_heads, num_kv_heads, head_dim, q_heads, ctx)
     else:
         k = split_heads(k, num_kv_heads, head_dim, kv_layout)
@@ -253,6 +269,9 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
         k, v = new_kv = kv_cache.write(k, v, cache_index)
         q_offset = cache_index
         kv_len = cache_index + s if kv_len is None else kv_len
-    out = attention(q, k, v, causal=causal and cross_kv is None, window=window,
-                    attn_softcap=attn_softcap, q_offset=q_offset, kv_len=kv_len)
-    return linear(merge_heads(out, q_layout), params["wo"]), new_kv
+    out = merge_heads(attention(q, k, v, causal=causal and cross_kv is None, window=window,
+                                attn_softcap=attn_softcap, q_offset=q_offset, kv_len=kv_len),
+                      q_layout)
+    if tp and q_layout == "hd":
+        out = out.narrow(-1, ctx.index * q_cols, q_cols)
+    return linear(out, params["wo"]), new_kv

@@ -167,24 +167,53 @@ def _dt_a(dt, params):
     return dt, -torch.exp(params["A_log"].to(torch.float32))
 
 
+def _gated_norm_tp(y: torch.Tensor, weight: torch.Tensor, d_inner: int, ctx,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """:func:`layers.rms_norm` over the whole ``d_inner`` of a rank's slice
+    ``y`` (..., d_inner/m): the sum of squares summed over ``model``
+    (``tensor_parallel.sum_over_model``), the rank's slice of the replicated
+    ``weight``."""
+    from repro_torch.distributed import tensor_parallel
+
+    dtype = y.dtype
+    y = y.to(torch.float32)
+    var = tensor_parallel.sum_over_model(torch.sum(y * y, dim=-1, keepdim=True), ctx) / d_inner
+    w = weight.narrow(-1, ctx.index * y.shape[-1], y.shape[-1])
+    return (y * torch.rsqrt(var + eps) * w.to(torch.float32)).to(dtype)
+
+
 def ssm_forward(x: torch.Tensor, params: dict, dims: SSMDims, *, chunk: int = 128,
-                initial_state: Optional[torch.Tensor] = None, return_state: bool = False):
+                initial_state: Optional[torch.Tensor] = None, return_state: bool = False,
+                ctx=None):
     """Training/prefill pass. x: (B, S, D) -> (B, S, D) [, decode state].
 
     The returned state holds the final SSD state and the last K-1 raw
     inputs of each conv, in the projections' dtype (the model's).
+
+    ``ctx`` (``sharding.specs.ShardCtx``): tensor-parallel, ``x`` is the
+    whole (sequence-gathered) input and ``params`` the rank's
+    ``param_specs`` shards: ``z``, ``x``, ``dt`` and the conv on ``x`` are
+    the rank's ``d_inner`` columns and heads, ``B`` and ``C`` whole; the SSD
+    runs on the rank's heads, the gated norm over the whole ``d_inner``
+    (:func:`_gated_norm_tp`), and the output is the rank's partial sum of
+    ``out_proj``, which the caller reduces. Train mode only: prefill and
+    decode run on one device.
     """
     bsz, seq, _ = x.shape
+    heads = params["A_log"].shape[-1]      # the rank's heads (all on one device)
     z, xs_raw, b_raw, c_raw, dt = _project(x, params)
     xs = _causal_conv(xs_raw, params["conv_x"], params["conv_x_bias"])
     b_mat = _causal_conv(b_raw, params["conv_b"], params["conv_b_bias"])
     c_mat = _causal_conv(c_raw, params["conv_c"], params["conv_c_bias"])
     dt, a = _dt_a(dt, params)
-    xh = xs.reshape(bsz, seq, dims.num_heads, dims.head_dim)
+    xh = xs.reshape(bsz, seq, heads, dims.head_dim)
     y, h_final = ssd_chunked(xh, dt, a, b_mat, c_mat, chunk=chunk, initial_state=initial_state)
     y = y + params["D"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(bsz, seq, dims.d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["gate_norm"])
+    y = y.reshape(bsz, seq, heads * dims.head_dim).to(x.dtype) * F.silu(z)
+    if ctx is not None and ctx.tensor_parallel:
+        y = _gated_norm_tp(y, params["gate_norm"], dims.d_inner, ctx)
+    else:
+        y = rms_norm(y, params["gate_norm"])
     out = y @ params["out_proj"]
     if return_state:
         kk = dims.conv_kernel - 1

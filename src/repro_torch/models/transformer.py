@@ -13,16 +13,19 @@ state tensors. The reference's activation checkpointing changes no numbers
 and is not ported yet: the full-width dense and MoE models the card trains
 fit without it, and ``mamba2-1.3b`` trains there at a cut depth.
 
-With a tensor-parallel ``ctx`` (``sharding.specs.ShardCtx``; dense and MoE
-models) each rank holds its ``param_specs`` shards and ``forward`` computes
-with them, as the reference's model under GSPMD: the embedding
-vocab-parallel, Q/K/V and the MLP's wi/wg column-parallel (the rank's
-heads and d_ff columns), both ``wo`` row-parallel, the experts' ``d_ff``
-split as the reference's ``shard_map`` splits it (``models/moe.py``), the
-logits column-parallel over the vocab. Between layers the residual is
-sequence-sharded over the model axis where the reference's ``_seq_shard``
-shards it (``ctx.seq_shard``), so the norms run on the rank's sequence
-shard; ``distributed/tensor_parallel.py`` holds the collectives.
+With a tensor-parallel ``ctx`` (``sharding.specs.ShardCtx``; dense, MoE,
+SSM and hybrid models) each rank holds its ``param_specs`` shards and
+``forward`` computes with them, as the reference's model under GSPMD: the
+embedding vocab-parallel, Q/K/V and the MLP's wi/wg column-parallel (the
+rank's heads, or in the 'hd' layout its head_dim slice of every head, and
+its d_ff columns), both ``wo`` row-parallel, the experts' ``d_ff`` split
+as the reference's ``shard_map`` splits it (``models/moe.py``), the SSM's
+``d_inner`` columns and heads split (``models/ssm.py``, ``out_proj``
+row-parallel), the logits column-parallel over the vocab. Between layers
+the residual is sequence-sharded over the model axis where the reference's
+``_seq_shard`` shards it (``ctx.seq_shard``), so the norms run on the
+rank's sequence shard; ``distributed/tensor_parallel.py`` holds the
+collectives.
 
 Layers by ``arch_type``: dense and vlm (attention + MLP), moe (attention +
 MoE block), ssm (Mamba2 only), hybrid (hymba: attention and SSM on one
@@ -152,14 +155,15 @@ def _mlp_apply(x, mlp, cfg):
     return torch.nn.functional.gelu(x @ mlp["wi"], approximate="tanh") @ mlp["wo"]
 
 
-def _ssm_apply(h, layer, cfg, mode, ssm_state):
-    """The SSM branch in ``mode``: (out, new state or None)."""
+def _ssm_apply(h, layer, cfg, mode, ssm_state, ctx=None):
+    """The SSM branch in ``mode``: (out, new state or None); ``ctx`` as
+    ``ssm.ssm_forward``'s (train mode)."""
     dims = ssm_dims(cfg)
     if mode == "decode":
         return ssm_lib.ssm_decode_step(h, ssm_state, layer["ssm"], dims)
     if mode == "prefill":
         return ssm_lib.ssm_forward(h, layer["ssm"], dims, return_state=True)
-    return ssm_lib.ssm_forward(h, layer["ssm"], dims), None
+    return ssm_lib.ssm_forward(h, layer["ssm"], dims, ctx=ctx), None
 
 
 def _tp():
@@ -188,10 +192,14 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
     window mask, only ``kv_len``. ``group_rows`` routes each row of the
     batch alone (``moe.moe_block``). ``cross_kv``: the encoder's output for
     whisper's cross-attention. ``ctx``: the model's context; tensor-parallel
-    (a dense or MoE layer in 'train' mode), ``x`` is the rank's sequence
-    shard of the residual (or the whole of it, unsharded) and so is the
-    output; the MoE block routes the gathered sequence and its partial
-    output is reduced as the row-parallel ``wo``'s.
+    (a dense, MoE, SSM or hybrid layer in 'train' mode), ``x`` is the rank's
+    sequence shard of the residual (or the whole of it, unsharded) and so is
+    the output; the MoE block routes the gathered sequence and its partial
+    output is reduced as the row-parallel ``wo``'s, and so is the SSM's
+    ``out_proj``. hymba's attention and SSM read one gathered input, and
+    one reduce closes both: ``0.5 * (attn * attn_scale + ssm * ssm_scale)``
+    is linear in the two partial sums, so this is the reference's sum in
+    another order, with half the reduce bytes.
     """
     norms = layer["norms"]
     new_kv = new_ssm = None
@@ -202,29 +210,31 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
     leave = (lambda h: _tp().reduce_seq(h, ctx)) if tp else (lambda h: h)
 
     def attend(h):
-        out, kv = attention_block(
-            enter(h), layer["attn"], num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        """The attention's output (the rank's partial sum, tensor-parallel)
+        on the entered input ``h``."""
+        return attention_block(
+            h, layer["attn"], num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, positions=positions, inv_freq=inv_freq,
             window=None if ring else window, causal=not ring, attn_softcap=cfg.attn_softcap,
             kv_cache=kv_cache, cache_index=cache_index, kv_len=kv_len, ctx=ctx,
         )
-        return leave(out), kv
 
     if "attn" in layer and "ssm" in layer:  # hymba: both branches on one normed input
-        h = rms_norm(x, norms["attn_norm"])
+        h = enter(rms_norm(x, norms["attn_norm"]))
         attn_out, new_kv = attend(h)
-        ssm_out, new_ssm = _ssm_apply(h, layer, cfg, mode, ssm_state)
+        ssm_out, new_ssm = _ssm_apply(h, layer, cfg, mode, ssm_state, ctx)
         scales = layer["hybrid"]
-        x = x + 0.5 * (attn_out * scales["attn_scale"] + ssm_out * scales["ssm_scale"])
+        x = x + leave(0.5 * (attn_out * scales["attn_scale"] + ssm_out * scales["ssm_scale"]))
     elif "attn" in layer:
-        attn_out, new_kv = attend(rms_norm(x, norms["attn_norm"]))
+        attn_out, new_kv = attend(enter(rms_norm(x, norms["attn_norm"])))
+        attn_out = leave(attn_out)
         if cfg.use_post_norms:
             attn_out = rms_norm(attn_out, norms["post_attn_norm"])
         x = x + attn_out
     else:  # pure SSM (mamba2)
-        ssm_out, new_ssm = _ssm_apply(rms_norm(x, norms["ssm_norm"]), layer, cfg, mode,
-                                      ssm_state)
-        x = x + ssm_out
+        ssm_out, new_ssm = _ssm_apply(enter(rms_norm(x, norms["ssm_norm"])), layer, cfg, mode,
+                                      ssm_state, ctx)
+        x = x + leave(ssm_out)
 
     if cross_kv is not None:
         cross_out, _ = attention_block(
@@ -305,16 +315,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
     out: ``logits`` or ``(logits, cache)``.
 
     ``ctx`` (``sharding.specs.ShardCtx``): the heads' layouts on one device;
-    tensor-parallel (dense or MoE, 'train' mode), ``params`` are the rank's
-    shards, ``tokens`` the rows of its data coordinate, and the logits the
-    rank's (B, S, Vp/m) vocab columns.
+    tensor-parallel (dense, MoE, SSM or hybrid, 'train' mode), ``params``
+    are the rank's shards, ``tokens`` the rows of its data coordinate, and
+    the logits the rank's (B, S, Vp/m) vocab columns.
     """
     tp = ctx is not None and ctx.tensor_parallel
     if tp:
         from repro_torch.sharding.specs import TP_ARCHS, sequence_sharded
 
         if cfg.arch_type not in TP_ARCHS or mode != "train":
-            raise NotImplementedError(f"the tensor-parallel forward runs {' and '.join(TP_ARCHS)} "
+            raise NotImplementedError(f"the tensor-parallel forward runs {', '.join(TP_ARCHS)} "
                                       f"models in 'train' mode, not {cfg.arch_type} in {mode!r}")
         if ctx.seq_shard != sequence_sharded(tokens.shape[1], ctx.size):
             raise ValueError(f"the context's seq_shard={ctx.seq_shard} was made for another "

@@ -1,0 +1,84 @@
+"""A mesh run's bytes a rank and step, from the shapes alone.
+
+What the launcher under ``--mesh`` will move, counted before it runs (the
+parameters are fake tensors: no memory, no device): the path
+(``sharding.specs.mesh_path``), the parameters a rank holds, and by trace
+phase the bytes ``plan_comm`` predicts for the optimizer (``block``,
+``full``, ``apply``), ``tp_bytes`` for the tensor-parallel forward and
+backward, the gradient reduce (every gradient a rank holds, then one
+vector of the loss and its metrics) and, on the replicated path, the
+replica gather (each model-split leaf's fp32 update, gathered whole). A
+run's trace equals these to the byte (``chip_smoke.py``'s ``distributed``
+phase checks the same counts, taken from the run; the launcher's
+activations are bf16, ``compute_bytes=2``).
+
+  PYTHONPATH=src python -m repro_torch.scripts.mesh_bytes --arch mamba2-1.3b \\
+      --layers 8 --mesh data=2,model=2 --zero1 --batch 4 --seq 1024
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+
+from repro_torch import tree as tree_lib
+from repro_torch.configs import get_config
+from repro_torch.distributed import plan_comm, tp_bytes
+from repro_torch.launch.mesh import parse_mesh_spec
+from repro_torch.launch.train import matrix_block_specs
+from repro_torch.models.transformer import init_params
+from repro_torch.sharding import specs as sh
+
+
+def mesh_bytes(cfg, sizes: dict, *, batch: int, seq: int, zero1: bool = False,
+               compute_bytes: int = 2) -> dict:
+    """The counts of the module doc for ``cfg`` on a mesh of ``sizes``
+    (``{axis: size}``), ``batch`` rows of ``seq`` tokens over the mesh."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = init_params(cfg, device="cpu")
+    path = sh.mesh_path(cfg, sizes)
+    specs = sh.param_specs(params, cfg, sizes)
+    plan = plan_comm(params, specs, sizes, block_specs=matrix_block_specs(params, cfg, sizes),
+                     zero1=zero1)
+    tp = path == sh.TENSOR_PARALLEL
+    held = sum(math.prod(sh.local_shape(s, p.shape, sizes) if tp else p.shape)
+               for p, s in zip(tree_lib.leaves(params), tree_lib.leaves(specs)))
+    data = math.prod(v for a, v in sizes.items() if a != sh.MODEL_AXIS)
+    model_split = [p for p, s in zip(tree_lib.leaves(params), tree_lib.leaves(specs))
+                   if sh.MODEL_AXIS in [n for e in s for n in sh.spec_entry_names(e)]
+                   and sizes.get(sh.MODEL_AXIS, 1) > 1]
+    # The loss, then each metric: ce, loss, and an MoE model's load_balance and z_loss.
+    values = 3 + (2 if cfg.num_experts else 0)
+    return {
+        "path": path,
+        "params": sum(p.numel() for p in tree_lib.leaves(params)),
+        "params_a_rank": held,
+        **{ph: plan.predicted_bytes(ph) for ph in ("block", "full", "apply")},
+        "tp": tp_bytes(cfg, batch // data, seq, sizes, compute_bytes=compute_bytes),
+        "grad_reduce": 4 * (held + values) if data > 1 else 0,
+        "replica_gather": 0 if tp else sum(4 * p.numel() for p in model_split),
+    }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth")
+    ap.add_argument("--mesh", required=True)
+    ap.add_argument("--batch", type=int, required=True, help="global rows")
+    ap.add_argument("--seq", type=int, required=True)
+    ap.add_argument("--zero1", action="store_true")
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    sizes = dict(zip(*parse_mesh_spec(args.mesh)))
+    print(json.dumps(mesh_bytes(cfg, sizes, batch=args.batch, seq=args.seq, zero1=args.zero1)))
+
+
+if __name__ == "__main__":
+    main()

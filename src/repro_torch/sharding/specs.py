@@ -116,7 +116,7 @@ def attn_layouts(cfg: ModelConfig, model_size: int) -> tuple[Optional[str], Opti
 
 TENSOR_PARALLEL, REPLICATED = "tensor_parallel", "replicated"
 # The archs the tensor-parallel path runs.
-TP_ARCHS = ("dense", "moe")
+TP_ARCHS = ("dense", "moe", "ssm", "hybrid")
 
 
 def mesh_path(cfg: ModelConfig, axis_sizes) -> str:
@@ -124,35 +124,42 @@ def mesh_path(cfg: ModelConfig, axis_sizes) -> str:
     holds and computes with its ``param_specs`` shards) or ``"replicated"``
     (each rank holds the whole model; its updates pay the replica gather).
 
-    A dense or MoE model on a ``model`` axis larger than one is
+    A dense, MoE, SSM or hybrid model on a ``model`` axis larger than one is
     tensor-parallel; every other arch, and a mesh without a model split, is
-    replicated. The port computes the Q heads in the 'head' layout only,
-    and the K/V heads in 'head' or, on the tensor-parallel path, 'hd' (the
-    reference's ``split_heads``): any other layout raises here, naming it,
-    so that no mesh computes another head split than the reference's. The
+    replicated. The port computes the Q and K/V heads in the 'head' layout
+    and, on the tensor-parallel path, in 'hd' too (the reference's
+    ``split_heads``): any other layout raises here, naming it, so that no
+    mesh computes another head split than the reference's. The
     tensor-parallel path also needs the padded vocab and ``d_ff`` (an MoE
-    model's expert ``d_ff``) to divide the axis (their splits are what its
-    collectives assume). The reference keeps the experts replicated where
-    their ``d_ff`` does not divide (``repro/models/moe.py:141-145``); the
-    port does not run that case and raises, naming the expert ``d_ff``.
+    model's expert ``d_ff``), and an SSM's ``d_inner`` and head count, to
+    divide the axis (their splits are what its collectives assume). The
+    port does not run two cases the reference does, and raises on them,
+    naming the count: experts kept replicated where their ``d_ff`` does not
+    divide (``repro/models/moe.py:141-145``), and SSM heads that do not
+    divide (``d_inner`` split off the head boundaries, which GSPMD gathers
+    again at the head reshape).
     """
     m = mesh_axis_sizes(axis_sizes).get(MODEL_AXIS, 1)
     path = TENSOR_PARALLEL if cfg.arch_type in TP_ARCHS and m > 1 else REPLICATED
-    if not cfg.num_heads or cfg.arch_type == "ssm":
-        return path
-    ql, kvl = attn_layouts(cfg, m)
-    allowed_kv = ("head", "hd") if path == TENSOR_PARALLEL else ("head",)
-    if ql != "head" or kvl not in allowed_kv:
-        raise ValueError(
-            f"{cfg.name} on model={m}: Q layout {ql!r}, KV layout {kvl!r} "
-            f"({cfg.num_heads} Q / {cfg.num_kv_heads} KV heads of {cfg.head_dim}); the "
-            f"{path} path computes Q in 'head' and KV in {' or '.join(map(repr, allowed_kv))}")
+    if cfg.num_heads and cfg.arch_type != "ssm":
+        ql, kvl = attn_layouts(cfg, m)
+        allowed = ("head", "hd") if path == TENSOR_PARALLEL else ("head",)
+        if ql not in allowed or kvl not in allowed:
+            raise ValueError(
+                f"{cfg.name} on model={m}: Q layout {ql!r}, KV layout {kvl!r} "
+                f"({cfg.num_heads} Q / {cfg.num_kv_heads} KV heads of {cfg.head_dim}); the "
+                f"{path} path computes Q and KV in {' or '.join(map(repr, allowed))}")
     if path == TENSOR_PARALLEL:
         ff = "expert d_ff" if cfg.arch_type == "moe" else "d_ff"
-        for name, n in (("padded vocab", cfg.padded_vocab), (ff, cfg.d_ff)):
+        counts = [(cfg.padded_vocab, f"padded vocab {cfg.padded_vocab} does"),
+                  (cfg.d_ff, f"{ff} {cfg.d_ff} does")]
+        if cfg.arch_type in ("ssm", "hybrid"):
+            dims = ssm_dims(cfg)
+            counts += [(dims.d_inner, f"d_inner {dims.d_inner} does"),
+                       (dims.num_heads, f"{dims.num_heads} SSM heads do")]
+        for n, what in counts:
             if not _divides(n, m):
-                raise ValueError(f"{cfg.name} on model={m}: the {name} {n} does not divide "
-                                 "the model axis")
+                raise ValueError(f"{cfg.name} on model={m}: the {what} not divide the model axis")
     return path
 
 

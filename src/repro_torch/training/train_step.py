@@ -13,13 +13,16 @@ check of ``training/resilience.py``; ``fault=`` injects a fault of
 (``sharding.specs.mesh_path``):
 
 * tensor-parallel (``ctx=``, a tensor-parallel ``sharding.specs.ShardCtx``;
-  the dense and MoE models): each rank holds its param-layout shards and
-  runs the tensor-parallel forward and backward on the rows of its data
-  coordinate, so its gradients come out in the param layout. Where the
-  residual is sequence-sharded, each rank's gradient of a leaf the model
-  axis does not split (the norm gains) covers only its sequence shard, and
-  an MoE router's sees only the rank's ``d_ff`` slice of the experts: those
-  are summed over the model axis first (phase ``'tp'``). The gradients are then
+  the dense, MoE, SSM and hybrid models): each rank holds its param-layout
+  shards and runs the tensor-parallel forward and backward on the rows of
+  its data coordinate, so its gradients come out in the param layout.
+  Where the residual is sequence-sharded, each rank's gradient of a leaf
+  the model axis does not split (the norm gains) covers only its sequence
+  shard; in either layout an MoE router's sees only the rank's ``d_ff``
+  slice of the experts, an SSM's replicated B/C projections, convs and
+  ``gate_norm`` only the rank's heads and columns, hymba's branch scales
+  only the rank's partial sums: those are summed over the model axis first
+  (phase ``'tp'``, ``tensor_parallel.grad_is_partial``). The gradients are then
   averaged over the data axes (``grad_reduce``), the optimizer returns its
   updates in the momentum layout and the plan's 'apply' gathers bring them
   to the param layout each rank adds to its shards;
@@ -201,8 +204,9 @@ def reduce_grads(engine, loss, metrics: dict, grads, ctx=None) -> tuple:
     With a tensor-parallel ``ctx``, the gradients that are partial over
     the model axis (``tensor_parallel.grad_is_partial``: with a
     sequence-sharded residual every leaf the axis does not split, each
-    rank's covering its sequence shard's tokens; the MoE router in either
-    layout) are first summed over it (phase ``'tp'``)."""
+    rank's covering its sequence shard's tokens; in either layout the MoE
+    router, the SSM's replicated B/C leaves and ``gate_norm``, hymba's
+    branch scales) are first summed over it (phase ``'tp'``)."""
     if ctx is not None and ctx.tensor_parallel:
         for key, g in tree_lib.flatten_with_path(grads):
             if grad_is_partial(key, engine.model_split(key, g.dim()), ctx):

@@ -4,8 +4,9 @@ the CPU.
 One world, ``data=2,model=2`` with ZeRO-1, spawned once a module. Its ranks
 run the launcher with ``--guard --guard-warmup 2 --fault-plan
 nan_grads@2,spike_loss@4x8`` (six steps, period 5, fp32) on both mesh
-paths: the reduced muonbp-960m tensor-parallel, the reduced mamba2-1.3b
-replicated. Each step's state is kept just before it runs. Held:
+paths: the reduced muonbp-960m and mamba2-1.3b tensor-parallel, the
+reduced internvl2-1b replicated. Each step's state is kept just before it
+runs. Held:
 
 * the ``healthy`` / ``skipped`` / escalation sequence equal on every rank
   and equal to one process's guarded launcher run on the same global batch
@@ -34,7 +35,8 @@ import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 
 SPEC = "data=2,model=2"
-ARCHS = {"muonbp-960m": True, "mamba2-1.3b": False}   # arch: runs tensor-parallel
+# arch: runs tensor-parallel
+ARCHS = {"muonbp-960m": True, "mamba2-1.3b": True, "internvl2-1b": False}
 PLAN = "nan_grads@2,spike_loss@4x8"
 STEPS, SKIPPED, FORCED = 6, (2, 4), 3
 BASE = ["--reduced", "--device", "cpu", "--batch", "4", "--seq", "16", "--period", "5",

@@ -27,9 +27,11 @@ head layouts, mesh-free), at a sequence length the model axis divides
 Through the launcher under ``--mesh``: the losses against one process
 (relative 1e-5; on 'hd' against the single-process step that computes the
 'hd' split), no replica gather, the gradient reduce moving exactly the
-shards, snapshots crossing between the mesh and one process bitwise; the
-reduced mamba2-1.3b runs replicated (the replica gather, no ``'tp'``); a
-head layout the port does not compute raises, naming it.
+shards, snapshots crossing between the mesh and one process bitwise; Q
+and K/V in 'hd' (3 Q heads and 1 KV head on ``model=2``) against the
+single-process step that computes the 'hd' split; the reduced internvl2-1b
+runs replicated (the replica gather, no ``'tp'``); a head layout the port
+does not compute raises, naming it.
 """
 
 import dataclasses
@@ -67,7 +69,7 @@ GRAD_TOL = 1e-5      # max abs over the leaf's max|grad|
 LAUNCH_TOL = 1e-5    # launcher on the mesh vs one process, relative
 LAUNCH = ["--reduced", "--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "16",
           "--period", "2", "--compute-dtype", "float32", "--schedule", "const"]
-REPLICATED_ARCH = "mamba2-1.3b"   # an arch the tensor-parallel path does not run yet
+REPLICATED_ARCH = "internvl2-1b"   # an arch the tensor-parallel path does not run yet
 REPLICATED_LAUNCH = ["--arch", REPLICATED_ARCH, "--reduced", "--device", "cpu", "--steps", "2",
                      "--batch", "2", "--seq", "16", "--period", "2", "--compute-dtype",
                      "float32"]
@@ -80,17 +82,20 @@ class World:
     zero1: bool = False
     launch: bool = False     # the dense launcher on the mesh
     replicated: bool = False  # the reduced REPLICATED_ARCH, replicated
-    refuse: bool = False     # a Q layout the port does not compute
+    refuse: bool = False     # a Q layout the replicated path does not compute
+    q_hd: bool = False       # the launcher with Q and K/V in 'hd' (Q_HD_HEADS)
     archs: tuple = (ARCH,)   # the configs held against the reference
 
 
 WORLDS = {
-    "model2": World("model=2", seqs=(16, 15), replicated=True, refuse=True,
+    "model2": World("model=2", seqs=(16, 15), replicated=True, refuse=True, q_hd=True,
                     archs=(ARCH, GEMMA)),
     "data2_model2_zero1": World("data=2,model=2", seqs=(16, 15), zero1=True, launch=True),
     "model4_hd": World("model=4", seqs=(16, 18), launch=True),
 }
 # A case is a world and a config: the world's name alone for muonbp-960m.
+# Q and K/V heads that neither divide model=2: both lay out 'hd'.
+Q_HD_HEADS = dict(num_heads=3, num_kv_heads=1)
 CASES = {name if arch == ARCH else f"{name}:{arch}": (name, arch)
          for name, world in WORLDS.items() for arch in world.archs}
 
@@ -232,12 +237,18 @@ def _rank_cases(rank, world_size, port, world, params_np, tmp) -> dict:
                 if run.engine.model_split(k, p.dim()))
 
         if world.refuse:
-            bad = dataclasses.replace(cfg, num_heads=3, num_kv_heads=1)
+            bad = dataclasses.replace(get_config(REPLICATED_ARCH).reduced(), **Q_HD_HEADS)
             try:
-                train.run(LAUNCH + ["--mesh", world.spec], cfg=bad)
+                train.run(REPLICATED_LAUNCH + ["--mesh", world.spec], cfg=bad)
                 out["refusal"] = None
             except ValueError as e:
                 out["refusal"] = str(e)
+
+        if world.q_hd:
+            run = train.run(LAUNCH + ["--mesh", world.spec],
+                            cfg=dataclasses.replace(cfg, **Q_HD_HEADS))
+            out["q_hd_losses"] = [r["loss"] for r in run.records]
+            out["q_hd_layouts"] = (run.ctx.q_layout, run.ctx.kv_layout)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -433,19 +444,19 @@ def test_launcher_trace_moves_no_replica_gather(name, worlds):
                 assert not reduce
 
 
-def _single_process_losses(params_np, kv_layout: str) -> list:
-    """The launcher's loop on one process with the model's head layouts
-    given (the single-process launcher computes 'head' only)."""
+def _single_process_losses(params, cfg, model: int, kv_layout: str,
+                           q_layout: str = "head") -> list:
+    """The launcher's loop on one process with the block grid of
+    ``model=model`` and the model's head layouts given (the single-process
+    launcher computes 'head' only)."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import train
     from repro_torch.training.train_step import init_train_state, train_step
 
     args = train.parser().parse_args(LAUNCH)
-    cfg = get_config(ARCH).reduced()
-    params = interop.params_from_numpy(params_np, device="cpu")
     opt, period = train.build_optimizer(
         "muonbp", params, lr=args.lr, adam_lr=args.adam_lr, period=args.period,
-        block_specs=train.matrix_block_specs(params, cfg, {"model": 4}))
+        block_specs=train.matrix_block_specs(params, cfg, {"model": model}))
     state = init_train_state(params, opt)
     pipe = iter(SyntheticLM(cfg, args.batch, args.seq, seed=args.seed))
     losses = []
@@ -454,7 +465,7 @@ def _single_process_losses(params_np, kv_layout: str) -> list:
         state, metrics = train_step(state, batch, cfg=cfg, optimizer=opt,
                                     phase=train.phase_for_step(step, period),
                                     compute_dtype=torch.float32,
-                                    ctx=sh.ShardCtx(kv_layout=kv_layout))
+                                    ctx=sh.ShardCtx(q_layout=q_layout, kv_layout=kv_layout))
         losses.append(float(metrics["loss"]))
     return losses
 
@@ -470,9 +481,25 @@ def test_launcher_on_the_mesh_matches_one_process(worlds):
 
 def test_launcher_on_the_hd_layout_matches_one_process(worlds, params_np):
     results, _, _ = worlds["model4_hd"]
-    ref = _single_process_losses(params_np, "hd")
+    ref = _single_process_losses(interop.params_from_numpy(params_np, device="cpu"),
+                                 get_config(ARCH).reduced(), 4, "hd")
     for res in results.values():
         np.testing.assert_allclose(res["losses"], ref, rtol=LAUNCH_TOL, atol=0)
+
+
+def test_launcher_on_the_q_hd_layout_matches_one_process(worlds):
+    """3 Q heads and 1 KV head on model=2: each rank gathers its Q columns,
+    attends over every head and keeps its 'hd' slice for the row-parallel
+    wo; the losses equal the single-process step that computes the 'hd'
+    split."""
+    from repro_torch.models.model import init_params
+
+    results, _, _ = worlds["model2"]
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), **Q_HD_HEADS)
+    ref = _single_process_losses(init_params(cfg, seed=0, device="cpu"), cfg, 2, "hd", "hd")
+    for res in results.values():
+        assert res["q_hd_layouts"] == ("hd", "hd")
+        np.testing.assert_allclose(res["q_hd_losses"], ref, rtol=LAUNCH_TOL, atol=0)
 
 
 def test_snapshots_cross_between_mesh_and_one_process(worlds, params_np):
@@ -498,8 +525,8 @@ def test_snapshots_cross_between_mesh_and_one_process(worlds, params_np):
 
 
 def test_non_dense_arch_runs_replicated(worlds):
-    """The reduced mamba2-1.3b on model=2 keeps the replicated path (the
-    SSM's tensor-parallel split is not ported yet): the replica gather of
+    """The reduced internvl2-1b on model=2 keeps the replicated path (the
+    VLM's tensor-parallel split is not ported yet): the replica gather of
     every model-split leaf's update each step and no 'tp', losses equal to
     one process's."""
     from repro_torch.distributed.audit import CollectiveTrace
@@ -521,20 +548,22 @@ def test_non_dense_arch_runs_replicated(worlds):
 
 
 def test_launcher_refuses_a_q_layout_it_does_not_compute(worlds):
+    """Q in 'hd' runs on the tensor-parallel path only: the replicated
+    internvl2-1b with 3 Q heads on model=2 raises, naming it."""
     results, _, _ = worlds["model2"]
     for res in results.values():
         assert res["refusal"] is not None and "Q layout 'hd'" in res["refusal"]
 
 
 @pytest.mark.parametrize("arch,overrides,model,match", [
-    (ARCH, dict(num_heads=3, num_kv_heads=1), 2, "Q layout 'hd'"),
+    (REPLICATED_ARCH, Q_HD_HEADS, 2, "Q layout 'hd'"),
     (ARCH, dict(num_heads=3, num_kv_heads=1, head_dim=33), 2, "Q layout None"),
     (ARCH, dict(num_kv_heads=1, head_dim=33), 2, "KV layout None"),
-    ("hymba-1.5b", {}, 4, "KV layout 'hd'"),
+    (REPLICATED_ARCH, {}, 4, "KV layout 'hd'"),
 ])
 def test_mesh_path_refuses_layouts(arch, overrides, model, match):
-    """A Q layout of 'hd' or None raises on either path, a KV layout of None
-    too, and a KV layout of 'hd' on the replicated path (hymba's 2 KV heads
+    """A Q or KV layout of None raises on either path, and one of 'hd' on
+    the replicated path (internvl2-1b's 3 Q heads on model=2, its 2 KV heads
     of 32 on model=4)."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **overrides)
     with pytest.raises(ValueError, match=match):
@@ -546,14 +575,17 @@ def test_mesh_path_refuses_layouts(arch, overrides, model, match):
     (ARCH, {"data": 2, "model": 4}, sh.TENSOR_PARALLEL),
     (ARCH, {"data": 4, "model": 1}, sh.REPLICATED),
     ("olmoe-1b-7b", {"model": 4}, sh.TENSOR_PARALLEL),
-    ("mamba2-1.3b", {"model": 4}, sh.REPLICATED),
+    ("mamba2-1.3b", {"model": 4}, sh.TENSOR_PARALLEL),
+    ("hymba-1.5b", {"model": 4}, sh.TENSOR_PARALLEL),
+    ("internvl2-1b", {"model": 2}, sh.REPLICATED),
+    ("whisper-small", {"model": 2}, sh.REPLICATED),
 ])
 def test_mesh_path_decides_from_the_config_and_the_axes(arch, sizes, path):
     assert sh.mesh_path(get_config(arch).reduced(), sizes) == path
 
 
 @pytest.mark.parametrize("arch,tensor_parallel,match", [
-    ("mamba2-1.3b", True, "runs replicated"),
+    (REPLICATED_ARCH, True, "runs replicated"),
     (ARCH, True, "sequence length"),
     (ARCH, False, None),
 ])
