@@ -125,17 +125,16 @@ four ranks that share the card.
  13. distributed -- four ranks share the card through gloo (NCCL refuses two
                  ranks on one GPU), through the launcher (the kernels built
                  once, here, before any rank starts), batch 2 x 1024 a rank,
-                 bf16, the dense, MoE, SSM and hybrid models
-                 tensor-parallel (each rank holds and computes with its
-                 parameter shards): run A,
+                 bf16, every model on a model split tensor-parallel (each
+                 rank holds and computes with its parameter shards): run A,
                  full-width muonbp-960m at all 12 layers on data=2,model=2
                  with ZeRO-1, six steps, after one fp32 step (TF32 off)
                  whose loss and gradients, joined on rank 0, are held
                  against the single-process port's; run B, NorMuon with the
                  flatten fallback at 3 layers, two steps; run C, 12 layers
                  on model=4, three steps; run D, internvl2-1b at 4 of 24
-                 layers on the replicated path (every rank a whole replica)
-                 on data=2,model=2 with ZeRO-1, two steps; run E,
+                 layers (256 vision tokens ahead of the text) on
+                 data=2,model=2 with ZeRO-1, three steps; run E,
                  olmoe-1b-7b at 2 of 16 layers tensor-parallel (the experts'
                  d_ff split) on data=2,model=2 with ZeRO-1, three steps,
                  after its fp32 step held against one process on each data
@@ -148,15 +147,20 @@ four ranks that share the card.
                  4 of 48 layers tensor-parallel (d_inner and the SSM heads
                  split) on data=2,model=2 with ZeRO-1, and run H,
                  hymba-1.5b at 4 of 32 layers tensor-parallel (Q and K/V
-                 in 'hd', 25 SSM heads a rank) on data=2,model=2, three
-                 steps each, after their fp32 step held against one
-                 process. Every rank's loss each
+                 in 'hd', 25 SSM heads a rank) on data=2,model=2, and run
+                 I, whisper-small at full depth (12 encoder and 12 decoder
+                 layers over 1500 frames) on data=2,model=2 with ZeRO-1,
+                 three steps each; runs D, G, H and I after their fp32
+                 step held against one process; run J, the replicated
+                 path: internvl2-1b at 4 of 24 layers on data=4,model=1
+                 with ZeRO-1 (whole leaves on every rank, no 'tp'), two
+                 steps. Every rank's loss each
                  step, its collective trace (the optimizer's against
                  plan_comm to the byte, no optimizer collective on block
-                 steps; tp against tp_bytes, 0 B on run D; the gradient
-                 reduce against its shards; the replica gather 0 B on the
-                 tensor-parallel runs and the model-split updates' bytes on
-                 run D; the guard's 4 B agreement a step on run F), the
+                 steps; tp against tp_bytes; the gradient reduce against
+                 its shards; every collective of a class the port records
+                 (audit.PHASES); the guard's 4 B agreement
+                 a step on run F), the
                  summed wall of each class of collectives a step, its
                  launches, peak memory, momentum shards and spans; the
                  update on the run's state and fresh gradients against the
@@ -333,6 +337,9 @@ TPU_KERNELS = {
                 "src/repro/kernels/normuon.py:67"),
 }
 MAIN_PATH_KERNELS = ("ns_matmul", "ns_fma_matmul", "ns_fused_chain")
+# whisper's matrices fit the fused chain in both phases, whole on one
+# process (the archs phase) and as shards on a mesh (run I): no tiled launch.
+WHISPER_KERNELS = ("ns_fused_chain",)
 
 # The training paths: (label, extra launcher flags, steps, kernels that must
 # launch, phases whose update is checked against the plain versions).
@@ -377,10 +384,10 @@ CHAOS_ARGV = ["--arch", "muonbp-960m", "--reduced", "--steps", "6", "--batch", "
 # ZeRO-1, six steps. Run B: NorMuon with the flatten fallback at 3 of 12
 # layers (3 does not divide 2: padded lead, padded row statistics), two
 # steps. Run C: 12 layers on model=4 (the 4 KV heads split 4 ways), three
-# steps. Run D keeps the replicated path on the card: full-width
-# internvl2-1b (the VLM runs replicated, every rank a whole replica) on
-# data=2,model=2 with ZeRO-1, two steps, its replica gather held to the
-# bytes of the model-split updates. Run E: full-width olmoe-1b-7b
+# steps. Run D: full-width internvl2-1b tensor-parallel (its 256 vision
+# tokens put ahead of the text in the embedding's partial sum on model
+# index 0) on data=2,model=2 with ZeRO-1, three steps (full, block, full).
+# Run E: full-width olmoe-1b-7b
 # tensor-parallel (each rank the (E, D, F/2) expert shards) on
 # data=2,model=2 with ZeRO-1, three steps (full, block, full). Run F: the
 # guarded step on the mesh, muonbp-960m at 3 layers, --guard with NaN
@@ -389,8 +396,14 @@ CHAOS_ARGV = ["--arch", "muonbp-960m", "--reduced", "--steps", "6", "--batch", "
 # the 64 SSM heads) on data=2,model=2 with ZeRO-1, three steps (full,
 # block, full). Run H: full-width hymba-1.5b tensor-parallel on
 # data=2,model=2 (Q 'hd' on its 25 heads, K/V 'hd' on its 5, 25 SSM heads a
-# rank), three steps. Before the ranks of runs A, E, G and H train, one
-# fp32 step (TF32 off) on the run's first
+# rank), three steps. Run I: whisper-small at full width and depth
+# tensor-parallel (its 1500-frame encoder sequence-sharded, the output
+# gathered once for every decoder layer's cross-attention) on
+# data=2,model=2 with ZeRO-1, three steps. Run J: the replicated path, a
+# mesh without a model split: internvl2-1b at run D's depth on
+# data=4,model=1 with ZeRO-1, each rank the whole model on its 2 rows, two
+# steps (full, block). Before the ranks of runs A, D,
+# E, G, H and I train, one fp32 step (TF32 off) on the run's first
 # global batch and weights: the loss and every gradient joined on rank 0
 # against the single-process port's, computed in this process first (for
 # MoE on each data shard's rows and averaged, as the mesh routes each data
@@ -399,10 +412,10 @@ DIST_RANKS = 4
 DIST_ARGV = ["--optimizer", "muonbp", "--period", "5", "--seq", "1024", "--dist-backend",
              "gloo", "--obs-block", "--log-every", "1"]
 DIST_SEQ, DIST_SEED = 1024, 0
-# Run D's depth: four whole replicas of internvl2-1b share the card (a
-# layer holds 14.9 M parameters, the embedding and head 272.0 M; 331.7 M at
-# 4 of 24 layers, about mamba2-1.3b's 310.0 M at 4 of 48, which run D ran
-# before the SSM went tensor-parallel).
+# Run D's depth: internvl2-1b at 4 of 24 layers, the depth it ran at
+# replicated before (a layer holds 14.9 M parameters, the embedding and
+# head 272.0 M; 331.7 M at 4 layers, half of it a rank), so that its block
+# step compares with the replicated one's.
 DIST_D_LAYERS = 4
 # Run G's depth: mamba2-1.3b at 4 of 48 layers, run D's old depth, so that
 # its block step compares with the replicated one's (the replica gather
@@ -435,8 +448,8 @@ DIST_RUNS = (
                                                "--zero1-flatten"], 2, 3, True,
      MAIN_PATH_KERNELS + ("normuon",)),
     ("C", "muonbp-960m", "model=4", 2, [], 3, None, True, MAIN_PATH_KERNELS),
-    ("D", "internvl2-1b", "data=2,model=2", 4, ["--zero1"], 2, DIST_D_LAYERS, False,
-     MAIN_PATH_KERNELS),
+    ("D", "internvl2-1b", "data=2,model=2", 4, ["--zero1", "--period", "2"], 3, DIST_D_LAYERS,
+     True, MAIN_PATH_KERNELS),
     ("E", MOE_ARCH, "data=2,model=2", 4, ["--zero1", "--period", "2"], 3, DIST_E_LAYERS, True,
      MAIN_PATH_KERNELS),
     ("F", "muonbp-960m", "data=2,model=2", 4, DIST_F_FLAGS, 6, DIST_F_LAYERS, True,
@@ -445,9 +458,13 @@ DIST_RUNS = (
      True, MAIN_PATH_KERNELS),
     ("H", "hymba-1.5b", "data=2,model=2", 4, ["--period", "2"], 3, DIST_H_LAYERS, True,
      MAIN_PATH_KERNELS),
+    ("I", "whisper-small", "data=2,model=2", 4, ["--zero1", "--period", "2"], 3, None, True,
+     WHISPER_KERNELS),
+    ("J", "internvl2-1b", "data=4,model=1", 8, ["--zero1"], 2, DIST_D_LAYERS, False,
+     MAIN_PATH_KERNELS),
 )
 # The runs whose first global batch is held in fp32 against one process.
-DIST_FP32_RUNS = ("A", "E", "G", "H")
+DIST_FP32_RUNS = ("A", "D", "E", "G", "H", "I")
 # Run E's update is not joined on rank 0 against one process: its whole
 # gradients, parameters and optimizer state (~15 GB at 3 layers) do not fit
 # beside the four ranks' runs. tests/test_torch_moe_tensor_parallel.py
@@ -456,7 +473,7 @@ DIST_NO_UPDATE_CHECK = ("E",)
 # The runs whose Muon stacks all split four ways (model and ZeRO-1's data
 # axis, or model=4); the others hold what their specs give (E's router is
 # not split over model, F's 3 layers do not divide the data axis).
-DIST_QUARTER_STACKS = ("A", "B", "C")
+DIST_QUARTER_STACKS = ("A", "B", "C", "D", "I", "J")
 DIST_LOSS_TOL = 1e-5   # the fp32 step on the mesh vs one process, relative
 DIST_GRAD_TOL = 1e-4   # its gradients, max abs over the leaf's max|grad|
 
@@ -2087,8 +2104,7 @@ def phase_archs(smi: str) -> None:
         t_arch = time.perf_counter()
         cfg = get_config(arch)
         tag = f"archs:{arch}"
-        # whisper's full phase sends every bucket to the fused chain.
-        required = ("ns_fused_chain",) if arch == "whisper-small" else MAIN_PATH_KERNELS
+        required = WHISPER_KERNELS if arch == "whisper-small" else MAIN_PATH_KERNELS
         run, _, _, train_peak = train_path(tag, ["--arch", arch] + ARCHS_ARGV, None, required)
         breakdown = {"loss": [r["loss"] for r in run.records],
                      "step_wall_s": [r["dur_s"] for r in run.records],
@@ -2367,11 +2383,11 @@ def dist_fp32_check(rank: int, spec: tuple, ref_path: str) -> dict:
     mesh = make_mesh_from_spec(args.mesh)
     sizes = sh.mesh_axis_sizes(mesh)
     full = init_params(cfg, seed=args.seed, device="cuda")
-    engine = make_engine(full, sh.param_specs(full, cfg, sizes), mesh, tensor_parallel=True)
+    engine = make_engine(full, sh.param_specs(full, cfg, sizes), mesh)
     params = tree_lib.map_with_path(
         lambda k, p: engine.cut(p, engine.pspec_by_path[k]).clone(), full)
     del full
-    ctx = sh.make_ctx(cfg, engine, seq=args.seq)
+    ctx = sh.make_ctx(cfg, engine, seq=sh.residual_len(cfg, args.seq))
     batch = first_batch(cfg, argv, train._batch_rows(engine, args.batch))
     with recorded_routes() as rec:
         loss, metrics, grads = loss_and_grads(params, batch, cfg, torch.float32, ctx=ctx)
@@ -2481,6 +2497,7 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     from repro_torch.core import label_tree, muon
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.distributed import assert_matches_plan_by_axes, plan_comm, tp_bytes
+    from repro_torch.distributed.audit import PHASES as TRACE_PHASES
     from repro_torch.distributed import zero1 as zero1_lib
     from repro_torch.launch import train
     from repro_torch.obs import MemorySink
@@ -2535,16 +2552,10 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     res["plan"] = {ph: plan.predicted_bytes(ph) for ph in ("block", "full", "apply")}
     res["tp_pred"] = tp_bytes(cfg, batch // data, DIST_SEQ, sizes)
     shard_bytes = sum(p.numel() * p.element_size() for p in tree_lib.leaves(params))
-    # The gradient reduce: every shard (on the replicated path, every whole
-    # leaf), then one vector of the loss and its metrics (ce; MoE's
-    # load_balance and z_loss; loss).
+    # The gradient reduce: every shard, then one vector of the loss and its
+    # metrics (ce; MoE's load_balance and z_loss; loss).
     n_vals = 1 + 2 + (2 if cfg.num_experts else 0)
     res["grad_reduce_pred"] = shard_bytes + 4 * n_vals if data > 1 else 0
-    # The replica gather (the replicated path only): each model-split leaf's
-    # fp32 update gathered into the whole leaf.
-    res["replica_pred"] = 0 if tp else sum(
-        p.numel() * 4 for k, p in tree_lib.flatten_with_path(params)
-        if engine.model_split(k, p.dim()))
     res["trace_errors"] = []
     res["per_step"] = []
     res["wall_per_step"] = []
@@ -2564,16 +2575,17 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
                 ("all-reduce", 4)]:
             res["trace_errors"].append(f"step {step}: the guard's agreement is not one 4 B "
                                        "all-reduce")
-        b = {cls: trace.total_bytes(cls, step=step) for cls in (
-            "block", "full", "apply", "grad_reduce", "tp", "norm", "replica_gather", "normuon",
-            "guard")}
+        b = {cls: trace.total_bytes(cls, step=step) for cls in TRACE_PHASES}
         res["per_step"].append(b)
+        other = {e.phase for e in trace.select(None, step=step)} - set(TRACE_PHASES)
+        if other:
+            res["trace_errors"].append(f"step {step}: collectives of unknown classes "
+                                       f"{sorted(other)}")
         # The full steps' gathers are asynchronous (no wall of their own):
         # the muonbp.full.s<i>.gather spans time them.
         res["wall_per_step"].append({cls: trace.wall_s(cls, step=step) for cls in (
-            "tp", "grad_reduce", "apply", "replica_gather")})
-        for cls, want in (("tp", res["tp_pred"]), ("grad_reduce", res["grad_reduce_pred"]),
-                          ("replica_gather", res["replica_pred"])):
+            "tp", "grad_reduce", "apply")})
+        for cls, want in (("tp", res["tp_pred"]), ("grad_reduce", res["grad_reduce_pred"])):
             if b[cls] != want:
                 res["trace_errors"].append(f"step {step}: {cls} moved {b[cls]} B, not {want}")
     spans: dict = {}
@@ -2599,7 +2611,7 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     # The update on the run's state and fresh gradients (this rank's rows
     # and shards, reduced), joined, against the single-process update on
     # the joined gradients, parameters and state. On the replicated path the
-    # rank holds whole leaves, and its updates pay the replica gather.
+    # rank holds whole leaves.
     if label in DIST_NO_UPDATE_CHECK:
         res["update"] = None
         res["check_peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -2615,8 +2627,7 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     del grads
     join = ((lambda k, t: engine.join(t, engine.pspec_by_path[k], phase="check")) if tp
             else (lambda k, t: t))
-    whole = ((lambda k, u: join(k, engine.to_param_layout(k, u))) if tp
-             else (lambda k, u: engine.replicate(k, engine.to_param_layout(k, u))))
+    whole = lambda k, u: join(k, engine.to_param_layout(k, u))
     whole_g = {k: join(k, g) for k, g in tree_lib.flatten_with_path(g_m)}
     whole_p = {k: join(k, p) for k, p in tree_lib.flatten_with_path(p_m)}
     opt_kw = dict(period=5, weight_decay=0.1, block_specs=run.block_specs, variant=variant)
@@ -2695,20 +2706,24 @@ def dist_guard_checks(tag: str, res: list) -> None:
 
 
 def phase_distributed(smi: str) -> None:
-    """Four ranks on the one card, gloo, through the launcher, the dense,
-    MoE, SSM and hybrid models tensor-parallel: run A, full-width muonbp-960m at 12
+    """Four ranks on the one card, gloo, through the launcher, every model
+    on a model split tensor-parallel: run A, full-width muonbp-960m at 12
     layers on data=2,model=2 with ZeRO-1, six steps (full, block x4, full),
     after the fp32 step held against one process; run B, NorMuon with the
     flatten fallback at 3 of its 12 layers, two steps; run C, 12 layers on
-    model=4, three steps. Run D, internvl2-1b at DIST_D_LAYERS layers on the
-    replicated path, data=2,model=2 with ZeRO-1, two steps. Run E,
+    model=4, three steps. Run D, internvl2-1b at DIST_D_LAYERS layers
+    tensor-parallel, data=2,model=2 with ZeRO-1, three steps. Run E,
     olmoe-1b-7b at DIST_E_LAYERS layers tensor-parallel, data=2,model=2 with
     ZeRO-1, three steps, after its fp32 step and routing held against one
     process. Run F, the guarded step on the mesh (see
     :func:`dist_guard_checks`). Runs G and H, mamba2-1.3b and hymba-1.5b at
     DIST_G_LAYERS and DIST_H_LAYERS layers tensor-parallel, data=2,model=2
     (G with ZeRO-1), three steps each after the fp32 step held against one
-    process. Every rank's exit code is checked. gloo
+    process. Run I, whisper-small at full depth tensor-parallel,
+    data=2,model=2 with ZeRO-1, three steps after its fp32 step (D's too)
+    held against one process. Run J, the replicated path: internvl2-1b at
+    DIST_D_LAYERS layers on data=4,model=1 with ZeRO-1, two steps. Every
+    rank's exit code is checked. gloo
     copies through the host: its times measure no link."""
     import gc
     import tempfile
@@ -2787,10 +2802,7 @@ def phase_distributed(smi: str) -> None:
                 fail(f"{tag}: the fp32 gradient of {worst} disagrees with one process")
         log(f"[{tag}] {'tensor-parallel' if want_tp else 'replicated'}; plan_comm a rank: "
             f"{r0['plan']} B; tp_bytes a rank and step {r0['tp_pred']} B; grad_reduce a rank "
-            f"and step {r0['grad_reduce_pred']} B; replica gather a rank and step "
-            f"{r0['replica_pred']} B")
-        if not want_tp and not r0["replica_pred"]:
-            fail(f"{tag}: the replicated run predicts no replica gather")
+            f"and step {r0['grad_reduce_pred']} B")
         if "guard" in r0:
             dist_guard_checks(tag, res)
         for rank, r in enumerate(res):
@@ -2825,9 +2837,6 @@ def phase_distributed(smi: str) -> None:
                                                  != r["unsharded_stack_bytes"]):
                 fail(f"{tag}: rank {rank} holds {r['muon_stack_bytes']} B of the muon "
                      f"stacks' momentum, not a quarter of {r['unsharded_stack_bytes']}")
-            if ("train.replica_gather" in r["spans"]) == want_tp:
-                fail(f"{tag}: rank {rank}'s spans {'have' if want_tp else 'lack'} "
-                     "train.replica_gather")
         for phase in ("full", "block") if r0["update"] is not None else ():
             rel = r0["update"][f"{phase}_rel_err"]
             log(f"[{tag}] {phase} update, 4 ranks vs one process (kernels both): rel {rel:.3e} "

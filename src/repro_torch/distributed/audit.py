@@ -16,13 +16,10 @@ data-parallel gradient all-reduce), ``'tp'`` (the tensor-parallel
 forward and backward of ``distributed/tensor_parallel.py`` and the sum of
 the replicated leaves' gradients over the model axis; ``plan.tp_bytes``
 counts them), ``'norm'`` (the model-axis sums of the global gradient
-norms on that path), ``'replica_gather'`` (each rank's updated shards
-gathered back into its full replica: only the replicated path, which runs
-the whole model on every rank, pays it; the reference's model is
-tensor-parallel and pays no such gather), ``'normuon'`` (NorMuon's row and
+norms on that path), ``'normuon'`` (NorMuon's row and
 RMS sums of sharded leaves), ``'guard'`` (the guarded step's health flag,
 agreed over the whole mesh: 4 B a step) and ``'checkpoint'`` (state
-gathered for a snapshot).
+gathered for a snapshot): :data:`PHASES`.
 :func:`bytes_by_axes`, :func:`bytes_by_link`, :func:`assert_matches_plan`
 and :func:`assert_matches_plan_by_axes` read the trace.
 
@@ -48,6 +45,9 @@ from repro_torch.distributed.plan import CommPlan, link_class
 GATHER = "all-gather"
 REDUCE = "all-reduce"
 REDUCE_SCATTER = "reduce-scatter"
+# Every phase class the port's own code records (see the module docstring).
+PHASES = ("block", "full", "apply", "grad_reduce", "tp", "norm", "normuon", "guard",
+          "checkpoint")
 
 
 @dataclasses.dataclass(frozen=True)

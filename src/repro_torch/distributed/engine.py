@@ -37,19 +37,20 @@ padded and split. Updates leave :meth:`run_program` (and the optimizer's
 epilogue, which works on each rank's own layers) in the momentum layout;
 :meth:`to_param_layout` then runs the plan's 'apply' gathers -- one over
 the ZeRO axes, or the flatten fallback's per-axis gathers and the pad
-slice -- and :meth:`replicate` the replica gather over the model axes.
+slice.
 
-The parameters and gradients a rank holds come in one of two layouts
-(``sharding.specs.mesh_path``). On the tensor-parallel path
-(``tensor_parallel=True``: the dense, MoE, SSM and hybrid models) they
-are the rank's param-layout shards, which the model computes with:
-:meth:`shard` cuts them over the axes the momentum spec adds (ZeRO-1's),
-the 'apply' gathers bring updates back to that layout, and nothing is
-replicated. On the
-replicated path every rank runs the whole model on its slice of the batch,
-with full parameters and data-reduced full gradients: :meth:`shard` cuts
-the full tensor (a flatten leaf's lead dim zero-padded first) to the
-momentum spec, and :meth:`replicate` pays the replica gather.
+The parameters and gradients a rank holds come in one of two layouts,
+which the engine reads from its mesh (``tensor_parallel``, the rule of
+``sharding.specs.mesh_path``). On a model axis larger than one (the
+tensor-parallel path) they are the rank's param-layout shards, which the
+model computes with: :meth:`shard` cuts them over the axes the momentum
+spec adds (ZeRO-1's) and the 'apply' gathers bring updates back to that
+layout; :meth:`join` makes a shard whole for a check. Without a model
+split (the replicated path) every rank runs the whole model on its slice
+of the batch, with full parameters and data-reduced full gradients:
+:meth:`shard` cuts the full tensor (a flatten leaf's lead dim
+zero-padded first) to the momentum spec, and the 'apply' gathers make it
+whole again.
 """
 
 from __future__ import annotations
@@ -82,8 +83,7 @@ class ShardMapEngine:
     dict for a program compiled and priced without ranks; ``comm`` (the
     collective wrapper) is None then, and running raises. The wrapper's
     ``sync``, when set, also runs at the end of each stage span (device
-    completion). ``tensor_parallel``: the ranks hold param-layout shards
-    (see the module docstring); ``sharding.specs.make_ctx`` reads it.
+    completion).
     """
 
     mesh: Any
@@ -91,11 +91,16 @@ class ShardMapEngine:
     pspec_by_path: dict = dataclasses.field(default_factory=dict)
     flatten_by_path: dict = dataclasses.field(default_factory=dict)
     comm: Any = None
-    tensor_parallel: bool = False
 
     @property
     def axis_sizes(self) -> dict[str, int]:
         return sh.mesh_axis_sizes(self.mesh)
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the ranks hold param-layout shards: a model axis larger
+        than one (see the module docstring)."""
+        return self.axis_sizes.get(sh.MODEL_AXIS, 1) > 1
 
     def spec_for(self, key: PathKey, ndim: int) -> tuple:
         return tuple(spec_entries(self.uspec_by_path.get(tuple(key)), ndim)[:ndim])
@@ -222,15 +227,6 @@ class ShardMapEngine:
             u = self._comm().all_gather(u, _names(uspec[0]), dim=0, phase="apply")
         return u
 
-    def replicate(self, key: PathKey, u: torch.Tensor) -> torch.Tensor:
-        """The replica gather (the replicated path only): a param-layout
-        tensor gathered over its model-sharded dims into the full tensor
-        every rank holds."""
-        if u.dim() == 0:
-            return u
-        return self._gather(u, self.pspec_by_path.get(tuple(key)), range(u.dim()),
-                            phase="replica_gather")
-
     # -- NorMuon's sums over sharded leaves ------------------------------------
 
     def row_sum(self, key: PathKey, t: torch.Tensor) -> torch.Tensor:
@@ -351,7 +347,7 @@ class _TrailingGather:
 
 
 def make_engine(params: Any, pspecs: Any, mesh, *, zero1: bool = False, zero1_axis=None,
-                zero1_flatten: bool = False, tensor_parallel: bool = False) -> ShardMapEngine:
+                zero1_flatten: bool = False) -> ShardMapEngine:
     """Build a :class:`ShardMapEngine` from the param tree and its specs.
 
     ``params`` may be tensors or anything with ``.shape``. With ``zero1``
@@ -363,8 +359,8 @@ def make_engine(params: Any, pspecs: Any, mesh, *, zero1: bool = False, zero1_ax
     rule: unlike the reference's engine, which serves the Muon leaves only,
     this one also holds the AdamW state's shards. On a ``DeviceMesh`` the
     engine gets a new ``audit.Collectives``, whose trace records every
-    collective it issues. ``params`` have the global shapes; ``tensor_parallel`` says the
-    ranks will hold their param-layout shards of them.
+    collective it issues. ``params`` have the global shapes; on a model
+    split the ranks hold their param-layout shards of them.
     """
     from repro_torch.core.combine import default_label_fn
     from repro_torch.distributed.audit import Collectives
@@ -392,4 +388,4 @@ def make_engine(params: Any, pspecs: Any, mesh, *, zero1: bool = False, zero1_ax
                                             label=label)
     comm = None if isinstance(mesh, dict) else Collectives(mesh)
     return ShardMapEngine(mesh=mesh, uspec_by_path=uspecs, pspec_by_path=pspec_out,
-                          flatten_by_path=flatten, comm=comm, tensor_parallel=tensor_parallel)
+                          flatten_by_path=flatten, comm=comm)

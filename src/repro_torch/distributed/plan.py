@@ -470,57 +470,68 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2) ->
     tensor-parallel model (``distributed/tensor_parallel.py``), from the
     shapes; 0 where ``sharding.specs.mesh_path`` runs ``cfg`` replicated.
 
-    ``rows`` x ``seq`` tokens a rank (its data coordinate's rows),
-    activations of ``compute_bytes`` an element, the replicated leaves'
-    gradients fp32; result-buffer bytes, as the plan's (a reduce-scatter's
+    ``rows`` x ``seq`` text tokens a rank (its data coordinate's rows); the
+    residual is ``sharding.specs.residual_len`` long (a VLM's vision tokens
+    ahead of the text). Activations of ``compute_bytes`` an element, but
+    whisper's encoder and its cross-attention K/V in fp32 (the frames are
+    fp32 and promote, as in the reference); the replicated leaves'
+    gradients fp32. Result-buffer bytes, as the plan's (a reduce-scatter's
     is the rank's slice). A sequence gather or reduce counts with its
-    backward: an all-gather and a reduce-scatter when the residual is
+    backward: an all-gather and a reduce-scatter when its residual is
     sequence-sharded, else one all-reduce. Counted:
 
     * each layer's sequence gathers and reduces: two of each for a dense,
-      MoE or hybrid layer (into and out of the attention, the SSM or both,
-      then the MLP or MoE block), one of each for an SSM layer;
+      MoE, hybrid or encoder layer (into and out of the attention, the SSM
+      or both, then the MLP or MoE block), three for a whisper decoder
+      layer (and its cross-attention), one for an SSM layer; an encoder
+      layer's at ``rows x encoder_seq`` under the encoder's own rule;
     * on the 'hd' layouts, the column gathers and their reduce-scatters:
-      K and V's, and Q's;
+      K and V's (of the encoder output, for the cross-attention), and Q's;
+    * whisper's encoder output, gathered once, and its backward;
     * an SSM layer's gated-norm statistic: a (rows, S) fp32 all-reduce
       forward and another backward;
-    * the embedding's reduce and the logits' gather; the cross entropy's
-      three (rows, S) fp32 all-reduces;
+    * the embedding's reduce and the logits' gather (the whole residual);
+      the cross entropy's three (rows, S) fp32 all-reduces (text only);
     * the sum over the model axis of the gradients
       ``tensor_parallel.grad_is_partial`` names: in either layout the MoE
       router's, the SSM's ``wb``, ``wc``, B/C convs and biases and
       ``gate_norm``, hymba's branch scales; with a sequence-sharded
-      residual every other replicated leaf's too (the norm gains).
+      residual every other replicated leaf's on it too (the norm gains:
+      the encoder's under the encoder's rule).
     """
     sizes = sh.mesh_axis_sizes(axis_sizes)
     if sh.mesh_path(cfg, sizes) != sh.TENSOR_PARALLEL:
         return 0
     m = sizes[sh.MODEL_AXIS]
-    seq_shard = sh.sequence_sharded(seq, m)
-    tokens = rows * seq
+    res_len = sh.residual_len(cfg, seq)
+    seq_shard = sh.sequence_sharded(res_len, m)
+    tokens = rows * res_len
     d, arch = cfg.d_model, cfg.arch_type
+    audio = arch == "audio"
 
-    def pair(width: int) -> int:
-        """A gather (or reduce) of (rows, S, width) and its backward."""
-        act = tokens * width * compute_bytes
-        return act + act // m if seq_shard else act
+    def pair(width: int, n: int = tokens, sharded: bool = seq_shard,
+             elt: int = compute_bytes) -> int:
+        """A gather (or reduce) of (rows, n / rows, width) and its backward."""
+        act = n * width * elt
+        return act + act // m if sharded else act
 
-    def cols(width: int) -> int:
-        """A column gather of (rows, S, width) and its reduce-scatter."""
-        act = tokens * width * compute_bytes
+    def cols(width: int, n: int = tokens, elt: int = compute_bytes) -> int:
+        """A column gather of (rows, n / rows, width) and its reduce-scatter."""
+        act = n * width * elt
         return act + act // m
 
     ssm = arch in ("ssm", "hybrid")
     attn = bool(cfg.num_heads) and arch != "ssm"
-    per_layer = (2 if arch == "ssm" else 4) * pair(d)
+    per_layer = (2 if arch == "ssm" else 6 if audio else 4) * pair(d)
     # Elements a layer of the replicated leaves: partial in either layout,
     # and partial only when the residual is sequence-sharded.
     always = cfg.num_experts * d
-    norms = (2 * d if attn else 0) + (2 * d if cfg.use_post_norms else 0)
+    norms = ((2 * d if attn else 0) + (2 * d if cfg.use_post_norms else 0)
+             + (d if audio else 0))
     if attn:
         ql, kvl = sh.attn_layouts(cfg, m)
-        per_layer += (2 * cols(cfg.kv_dim) if kvl == "hd" else 0) + (
-            cols(cfg.q_dim) if ql == "hd" else 0)
+        q_cols = cols(cfg.q_dim) if ql == "hd" else 0
+        per_layer += (2 * cols(cfg.kv_dim) if kvl == "hd" else 0) + q_cols
     if ssm:
         dims = sh.ssm_dims(cfg)
         n, k = dims.state_size, dims.conv_kernel
@@ -529,9 +540,19 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2) ->
         norms += d
     if arch == "hybrid":
         always += 2 * d
+    total = cfg.num_layers * per_layer + 2 * pair(d) + 3 * rows * seq * FP32_BYTES
     partial = cfg.num_layers * always + (cfg.num_layers * norms + d if seq_shard else 0)
-    return (cfg.num_layers * per_layer + 2 * pair(d) + 3 * tokens * FP32_BYTES
-            + FP32_BYTES * partial)
+    if audio:
+        enc = rows * cfg.encoder_seq
+        enc_shard = sh.sequence_sharded(cfg.encoder_seq, m)
+        kv = 2 * cols(cfg.kv_dim, enc, FP32_BYTES) if kvl == "hd" else 0
+        enc_layer = (4 * pair(d, enc, enc_shard, FP32_BYTES) + kv
+                     + (cols(cfg.q_dim, enc, FP32_BYTES) if ql == "hd" else 0))
+        # The encoder's layers, its output's gather, the cross-attention's Q and K/V columns.
+        total += (cfg.encoder_layers * enc_layer + pair(d, enc, enc_shard, FP32_BYTES)
+                  + cfg.num_layers * (q_cols + kv))
+        partial += (cfg.encoder_layers * 2 * d + d) if enc_shard else 0
+    return total + FP32_BYTES * partial
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,8 @@ with its sequence parallelism):
   reduce-scatter, the router gradient's sum) would count the aux
   gradient ``m`` times;
 * :func:`embed_lookup` -- the vocab-parallel lookup: tokens outside the
-  rank's rows give zeros, and :func:`reduce_seq` sums the partial rows;
+  rank's rows give zeros, and :func:`reduce_seq` sums the partial rows (a
+  VLM's vision rows ahead of them, on model index 0 only);
 * :func:`cross_entropy` -- the masked mean cross entropy over the rank's
   ``Vp / model`` logits: the global max, the log-sum-exp and the label
   logit each through one all-reduce over ``model``. Pad columns stay in
@@ -164,12 +165,18 @@ PARTIAL_IN_EITHER_LAYOUT = frozenset({
 def grad_is_partial(key, model_split: bool, ctx) -> bool:
     """Whether a rank's gradient of the leaf ``key`` is a part of the whole
     that the ranks of ``model`` sum: a leaf ``model`` does not split, when
-    the residual is sequence-sharded (it saw the rank's sequence shard
+    its residual is sequence-sharded (it saw the rank's sequence shard
     only), and in either layout the leaves of
     :data:`PARTIAL_IN_EITHER_LAYOUT`: the MoE router; the SSM's ``wb``,
     ``wc``, ``conv_b``, ``conv_b_bias``, ``conv_c``, ``conv_c_bias`` and
-    ``gate_norm``; hymba's ``attn_scale`` and ``ssm_scale``."""
-    return not model_split and (ctx.seq_shard or key[-1] in PARTIAL_IN_EITHER_LAYOUT)
+    ``gate_norm``; hymba's ``attn_scale`` and ``ssm_scale``. A leaf under
+    ``encoder/`` (whisper's) lives on the encoder's residual, which follows
+    its own length (``ctx.encoder_seq_shard``); every other leaf, the
+    decoder's ``cross_norm`` among them, on the decoder's."""
+    if model_split:
+        return False
+    seq_shard = ctx.encoder_seq_shard if key[0] == "encoder" else ctx.seq_shard
+    return seq_shard or key[-1] in PARTIAL_IN_EITHER_LAYOUT
 
 
 def vocab_range(rows: int, ctx) -> tuple[int, int]:
@@ -177,13 +184,26 @@ def vocab_range(rows: int, ctx) -> tuple[int, int]:
     return ctx.index * rows, (ctx.index + 1) * rows
 
 
-def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, ctx) -> torch.Tensor:
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, ctx, *, scale=None,
+                 prefix=None) -> torch.Tensor:
     """The vocab-parallel embedding: ``embed`` is the rank's (Vp/m, D) rows;
-    returns the summed (B, S/m, D) rows (or (B, S, D) unsharded)."""
+    returns the summed (B, S/m, D) rows (or (B, S, D) unsharded), each
+    times ``scale`` where given. ``prefix`` (B, V, D), a VLM's vision
+    embeddings, goes ahead of the text before the sum, so that the shards
+    are cut from the whole ``V + S`` sequence: model index 0 adds it, the
+    other ranks zeros, and the sum is exact."""
     lo, hi = vocab_range(embed.shape[0], ctx)
     inside = (tokens >= lo) & (tokens < hi)
-    rows = embed[(tokens - lo).clamp(0, embed.shape[0] - 1)]
-    return reduce_seq(rows.masked_fill(~inside[..., None], 0), ctx)
+    rows = embed[(tokens - lo).clamp(0, embed.shape[0] - 1)].masked_fill(~inside[..., None], 0)
+    if scale is not None:
+        # A fill on the device: a host scalar copied over would sync the host.
+        rows = rows * torch.full((), scale, dtype=rows.dtype, device=rows.device)
+    if prefix is not None:
+        prefix = prefix.to(rows.dtype)
+        if ctx.index:
+            prefix = torch.zeros_like(prefix)
+        rows = torch.cat([prefix, rows], dim=SEQ_DIM)
+    return reduce_seq(rows, ctx)
 
 
 class _VocabParallelCE(torch.autograd.Function):

@@ -86,12 +86,14 @@ def opt_shardings(a_opt: Any, a_params: Any, engine) -> Any:
 
 def opt_specs(a_opt: Any, a_params: Any, mesh, *, pspecs: Any, zero1: bool = False,
               axis=None, zero1_flatten: bool = False) -> Any:
-    """Spec tuple per leaf of ``a_opt``, from the mesh's axis sizes."""
+    """Spec tuple per leaf of ``a_opt``, from the mesh's axis sizes
+    (``a_params`` with the global shapes, as the reference's)."""
     from repro_torch.distributed.engine import make_engine
 
     engine = make_engine(a_params, pspecs, sh.mesh_axis_sizes(mesh), zero1=zero1,
                          zero1_axis=axis, zero1_flatten=zero1_flatten)
-    return map_leaves(lambda key, s: s.spec, opt_shardings(a_opt, a_params, engine))
+    index = {path: tuple(p.shape) for path, p in tree_lib.flatten_with_path(a_params)}
+    return map_leaves(lambda key, leaf: _layout(engine, key, leaf, index).spec, a_opt)
 
 
 def _zip_map(fn, tree, layouts):

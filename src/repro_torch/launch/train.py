@@ -23,15 +23,16 @@ gather a sharded matrix, ``--full-schedule pipelined|barrier``);
 raises: eager PyTorch has no partitioner. ``--batch`` is the global batch;
 the ranks of one data coordinate read the same rows. Before the first step
 the launcher decides the path (``sharding.specs.mesh_path``) and prints it:
-a dense, MoE, SSM or hybrid model on a ``model`` axis larger than one runs
-tensor-parallel -- every rank builds the full parameters from ``--seed``
-(or takes the caller's) and keeps only its ``param_specs`` shards, which it
-computes with (``models/transformer.py``, ``distributed/tensor_parallel.py``)
--- and every other arch runs replicated, each rank holding the whole model.
-A head layout the port does not compute raises there. See
-``training/train_step.py`` for the gradient reduce, the 'apply' gathers
-and, replicated, the replica gather. Only rank 0 prints step lines and
-writes ``--log-file``; a rank that fails raises, which fails the run.
+every arch on a ``model`` axis larger than one runs tensor-parallel --
+every rank builds the full parameters from ``--seed`` (or takes the
+caller's) and keeps only its ``param_specs`` shards, which it computes with
+(``models/transformer.py``, ``models/encdec.py``,
+``distributed/tensor_parallel.py``) -- and a mesh without a model split
+runs replicated, each rank holding the whole model. A head layout or a
+count the port does not split raises there. See ``training/train_step.py``
+for the gradient reduce and the 'apply' gathers. Only rank 0 prints step
+lines and writes ``--log-file``; a rank that fails raises, which fails the
+run.
 
 Resilience: ``--guard`` runs the optimizer apply behind the health check of
 ``training/resilience.py`` (skip on NaN/Inf or a loss spike) and drives the
@@ -75,7 +76,9 @@ Guarded, with snapshots and a resume:
 
 ``--arch`` takes every arch of the registry: dense, MoE, ``mamba2-1.3b``
 (SSM), ``hymba-1.5b`` (hybrid), ``internvl2-1b`` (VLM: the stream carries
-``vision_embeds``) and ``whisper-small`` (audio: ``audio_frames``).
+``vision_embeds``, and its residual is ``vision_tokens + --seq`` long) and
+``whisper-small`` (audio: ``audio_frames``, ``encoder_seq`` frames), on one
+process and, tensor-parallel, under ``--mesh``.
 
 ``--optimizer-variant {muon,turbo_muon,normuon,dion}`` picks the optimizer
 variant (``core/variants.py``), as ``--optimizer dion`` picks Dion.
@@ -425,15 +428,16 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
         axis_sizes = sh.mesh_axis_sizes(mesh)
         mesh_path = sh.mesh_path(cfg, axis_sizes)
         engine = make_engine(params, sh.param_specs(params, cfg, axis_sizes), mesh,
-                             zero1=args.zero1, zero1_flatten=args.zero1_flatten,
-                             tensor_parallel=mesh_path == sh.TENSOR_PARALLEL)
+                             zero1=args.zero1, zero1_flatten=args.zero1_flatten)
         engine.comm.sync = sync
-        ctx = sh.make_ctx(cfg, engine, seq=args.seq)
+        ctx = sh.make_ctx(cfg, engine, seq=sh.residual_len(cfg, args.seq))
         if rank == 0:
+            encoder = (f", sequence-sharded encoder {ctx.encoder_seq_shard}"
+                       if cfg.arch_type == "audio" else "")
             print(f"mesh path: {mesh_path} (model axis {axis_sizes.get('model', 1)}, "
                   f"Q layout {ctx.q_layout!r}, KV layout {ctx.kv_layout!r}, sequence-sharded "
-                  f"residual {ctx.seq_shard}); collectives: {args.dist_backend}'s own on "
-                  f"{device.type} tensors", flush=True)
+                  f"residual {ctx.seq_shard}{encoder}); collectives: {args.dist_backend}'s own "
+                  f"on {device.type} tensors", flush=True)
     else:
         axis_sizes = {"model": args.mesh_model}
     bspecs = matrix_block_specs(params, cfg, axis_sizes)

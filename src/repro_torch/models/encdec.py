@@ -8,9 +8,22 @@ encoder's output) is ``transformer.decoder_layer``.
 
 Frames and weights of other dtypes promote (``layers.linear``): in bf16
 training the reference's encoder meets fp32 frames and so runs in fp32.
+
+Tensor-parallel, the encoder runs on the rank's column and row shards
+through the decoder's collectives, with the reference's sequence rule
+applied to its own length: where the model axis divides ``S_enc``, each
+rank runs the layers on its slice of the frames and the output is gathered
+once into the whole (B, S_enc, D) K/V source (``tensor_parallel.
+gather_seq``). That gather's backward sums the partial cotangents that each
+rank's cross-attention heads send back from every decoder layer (a
+reduce-scatter; unsharded, ``gather_seq``'s all-reduce). The reference lets
+GSPMD lay the encoder out and sums the same terms in another order: a
+departure by design, with the same result up to rounding.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -40,24 +53,42 @@ def init_encoder_params(gen: torch.Generator, cfg: ModelConfig, *, device="cuda"
     }
 
 
-def encode(enc_params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def encode(enc_params: dict, frames: torch.Tensor, cfg: ModelConfig, ctx=None) -> torch.Tensor:
     """frames: (B, S_enc, D) stub embeddings -> (B, S_enc, D) encodings.
 
     Sinusoidal positions added to the frames, then pre-norm bidirectional
     attention (no RoPE, no mask) and a tanh-GELU MLP per layer, and a final
-    RMSNorm.
+    RMSNorm. ``ctx`` (``sharding.specs.ShardCtx``) gives the head layouts,
+    as the reference's does; tensor-parallel, ``enc_params`` are the rank's
+    shards and the encoder's residual follows ``ctx.encoder_seq_shard`` (see
+    the module doc). The output is whole on every rank.
     """
     seq = frames.shape[1]
+    tp = ctx is not None and ctx.tensor_parallel
     x = frames + sinusoidal_positions(seq, cfg.d_model, device=frames.device).to(frames.dtype)[None]
+    enter = leave = lambda h: h
+    if tp:
+        from repro_torch.distributed import tensor_parallel
+        from repro_torch.sharding.specs import sequence_sharded
+
+        if ctx.encoder_seq_shard != sequence_sharded(seq, ctx.size):
+            raise ValueError(f"the context's encoder_seq_shard={ctx.encoder_seq_shard} was made "
+                             f"for another encoder length than {seq}")
+        ctx = dataclasses.replace(ctx, seq_shard=ctx.encoder_seq_shard)
+        if ctx.seq_shard:
+            x = x.narrow(1, ctx.index * (seq // ctx.size), seq // ctx.size)
+        enter = lambda h: tensor_parallel.gather_seq(h, ctx)
+        leave = lambda h: tensor_parallel.reduce_seq(h, ctx)
     positions = torch.arange(seq, device=frames.device)
     for i in range(enc_params["attn"]["wq"].shape[0]):
         attn = {k: w[i] for k, w in enc_params["attn"].items()}
-        h = rms_norm(x, enc_params["norms"]["attn_norm"][i])
+        h = enter(rms_norm(x, enc_params["norms"]["attn_norm"][i]))
         attn_out, _ = attention_block(
             h, attn, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-            head_dim=cfg.head_dim, positions=positions, inv_freq=None, causal=False)
-        x = x + attn_out
-        h = rms_norm(x, enc_params["norms"]["mlp_norm"][i])
-        x = x + linear(F.gelu(linear(h, enc_params["mlp"]["wi"][i]), approximate="tanh"),
-                       enc_params["mlp"]["wo"][i])
-    return rms_norm(x, enc_params["final_norm"])
+            head_dim=cfg.head_dim, positions=positions, inv_freq=None, causal=False, ctx=ctx)
+        x = x + leave(attn_out)
+        h = enter(rms_norm(x, enc_params["norms"]["mlp_norm"][i]))
+        x = x + leave(linear(F.gelu(linear(h, enc_params["mlp"]["wi"][i]), approximate="tanh"),
+                             enc_params["mlp"]["wo"][i]))
+    x = rms_norm(x, enc_params["final_norm"])
+    return tensor_parallel.gather_seq(x, ctx) if tp else x

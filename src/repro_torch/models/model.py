@@ -30,7 +30,8 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, ctx=None) -> tuple[t
     """(loss, metrics): the masked CE, plus ``LB_COEF * load_balance +
     Z_COEF * z_loss`` for an MoE model, whose metrics then also carry the
     layer-summed ``load_balance`` and ``z_loss``. A VLM's logits at its
-    ``vision_tokens`` leading positions are dropped before the CE.
+    ``vision_tokens`` leading positions are dropped before the CE, whose
+    mean counts the text positions only, as the reference's.
 
     ``ctx`` (``sharding.specs.ShardCtx``) is passed to ``forward``; on a
     tensor-parallel rank the CE is the vocab-parallel one over the rank's

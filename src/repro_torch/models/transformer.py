@@ -13,10 +13,11 @@ state tensors. The reference's activation checkpointing changes no numbers
 and is not ported yet: the full-width dense and MoE models the card trains
 fit without it, and ``mamba2-1.3b`` trains there at a cut depth.
 
-With a tensor-parallel ``ctx`` (``sharding.specs.ShardCtx``; dense, MoE,
-SSM and hybrid models) each rank holds its ``param_specs`` shards and
-``forward`` computes with them, as the reference's model under GSPMD: the
-embedding vocab-parallel, Q/K/V and the MLP's wi/wg column-parallel (the
+With a tensor-parallel ``ctx`` (``sharding.specs.ShardCtx``; every arch)
+each rank holds its ``param_specs`` shards and ``forward`` computes with
+them, as the reference's model under GSPMD: the embedding vocab-parallel
+(a VLM's vision rows put ahead of the text before the sum), Q/K/V (whisper's
+cross-attention and encoder too) and the MLP's wi/wg column-parallel (the
 rank's heads, or in the 'hd' layout its head_dim slice of every head, and
 its d_ff columns), both ``wo`` row-parallel, the experts' ``d_ff`` split
 as the reference's ``shard_map`` splits it (``models/moe.py``), the SSM's
@@ -25,7 +26,9 @@ row-parallel), the logits column-parallel over the vocab. Between layers
 the residual is sequence-sharded over the model axis where the reference's
 ``_seq_shard`` shards it (``ctx.seq_shard``), so the norms run on the
 rank's sequence shard; ``distributed/tensor_parallel.py`` holds the
-collectives.
+collectives. whisper's encoder follows its own length's rule
+(``encdec.encode``) and its output is gathered whole once, as the K/V
+source of every decoder layer's cross-attention.
 
 Layers by ``arch_type``: dense and vlm (attention + MLP), moe (attention +
 MoE block), ssm (Mamba2 only), hybrid (hymba: attention and SSM on one
@@ -192,14 +195,15 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
     window mask, only ``kv_len``. ``group_rows`` routes each row of the
     batch alone (``moe.moe_block``). ``cross_kv``: the encoder's output for
     whisper's cross-attention. ``ctx``: the model's context; tensor-parallel
-    (a dense, MoE, SSM or hybrid layer in 'train' mode), ``x`` is the rank's
-    sequence shard of the residual (or the whole of it, unsharded) and so is
-    the output; the MoE block routes the gathered sequence and its partial
-    output is reduced as the row-parallel ``wo``'s, and so is the SSM's
-    ``out_proj``. hymba's attention and SSM read one gathered input, and
-    one reduce closes both: ``0.5 * (attn * attn_scale + ssm * ssm_scale)``
-    is linear in the two partial sums, so this is the reference's sum in
-    another order, with half the reduce bytes.
+    ('train' mode), ``x`` is the rank's sequence shard of the residual (or
+    the whole of it, unsharded) and so is the output; the cross-attention's
+    Q comes from the gathered sequence and its K/V from the rank's heads of
+    the whole encoder output; the MoE block routes the gathered sequence
+    and its partial output is reduced as the row-parallel ``wo``'s, and so
+    is the SSM's ``out_proj``. hymba's attention and SSM read one gathered
+    input, and one reduce closes both: ``0.5 * (attn * attn_scale + ssm *
+    ssm_scale)`` is linear in the two partial sums, so this is the
+    reference's sum in another order, with half the reduce bytes.
     """
     norms = layer["norms"]
     new_kv = new_ssm = None
@@ -238,10 +242,10 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
 
     if cross_kv is not None:
         cross_out, _ = attention_block(
-            rms_norm(x, norms["cross_norm"]), layer["cross"], num_heads=cfg.num_heads,
+            enter(rms_norm(x, norms["cross_norm"])), layer["cross"], num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, positions=positions,
             inv_freq=None, attn_softcap=cfg.attn_softcap, cross_kv=cross_kv, ctx=ctx)
-        x = x + cross_out
+        x = x + leave(cross_out)
 
     aux = None
     if "moe" in layer:
@@ -264,15 +268,20 @@ def _slice_layer(tree, i: int):
     return tree[i]
 
 
-def _embed(params, tokens, cfg, ctx=None):
+def _embed(params, tokens, cfg, ctx=None, prefix=None):
+    """The token embeddings, with ``prefix`` (B, V, D), a VLM's vision
+    embeddings, ahead of them; tensor-parallel, the rank's sequence shard
+    of the whole ``V + S`` sequence (``tensor_parallel.embed_lookup``)."""
+    scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
     if ctx is not None and ctx.tensor_parallel:
-        x = _tp().embed_lookup(params["embed"], tokens, ctx)
-    else:
-        x = params["embed"][tokens]
-    if cfg.embed_scale:
+        return _tp().embed_lookup(params["embed"], tokens, ctx, scale=scale, prefix=prefix)
+    x = params["embed"][tokens]
+    if scale is not None:
         # A fill on the device, not a host tensor copied over: the copy
         # would make the host wait for the device at every step.
-        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+        x = x * torch.full((), scale, dtype=x.dtype, device=x.device)
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
     return x
 
 
@@ -315,25 +324,25 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
     out: ``logits`` or ``(logits, cache)``.
 
     ``ctx`` (``sharding.specs.ShardCtx``): the heads' layouts on one device;
-    tensor-parallel (dense, MoE, SSM or hybrid, 'train' mode), ``params``
-    are the rank's shards, ``tokens`` the rows of its data coordinate, and
-    the logits the rank's (B, S, Vp/m) vocab columns.
+    tensor-parallel ('train' mode), ``params`` are the rank's shards,
+    ``tokens`` (and the extras) the rows of its data coordinate, and the
+    logits the rank's (B, S', Vp/m) vocab columns; ``ctx.seq_shard`` was
+    made for the residual's whole length S'.
     """
     tp = ctx is not None and ctx.tensor_parallel
-    if tp:
-        from repro_torch.sharding.specs import TP_ARCHS, sequence_sharded
-
-        if cfg.arch_type not in TP_ARCHS or mode != "train":
-            raise NotImplementedError(f"the tensor-parallel forward runs {', '.join(TP_ARCHS)} "
-                                      f"models in 'train' mode, not {cfg.arch_type} in {mode!r}")
-        if ctx.seq_shard != sequence_sharded(tokens.shape[1], ctx.size):
-            raise ValueError(f"the context's seq_shard={ctx.seq_shard} was made for another "
-                             f"sequence length than {tokens.shape[1]}")
-    x = _embed(params, tokens, cfg, ctx)
-    if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     # The whole sequence: a tensor-parallel rank's residual holds its shard.
-    b, seq = x.shape[0], tokens.shape[1] + (0 if extra_embeds is None else extra_embeds.shape[1])
+    seq = tokens.shape[1] + (0 if extra_embeds is None else extra_embeds.shape[1])
+    if tp:
+        from repro_torch.sharding.specs import sequence_sharded
+
+        if mode != "train":
+            raise NotImplementedError(f"the tensor-parallel forward runs in 'train' mode, "
+                                      f"not {mode!r}")
+        if ctx.seq_shard != sequence_sharded(seq, ctx.size):
+            raise ValueError(f"the context's seq_shard={ctx.seq_shard} was made for another "
+                             f"residual length than {seq}")
+    x = _embed(params, tokens, cfg, ctx, prefix=extra_embeds)
+    b = x.shape[0]
     positions = torch.arange(seq, device=x.device)
     inv_freq = _inv_freq(cfg, x.device)
     cross_kv = None
@@ -342,8 +351,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
 
         if encoder_frames is None:
             raise ValueError("audio arch requires encoder_frames")
-        cross_kv = encode(params["encoder"], encoder_frames, cfg)
-        x = x + sinusoidal_positions(seq, cfg.d_model, device=x.device).to(x.dtype)[None]
+        cross_kv = encode(params["encoder"], encoder_frames, cfg, ctx)
+        pos = sinusoidal_positions(seq, cfg.d_model, device=x.device).to(x.dtype)
+        if tp and ctx.seq_shard:
+            pos = pos.narrow(0, ctx.index * x.shape[1], x.shape[1])
+        x = x + pos[None]
     prefill = mode == "prefill"
     has_kv = "attn" in params["layers"]
     if prefill and has_kv:

@@ -5,10 +5,10 @@ parameters are fake tensors: no memory, no device): the path
 (``sharding.specs.mesh_path``), the parameters a rank holds, and by trace
 phase the bytes ``plan_comm`` predicts for the optimizer (``block``,
 ``full``, ``apply``), ``tp_bytes`` for the tensor-parallel forward and
-backward, the gradient reduce (every gradient a rank holds, then one
-vector of the loss and its metrics) and, on the replicated path, the
-replica gather (each model-split leaf's fp32 update, gathered whole). A
-run's trace equals these to the byte (``chip_smoke.py``'s ``distributed``
+backward (the VLM's vision tokens and whisper's encoder included), and the
+gradient reduce (every gradient a rank holds, then one vector of the loss
+and its metrics). No step moves a replica gather. A run's trace equals
+these to the byte (``chip_smoke.py``'s ``distributed``
 phase checks the same counts, taken from the run; the launcher's
 activations are bf16, ``compute_bytes=2``).
 
@@ -35,7 +35,8 @@ from repro_torch.sharding import specs as sh
 def mesh_bytes(cfg, sizes: dict, *, batch: int, seq: int, zero1: bool = False,
                compute_bytes: int = 2) -> dict:
     """The counts of the module doc for ``cfg`` on a mesh of ``sizes``
-    (``{axis: size}``), ``batch`` rows of ``seq`` tokens over the mesh."""
+    (``{axis: size}``), ``batch`` rows of ``seq`` text tokens over the
+    mesh."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode():
@@ -48,9 +49,6 @@ def mesh_bytes(cfg, sizes: dict, *, batch: int, seq: int, zero1: bool = False,
     held = sum(math.prod(sh.local_shape(s, p.shape, sizes) if tp else p.shape)
                for p, s in zip(tree_lib.leaves(params), tree_lib.leaves(specs)))
     data = math.prod(v for a, v in sizes.items() if a != sh.MODEL_AXIS)
-    model_split = [p for p, s in zip(tree_lib.leaves(params), tree_lib.leaves(specs))
-                   if sh.MODEL_AXIS in [n for e in s for n in sh.spec_entry_names(e)]
-                   and sizes.get(sh.MODEL_AXIS, 1) > 1]
     # The loss, then each metric: ce, loss, and an MoE model's load_balance and z_loss.
     values = 3 + (2 if cfg.num_experts else 0)
     return {
@@ -60,7 +58,6 @@ def mesh_bytes(cfg, sizes: dict, *, batch: int, seq: int, zero1: bool = False,
         **{ph: plan.predicted_bytes(ph) for ph in ("block", "full", "apply")},
         "tp": tp_bytes(cfg, batch // data, seq, sizes, compute_bytes=compute_bytes),
         "grad_reduce": 4 * (held + values) if data > 1 else 0,
-        "replica_gather": 0 if tp else sum(4 * p.numel() for p in model_split),
     }
 
 

@@ -115,20 +115,18 @@ def attn_layouts(cfg: ModelConfig, model_size: int) -> tuple[Optional[str], Opti
 
 
 TENSOR_PARALLEL, REPLICATED = "tensor_parallel", "replicated"
-# The archs the tensor-parallel path runs.
-TP_ARCHS = ("dense", "moe", "ssm", "hybrid")
 
 
 def mesh_path(cfg: ModelConfig, axis_sizes) -> str:
     """How a mesh of ranks runs ``cfg``: ``"tensor_parallel"`` (each rank
     holds and computes with its ``param_specs`` shards) or ``"replicated"``
-    (each rank holds the whole model; its updates pay the replica gather).
+    (no model split: each rank holds the whole model, and its updates come
+    out whole).
 
-    A dense, MoE, SSM or hybrid model on a ``model`` axis larger than one is
-    tensor-parallel; every other arch, and a mesh without a model split, is
-    replicated. The port computes the Q and K/V heads in the 'head' layout
-    and, on the tensor-parallel path, in 'hd' too (the reference's
-    ``split_heads``): any other layout raises here, naming it, so that no
+    Every arch on a ``model`` axis larger than one is tensor-parallel, and
+    a mesh without a model split is replicated. The port computes the Q and
+    K/V heads in the 'head' and 'hd' layouts (the reference's
+    ``split_heads``): a ``None`` layout raises here, naming it, so that no
     mesh computes another head split than the reference's. The
     tensor-parallel path also needs the padded vocab and ``d_ff`` (an MoE
     model's expert ``d_ff``), and an SSM's ``d_inner`` and head count, to
@@ -140,27 +138,26 @@ def mesh_path(cfg: ModelConfig, axis_sizes) -> str:
     again at the head reshape).
     """
     m = mesh_axis_sizes(axis_sizes).get(MODEL_AXIS, 1)
-    path = TENSOR_PARALLEL if cfg.arch_type in TP_ARCHS and m > 1 else REPLICATED
+    if m <= 1:
+        return REPLICATED
     if cfg.num_heads and cfg.arch_type != "ssm":
         ql, kvl = attn_layouts(cfg, m)
-        allowed = ("head", "hd") if path == TENSOR_PARALLEL else ("head",)
-        if ql not in allowed or kvl not in allowed:
+        if ql is None or kvl is None:
             raise ValueError(
                 f"{cfg.name} on model={m}: Q layout {ql!r}, KV layout {kvl!r} "
                 f"({cfg.num_heads} Q / {cfg.num_kv_heads} KV heads of {cfg.head_dim}); the "
-                f"{path} path computes Q and KV in {' or '.join(map(repr, allowed))}")
-    if path == TENSOR_PARALLEL:
-        ff = "expert d_ff" if cfg.arch_type == "moe" else "d_ff"
-        counts = [(cfg.padded_vocab, f"padded vocab {cfg.padded_vocab} does"),
-                  (cfg.d_ff, f"{ff} {cfg.d_ff} does")]
-        if cfg.arch_type in ("ssm", "hybrid"):
-            dims = ssm_dims(cfg)
-            counts += [(dims.d_inner, f"d_inner {dims.d_inner} does"),
-                       (dims.num_heads, f"{dims.num_heads} SSM heads do")]
-        for n, what in counts:
-            if not _divides(n, m):
-                raise ValueError(f"{cfg.name} on model={m}: the {what} not divide the model axis")
-    return path
+                "tensor-parallel path computes Q and KV in 'head' or 'hd'")
+    ff = "expert d_ff" if cfg.arch_type == "moe" else "d_ff"
+    counts = [(cfg.padded_vocab, f"padded vocab {cfg.padded_vocab} does"),
+              (cfg.d_ff, f"{ff} {cfg.d_ff} does")]
+    if cfg.arch_type in ("ssm", "hybrid"):
+        dims = ssm_dims(cfg)
+        counts += [(dims.d_inner, f"d_inner {dims.d_inner} does"),
+                   (dims.num_heads, f"{dims.num_heads} SSM heads do")]
+    for n, what in counts:
+        if not _divides(n, m):
+            raise ValueError(f"{cfg.name} on model={m}: the {what} not divide the model axis")
+    return TENSOR_PARALLEL
 
 
 def sequence_sharded(seq: int, model_size: int) -> bool:
@@ -179,9 +176,10 @@ class ShardCtx:
     holds the mesh's groups; ``model_axes`` names the axis the weights split
     over and ``index`` this rank's place on it, so a rank's heads, columns,
     vocab rows and sequence shard are the ``index``-th of ``size``;
-    ``seq_shard`` says whether the residual is sequence-sharded. The layouts
-    give the head order of the Q and K/V projections' columns
-    (``layers.split_heads``), on one device too.
+    ``seq_shard`` says whether the residual is sequence-sharded, and
+    ``encoder_seq_shard`` whether whisper's encoder residual is (its own
+    length, so its own rule). The layouts give the head order of the Q and
+    K/V projections' columns (``layers.split_heads``), on one device too.
     """
 
     comm: Any = None
@@ -191,6 +189,7 @@ class ShardCtx:
     q_layout: str = "head"
     kv_layout: str = "head"
     seq_shard: bool = False
+    encoder_seq_shard: bool = False
 
     @property
     def tensor_parallel(self) -> bool:
@@ -199,24 +198,28 @@ class ShardCtx:
 
 def make_ctx(cfg: ModelConfig, engine=None, seq: Optional[int] = None) -> ShardCtx:
     """The model's context on the mesh of ``engine``
-    (``distributed.engine.ShardMapEngine``) for sequences of ``seq`` tokens:
-    tensor-parallel where the engine is (its ``tensor_parallel``), else the
-    one-device context (the replicated path). Without an engine, one
-    device. An engine built tensor-parallel for a config :func:`mesh_path`
-    runs replicated raises."""
+    (``distributed.engine.ShardMapEngine``) for a residual of ``seq``
+    positions, the whole length (a VLM's ``vision_tokens`` plus its text;
+    :func:`residual_len`): tensor-parallel on a model axis larger than one
+    (the engine's ``tensor_parallel``), else the one-device context (the
+    replicated path). Without an engine, one device. whisper's encoder
+    residual is ``cfg.encoder_seq`` frames long."""
     if engine is None or not engine.tensor_parallel:
         return ShardCtx()
-    path = mesh_path(cfg, engine.axis_sizes)
-    if path != TENSOR_PARALLEL:
-        raise ValueError(f"{cfg.name}: the engine is tensor-parallel but the config runs "
-                         f"{path} on {engine.axis_sizes}")
     if seq is None:
         raise ValueError("a tensor-parallel context needs the sequence length")
     comm, axes = engine.comm, (MODEL_AXIS,)
     m = comm.size(axes)
     ql, kvl = attn_layouts(cfg, m)
     return ShardCtx(comm=comm, model_axes=axes, size=m, index=comm.index(axes),
-                    q_layout=ql, kv_layout=kvl, seq_shard=sequence_sharded(seq, m))
+                    q_layout=ql, kv_layout=kvl, seq_shard=sequence_sharded(seq, m),
+                    encoder_seq_shard=sequence_sharded(cfg.encoder_seq, m))
+
+
+def residual_len(cfg: ModelConfig, seq: int) -> int:
+    """The residual's length for ``seq`` text tokens: a VLM's vision tokens
+    come first."""
+    return seq + cfg.vision_tokens
 
 
 def param_specs(params, cfg: ModelConfig, axis_sizes) -> dict:

@@ -20,8 +20,8 @@ steps after it; this module detects both and reacts:
   under its partitioner; here the loss and the gradient norm are already
   reduced alike on every rank, and the agreement makes every rank take the
   same branch by construction, not by equal rounding. A skipped step then
-  issues no optimizer collective (``block``, ``full``, ``apply``,
-  ``replica_gather``) on any rank.
+  issues no optimizer collective (``block``, ``full``, ``apply``) on any
+  rank.
 
 * **Escalation ladder** (:class:`Escalator`): the launcher reads the
   cumulative skip counter each step and walks skip -> force an early
@@ -127,7 +127,7 @@ def guarded_update(optimizer, cfg: GuardConfig, grads, opt_state, params,
     all-reduce, MIN, of the int32 flag, phase ``'guard'``); a healthy
     step is the unguarded mesh step, in its spans: ``optimizer.update``,
     the ``lr_scale`` product, ``train_step.full_updates`` (the 'apply'
-    gathers, and the replica gather on the replicated path), then the add.
+    gathers), then the add.
     """
     healthy = health_check(cfg, loss, grad_sq_norm, gstate)
     if engine is not None:

@@ -13,7 +13,7 @@ check of ``training/resilience.py``; ``fault=`` injects a fault of
 (``sharding.specs.mesh_path``):
 
 * tensor-parallel (``ctx=``, a tensor-parallel ``sharding.specs.ShardCtx``;
-  the dense, MoE, SSM and hybrid models): each rank holds its param-layout
+  every arch on a model axis larger than one): each rank holds its param-layout
   shards and runs the tensor-parallel forward and backward on the rows of
   its data coordinate, so its gradients come out in the param layout.
   Where the residual is sequence-sharded, each rank's gradient of a leaf
@@ -26,15 +26,15 @@ check of ``training/resilience.py``; ``fault=`` injects a fault of
   averaged over the data axes (``grad_reduce``), the optimizer returns its
   updates in the momentum layout and the plan's 'apply' gathers bring them
   to the param layout each rank adds to its shards;
-* replicated (every other arch): every rank runs the whole model on its
-  slice of the batch, the full gradients are averaged over the data axes,
-  and after the 'apply' gathers the replica gather over the model axes
-  brings each update to the full tensor every rank adds to its replica.
+* replicated (a mesh without a model split): every rank runs the whole
+  model on its slice of the batch, the full gradients are averaged over the
+  data axes, and the 'apply' gathers bring each update to the full tensor
+  every rank adds to its replica. No step gathers a replica over the model
+  axis: every arch on a model split runs tensor-parallel.
 
 Each part runs in a span (``train.fwd_bwd``, ``train.grad_reduce``,
-``train.update``, ``train.apply``, and ``train.replica_gather`` on the
-replicated path), the guarded step's too; a step the guard skips runs the
-first two only.
+``train.update``, ``train.apply``), the guarded step's too; a step the
+guard skips runs the first two only.
 """
 
 from __future__ import annotations
@@ -226,13 +226,8 @@ def reduce_grads(engine, loss, metrics: dict, grads, ctx=None) -> tuple:
 @torch.no_grad()
 def full_updates(engine, updates, sync=None):
     """The optimizer's momentum-layout updates as the tensors each rank adds
-    to its parameters: the 'apply' gathers to the param layout, and on the
-    replicated path the replica gather to the full tensor."""
-    bus = get_bus()
+    to its parameters: the 'apply' gathers to the param layout."""
     flat = tree_lib.flatten_with_path(updates)
-    with span(bus, "train.apply", sync=sync):
+    with span(get_bus(), "train.apply", sync=sync):
         flat = [(k, engine.to_param_layout(k, u)) for k, u in flat]
-    if not engine.tensor_parallel:
-        with span(bus, "train.replica_gather", sync=sync):
-            flat = [(k, engine.replicate(k, u)) for k, u in flat]
     return tree_lib.unflatten(flat)

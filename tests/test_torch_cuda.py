@@ -721,13 +721,18 @@ def _gloo_rank(rank, port, queue):
                                 world_size=2)
         mesh = make_mesh_from_spec("model=2")
         params, grads, opt, engine = _engine_case(mesh, make_engine)
+        # On a model split each rank holds its param-layout shards.
+        cut = lambda tree: tree_lib.map_with_path(
+            lambda k, p: engine.cut(p, engine.pspec_by_path[k]), tree)
+        params, grads = cut(params), cut(grads)
         state = opt.init(params)
         outs = []
         for phase in ("full", "block"):
             upd, state = opt.update(grads, state, params, phase)
             # numpy, not tensors: a tensor on a queue is shared through this
             # process, which may have exited when the parent reads it.
-            outs.append({k: engine.replicate(k, engine.to_param_layout(k, u)).cpu().numpy()
+            outs.append({k: engine.join(engine.to_param_layout(k, u), engine.pspec_by_path[k],
+                                        phase="check").cpu().numpy()
                          for k, u in tree_lib.flatten_with_path(upd)})
         queue.put((rank, outs if rank == 0 else None))
         dist.destroy_process_group()
@@ -818,8 +823,7 @@ def _gloo_tp_rank(rank, port, queue):
         mesh = make_mesh_from_spec("model=2")
         cfg = get_config("muonbp-960m").reduced()
         full = init_params(cfg, seed=0, device="cuda")
-        engine = make_engine(full, sh.param_specs(full, cfg, {"model": 2}), mesh,
-                             tensor_parallel=True)
+        engine = make_engine(full, sh.param_specs(full, cfg, {"model": 2}), mesh)
         params = interop.shard_params(full, cfg, {"model": 2}, engine.comm.coords, "cuda")
         ctx = sh.make_ctx(cfg, engine, seq=32)
         batch = _tp_batch(cfg, "cuda")

@@ -22,9 +22,9 @@ Held:
 * pipelined against barrier (``torch.equal``);
 * the collective trace against ``plan_comm``, to the byte: no optimizer
   collective on block steps, the full-step gathers and the 'apply' gathers
-  per axis set as planned; the gradient reduce and the replica gather kept
+  per axis set as planned; the gradient reduce and the checks' joins kept
   apart (the launcher runs the dense model tensor-parallel: its trace has
-  the ``tp`` collectives and no replica gather);
+  the ``tp`` collectives and none of a class the port does not record);
 * momentum shards and the flatten fallback's pad layers (exactly zero);
 * the launcher under ``--mesh`` (fp32 compute) against the single-process
   launcher on the same global batch: losses to 1e-5 relative;
@@ -57,6 +57,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs import get_config
 from repro_torch.core import label_tree, muon
 from repro_torch.distributed import plan_comm
+from repro_torch.distributed.audit import PHASES as TRACE_PHASES
 from repro_torch.sharding import specs as sh
 from repro_torch.training import checkpoint
 
@@ -177,6 +178,10 @@ def _rank_cases(rank, world, params_np, grads_np, tmp) -> dict:
     kw = dict(zero1=world.zero1, zero1_flatten=world.flatten)
     engine = make_engine(params, pspecs, mesh, **kw)
     trace = engine.comm.trace
+    # On a model split each rank holds its param-layout shards.
+    cut = lambda tree: tree_lib.map_with_path(
+        lambda k, p: engine.cut(p, engine.pspec_by_path[k]), tree)
+    params, grads = cut(params), cut(grads)
 
     # The update, both schedules, every variant of the world.
     for variant in world.variants:
@@ -190,7 +195,8 @@ def _rank_cases(rank, world, params_np, grads_np, tmp) -> dict:
             for step, phase in enumerate(PHASES):
                 trace.step = (variant, schedule, step)
                 upd, state = opt.update(grads, state, params, phase)
-                full = {k: engine.replicate(k, engine.to_param_layout(k, u))
+                full = {k: engine.join(engine.to_param_layout(k, u), engine.pspec_by_path[k],
+                                       phase="check")
                         for k, u in tree_lib.flatten_with_path(upd)}
                 if rank == 0:
                     out[("update", variant, schedule, step)] = {
@@ -381,7 +387,11 @@ def test_trace_matches_plan_to_the_byte(world_run):
                     assert_matches_plan_by_axes(trace, plan, phase, step=key)
                     assert_matches_plan_by_axes(trace, plan, "apply", step=key)
                     other = {e.phase for e in trace.select(None, step=key)}
-                    assert other <= {phase, "apply", "replica_gather", "normuon"}, other
+                    assert other <= {phase, "apply", "check", "normuon", "norm"}, other
+                    # AdamW's clipping norm over the vocab-split embedding
+                    # and head: one fp32 scalar summed over the model axis.
+                    assert [(e.kind, e.bytes) for e in trace.select("norm", step=key)] == [
+                        ("all-reduce", 4)]
                     if phase == "block":
                         assert not trace.select("block", step=key)
                     assert bytes_by_link(trace, phase, step=key) == plan.predicted_by_link(phase)
@@ -394,9 +404,10 @@ def test_trace_matches_plan_to_the_byte(world_run):
                 assert_matches_plan_by_axes(trace, plan, (phase, "apply"), step=step)
                 if any(s > 1 for a, s in sizes.items() if a in ("pod", "data")):
                     assert trace.select("grad_reduce", step=step)
-                # The dense model runs tensor-parallel: no replica gather.
+                # The dense model runs tensor-parallel; every collective is
+                # of a class the port records.
                 assert trace.select("tp", step=step)
-                assert not trace.select("replica_gather", step=step)
+                assert {e.phase for e in trace.select(None, step=step)} <= set(TRACE_PHASES)
 
 
 def test_momentum_shards_and_pad_layers(world_run):
@@ -447,7 +458,6 @@ def test_launcher_on_a_mesh_matches_one_process(world_run):
         np.testing.assert_allclose(res["losses"], ref, rtol=LOSS_TOL, atol=0)
         assert res["losses"] == results[0]["losses"]
     assert {"train.grad_reduce", "train.apply", "muonbp.full.s1.ns"} <= set(results[0]["spans"])
-    assert "train.replica_gather" not in results[0]["spans"]
 
 
 def test_snapshots_cross_between_mesh_and_one_process(world_run):

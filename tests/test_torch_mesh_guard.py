@@ -3,9 +3,9 @@ the CPU.
 
 One world, ``data=2,model=2`` with ZeRO-1, spawned once a module. Its ranks
 run the launcher with ``--guard --guard-warmup 2 --fault-plan
-nan_grads@2,spike_loss@4x8`` (six steps, period 5, fp32) on both mesh
-paths: the reduced muonbp-960m and mamba2-1.3b tensor-parallel, the
-reduced internvl2-1b replicated. Each step's state is kept just before it
+nan_grads@2,spike_loss@4x8`` (six steps, period 5, fp32), the reduced
+muonbp-960m, mamba2-1.3b, internvl2-1b and whisper-small, each
+tensor-parallel. Each step's state is kept just before it
 runs. Held:
 
 * the ``healthy`` / ``skipped`` / escalation sequence equal on every rank
@@ -36,7 +36,8 @@ import torch_cpu  # noqa: F401  (torch on one intra-op thread)
 
 SPEC = "data=2,model=2"
 # arch: runs tensor-parallel
-ARCHS = {"muonbp-960m": True, "mamba2-1.3b": True, "internvl2-1b": False}
+ARCHS = {"muonbp-960m": True, "mamba2-1.3b": True, "internvl2-1b": True,
+         "whisper-small": True}
 PLAN = "nan_grads@2,spike_loss@4x8"
 STEPS, SKIPPED, FORCED = 6, (2, 4), 3
 BASE = ["--reduced", "--device", "cpu", "--batch", "4", "--seq", "16", "--period", "5",

@@ -26,12 +26,14 @@ head layouts, mesh-free), at a sequence length the model axis divides
 
 Through the launcher under ``--mesh``: the losses against one process
 (relative 1e-5; on 'hd' against the single-process step that computes the
-'hd' split), no replica gather, the gradient reduce moving exactly the
+'hd' split), every collective of a class the port records
+(``audit.PHASES``), the gradient reduce moving exactly the
 shards, snapshots crossing between the mesh and one process bitwise; Q
 and K/V in 'hd' (3 Q heads and 1 KV head on ``model=2``) against the
 single-process step that computes the 'hd' split; the reduced internvl2-1b
-runs replicated (the replica gather, no ``'tp'``); a head layout the port
-does not compute raises, naming it.
+on ``data=4,model=1`` runs replicated (no ``'tp'``: the gradient reduce of
+the whole leaves and the optimizer's collectives only); a head layout the port does not compute
+raises, naming it.
 """
 
 import dataclasses
@@ -56,6 +58,7 @@ from repro_torch import interop
 from repro_torch import tree as tree_lib
 from repro_torch.configs import get_config
 from repro_torch.distributed import tp_bytes
+from repro_torch.distributed.audit import PHASES as TRACE_PHASES
 from repro_torch.sharding import specs as sh
 from repro_torch.training import checkpoint
 
@@ -69,10 +72,13 @@ GRAD_TOL = 1e-5      # max abs over the leaf's max|grad|
 LAUNCH_TOL = 1e-5    # launcher on the mesh vs one process, relative
 LAUNCH = ["--reduced", "--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "16",
           "--period", "2", "--compute-dtype", "float32", "--schedule", "const"]
-REPLICATED_ARCH = "internvl2-1b"   # an arch the tensor-parallel path does not run yet
+REPLICATED_ARCH = "internvl2-1b"   # run on a mesh without a model split
+REPLICATED_SPEC = "data=4,model=1"
 REPLICATED_LAUNCH = ["--arch", REPLICATED_ARCH, "--reduced", "--device", "cpu", "--steps", "2",
-                     "--batch", "2", "--seq", "16", "--period", "2", "--compute-dtype",
+                     "--batch", "4", "--seq", "16", "--period", "2", "--compute-dtype",
                      "float32"]
+# Q heads whose count and head_dim neither divide model=2: no layout.
+NO_Q_LAYOUT = dict(num_heads=3, num_kv_heads=1, head_dim=33)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,16 +87,16 @@ class World:
     seqs: tuple              # the first sequence-sharded, the second not
     zero1: bool = False
     launch: bool = False     # the dense launcher on the mesh
-    replicated: bool = False  # the reduced REPLICATED_ARCH, replicated
-    refuse: bool = False     # a Q layout the replicated path does not compute
+    replicated: bool = False  # the reduced REPLICATED_ARCH on REPLICATED_SPEC (4 ranks)
+    refuse: bool = False     # a Q layout the port does not compute
     q_hd: bool = False       # the launcher with Q and K/V in 'hd' (Q_HD_HEADS)
     archs: tuple = (ARCH,)   # the configs held against the reference
 
 
 WORLDS = {
-    "model2": World("model=2", seqs=(16, 15), replicated=True, refuse=True, q_hd=True,
-                    archs=(ARCH, GEMMA)),
-    "data2_model2_zero1": World("data=2,model=2", seqs=(16, 15), zero1=True, launch=True),
+    "model2": World("model=2", seqs=(16, 15), refuse=True, q_hd=True, archs=(ARCH, GEMMA)),
+    "data2_model2_zero1": World("data=2,model=2", seqs=(16, 15), zero1=True, launch=True,
+                                replicated=True),
     "model4_hd": World("model=4", seqs=(16, 18), launch=True),
 }
 # A case is a world and a config: the world's name alone for muonbp-960m.
@@ -163,7 +169,7 @@ def _rank_cases(rank, world_size, port, world, params_np, tmp) -> dict:
             cfg = _cfg(arch)
             full = interop.params_from_numpy(params_np[arch], device="cpu")
             engine = make_engine(full, sh.param_specs(full, cfg, sizes), mesh,
-                                 zero1=world.zero1, tensor_parallel=True)
+                                 zero1=world.zero1)
             comm = engine.comm
             out["coords"] = dict(comm.coords)
             params = interop.shard_params(params_np[arch], cfg, sizes, comm.coords,
@@ -227,17 +233,16 @@ def _rank_cases(rank, world_size, port, world, params_np, tmp) -> dict:
 
         if world.replicated:
             rep_cfg = get_config(REPLICATED_ARCH).reduced()
-            run = train.run(REPLICATED_LAUNCH + ["--mesh", world.spec], cfg=rep_cfg)
+            run = train.run(REPLICATED_LAUNCH + ["--mesh", REPLICATED_SPEC], cfg=rep_cfg)
             out["rep_losses"] = [r["loss"] for r in run.records]
             out["rep_trace"] = list(run.engine.comm.trace.events)
             out["rep_tensor_parallel"] = run.engine.tensor_parallel
-            # Each model-split leaf's fp32 update, gathered whole.
-            out["rep_replica_pred"] = sum(
-                p.numel() * 4 for k, p in tree_lib.flatten_with_path(run.state.params)
-                if run.engine.model_split(k, p.dim()))
+            # The whole leaves' gradients, reduced over the data axis.
+            out["rep_leaf_bytes"] = sum(p.numel() * p.element_size()
+                                        for p in tree_lib.leaves(run.state.params))
 
         if world.refuse:
-            bad = dataclasses.replace(get_config(REPLICATED_ARCH).reduced(), **Q_HD_HEADS)
+            bad = dataclasses.replace(get_config(REPLICATED_ARCH).reduced(), **NO_Q_LAYOUT)
             try:
                 train.run(REPLICATED_LAUNCH + ["--mesh", world.spec], cfg=bad)
                 out["refusal"] = None
@@ -413,14 +418,15 @@ def test_tp_trace_equals_tp_bytes(case, worlds):
         for seq in world.seqs:
             got = trace.total_bytes("tp", step=("grads", seq))
             assert got == tp_bytes(cfg, rows, seq, sizes, compute_bytes=4), (case, seq)
-            assert not trace.select("replica_gather")
+            assert {e.phase for e in trace.select(None, step=("grads", seq))} <= set(TRACE_PHASES)
 
 
 @pytest.mark.parametrize("name", ["data2_model2_zero1", "model4_hd"])
 def test_launcher_trace_moves_no_replica_gather(name, worlds):
-    """Under the launcher: 'tp' equals tp_bytes every step, the replica
-    gather moves 0 B, and the gradient reduce moves exactly each rank's
-    shards (plus the loss and metrics)."""
+    """Under the launcher: 'tp' equals tp_bytes every step, every
+    collective is of a class the port records (no gather back to whole
+    replicas), and the gradient reduce moves exactly each rank's shards
+    (plus the loss and metrics)."""
     from repro_torch.distributed.audit import CollectiveTrace
 
     results, _, _ = worlds[name]
@@ -430,11 +436,10 @@ def test_launcher_trace_moves_no_replica_gather(name, worlds):
     for res in results.values():
         trace = CollectiveTrace()
         trace.events = res["launch_trace"]
-        assert "train.replica_gather" not in res["spans"]
         for step in range(3):
             assert trace.total_bytes("tp", step=step) == tp_bytes(cfg, BATCH // data, 16, sizes,
                                                                   compute_bytes=4)
-            assert trace.total_bytes("replica_gather", step=step) == 0
+            assert {e.phase for e in trace.select(None, step=step)} <= set(TRACE_PHASES)
             reduce = trace.select("grad_reduce", step=step)
             if data > 1:
                 # The shards' bytes, then one vector of the loss and metrics.
@@ -525,46 +530,50 @@ def test_snapshots_cross_between_mesh_and_one_process(worlds, params_np):
 
 
 def test_non_dense_arch_runs_replicated(worlds):
-    """The reduced internvl2-1b on model=2 keeps the replicated path (the
-    VLM's tensor-parallel split is not ported yet): the replica gather of
-    every model-split leaf's update each step and no 'tp', losses equal to
-    one process's."""
+    """The reduced internvl2-1b on data=4,model=1, a mesh without a model
+    split, keeps the replicated path: whole replicas, no 'tp', nothing but
+    the gradient reduce (moving the whole leaves) and the optimizer's
+    collectives, losses equal to one process's."""
     from repro_torch.distributed.audit import CollectiveTrace
     from repro_torch.launch import train
 
-    results, _, _ = worlds["model2"]
-    single = train.run(REPLICATED_LAUNCH + ["--mesh-model", "2"],
-                       cfg=get_config(REPLICATED_ARCH).reduced())
+    results, _, _ = worlds["data2_model2_zero1"]
+    single = train.run(REPLICATED_LAUNCH, cfg=get_config(REPLICATED_ARCH).reduced())
     ref = [r["loss"] for r in single.records]
     for res in results.values():
         assert res["rep_tensor_parallel"] is False
         np.testing.assert_allclose(res["rep_losses"], ref, rtol=LAUNCH_TOL, atol=0)
         trace = CollectiveTrace()
         trace.events = res["rep_trace"]
-        assert res["rep_replica_pred"] > 0
         for step in range(len(ref)):
-            assert trace.total_bytes("replica_gather", step=step) == res["rep_replica_pred"]
+            # Whole leaves: no tensor-parallel collective, nothing but the
+            # gradient reduce and the optimizer's own.
+            assert {e.phase for e in trace.select(None, step=step)} <= {
+                "grad_reduce", "block", "full", "apply"}
+            reduce = trace.select("grad_reduce", step=step)
+            assert sum(e.bytes for e in reduce[:-1]) == res["rep_leaf_bytes"]
         assert not trace.select("tp")
 
 
 def test_launcher_refuses_a_q_layout_it_does_not_compute(worlds):
-    """Q in 'hd' runs on the tensor-parallel path only: the replicated
-    internvl2-1b with 3 Q heads on model=2 raises, naming it."""
+    """Q heads whose count and head_dim neither divide the model axis have
+    no layout: internvl2-1b with 3 Q heads of 33 on model=2 raises, naming
+    it."""
     results, _, _ = worlds["model2"]
     for res in results.values():
-        assert res["refusal"] is not None and "Q layout 'hd'" in res["refusal"]
+        assert res["refusal"] is not None and "Q layout None" in res["refusal"]
 
 
 @pytest.mark.parametrize("arch,overrides,model,match", [
-    (REPLICATED_ARCH, Q_HD_HEADS, 2, "Q layout 'hd'"),
+    (REPLICATED_ARCH, NO_Q_LAYOUT, 2, "Q layout None"),
     (ARCH, dict(num_heads=3, num_kv_heads=1, head_dim=33), 2, "Q layout None"),
     (ARCH, dict(num_kv_heads=1, head_dim=33), 2, "KV layout None"),
-    (REPLICATED_ARCH, {}, 4, "KV layout 'hd'"),
+    ("whisper-small", dict(num_heads=3, num_kv_heads=3, head_dim=33), 4, "KV layout None"),
 ])
 def test_mesh_path_refuses_layouts(arch, overrides, model, match):
-    """A Q or KV layout of None raises on either path, and one of 'hd' on
-    the replicated path (internvl2-1b's 3 Q heads on model=2, its 2 KV heads
-    of 32 on model=4)."""
+    """A Q or KV layout of None raises, on every arch (internvl2-1b's 3 Q
+    heads of 33 on model=2, whisper's 3 heads of 33 on model=4); 'head'
+    and 'hd' run."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **overrides)
     with pytest.raises(ValueError, match=match):
         sh.mesh_path(cfg, {"model": model})
@@ -577,30 +586,48 @@ def test_mesh_path_refuses_layouts(arch, overrides, model, match):
     ("olmoe-1b-7b", {"model": 4}, sh.TENSOR_PARALLEL),
     ("mamba2-1.3b", {"model": 4}, sh.TENSOR_PARALLEL),
     ("hymba-1.5b", {"model": 4}, sh.TENSOR_PARALLEL),
-    ("internvl2-1b", {"model": 2}, sh.REPLICATED),
-    ("whisper-small", {"model": 2}, sh.REPLICATED),
+    ("internvl2-1b", {"model": 2}, sh.TENSOR_PARALLEL),
+    ("whisper-small", {"model": 2}, sh.TENSOR_PARALLEL),
+    ("internvl2-1b", {"model": 4}, sh.TENSOR_PARALLEL),
+    ("whisper-small", {"model": 4}, sh.TENSOR_PARALLEL),
+    ("internvl2-1b", {"data": 2, "model": 8}, sh.TENSOR_PARALLEL),
+    ("whisper-small", {"data": 2, "model": 8}, sh.TENSOR_PARALLEL),
+    ("internvl2-1b", {"data": 4, "model": 1}, sh.REPLICATED),
+    ("whisper-small", {"data": 4, "model": 1}, sh.REPLICATED),
 ])
 def test_mesh_path_decides_from_the_config_and_the_axes(arch, sizes, path):
+    """Every arch on a model split runs tensor-parallel; a mesh without one
+    runs replicated."""
     assert sh.mesh_path(get_config(arch).reduced(), sizes) == path
 
 
-@pytest.mark.parametrize("arch,tensor_parallel,match", [
-    (REPLICATED_ARCH, True, "runs replicated"),
-    (ARCH, True, "sequence length"),
-    (ARCH, False, None),
+@pytest.mark.parametrize("arch,sizes,seq,match", [
+    (REPLICATED_ARCH, {"data": 4, "model": 1}, 16, None),
+    (ARCH, {"model": 2}, None, "sequence length"),
+    (ARCH, {"model": 2}, 16, None),
 ])
-def test_make_ctx_follows_the_engine(arch, tensor_parallel, match):
-    """The engine's path is the one source: a replicated engine gives the
-    one-device context, and a tensor-parallel one for a config that
-    ``mesh_path`` runs replicated raises."""
+def test_make_ctx_follows_the_engine(arch, sizes, seq, match):
+    """The engine's mesh is the one source: without a model split the
+    one-device context, on one the tensor-parallel context, which needs the
+    residual's length."""
     import types
 
-    engine = types.SimpleNamespace(tensor_parallel=tensor_parallel, axis_sizes={"model": 2})
-    if match is None:
-        assert sh.make_ctx(get_config(arch).reduced(), engine, seq=16) == sh.ShardCtx()
+    from repro_torch.distributed.engine import ShardMapEngine
+
+    m = sizes["model"]
+    comm = types.SimpleNamespace(size=lambda axes: m, index=lambda axes: m - 1)
+    engine = ShardMapEngine(mesh=sizes, uspec_by_path={}, comm=comm)
+    cfg = get_config(arch).reduced()
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            sh.make_ctx(cfg, engine, seq=seq)
         return
-    with pytest.raises(ValueError, match=match):
-        sh.make_ctx(get_config(arch).reduced(), engine)
+    ctx = sh.make_ctx(cfg, engine, seq=seq)
+    assert engine.tensor_parallel is ctx.tensor_parallel is (m > 1)
+    if m > 1:
+        assert (ctx.size, ctx.index, ctx.seq_shard) == (m, m - 1, True)
+    else:
+        assert ctx == sh.ShardCtx()
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
