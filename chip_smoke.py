@@ -11,7 +11,8 @@ NorMuon, Turbo-Muon and Dion on the dense model, MuonBP on the
 Mixture-of-Experts model, and serving of both; MuonBP training and
 generate on the SSM, hybrid, VLM and audio models; the tensor-parallel
 dense and MoE models, the guarded step and the distributed optimizer on
-four ranks that share the card.
+four ranks that share the card; the staggered full-step schedule on one
+rank and on four.
 
   1. device   -- the card's name and power limit (nvidia-smi), device count;
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
@@ -167,7 +168,27 @@ four ranks that share the card.
                  single-process update on rank 0, both phases (not on run
                  E), and pipelined against barrier (torch.equal). gloo
                  copies through the host: these times measure no link;
- 14. times    -- each kernel, its plain version and the one-call PyTorch
+ 14. stagger  -- the staggered full-step schedule (--full-schedule staggered)
+                 through the launcher. Run S: full-width, full-depth
+                 muonbp-960m on one card as a one-rank NCCL world (--mesh
+                 data=1, P = 5, six steps stagger:0..4, stagger:0): each
+                 step's phase, residue and due against the offsets of its
+                 schedule event, no byte moved, the NS kernels it launches
+                 (counted from zero just before it), its comm_rates record;
+                 then on its state and fresh gradients each residue's
+                 update, timed, per leaf against one process's synchronous
+                 full and block updates by the offsets. Run K: the
+                 distributed phase's run on four ranks (gloo) with the
+                 schedule, muonbp-960m at 4 of 12 layers on data=2,model=2
+                 with ZeRO-1, P = 3, four steps, with that phase's checks;
+                 on every rank each step's gathers equal the plan's residue
+                 bytes (assert_staggered_matches_plan, 'apply' included), no
+                 step gathers more than the worst residue, the schedule
+                 event carries the plan's offsets, comm_rates is written;
+                 each residue's update on rank 0 per leaf against one
+                 process's full and block updates. It prints each
+                 residue's step walls and update times;
+ 15. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
                  the least time the card could take for the same work; the
                  tiled Gram with its B operand K-major and N-major (the
@@ -473,9 +494,33 @@ DIST_NO_UPDATE_CHECK = ("E",)
 # The runs whose Muon stacks all split four ways (model and ZeRO-1's data
 # axis, or model=4); the others hold what their specs give (E's router is
 # not split over model, F's 3 layers do not divide the data axis).
-DIST_QUARTER_STACKS = ("A", "B", "C", "D", "I", "J")
+DIST_QUARTER_STACKS = ("A", "B", "C", "D", "I", "J", "K")
 DIST_LOSS_TOL = 1e-5   # the fp32 step on the mesh vs one process, relative
 DIST_GRAD_TOL = 1e-4   # its gradients, max abs over the leaf's max|grad|
+
+# The stagger phase: the staggered full-step schedule (--full-schedule
+# staggered) through the launcher. Run S: full-width, full-depth
+# muonbp-960m on one card as a one-rank NCCL world (--mesh data=1: no block
+# grid, every gather 0 B, as the reference's (1, 1) mesh), P = 5, six steps
+# (stagger:0..4, stagger:0). Run K: the distributed phase's machinery with
+# the schedule on four ranks, muonbp-960m at STAGGER_K_LAYERS of 12 layers
+# on data=2,model=2 with ZeRO-1, P = 3, four steps.
+STAGGER_S_PERIOD = 5
+STAGGER_S_ARGV = ["--arch", "muonbp-960m", "--optimizer", "muonbp", "--period",
+                  str(STAGGER_S_PERIOD), "--batch", "4", "--seq", "1024", "--mesh", "data=1",
+                  "--dist-backend", "nccl", "--full-schedule", "staggered", "--obs-block",
+                  "--log-every", "1", "--steps", "6"]
+STAGGER_K_LAYERS = 4
+STAGGER_K_PERIOD = 3
+STAGGER_K = ("K", "muonbp-960m", "data=2,model=2", 4,
+             ["--zero1", "--full-schedule", "staggered", "--period", str(STAGGER_K_PERIOD)], 4,
+             STAGGER_K_LAYERS, True, MAIN_PATH_KERNELS)
+# Run K's gathers a rank and residue, predicted by the port's plan_comm on
+# the shapes alone (no time).
+STAGGER_K_PREDICTED = [94371840, 94371840, 84934656]
+# The single-process MuonBP update (PERF.md section 5, kernels): block and
+# full, ms, NVIDIA H100 80GB HBM3, 700.00 W; printed beside run S's.
+SYNC_UPDATE_MS = {"block": 116.4, "full": 154.3}
 
 
 def log(msg: str) -> None:
@@ -2496,7 +2541,9 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     from repro_torch import tree as tree_lib
     from repro_torch.core import label_tree, muon
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.distributed import assert_matches_plan_by_axes, plan_comm, tp_bytes
+    from repro_torch.core.program import parse_stagger_phase
+    from repro_torch.distributed import (assert_matches_plan_by_axes,
+                                         assert_staggered_matches_plan, plan_comm, tp_bytes)
     from repro_torch.distributed.audit import PHASES as TRACE_PHASES
     from repro_torch.distributed import zero1 as zero1_lib
     from repro_torch.launch import train
@@ -2510,6 +2557,8 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     variant = "normuon" if "normuon" in extra else None
     zero1, flatten = "--zero1" in extra, "--zero1-flatten" in extra
     guarded = "--guard" in extra
+    staggered = "staggered" in extra
+    period = int(extra[extra.index("--period") + 1]) if "--period" in extra else 5
     res = {}
     if label in DIST_FP32_RUNS:
         res["fp32"] = dist_fp32_check(rank, spec, os.path.join(out_dir, "fp32_ref.pt"))
@@ -2550,6 +2599,12 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
                      block_specs=run.block_specs, zero1=zero1, zero1_flatten=flatten)
     data = math.prod(v for a, v in sizes.items() if a != "model")
     res["plan"] = {ph: plan.predicted_bytes(ph) for ph in ("block", "full", "apply")}
+    if staggered:
+        # One source of offsets: the plan's, the launcher's schedule event's.
+        res["offsets"] = plan.stagger_offsets(period)
+        res["plan_residues"] = list(plan.staggered_bytes_by_residue(period))
+        res["schedule"] = [r for r in sink.records if r.get("event") == "schedule"]
+        res["comm_rates"] = [r for r in sink.records if r.get("event") == "comm_rates"]
     res["tp_pred"] = tp_bytes(cfg, batch // data, DIST_SEQ, sizes)
     shard_bytes = sum(p.numel() * p.element_size() for p in tree_lib.leaves(params))
     # The gradient reduce: every shard, then one vector of the loss and its
@@ -2560,7 +2615,15 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     res["per_step"] = []
     res["wall_per_step"] = []
     for step, phase in enumerate(res["phases"]):
-        if res["healthy"][step]:
+        residue = parse_stagger_phase(phase)
+        if res["healthy"][step] and residue is not None:
+            # A staggered step: its residue's gathers and the 'apply' ones.
+            try:
+                assert_staggered_matches_plan(trace, plan, period=period, residue=residue,
+                                              step=step, include_apply=True)
+            except AssertionError as e:
+                res["trace_errors"].append(f"step {step}: {e}")
+        elif res["healthy"][step]:
             for phases in (phase, "apply"):
                 try:
                     assert_matches_plan_by_axes(trace, plan, phases, step=step)
@@ -2585,6 +2648,9 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
         # the muonbp.full.s<i>.gather spans time them.
         res["wall_per_step"].append({cls: trace.wall_s(cls, step=step) for cls in (
             "tp", "grad_reduce", "apply")})
+        if staggered:
+            res.setdefault("stagger_bytes", []).append(
+                trace.total_bytes("stagger", step=step) if residue is not None else None)
         for cls, want in (("tp", res["tp_pred"]), ("grad_reduce", res["grad_reduce_pred"])):
             if b[cls] != want:
                 res["trace_errors"].append(f"step {step}: {cls} moved {b[cls]} B, not {want}")
@@ -2640,6 +2706,7 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     if rank:
         del whole_g, whole_p, full_state
     res["update"] = {}
+    refs = {}   # staggered runs: the one-process updates each residue joins
     for phase in ("full", "block"):
         outs = {}
         for schedule in (("pipelined", "barrier") if phase == "full" else ("pipelined",)):
@@ -2668,11 +2735,50 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
                       for k, v in tree_lib.flatten_with_path(ref))
             scale = max(float(v.abs().max()) for _, v in tree_lib.flatten_with_path(ref))
             res["update"][f"{phase}_rel_err"] = err / scale
+            if staggered:
+                refs[phase] = dict(tree_lib.flatten_with_path(ref))
             del ref
         del got, outs
         torch.cuda.empty_cache()
+    if staggered:
+        res["update"]["stagger"] = stagger_updates(
+            muon(0.02, 0.02, comm=engine, full_schedule="staggered",
+                 **dict(opt_kw, period=period)),
+            g_m, muon_state, p_m, period, res["offsets"], refs, whole)
+        del refs
     res["check_peak_bytes"] = torch.cuda.max_memory_allocated()
     return res
+
+
+def stagger_updates(opt, grads, state, params, period: int, offsets: dict, refs: dict,
+                    whole) -> list:
+    """Each residue's staggered update on the run's state, timed, made whole
+    by ``whole(key, update)``; where ``refs`` holds one process's synchronous
+    'full' and 'block' updates (rank 0), each leaf against the one its offset
+    gives (due: full, else block), relative to the largest |update|."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+
+    scale = max(float(v.abs().max()) for ref in refs.values() for v in ref.values()) \
+        if refs else None
+    out = []
+    for r in range(period):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        upd, _ = opt.update(grads, state, params, f"stagger:{r}")
+        torch.cuda.synchronize()
+        rec = {"residue": r, "ms": (time.perf_counter() - t0) * 1e3}
+        got = {k: whole(k, u) for k, u in tree_lib.flatten_with_path(upd)}
+        del upd
+        rec["checksum"] = sum(float(v.double().abs().sum()) for v in got.values())
+        if refs:
+            rec["rel_err"] = max(
+                float((v.double() - refs["full" if offsets["/".join(k)] == r else "block"][k]
+                       .double()).abs().max()) for k, v in got.items()) / scale
+        out.append(rec)
+        del got
+    return out
 
 
 def dist_guard_checks(tag: str, res: list) -> None:
@@ -2725,6 +2831,234 @@ def phase_distributed(smi: str) -> None:
     DIST_D_LAYERS layers on data=4,model=1 with ZeRO-1, two steps. Every
     rank's exit code is checked. gloo
     copies through the host: its times measure no link."""
+    t_phase = time.perf_counter()
+    for spec in DIST_RUNS:
+        dist_run(spec, smi)
+    log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def dist_run(spec: tuple, smi: str) -> list:
+    """One run of the distributed phase: DIST_RANKS ranks on the one card
+    through gloo and the checks every run shares; returns the ranks'
+    results (:func:`dist_checks`)."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    label, arch, mesh, batch, extra, steps, layers, want_tp, required = spec
+    t_run = time.perf_counter()
+    tag = f"distributed:{label}"
+    # The ranks need the card's memory: tensors of earlier phases that
+    # only a reference cycle keeps go first, then the parent's cache.
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[{tag}] before the ranks: card {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f}; this process {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    argv = dist_argv(arch, mesh, batch, extra, steps)
+    log(f"[{tag}] {DIST_RANKS} ranks (gloo, one card): python -m repro_torch.launch.train "
+        f"{' '.join(argv)}" + (f", cfg num_layers={layers}" if layers else ""))
+    with tempfile.TemporaryDirectory() as out_dir:
+        if label in DIST_FP32_RUNS:
+            t0 = time.perf_counter()
+            dist_fp32_reference(spec, os.path.join(out_dir, "fp32_ref.pt"))
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"[{tag}] fp32 single-process reference step: "
+                f"{time.perf_counter() - t0:.1f} s, freed before the ranks start")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        # join=True raises if any rank raised or exited non-zero.
+        try:
+            mp.start_processes(dist_rank, args=(port, spec, out_dir),
+                               nprocs=DIST_RANKS, start_method="spawn", join=True)
+        except Exception:
+            for r in range(DIST_RANKS):
+                err = os.path.join(out_dir, f"rank{r}.err")
+                if os.path.exists(err):
+                    log(f"[{tag}] rank {r} failed:\n{open(err).read()}")
+            raise
+        res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+               for r in range(DIST_RANKS)]
+    r0 = res[0]
+    log(f"[{tag}] losses {r0['losses']} phases {r0['phases']}")
+    if any(r["losses"] != r0["losses"] for r in res):
+        fail(f"{tag}: the ranks' losses differ: {[r['losses'] for r in res]}")
+    if not all(v == v and abs(v) != float("inf") for v in r0["losses"]):
+        fail(f"{tag}: non-finite loss")
+    if any(r["tensor_parallel"] != want_tp for r in res):
+        fail(f"{tag}: {arch} ran " + ("replicated" if want_tp else "tensor-parallel"))
+    if "fp32" in r0:
+        fp = r0["fp32"]
+        loss_rel = abs(fp["loss"] - fp["ref_loss"]) / abs(fp["ref_loss"])
+        worst = max(fp["grad_rel"], key=fp["grad_rel"].get)
+        log(f"[{tag}] fp32 step on the mesh vs one process: loss {fp['loss']!r} vs "
+            f"{fp['ref_loss']!r} (rel {loss_rel:.3e}, tol {DIST_LOSS_TOL:g}); gradients "
+            f"joined on rank 0, worst leaf {worst} {fp['grad_rel'][worst]:.3e} of its "
+            f"max|grad| (tol {DIST_GRAD_TOL:g}); tp {fp['tp_bytes']} B")
+        if any(r["fp32"]["loss"] != fp["loss"] for r in res):
+            fail(f"{tag}: the ranks' fp32 losses differ")
+        for rank, r in enumerate(res):
+            if "routing" in r["fp32"]:
+                rt = r["fp32"]["routing"]
+                log(f"[{tag}] rank {rank} routing vs one process on its data shard: "
+                    f"{rt['flips']} of {rt['tokens']} token routings flipped over "
+                    f"{rt['layers']} layers" + (f", the widest k-th/(k+1)-th router logit "
+                                                f"gap among them {rt['max_gap']:.3e}"
+                                                if rt["flips"] else ""))
+        if not loss_rel <= DIST_LOSS_TOL:
+            fail(f"{tag}: the fp32 loss on the mesh disagrees with one process")
+        if not fp["grad_rel"][worst] <= DIST_GRAD_TOL:
+            fail(f"{tag}: the fp32 gradient of {worst} disagrees with one process")
+    log(f"[{tag}] {'tensor-parallel' if want_tp else 'replicated'}; plan_comm a rank: "
+        f"{r0['plan']} B; tp_bytes a rank and step {r0['tp_pred']} B; grad_reduce a rank "
+        f"and step {r0['grad_reduce_pred']} B")
+    if "guard" in r0:
+        dist_guard_checks(tag, res)
+    for rank, r in enumerate(res):
+        if r["trace_errors"]:
+            fail(f"{tag}: rank {rank}'s trace disagrees: {r['trace_errors']}")
+        for step, (phase, b) in enumerate(zip(r["phases"], r["per_step"])):
+            if phase == "block" and b["block"] != 0:
+                fail(f"{tag}: rank {rank} block step {step} moved {b['block']} B")
+        for name in required:
+            if r["launches"].get(name, 0) <= 0:
+                fail(f"{tag}: rank {rank} never launched {name} on the path")
+        upd = r["update"]
+        if upd is not None and not upd["pipelined_equals_barrier"]:
+            fail(f"{tag}: rank {rank}'s pipelined full update differs from the barrier's")
+        for phase in ("full", "block") if upd is not None else ():
+            if upd[f"{phase}_checksum"] != r0["update"][f"{phase}_checksum"]:
+                fail(f"{tag}: rank {rank}'s {phase} update differs from rank 0's")
+        log(f"[{tag}] rank {rank}: peak memory {r['peak_bytes'] / 2**30:.2f} GiB (by step "
+            f"{[round(b / 2**30, 2) for b in r['peak_by_step']]}; with the checks "
+            f"{r['check_peak_bytes'] / 2**30:.2f} GiB), muon state "
+            f"{r['muon_state_bytes']} B, its stacks {r['muon_stack_bytes']} B of "
+            f"{r['unsharded_stack_bytes']} B unsharded, launches {r['launches']}, step "
+            f"walls {r['step_wall_s']}")
+        for step, (b, w) in enumerate(zip(r["per_step"], r["wall_per_step"])):
+            log(f"[{tag}] rank {rank} step {step} ({r['phases'][step]}): bytes {b}; "
+                f"collective walls (s, summed, --obs-block) "
+                f"{json.dumps({k: round(v, 4) for k, v in w.items()})}")
+        if r["muon_stack_bytes"] != r["planned_stack_bytes"]:
+            fail(f"{tag}: rank {rank} holds {r['muon_stack_bytes']} B of the muon "
+                 f"stacks' momentum, not its shards' {r['planned_stack_bytes']}")
+        if label in DIST_QUARTER_STACKS and (4 * r["muon_stack_bytes"]
+                                             != r["unsharded_stack_bytes"]):
+            fail(f"{tag}: rank {rank} holds {r['muon_stack_bytes']} B of the muon "
+                 f"stacks' momentum, not a quarter of {r['unsharded_stack_bytes']}")
+    for phase in ("full", "block") if r0["update"] is not None else ():
+        rel = r0["update"][f"{phase}_rel_err"]
+        log(f"[{tag}] {phase} update, 4 ranks vs one process (kernels both): rel {rel:.3e} "
+            f"(tol {UPDATE_TOL:g}); {r0['update'][f'{phase}_pipelined_ms']:.1f} ms on the "
+            f"mesh" + (f", barrier {r0['update']['full_barrier_ms']:.1f} ms"
+                       if phase == "full" else ""))
+        if not rel <= UPDATE_TOL:
+            fail(f"{tag}: the {phase} update on the mesh disagrees with one process")
+    for rank, r in enumerate(res):
+        split = {name: [round(v, 4) for v in vals] for name, vals in sorted(r["spans"].items())
+                 if name.startswith(("train.", "muonbp."))}
+        log(f"[{tag}] rank {rank} spans (s, --obs-block): {json.dumps(split)}")
+    log(f"[{tag}] {time.perf_counter() - t_run:.1f} s; times measure no link (gloo copies "
+        f"through the host); card: {smi}")
+    return res
+
+
+def stagger_rank(rank: int, port: int, out_dir: str) -> None:
+    """Run S's one rank (started by torch.multiprocessing): a one-rank NCCL
+    world, :func:`stagger_one_card`, the results to ``out_dir/rank0.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = str(rank)
+    backend = STAGGER_S_ARGV[STAGGER_S_ARGV.index("--dist-backend") + 1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=1)
+    try:
+        res = stagger_one_card()
+        with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(out_dir, "rank0.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def stagger_one_card() -> dict:
+    """Run S through the launcher with every kernel count set to 0 just
+    before and read just after; then, on the run's state and fresh
+    gradients, each residue's staggered update (timed) per leaf against one
+    process's synchronous 'full' and 'block' updates (timed)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import label_tree, muon
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.obs import MemorySink
+    from repro_torch.training.train_step import loss_and_grads, reduce_grads
+
+    args = train.parser().parse_args(STAGGER_S_ARGV)
+    sink = MemorySink()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    run = train.run(STAGGER_S_ARGV, sinks=[sink])
+    res = {"launches": dict(kernels.launch_counts()),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "records": [{k: r[k] for k in ("step", "loss", "phase", "residue", "due", "dur_s")}
+                       for r in run.records],
+           "schedule": [r for r in sink.records if r.get("event") == "schedule"],
+           "comm_rates": [r for r in sink.records if r.get("event") == "comm_rates"],
+           "trace_bytes": run.engine.comm.trace.total_bytes(),
+           "tensor_parallel": run.engine.tensor_parallel}
+    engine, params, cfg = run.engine, run.state.params, run.cfg
+    labels = label_tree(params)
+    fresh = next(iter(SyntheticLM(cfg, args.batch, args.seq, seed=1)))
+    fresh = train.device_batch(fresh, args.device)
+    loss, metrics, grads = loss_and_grads(params, fresh, cfg, ctx=run.ctx)
+    reduce_grads(engine, loss, metrics, grads, run.ctx)
+    del fresh
+    only = lambda t: tree_lib.tree_map(lambda x, l: x if l == "muon" else None, t, labels)
+    g_m, p_m = only(grads), only(params)
+    del grads
+    state = run.state.opt_state.inner["muon"]
+    kw = dict(period=STAGGER_S_PERIOD, weight_decay=0.1, block_specs=run.block_specs)
+    refs, res["sync_ms"] = {}, {}
+    for phase in ("full", "block"):
+        opt = muon(0.02, 0.02, **kw)
+        opt.update(g_m, state, p_m, phase)   # compiles the program
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        upd, _ = opt.update(g_m, state, p_m, phase)
+        torch.cuda.synchronize()
+        res["sync_ms"][phase] = (time.perf_counter() - t0) * 1e3
+        refs[phase] = dict(tree_lib.flatten_with_path(upd))
+        del upd
+    offsets = res["schedule"][0]["offsets"]
+    opt = muon(0.02, 0.02, comm=engine, full_schedule="staggered", **kw)
+    opt.update(g_m, state, p_m, "stagger:0")   # compiles the program (every residue)
+    res["stagger"] = stagger_updates(opt, g_m, state, p_m, STAGGER_S_PERIOD, offsets, refs,
+                                     lambda k, u: engine.to_param_layout(k, u))
+    res["check_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def phase_stagger(smi: str) -> None:
+    """The staggered full-step schedule through the launcher: run S on one
+    card (a one-rank NCCL world), then run K on four ranks (gloo), each with
+    the checks the module docstring lists."""
     import gc
     import tempfile
 
@@ -2732,126 +3066,96 @@ def phase_distributed(smi: str) -> None:
     import torch.multiprocessing as mp
 
     t_phase = time.perf_counter()
-    for spec in DIST_RUNS:
-        label, arch, mesh, batch, extra, steps, layers, want_tp, required = spec
-        t_run = time.perf_counter()
-        tag = f"distributed:{label}"
-        # The ranks need the card's memory: tensors of earlier phases that
-        # only a reference cycle keeps go first, then the parent's cache.
-        gc.collect()
-        torch.cuda.empty_cache()
-        free, total = torch.cuda.mem_get_info()
-        log(f"[{tag}] before the ranks: card {free / 2**30:.2f} GiB free of "
-            f"{total / 2**30:.2f}; this process {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-            f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-        argv = dist_argv(arch, mesh, batch, extra, steps)
-        log(f"[{tag}] {DIST_RANKS} ranks (gloo, one card): python -m repro_torch.launch.train "
-            f"{' '.join(argv)}" + (f", cfg num_layers={layers}" if layers else ""))
-        with tempfile.TemporaryDirectory() as out_dir:
-            if label in DIST_FP32_RUNS:
-                t0 = time.perf_counter()
-                dist_fp32_reference(spec, os.path.join(out_dir, "fp32_ref.pt"))
-                gc.collect()
-                torch.cuda.empty_cache()
-                log(f"[{tag}] fp32 single-process reference step: "
-                    f"{time.perf_counter() - t0:.1f} s, freed before the ranks start")
-            with socket.socket() as sock:
-                sock.bind(("localhost", 0))
-                port = sock.getsockname()[1]
-            # join=True raises if any rank raised or exited non-zero.
-            try:
-                mp.start_processes(dist_rank, args=(port, spec, out_dir),
-                                   nprocs=DIST_RANKS, start_method="spawn", join=True)
-            except Exception:
-                for r in range(DIST_RANKS):
-                    err = os.path.join(out_dir, f"rank{r}.err")
-                    if os.path.exists(err):
-                        log(f"[{tag}] rank {r} failed:\n{open(err).read()}")
-                raise
-            res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
-                   for r in range(DIST_RANKS)]
-        r0 = res[0]
-        log(f"[{tag}] losses {r0['losses']} phases {r0['phases']}")
-        if any(r["losses"] != r0["losses"] for r in res):
-            fail(f"{tag}: the ranks' losses differ: {[r['losses'] for r in res]}")
-        if not all(v == v and abs(v) != float("inf") for v in r0["losses"]):
-            fail(f"{tag}: non-finite loss")
-        if any(r["tensor_parallel"] != want_tp for r in res):
-            fail(f"{tag}: {arch} ran " + ("replicated" if want_tp else "tensor-parallel"))
-        if "fp32" in r0:
-            fp = r0["fp32"]
-            loss_rel = abs(fp["loss"] - fp["ref_loss"]) / abs(fp["ref_loss"])
-            worst = max(fp["grad_rel"], key=fp["grad_rel"].get)
-            log(f"[{tag}] fp32 step on the mesh vs one process: loss {fp['loss']!r} vs "
-                f"{fp['ref_loss']!r} (rel {loss_rel:.3e}, tol {DIST_LOSS_TOL:g}); gradients "
-                f"joined on rank 0, worst leaf {worst} {fp['grad_rel'][worst]:.3e} of its "
-                f"max|grad| (tol {DIST_GRAD_TOL:g}); tp {fp['tp_bytes']} B")
-            if any(r["fp32"]["loss"] != fp["loss"] for r in res):
-                fail(f"{tag}: the ranks' fp32 losses differ")
-            for rank, r in enumerate(res):
-                if "routing" in r["fp32"]:
-                    rt = r["fp32"]["routing"]
-                    log(f"[{tag}] rank {rank} routing vs one process on its data shard: "
-                        f"{rt['flips']} of {rt['tokens']} token routings flipped over "
-                        f"{rt['layers']} layers" + (f", the widest k-th/(k+1)-th router logit "
-                                                    f"gap among them {rt['max_gap']:.3e}"
-                                                    if rt["flips"] else ""))
-            if not loss_rel <= DIST_LOSS_TOL:
-                fail(f"{tag}: the fp32 loss on the mesh disagrees with one process")
-            if not fp["grad_rel"][worst] <= DIST_GRAD_TOL:
-                fail(f"{tag}: the fp32 gradient of {worst} disagrees with one process")
-        log(f"[{tag}] {'tensor-parallel' if want_tp else 'replicated'}; plan_comm a rank: "
-            f"{r0['plan']} B; tp_bytes a rank and step {r0['tp_pred']} B; grad_reduce a rank "
-            f"and step {r0['grad_reduce_pred']} B")
-        if "guard" in r0:
-            dist_guard_checks(tag, res)
-        for rank, r in enumerate(res):
-            if r["trace_errors"]:
-                fail(f"{tag}: rank {rank}'s trace disagrees: {r['trace_errors']}")
-            for step, (phase, b) in enumerate(zip(r["phases"], r["per_step"])):
-                if phase == "block" and b["block"] != 0:
-                    fail(f"{tag}: rank {rank} block step {step} moved {b['block']} B")
-            for name in required:
-                if r["launches"].get(name, 0) <= 0:
-                    fail(f"{tag}: rank {rank} never launched {name} on the path")
-            upd = r["update"]
-            if upd is not None and not upd["pipelined_equals_barrier"]:
-                fail(f"{tag}: rank {rank}'s pipelined full update differs from the barrier's")
-            for phase in ("full", "block") if upd is not None else ():
-                if upd[f"{phase}_checksum"] != r0["update"][f"{phase}_checksum"]:
-                    fail(f"{tag}: rank {rank}'s {phase} update differs from rank 0's")
-            log(f"[{tag}] rank {rank}: peak memory {r['peak_bytes'] / 2**30:.2f} GiB (by step "
-                f"{[round(b / 2**30, 2) for b in r['peak_by_step']]}; with the checks "
-                f"{r['check_peak_bytes'] / 2**30:.2f} GiB), muon state "
-                f"{r['muon_state_bytes']} B, its stacks {r['muon_stack_bytes']} B of "
-                f"{r['unsharded_stack_bytes']} B unsharded, launches {r['launches']}, step "
-                f"walls {r['step_wall_s']}")
-            for step, (b, w) in enumerate(zip(r["per_step"], r["wall_per_step"])):
-                log(f"[{tag}] rank {rank} step {step} ({r['phases'][step]}): bytes {b}; "
-                    f"collective walls (s, summed, --obs-block) "
-                    f"{json.dumps({k: round(v, 4) for k, v in w.items()})}")
-            if r["muon_stack_bytes"] != r["planned_stack_bytes"]:
-                fail(f"{tag}: rank {rank} holds {r['muon_stack_bytes']} B of the muon "
-                     f"stacks' momentum, not its shards' {r['planned_stack_bytes']}")
-            if label in DIST_QUARTER_STACKS and (4 * r["muon_stack_bytes"]
-                                                 != r["unsharded_stack_bytes"]):
-                fail(f"{tag}: rank {rank} holds {r['muon_stack_bytes']} B of the muon "
-                     f"stacks' momentum, not a quarter of {r['unsharded_stack_bytes']}")
-        for phase in ("full", "block") if r0["update"] is not None else ():
-            rel = r0["update"][f"{phase}_rel_err"]
-            log(f"[{tag}] {phase} update, 4 ranks vs one process (kernels both): rel {rel:.3e} "
-                f"(tol {UPDATE_TOL:g}); {r0['update'][f'{phase}_pipelined_ms']:.1f} ms on the "
-                f"mesh" + (f", barrier {r0['update']['full_barrier_ms']:.1f} ms"
-                           if phase == "full" else ""))
-            if not rel <= UPDATE_TOL:
-                fail(f"{tag}: the {phase} update on the mesh disagrees with one process")
-        for rank, r in enumerate(res):
-            split = {name: [round(v, 4) for v in vals] for name, vals in sorted(r["spans"].items())
-                     if name.startswith(("train.", "muonbp."))}
-            log(f"[{tag}] rank {rank} spans (s, --obs-block): {json.dumps(split)}")
-        log(f"[{tag}] {time.perf_counter() - t_run:.1f} s; times measure no link (gloo copies "
-            f"through the host); card: {smi}")
-    log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s")
+    tag = "stagger:S"
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] one rank (nccl, one card): python -m torch.distributed.run "
+        f"--nproc-per-node 1 -m repro_torch.launch.train {' '.join(STAGGER_S_ARGV)}")
+    with tempfile.TemporaryDirectory() as out_dir:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        try:
+            mp.start_processes(stagger_rank, args=(port, out_dir), nprocs=1,
+                               start_method="spawn", join=True)
+        except Exception:
+            err = os.path.join(out_dir, "rank0.err")
+            if os.path.exists(err):
+                log(f"[{tag}] the rank failed:\n{open(err).read()}")
+            raise
+        s = json.load(open(os.path.join(out_dir, "rank0.json")))
+    recs = s["records"]
+    (sched,) = s["schedule"]
+    offsets = sched["offsets"]
+    due = [sum(1 for r in offsets.values() if r == res) for res in range(STAGGER_S_PERIOD)]
+    want = [f"stagger:{t % STAGGER_S_PERIOD}" for t in range(len(recs))]
+    log(f"[{tag}] offsets {offsets}; due a residue {due}; phases {[r['phase'] for r in recs]}")
+    if [r["phase"] for r in recs] != want:
+        fail(f"{tag}: phases {[r['phase'] for r in recs]}, not {want}")
+    if [r["due"] for r in recs] != [due[r["residue"]] for r in recs] or any(
+            r["residue"] != r["step"] % STAGGER_S_PERIOD for r in recs):
+        fail(f"{tag}: residue or due off the offsets: {recs}")
+    if not all(r["loss"] == r["loss"] and abs(r["loss"]) != float("inf") for r in recs):
+        fail(f"{tag}: non-finite loss")
+    if s["tensor_parallel"] or s["trace_bytes"] != 0 or len(s["comm_rates"]) != 1:
+        fail(f"{tag}: a one-rank world moved {s['trace_bytes']} B (tensor-parallel "
+             f"{s['tensor_parallel']}), comm_rates records {len(s['comm_rates'])}")
+    for name in MAIN_PATH_KERNELS:
+        if s["launches"].get(name, 0) <= 0:
+            fail(f"{tag}: kernel {name} never launched on the path")
+    for r in recs:
+        log(f"[{tag}] step {r['step']} {r['phase']} (due {r['due']}): loss {r['loss']:.4f}, "
+            f"wall {r['dur_s']:.4f} s (--obs-block)")
+    for u in s["stagger"]:
+        log(f"[{tag}] residue {u['residue']}: update {u['ms']:.1f} ms, against one process's "
+            f"full/block by the offsets rel {u['rel_err']:.3e} (tol {UPDATE_TOL:g})")
+        if not u["rel_err"] <= UPDATE_TOL:
+            fail(f"{tag}: residue {u['residue']}'s update disagrees with one process")
+    log(f"[{tag}] one process, synchronous, same gradients and state: full "
+        f"{s['sync_ms']['full']:.1f} ms, block {s['sync_ms']['block']:.1f} ms (no block grid "
+        f"on one rank); PERF.md section 5's 8-way-blocked block / full updates "
+        f"{SYNC_UPDATE_MS['block']} / {SYNC_UPDATE_MS['full']} ms; launches on the path "
+        f"{s['launches']}; peak {s['peak_bytes'] / 2**30:.2f} GiB (checks "
+        f"{s['check_peak_bytes'] / 2**30:.2f}); comm_rates {json.dumps(s['comm_rates'][0])}; "
+        f"card: {smi}")
+
+    tag = "stagger:K"
+    res = dist_run(STAGGER_K, smi)
+    r0 = res[0]
+    log(f"[{tag}] plan a rank and residue {r0['plan_residues']} B (predicted "
+        f"{STAGGER_K_PREDICTED}); offsets {r0['offsets']}")
+    if r0["plan_residues"] != STAGGER_K_PREDICTED:
+        log(f"[{tag}] the plan's residue bytes differ from the prediction")
+    worst = max(r0["plan_residues"])
+    for rank, r in enumerate(res):
+        (sched,) = r["schedule"]
+        if sched["offsets"] != r["offsets"] or sched["mode"] != "staggered":
+            fail(f"{tag}: rank {rank}'s schedule event {sched} is not the plan's offsets")
+        if len(r["comm_rates"]) != 1:
+            fail(f"{tag}: rank {rank} wrote {len(r['comm_rates'])} comm_rates records")
+        want = [f"stagger:{t % STAGGER_K_PERIOD}" for t in range(len(r["phases"]))]
+        if r["phases"] != want:
+            fail(f"{tag}: rank {rank} ran {r['phases']}, not {want}")
+        got = [r["plan_residues"][t % STAGGER_K_PERIOD] for t in range(len(r["phases"]))]
+        if r["stagger_bytes"] != got or max(r["stagger_bytes"]) > worst:
+            fail(f"{tag}: rank {rank} gathered {r['stagger_bytes']} B a step, not {got}")
+        for u in r["update"]["stagger"]:
+            if u["checksum"] != r0["update"]["stagger"][u["residue"]]["checksum"]:
+                fail(f"{tag}: rank {rank}'s residue {u['residue']} update differs from rank 0's")
+        for t, (wall, b) in enumerate(zip(r["step_wall_s"], r["stagger_bytes"])):
+            log(f"[{tag}] rank {rank} step {t} ({r['phases'][t]}): wall {wall:.4f} s, "
+                f"stagger gathers {b} B")
+    for u in r0["update"]["stagger"]:
+        log(f"[{tag}] residue {u['residue']}: update {u['ms']:.1f} ms on the mesh, against "
+            f"one process's full/block by the offsets rel {u['rel_err']:.3e} (tol "
+            f"{UPDATE_TOL:g})")
+        if not u["rel_err"] <= UPDATE_TOL:
+            fail(f"{tag}: residue {u['residue']}'s update on the mesh disagrees with one "
+                 "process")
+    rates = r0["comm_rates"][0]
+    log(f"[{tag}] comm_rates (modeled rates are the plan's planning constants; gloo walls "
+        f"measure no link): {json.dumps(rates)}")
+    log(f"[stagger] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_times(errors: dict, launches: dict) -> list:
@@ -3037,6 +3341,7 @@ def main() -> int:
     phase_serve_ssm(device["smi"])
     phase_archs(device["smi"])
     phase_distributed(device["smi"])
+    phase_stagger(device["smi"])
     rows = phase_times(errors, launches)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     print(device["smi"], flush=True)

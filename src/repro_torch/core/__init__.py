@@ -9,7 +9,14 @@ from repro_torch.core.blocking import (
 )
 from repro_torch.core.combine import apply_updates, combine, default_label_fn, label_tree
 from repro_torch.core.dion import DionState, dion
-from repro_torch.core.muon import Optimizer, block_muon, muon, muon_full, phase_for_step
+from repro_torch.core.muon import (
+    Optimizer,
+    StaggerSchedule,
+    block_muon,
+    muon,
+    muon_full,
+    phase_for_step,
+)
 from repro_torch.core.newton_schulz import (
     JORDAN_COEFFS,
     PAPER_COEFFS,
@@ -49,6 +56,7 @@ __all__ = [
     "partition_blocks",
     "phase_for_step",
     "spectral_norm_est",
+    "StaggerSchedule",
     "unpartition_blocks",
     "UpdateProgram",
     "variant_names",

@@ -22,6 +22,7 @@ which the port does not have.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -72,16 +73,28 @@ def dion(
     ns_steps: int = 6,
     period: Optional[int] = None,
     comm=None,
+    full_schedule: Optional[str] = None,
 ) -> Optimizer:
     """Build the Dion low-rank optimizer as a compiled update program.
 
     ``bucketing``/``ns_strategy``/``ns_steps`` configure the program that
     orthonormalizes the projected factors, as for ``muon``. ``period`` is
     accepted and ignored: Dion runs the same power iteration every step, so
-    'block' and 'full' do the same work. ``comm`` (a distributed engine)
-    raises: Dion on a mesh of ranks needs the reference's
-    ``_FactorEngineView``, which a later slice of the port brings.
+    'block' and 'full' do the same work. ``full_schedule`` accepts
+    'barrier'/'pipelined' (with no gathers they are the same) and rejects
+    'staggered': a low-rank update has no per-leaf full-step gathers to
+    stagger. ``comm`` (a distributed engine) raises: Dion on a mesh of ranks
+    needs the reference's ``_FactorEngineView``, which a later slice of the
+    port brings.
     """
+    if full_schedule is None:
+        full_schedule = os.environ.get("REPRO_FULL_SCHEDULE", "pipelined")
+    if full_schedule == "staggered":
+        raise ValueError("dion has no per-leaf full-step gathers to stagger; use "
+                         "full_schedule='pipelined' or 'barrier'")
+    if full_schedule not in program_lib.FULL_SCHEDULES:
+        raise ValueError(f"full_schedule must be one of {program_lib.FULL_SCHEDULES}, "
+                         f"got {full_schedule!r}")
     if comm is not None:
         raise NotImplementedError(
             "Dion on a mesh of ranks (--mesh) needs the reference's _FactorEngineView "

@@ -8,15 +8,17 @@ implementation covers all three methods via the period ``P``:
   * ``P = None``     -> BlockMuon  (block orthogonalization every step)
   * ``P = 5`` (etc.) -> MuonBP     (block for P-1 steps, full every P-th)
 
-The phase ('block' | 'full') is an argument of ``update``; the launcher
-picks it per step with :func:`phase_for_step`. ``update`` runs Nesterov
+The phase ('block' | 'full', or ``"stagger:r"`` under the staggered
+schedule) is an argument of ``update``; the launcher picks it per step
+with :class:`StaggerSchedule`. ``update`` runs Nesterov
 momentum, interprets the compiled :class:`program.UpdateProgram` (one NS
 chain per shape bucket through ``kernels.dispatch``), then the two-stepsize
 RMS-matched epilogue with decoupled weight decay (Theorem 2, paper
 Sec 3.2). The step count is a host integer, so schedules never sync the
 device. A variant changes three things: the chain length K, a pre-NS
 stage (Turbo-Muon's spectral pre-scale) and a post-NS stage (NorMuon's
-row normalization, ``kernels/normuon.py``, refreshed on full steps).
+row normalization, ``kernels/normuon.py``, refreshed on full steps and,
+staggered, on a leaf's due step).
 
 Trees are nested dicts (``repro_torch.tree``); ``None`` leaves are masked
 out, as ``core.combine`` hands each sub-optimizer its own parameters.
@@ -87,6 +89,45 @@ def phase_for_step(step: int, period: Optional[int]) -> str:
     return "full" if step % period == 0 else "block"
 
 
+@dataclasses.dataclass(frozen=True)
+class StaggerSchedule:
+    """Which compiled phase each training step runs.
+
+    ``mode='synchronous'`` is the paper's Algorithm 1: every leaf goes full
+    on the steps where ``step % P == 0`` (:func:`phase_for_step`).
+    ``mode='staggered'`` maps step t to the mixed phase
+    ``"stagger:{t % P}"``: each Muon leaf carries a residue offset
+    (``program.UpdateProgram.stagger_offsets``) and goes full only on its
+    own residue, so every step moves about 1/P of the full step's bytes.
+    Over any P consecutive steps each leaf still gets P-1 block updates and
+    one full update at the full-step LR.
+    """
+
+    period: Optional[int]
+    mode: str = "synchronous"   # 'synchronous' | 'staggered'
+
+    def __post_init__(self):
+        if self.mode not in ("synchronous", "staggered"):
+            raise ValueError(f"mode must be 'synchronous' or 'staggered', got {self.mode!r}")
+        if self.mode == "staggered" and (self.period is None or self.period < 2):
+            raise ValueError(f"staggered schedule needs period >= 2, got {self.period!r}")
+
+    def phase_for(self, step: int) -> str:
+        if self.mode == "synchronous":
+            return phase_for_step(step, self.period)
+        return program_lib.stagger_phase(step % self.period)
+
+    def phases(self) -> tuple[str, ...]:
+        """Every phase name this schedule emits."""
+        if self.mode == "staggered":
+            return tuple(program_lib.stagger_phase(r) for r in range(self.period))
+        if self.period is None:
+            return ("block",)
+        if self.period <= 1:
+            return ("full",)
+        return ("block", "full")
+
+
 def _as_schedule(lr) -> Schedule:
     if callable(lr):
         return lr
@@ -125,8 +166,10 @@ def muon(
     ``"plain"`` for the plain PyTorch chain; None plans per bucket).
     ``comm`` is the distributed engine (see the module docstring) and
     ``full_schedule`` its full-step schedule, ``"pipelined"`` (the default;
-    None reads ``REPRO_FULL_SCHEDULE``) or ``"barrier"``; without an engine
-    it has no effect. ``variant`` is a name of ``core.variants.VARIANTS`` ("muon" |
+    None reads ``REPRO_FULL_SCHEDULE``), ``"barrier"`` or ``"staggered"``
+    (needs ``comm`` and ``period >= 2``; ``update`` then also takes the
+    phases ``"stagger:r"``); without an engine the first two have no
+    effect. ``variant`` is a name of ``core.variants.VARIANTS`` ("muon" |
     "turbo_muon" | "normuon"), a ``VariantSpec``, or None for the baseline;
     a low-rank variant raises ``ValueError`` (build it with
     ``variants.build_variant``).
@@ -147,7 +190,11 @@ def muon(
         raise ValueError(f"full_schedule must be one of {program_lib.FULL_SCHEDULES}, "
                          f"got {full_schedule!r}")
     if full_schedule == "staggered":
-        raise NotImplementedError(f"full_schedule='staggered' {program_lib.NOT_PORTED}")
+        if comm is None:
+            raise ValueError("full_schedule='staggered' needs comm= (the distributed engine); "
+                             "without one there are no per-leaf gathers to stagger")
+        if period is None or period < 2:
+            raise ValueError(f"full_schedule='staggered' needs period >= 2, got {period!r}")
     bs_by_path = dict(tree_lib.flatten_with_path(block_specs)) if block_specs else {}
     programs: dict = {}
 
@@ -157,6 +204,7 @@ def muon(
             programs[key] = program_lib.compile_program(
                 leaf_specs, bucketing=bucketing, backend=backend, strategy=ns_strategy,
                 engine=comm, full_schedule=full_schedule, ns_steps=eff_ns_steps,
+                stagger_period=period if full_schedule == "staggered" else None,
                 precondition=vspec.precondition, epilogue=vspec.epilogue,
             )
         return programs[key]
@@ -206,8 +254,15 @@ def muon(
 
     @torch.no_grad()
     def update(grads, state: OptState, params, phase: str = "block"):
-        if phase not in ("block", "full"):
-            raise ValueError(f"phase must be 'block' or 'full', got {phase!r}")
+        residue = program_lib.parse_stagger_phase(phase)
+        if residue is not None:
+            if full_schedule != "staggered":
+                raise ValueError(f"phase {phase!r} needs full_schedule='staggered', this "
+                                 f"optimizer compiled {full_schedule!r}")
+            if residue >= period:
+                raise ValueError(f"phase {phase!r} out of range for period {period}")
+        elif phase not in ("block", "full"):
+            raise ValueError(f"phase must be 'block', 'full' or 'stagger:<r>', got {phase!r}")
         count = state.count + 1
         lr_f = float(lr_full_fn(count))
         lr = lr_f if phase == "full" else float(lr_block_fn(count))
@@ -235,9 +290,11 @@ def muon(
         program = _program_for(leaf_specs, backend)
         o_leaves = program.execute(phase, u_leaves, _orth)
         prog_phase = program.phase(phase)
+        due = frozenset(prog_phase.due or ())
 
-        # NorMuon: the row statistics refresh on full steps only (the port
-        # has no staggered schedule); every step applies them.
+        # NorMuon: the row statistics refresh on full steps and on a
+        # staggered step's due leaves only (whole after their gather); every
+        # step applies them.
         new_second, new_vcount = state.second_moment, state.vcount
         if vspec.epilogue == "neuron_norm":
             new_second, new_vcount = dict(new_second), dict(new_vcount)
@@ -246,17 +303,20 @@ def muon(
                     continue
                 o_leaves[i], new_second[k], new_vcount[k] = normuon_lib.apply_neuron_norm(
                     o_leaves[i], new_second[k], new_vcount[k], beta2=vspec.beta2,
-                    eps=vspec.stat_eps, refresh=phase == "full",
+                    eps=vspec.stat_eps, refresh=phase == "full" or i in due,
                     reduce=_shard_reduce(comm, k, full_shapes[i]),
                 )
 
+        # The two-stepsize rule a leaf: on a staggered step the due leaves
+        # (orthogonalized whole) take the full-step LR, the rest the block LR.
         upd_items = []
         for i, (k, o, p) in enumerate(zip(keys, o_leaves, p_leaves)):
             m_eff, n_eff = prog_phase.eff_dims(i)
             scale = _rms_scale(m_eff, n_eff, rms_target) if rms_match else 1.0
-            upd = -lr * scale * o
+            lr_i = lr_f if i in due else lr
+            upd = -lr_i * scale * o
             if weight_decay:
-                upd = upd - lr * weight_decay * _local(k, p.to(torch.float32))
+                upd = upd - lr_i * weight_decay * _local(k, p.to(torch.float32))
             upd_items.append((k, upd.to(p.dtype)))
         new_m = dict(zip(keys, m_leaves))
         return tree_lib.unflatten(upd_items), OptState(

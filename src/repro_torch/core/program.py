@@ -22,8 +22,16 @@ stage ``s`` gathers bucket ``s``, orthogonalizes bucket ``s-1`` and slices
 bucket ``s-2`` back. Each bucket's :class:`KernelPlan` records the strategy
 ``dispatch.plan_strategy`` chose for the packed shape at compile time.
 
-The reference's layer_shard split and staggered schedules are not in this
-port yet: asking for them raises ``NotImplementedError``.
+``full_schedule='staggered'`` (engine mode, ``stagger_period`` P >= 2)
+also compiles one mixed phase per step residue, ``"stagger:0"`` ..
+``"stagger:P-1"``, into the same program: each leaf carries a residue
+offset (``distributed.plan.assign_stagger_offsets`` over its gather's
+bytes, the plan's own balancer), and in phase ``"stagger:r"`` the leaves
+due at ``r`` gather and orthogonalize whole while every other leaf takes
+its block path, under one pipeline schedule over the due buckets.
+
+The reference's layer_shard split is not in this port yet: asking for it
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,11 +49,31 @@ FP32_BYTES = 4  # NS inputs are fp32 (momentum dtype): plan.py's convention
 
 # Full-phase schedules of the engine: 'barrier' gathers every leaf, runs
 # every bucket, slices everything back; 'pipelined' overlaps per-bucket
-# gathers with the NS of the bucket before. The reference's 'staggered'
-# raises here (a later slice of the port).
+# gathers with the NS of the bucket before; 'staggered' also compiles one
+# mixed phase per step residue ("stagger:r") in which only the leaves due
+# at that residue run their full-step path and the rest their block path.
 FULL_SCHEDULES = ("barrier", "pipelined", "staggered")
-NOT_PORTED = ("is not in this slice of the port; the staggered and layer_shard "
-              "schedules come in a later one")
+NOT_PORTED = ("is not in this slice of the port; the layer_shard schedule comes in a "
+              "later one")
+
+# Residue r of the staggered schedule runs the compiled phase "stagger:r";
+# the plain 'full' phase is compiled beside them (the guard's forced-full
+# step runs it).
+STAGGER_PREFIX = "stagger:"
+
+
+def stagger_phase(residue: int) -> str:
+    """Phase name of one staggered step residue ("stagger:3")."""
+    return f"{STAGGER_PREFIX}{int(residue)}"
+
+
+def parse_stagger_phase(phase: str) -> Optional[int]:
+    """Residue of a "stagger:r" phase name, or None for any other phase."""
+    if isinstance(phase, str) and phase.startswith(STAGGER_PREFIX):
+        tail = phase[len(STAGGER_PREFIX):]
+        if tail.isdigit():
+            return int(tail)
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,6 +268,10 @@ class PhaseProgram:
     leaf_execs: tuple[LeafExec, ...]        # index order == muon leaf order
     ops: tuple[BucketOp, ...]
     schedule: Optional[PipelineSchedule] = None   # engine-mode pipelined fulls
+    # Staggered phases only: the flat indices of the leaves due at this
+    # residue, which gather whole and take the full-step LR. An unblocked
+    # sharded leaf gathers on every phase but is due only at its residue.
+    due: Optional[tuple[int, ...]] = None
 
     def predicted_comm_bytes(self) -> int:
         """Predicted collective bytes a step of this phase (plan.py's
@@ -260,8 +292,10 @@ class UpdateProgram:
     """The compiled two-phase update schedule; ``execute`` interprets it."""
 
     leaf_specs: tuple[LeafSpec, ...]
-    phases: dict                            # 'block' | 'full' -> PhaseProgram
+    phases: dict                            # 'block'/'full'/'stagger:r' -> PhaseProgram
     engine: Optional[Any] = None            # distributed engine (duck-typed)
+    stagger_period: Optional[int] = None    # staggered schedules only
+    stagger_offsets: Optional[dict] = None  # 'a/b/c' path -> residue in [0, P)
 
     def phase(self, name: str) -> PhaseProgram:
         return self.phases[name]
@@ -282,9 +316,10 @@ class UpdateProgram:
         lines = []
         for name, prog in self.phases.items():
             apply_b = prog.predicted_apply_bytes()
+            due = f" due={len(prog.due)} leaf/leaves" if prog.due is not None else ""
             lines.append(f"{name}: {len(prog.ops)} bucket op(s), predicted comm "
                          f"{prog.predicted_comm_bytes()} B"
-                         + (f" (+{apply_b} B zero1 apply)" if apply_b else ""))
+                         + (f" (+{apply_b} B zero1 apply)" if apply_b else "") + due)
             for op in prog.ops:
                 comm = "gather" if any(le.gather for le in op.leaves) else "none"
                 merged = (f" merge={'+'.join(op.kernel.merged_dtypes)}"
@@ -484,7 +519,8 @@ def _compile_schedule(ops: Sequence[BucketOp], ns_steps: int) -> Optional[Pipeli
 
 def _compile_phase_engine(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketing: bool,
                           backend: str, strategy: Optional[str], engine: Any,
-                          full_schedule: str, stages: dict) -> PhaseProgram:
+                          full_schedule: str, stages: dict,
+                          full_leaves: Optional[frozenset] = None) -> PhaseProgram:
     """Engine mode: plan on each rank's local (post-gather) shapes.
 
     Every array is rank-local, so packing is always ``concat`` and bucket
@@ -492,6 +528,10 @@ def _compile_phase_engine(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketi
     usable block grid) gathers its trailing dims; a blocked leaf runs NS on
     its shard, blocked locally by the residual factor where its block grid
     is finer than its shard grid (a replicated param carrying a block spec).
+
+    ``full_leaves`` compiles a mixed staggered phase: those leaf indices
+    take their full-step path and every other leaf its block path, in one
+    body whose pipeline schedule spans the due buckets' gathers.
     """
     from repro_torch.distributed.plan import lead_gather_collectives
     from repro_torch.sharding.specs import local_shape, spec_entries, spec_entry_size
@@ -507,7 +547,8 @@ def _compile_phase_engine(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketi
         shard_shape = local_shape(spec, ls.shape, sizes)
         m, n = int(ls.shape[-2]), int(ls.shape[-1])
         gather = None
-        if phase == "full" or not ls.blocked:
+        due = phase == "full" or (full_leaves is not None and i in full_leaves)
+        if due or not ls.blocked:
             # Gather the trailing dims back to global; lead dims stay local
             # (ZeRO-1 keeps each rank on its own layers).
             gather = _gather_comm(spec, ls.shape, sizes)
@@ -548,10 +589,15 @@ def _compile_phase_engine(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketi
             kernel=_kernel_plan(packed, backend, strategy, merged, **stages),
             packed_shape=packed, compute_dtype=compute_dtype,
         ))
-    pipelined = phase == "full" and full_schedule == "pipelined"
+    # A mixed phase always pipelines (its due buckets' gathers overlap the
+    # other buckets' NS); the plain full phase under 'staggered' too, as the
+    # forced-full step runs it.
+    pipelined = full_leaves is not None or (
+        phase == "full" and full_schedule in ("pipelined", "staggered"))
     schedule = _compile_schedule(ops, stages["ns_steps"]) if pipelined else None
     return PhaseProgram(phase=phase, leaf_execs=tuple(leaf_execs), ops=tuple(ops),
-                        schedule=schedule)
+                        schedule=schedule,
+                        due=tuple(sorted(full_leaves)) if full_leaves is not None else None)
 
 
 def compile_program(
@@ -564,6 +610,7 @@ def compile_program(
     layer_shard: Optional[tuple] = None,
     full_schedule: str = "pipelined",
     ns_steps: int = 5,
+    stagger_period: Optional[int] = None,
     precondition: Optional[str] = None,
     epilogue: Optional[str] = None,
 ) -> UpdateProgram:
@@ -576,25 +623,54 @@ def compile_program(
     ``axis_sizes``, ``spec_for``, ``flatten_for`` and ``run_program``)
     compiles the explicit-comm program on local shapes, whose full phase
     gets a :class:`PipelineSchedule` under ``full_schedule='pipelined'``
-    (``'barrier'``: gather all, NS all, write back all). ``ns_steps`` is the
-    effective chain length K and ``precondition`` / ``epilogue`` the
-    variant's stage names, recorded on every KernelPlan. ``layer_shard``
-    and ``full_schedule='staggered'`` raise ``NotImplementedError``.
+    (``'barrier'``: gather all, NS all, write back all). ``'staggered'``
+    (engine only, ``stagger_period`` >= 2) adds the mixed phases
+    ``"stagger:0"`` .. ``"stagger:P-1"``, the leaves' offsets balanced over
+    the residues by their gathers' inter-pod, then total bytes
+    (``plan.assign_stagger_offsets``); the program carries the period and
+    the offsets. ``ns_steps`` is the effective chain length K and
+    ``precondition`` / ``epilogue`` the variant's stage names, recorded on
+    every KernelPlan. ``layer_shard`` raises ``NotImplementedError``.
     """
     if full_schedule not in FULL_SCHEDULES:
         raise ValueError(f"full_schedule must be one of {FULL_SCHEDULES}, got {full_schedule!r}")
-    if full_schedule == "staggered":
-        raise NotImplementedError(f"full_schedule='staggered' {NOT_PORTED}")
     if layer_shard is not None:
         raise NotImplementedError(f"layer_shard {NOT_PORTED}")
+    offsets: Optional[dict] = None
+    period: Optional[int] = None
+    if full_schedule == "staggered":
+        if engine is None:
+            raise ValueError("full_schedule='staggered' needs the distributed engine (without "
+                             "one there are no per-leaf gathers to stagger)")
+        if stagger_period is None or int(stagger_period) < 2:
+            raise ValueError(f"full_schedule='staggered' needs stagger_period >= 2, "
+                             f"got {stagger_period!r}")
+        period = int(stagger_period)
+        from repro_torch.distributed.plan import assign_stagger_offsets
+
+        sizes = dict(engine.axis_sizes)
+        items = []
+        for ls in leaf_specs:
+            comm = _gather_comm(engine.spec_for(ls.key, len(ls.shape)), ls.shape, sizes)
+            items.append(("/".join(ls.key), comm.predicted_link_bytes("dcn") if comm else 0,
+                          comm.predicted_bytes if comm else 0))
+        offsets = assign_stagger_offsets(items, period)
     stages = dict(ns_steps=ns_steps, precondition=precondition, epilogue=epilogue)
+    phase_names = ["block", "full"]
+    if period is not None:
+        phase_names += [stagger_phase(r) for r in range(period)]
     phases = {}
-    for phase in ("block", "full"):
+    for phase in phase_names:
         if engine is not None:
+            residue = parse_stagger_phase(phase)
+            full_leaves = None if residue is None else frozenset(
+                i for i, ls in enumerate(leaf_specs) if offsets["/".join(ls.key)] == residue)
             phases[phase] = _compile_phase_engine(
                 leaf_specs, phase, bucketing=bucketing, backend=backend, strategy=strategy,
-                engine=engine, full_schedule=full_schedule, stages=stages)
+                engine=engine, full_schedule=full_schedule, stages=stages,
+                full_leaves=full_leaves)
         else:
             phases[phase] = _compile_phase(leaf_specs, phase, bucketing=bucketing,
                                            backend=backend, strategy=strategy, stages=stages)
-    return UpdateProgram(leaf_specs=tuple(leaf_specs), phases=phases, engine=engine)
+    return UpdateProgram(leaf_specs=tuple(leaf_specs), phases=phases, engine=engine,
+                         stagger_period=period, stagger_offsets=offsets)

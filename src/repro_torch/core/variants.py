@@ -84,7 +84,7 @@ def get(variant: Union[str, VariantSpec, None]) -> VariantSpec:
 # Keyword arguments the Dion program shares with ``muon``; the blocking
 # knobs mean nothing to a low-rank update and are dropped.
 _DION_KEYS = ("momentum", "weight_decay", "rms_target", "bucketing", "ns_strategy",
-              "ns_steps", "period", "comm")
+              "ns_steps", "period", "comm", "full_schedule")
 
 
 def build_variant(variant: Union[str, VariantSpec], lr_full, lr_block=None, *,

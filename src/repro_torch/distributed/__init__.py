@@ -9,6 +9,7 @@ from repro_torch.distributed.audit import (
     CollectiveTrace,
     assert_matches_plan,
     assert_matches_plan_by_axes,
+    assert_staggered_matches_plan,
     bytes_by_axes,
     bytes_by_link,
 )
@@ -32,6 +33,7 @@ from repro_torch.distributed.plan import (
 __all__ = [
     "assert_matches_plan",
     "assert_matches_plan_by_axes",
+    "assert_staggered_matches_plan",
     "assign_stagger_offsets",
     "bytes_by_axes",
     "bytes_by_link",

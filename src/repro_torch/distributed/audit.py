@@ -10,8 +10,11 @@ of the engine, the train step and the launcher goes through one wrapper,
 the per-rank *result* buffer (``distributed/plan.py``). The HLO parsers
 have no counterpart.
 
-Phases: the plan's three (``'block'``, ``'full'``, ``'apply'``) and the
-classes the plan does not price, kept apart: ``'grad_reduce'`` (the
+Phases: the plan's three (``'block'``, ``'full'``, ``'apply'``);
+``'stagger'``, a step of the staggered schedule (``"stagger:r"``: the
+class drops the residue, which each event keeps in ``residue``; the plan
+prices it as ``predicted_by_axes('staggered', period=, residue=)``); and
+the classes the plan does not price, kept apart: ``'grad_reduce'`` (the
 data-parallel gradient all-reduce), ``'tp'`` (the tensor-parallel
 forward and backward of ``distributed/tensor_parallel.py`` and the sum of
 the replicated leaves' gradients over the model axis; ``plan.tp_bytes``
@@ -20,8 +23,9 @@ norms on that path), ``'normuon'`` (NorMuon's row and
 RMS sums of sharded leaves), ``'guard'`` (the guarded step's health flag,
 agreed over the whole mesh: 4 B a step) and ``'checkpoint'`` (state
 gathered for a snapshot): :data:`PHASES`.
-:func:`bytes_by_axes`, :func:`bytes_by_link`, :func:`assert_matches_plan`
-and :func:`assert_matches_plan_by_axes` read the trace.
+:func:`bytes_by_axes`, :func:`bytes_by_link`, :func:`assert_matches_plan`,
+:func:`assert_matches_plan_by_axes` and
+:func:`assert_staggered_matches_plan` read the trace.
 
 The wrapper's groups: one axis is the ``DeviceMesh``'s own group
 (``mesh.get_group(name)``); several axes (the ZeRO entry ``('pod',
@@ -46,17 +50,28 @@ GATHER = "all-gather"
 REDUCE = "all-reduce"
 REDUCE_SCATTER = "reduce-scatter"
 # Every phase class the port's own code records (see the module docstring).
-PHASES = ("block", "full", "apply", "grad_reduce", "tp", "norm", "normuon", "guard",
-          "checkpoint")
+PHASES = ("block", "full", "apply", "stagger", "grad_reduce", "tp", "norm", "normuon",
+          "guard", "checkpoint")
+STAGGER = "stagger"
+
+
+def phase_class(phase: str) -> tuple[str, Optional[int]]:
+    """The trace class of a program phase and its residue: ``"stagger:3"``
+    -> ``('stagger', 3)``, any other phase -> ``(phase, None)``."""
+    from repro_torch.core.program import parse_stagger_phase
+
+    residue = parse_stagger_phase(phase)
+    return (phase, None) if residue is None else (STAGGER, residue)
 
 
 @dataclasses.dataclass(frozen=True)
 class CollectiveEvent:
     """One collective as issued: its phase class, kind, mesh axes, link
     class, per-rank result bytes, pipeline stage (None outside one), the
-    step it ran in and its host wall in seconds (None for an asynchronous
+    step it ran in, its host wall in seconds (None for an asynchronous
     gather; with the wrapper's ``sync`` set, as under ``--obs-block``, it
-    covers the device work before and after too)."""
+    covers the device work before and after too) and, on a staggered step,
+    the residue."""
 
     phase: str
     kind: str
@@ -66,6 +81,7 @@ class CollectiveEvent:
     stage: Optional[int] = None
     step: Optional[int] = None
     wall_s: Optional[float] = None
+    residue: Optional[int] = None
 
 
 class CollectiveTrace:
@@ -76,11 +92,13 @@ class CollectiveTrace:
         self.step: Optional[int] = None
 
     def record(self, phase: str, kind: str, axes, nbytes: int,
-               stage: Optional[int] = None, wall_s: Optional[float] = None) -> None:
+               stage: Optional[int] = None, wall_s: Optional[float] = None,
+               residue: Optional[int] = None) -> None:
         axes = tuple(axes)
         self.events.append(CollectiveEvent(phase=phase, kind=kind, axes=axes,
                                            link=link_class(axes), bytes=int(nbytes),
-                                           stage=stage, step=self.step, wall_s=wall_s))
+                                           stage=stage, step=self.step, wall_s=wall_s,
+                                           residue=residue))
 
     def wall_s(self, phases=None, *, step: Optional[int] = None) -> float:
         """The summed host wall of the synchronous collectives selected."""
@@ -161,10 +179,12 @@ class Collectives:
         return self._groups[axes]
 
     def all_gather(self, x: torch.Tensor, axes, *, dim: int = 0, phase: str,
-                   stage: Optional[int] = None, async_op: bool = False):
+                   stage: Optional[int] = None, async_op: bool = False,
+                   residue: Optional[int] = None):
         """Gather ``x`` over ``axes`` along ``dim`` (rank order = the axes'
         linear index, major to minor). With ``async_op`` returns a
-        :class:`PendingGather`."""
+        :class:`PendingGather`. ``residue`` is kept on the event of a
+        staggered step's gather."""
         import torch.distributed as dist
 
         axes = tuple(axes)
@@ -182,7 +202,7 @@ class Collectives:
         shape = list(x.shape)
         shape[dim] *= k
         self.trace.record(phase, GATHER, axes, math.prod(shape) * x.element_size(), stage,
-                          wall_s=None if async_op else self._wall(t0))
+                          wall_s=None if async_op else self._wall(t0), residue=residue)
 
         def finish() -> torch.Tensor:
             return out.view(k, *src.shape).movedim(0, dim).reshape(shape) if dim else out
@@ -286,9 +306,42 @@ def assert_matches_plan_by_axes(trace: CollectiveTrace, plan: CommPlan, phases, 
     for phase in phases:
         for axes, nbytes in plan.predicted_by_axes(phase).items():
             pred[axes] = pred.get(axes, 0) + nbytes
+    return _assert_axes_bytes_equal(trace, pred, phases, kinds, step,
+                                    label=f"phases {phases}")
+
+
+def _assert_axes_bytes_equal(trace: CollectiveTrace, pred: dict, phases, kinds, step,
+                             *, label: str) -> dict:
     meas = bytes_by_axes(trace, phases, kinds=kinds, step=step)
     pred = {k: v for k, v in pred.items() if v}
     if pred != {k: v for k, v in meas.items() if v}:
-        raise AssertionError(f"per-axis collective bytes mismatch for phases {phases}:\n"
+        raise AssertionError(f"per-axis collective bytes mismatch for {label}:\n"
                              f"  plan: {pred}\n  trace: {meas}")
     return meas
+
+
+def assert_staggered_matches_plan(trace: CollectiveTrace, plan: CommPlan, *, period: int,
+                                  residue: int, step: Optional[int] = None,
+                                  include_apply: bool = False, kinds=(GATHER,)) -> dict:
+    """One staggered step's traced bytes per axis set equal the plan's
+    ``predicted_by_axes('staggered', period=, residue=)``, to the byte.
+
+    The step's ``"stagger:r"`` phase gathers exactly the leaves whose offset
+    is ``r`` (``plan.stagger_offsets(period)``, the balancer the program ran)
+    and the unblocked sharded ones; ``include_apply`` adds the plan's
+    'apply' (the ZeRO-1 writeback gathers run on every step). Every stagger
+    event of the step must carry ``residue``. Returns the traced per-axes
+    dict.
+    """
+    pred = dict(plan.predicted_by_axes("staggered", period=period, residue=residue))
+    phases: tuple = (STAGGER,)
+    if include_apply:
+        phases += ("apply",)
+        for axes, nbytes in plan.predicted_by_axes("apply").items():
+            pred[axes] = pred.get(axes, 0) + nbytes
+    wrong = {e.residue for e in trace.select(STAGGER, step=step)} - {residue}
+    if wrong:
+        raise AssertionError(f"staggered residue {residue}/{period}: the trace holds stagger "
+                             f"events of residues {sorted(wrong)}")
+    return _assert_axes_bytes_equal(trace, pred, phases, kinds, step,
+                                    label=f"staggered residue {residue}/{period}")

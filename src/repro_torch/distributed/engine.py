@@ -27,7 +27,12 @@ engine-mode program from this engine's momentum specs (gather CommOps,
 residual block grids, local bucket shapes), and :meth:`run_program` only
 executes one phase of it. Each stage runs in a span
 ``muonbp.<phase>.s<i>.<gather|ns|writeback>`` (a ``torch.profiler`` region
-too), as the reference's named scopes.
+too), as the reference's named scopes; a staggered step's phase name drops
+its colon there (``muonbp.stagger3.s0.gather``), as the reference's scope
+does. A mixed staggered phase (``"stagger:r"``) runs the same way: only
+its due leaves and the unblocked sharded ones carry gathers, the block
+leaves run NS on their shards in the same stages, and its collectives are
+recorded in the trace class ``'stagger'`` with the residue on each event.
 
 ZeRO-1: the engine's specs are the *momentum* specs
 (``sharding.specs.momentum_spec``), so a data-split lead dim makes the
@@ -175,7 +180,7 @@ class ShardMapEngine:
         return x
 
     def _gather(self, x: torch.Tensor, spec, dims, *, phase: str,
-                stage: Optional[int] = None) -> torch.Tensor:
+                stage: Optional[int] = None, residue: Optional[int] = None) -> torch.Tensor:
         """Gather ``dims`` (in order) one mesh axis at a time, minor axis
         first within an entry, so the concatenation reproduces the entry's
         major-to-minor layout."""
@@ -184,7 +189,8 @@ class ShardMapEngine:
         for dim in dims:
             for name in reversed(_names(entries[dim])):
                 if self.axis_sizes.get(name, 1) > 1:
-                    x = comm.all_gather(x, (name,), dim=dim, phase=phase, stage=stage)
+                    x = comm.all_gather(x, (name,), dim=dim, phase=phase, stage=stage,
+                                        residue=residue)
         return x
 
     def shard(self, key: PathKey, x: torch.Tensor) -> torch.Tensor:
@@ -273,37 +279,41 @@ class ShardMapEngine:
         """
         if not u_leaves:
             return []
+        from repro_torch.distributed.audit import phase_class
+
         leaf_execs = prog.leaf_execs
-        phase = prog.phase
+        phase, residue = phase_class(prog.phase)
+        scope = prog.phase.replace(":", "")
         trailing = lambda x: (x.dim() - 2, x.dim() - 1)
 
         def gather(x, le, stage=None):
-            return self._gather(x, le.spec, trailing(x), phase=phase, stage=stage)
+            return self._gather(x, le.spec, trailing(x), phase=phase, stage=stage,
+                                residue=residue)
 
         def writeback(o, le):
             return self._slice(o, le.spec, trailing(o)) if le.gather is not None else o
 
         if prog.schedule is None:
-            with self._scope(f"muonbp.{phase}.gather"):
+            with self._scope(f"muonbp.{scope}.gather"):
                 ins = [gather(x, le) if le.gather is not None else x
                        for x, le in zip(u_leaves, leaf_execs)]
-            with self._scope(f"muonbp.{phase}.ns"):
+            with self._scope(f"muonbp.{scope}.ns"):
                 outs = program_lib.execute_ops(prog.ops, ins, orth)
             del ins
-            with self._scope(f"muonbp.{phase}.writeback"):
+            with self._scope(f"muonbp.{scope}.writeback"):
                 return [writeback(o, le) for o, le in zip(outs, leaf_execs)]
 
         results: list = [None] * len(u_leaves)
         pending: dict = {}    # leaf index -> NS output awaiting writeback
         in_flight: dict = {}  # leaf index -> _TrailingGather
         for stage in prog.schedule.stages:
-            with self._scope(f"muonbp.{phase}.s{stage.index}.gather"):
+            with self._scope(f"muonbp.{scope}.s{stage.index}.gather"):
                 for li in stage.gathers:
                     in_flight[li] = _TrailingGather(self, u_leaves[li], leaf_execs[li],
-                                                    phase, stage.index)
+                                                    phase, stage.index, residue)
             if stage.compute is not None:
                 op = prog.ops[stage.compute]
-                with self._scope(f"muonbp.{phase}.s{stage.index}.ns"):
+                with self._scope(f"muonbp.{scope}.s{stage.index}.ns"):
                     ins = list(u_leaves)
                     for le in op.leaves:
                         if le.index in in_flight:
@@ -311,7 +321,7 @@ class ShardMapEngine:
                     for idx, out in program_lib.execute_op(op, ins, orth):
                         pending[idx] = out
                     del ins
-            with self._scope(f"muonbp.{phase}.s{stage.index}.writeback"):
+            with self._scope(f"muonbp.{scope}.s{stage.index}.writeback"):
                 for li in stage.writeback:
                     results[li] = writeback(pending.pop(li), leaf_execs[li])
         if pending or in_flight or any(r is None for r in results):
@@ -323,17 +333,18 @@ class _TrailingGather:
     """A leaf's trailing-dim gathers, the first issued asynchronously; the
     rest (a second axis or dim) follow when the result is waited for."""
 
-    def __init__(self, engine: ShardMapEngine, x: torch.Tensor, le, phase: str, stage: int):
+    def __init__(self, engine: ShardMapEngine, x: torch.Tensor, le, phase: str, stage: int,
+                 residue: Optional[int] = None):
         entries = spec_entries(le.spec, x.dim())
         self.steps = [(dim, name) for dim in (x.dim() - 2, x.dim() - 1)
                       for name in reversed(_names(entries[dim]))
                       if engine.axis_sizes.get(name, 1) > 1]
-        self.engine, self.phase, self.stage = engine, phase, stage
+        self.engine, self.phase, self.stage, self.residue = engine, phase, stage, residue
         self.first = None
         if self.steps:
             dim, name = self.steps[0]
             self.first = engine.comm.all_gather(x, (name,), dim=dim, phase=phase,
-                                                stage=stage, async_op=True)
+                                                stage=stage, async_op=True, residue=residue)
         self.x = x
 
     def wait(self) -> torch.Tensor:
@@ -342,7 +353,7 @@ class _TrailingGather:
         x = self.first.wait()
         for dim, name in self.steps[1:]:
             x = self.engine.comm.all_gather(x, (name,), dim=dim, phase=self.phase,
-                                            stage=self.stage)
+                                            stage=self.stage, residue=self.residue)
         return x
 
 

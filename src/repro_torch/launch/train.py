@@ -1,10 +1,13 @@
 """Training launcher of the port: config-driven MuonBP pretraining.
 
-Counterpart of ``repro/launch/train.py`` for the synchronous schedule, with
-the reference's flag names and defaults. On one process ``--mesh-model N``
-declares the tensor-parallel size whose shards define the MuonBP blocks, so
-one GPU runs the paper's N-way block grids. The phase schedule is driven
-here: ``step % P == 0`` runs 'full', every other step 'block'.
+Counterpart of ``repro/launch/train.py``, with the reference's flag names
+and defaults. On one process ``--mesh-model N`` declares the
+tensor-parallel size whose shards define the MuonBP blocks, so one GPU runs
+the paper's N-way block grids. The phase schedule is driven here
+(``core.muon.StaggerSchedule``): synchronous, ``step % P == 0`` runs
+'full' and every other step 'block'; ``--full-schedule staggered`` runs
+the mixed phase ``"stagger:{step % P}"`` each step, in which only the
+Muon leaves whose residue offset is due gather and orthogonalize whole.
 
 ``--mesh pod=2,data=2,model=2`` (or ``"2,2"`` for data,model) runs on a
 mesh of ranks, one process a rank, started by ``python -m
@@ -17,7 +20,7 @@ share a card or run on the CPU. A rank's device is ``cuda:{LOCAL_RANK %
 device_count}``. The optimizer runs on the explicit engine
 (``--comm-engine shard_map``, ``distributed/engine.py``: block steps on each
 rank's shards with zero optimizer collectives, full steps through one
-gather a sharded matrix, ``--full-schedule pipelined|barrier``);
+gather a sharded matrix, ``--full-schedule pipelined|barrier|staggered``);
 ``--zero1`` splits the optimizer state over the data axes and
 ``--zero1-flatten`` adds the lead-padded fallback. ``--comm-engine gspmd``
 raises: eager PyTorch has no partitioner. ``--batch`` is the global batch;
@@ -55,6 +58,10 @@ fsync'd JSONL, so a SIGKILL loses no record already printed. Each step runs
 in a ``step`` span; ``--obs-block`` puts a device sync inside it, so its
 ``dur_s`` is the step's wall time with the device work included.
 ``--profile-steps A:B`` captures a ``torch.profiler`` trace of those steps.
+Under ``--mesh`` the drift monitor (``obs/drift.py``, ``--drift-threshold``,
+0 turns it off) joins the comm plan's bytes against the step walls and
+writes a ``comm_rates`` record at the end of the run; without a mesh the
+run issues no collective, so there is nothing to monitor.
 The NS dispatch counters ``ns_launch.<device>.<strategy>`` count
 orthogonalize calls as they run (the reference counts traces, once per
 compiled specialisation); ``python -m repro_torch.scripts.obs_report``
@@ -68,6 +75,13 @@ Four ranks on the CPU, ZeRO-1:
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
       -m repro_torch.launch.train --reduced --device cpu --mesh data=2,model=2 \\
       --zero1 --steps 6 --batch 4 --seq 32
+
+The staggered schedule needs the explicit engine, so ``--mesh``; on one
+card it runs in a one-rank world (every gather 0 B, as the reference's
+(1, 1) mesh):
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 1 \\
+      -m repro_torch.launch.train --mesh data=1 --dist-backend nccl \\
+      --full-schedule staggered --period 5 --steps 10 --batch 4 --seq 1024
 
 Guarded, with snapshots and a resume:
   PYTHONPATH=src python -m repro_torch.launch.train --arch muonbp-960m \\
@@ -102,12 +116,22 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs import ModelConfig, NSEngineConfig, get_config
 from repro_torch.core import adamw, block_muon, combine, label_tree, muon, muon_full
 from repro_torch.core import variants as variants_lib
-from repro_torch.core.muon import phase_for_step
+from repro_torch.core.muon import StaggerSchedule, phase_for_step  # noqa: F401
 from repro_torch.core.schedule import cosine, wsd
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels import dispatch
 from repro_torch.models.model import init_params
-from repro_torch.obs import Bus, JsonlSink, StdoutSink, set_bus, span, stage_scope
+from repro_torch.obs import (
+    Bus,
+    DriftConfig,
+    DriftMonitor,
+    JsonlSink,
+    ResidueDriftMonitor,
+    StdoutSink,
+    set_bus,
+    span,
+    stage_scope,
+)
 from repro_torch.obs.spans import parse_profile_window
 from repro_torch.sharding import specs as sh
 from repro_torch.training import checkpoint, resilience
@@ -216,10 +240,13 @@ def parser() -> argparse.ArgumentParser:
                     help="optimizer comm engine under --mesh: the explicit engine "
                          "(distributed/engine.py); 'gspmd' raises (eager PyTorch has "
                          "no partitioner)")
-    ap.add_argument("--full-schedule", default=None, choices=["pipelined", "barrier"],
+    ap.add_argument("--full-schedule", default=None,
+                    choices=["pipelined", "barrier", "staggered"],
                     help="the engine's full-step schedule (default: REPRO_FULL_SCHEDULE, "
                          "else pipelined: bucket i+1's gathers in flight during bucket "
-                         "i's NS; 'barrier': gather all, NS all, write back all)")
+                         "i's NS; 'barrier': gather all, NS all, write back all; "
+                         "'staggered': step t runs 'stagger:{t %% P}', each Muon leaf "
+                         "full on its own residue; needs --mesh and --optimizer muonbp)")
     ap.add_argument("--zero1", action="store_true",
                     help="shard optimizer state over the mesh's data axes (ZeRO-1)")
     ap.add_argument("--zero1-flatten", action="store_true",
@@ -271,6 +298,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--obs-block", action="store_true",
                     help="synchronize the device inside each step span so its dur_s "
                          "includes device completion (one more sync per step)")
+    ap.add_argument("--drift-threshold", type=float, default=2.0,
+                    help="under --mesh: emit a 'drift' event when the measured full-minus-"
+                         "block step time (per residue when staggered) disagrees with the "
+                         "comm plan's modeled time by more than this factor, either way; "
+                         "0 disables the monitor")
     ap.add_argument("--profile-steps", default=None,
                     help="capture a torch.profiler trace over steps A:B (half-open "
                          "window), e.g. '3:6'")
@@ -319,7 +351,9 @@ def run(argv=None, *, params: Optional[dict] = None, cfg: Optional[ModelConfig] 
     group from the launcher's environment unless one is running, and ends
     what it started.
     """
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    check_schedule_args(ap, args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass --device cpu to run on the CPU")
@@ -360,6 +394,28 @@ def run(argv=None, *, params: Optional[dict] = None, cfg: Optional[ModelConfig] 
             import torch.distributed as dist
 
             dist.destroy_process_group()
+
+
+def check_schedule_args(ap: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+    """The reference's argparse errors of ``--full-schedule staggered``: it
+    spreads the per-leaf full-step gathers of the explicit engine, so it
+    needs ``--mesh``, a periodic ``--optimizer muonbp`` with ``--period``
+    >= 2, and not the low-rank Dion (no per-leaf gathers to spread)."""
+    if args.full_schedule != "staggered":
+        return
+    variant = (args.optimizer_variant if args.optimizer_variant is not None
+               else NSEngineConfig.from_env().variant)
+    if not args.mesh:
+        ap.error("--full-schedule staggered requires the explicit engine on a mesh of "
+                 "ranks (--mesh; one card: --mesh data=1)")
+    if args.optimizer != "muonbp":
+        ap.error(f"--full-schedule staggered requires --optimizer muonbp "
+                 f"(got {args.optimizer!r})")
+    if variant == "dion":
+        ap.error("--full-schedule staggered is incompatible with the dion variant (a "
+                 "low-rank update has no per-leaf full-step gathers to stagger)")
+    if args.period < 2:
+        ap.error(f"--full-schedule staggered requires --period >= 2 (got {args.period})")
 
 
 def _start_world(args) -> bool:
@@ -443,12 +499,25 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
     bspecs = matrix_block_specs(params, cfg, axis_sizes)
     labels = label_tree(params)
     n_params = sum(p.numel() for p in tree_lib.leaves(params))
+    ns = engine_config(args)
+    # As the reference's: the flag, not REPRO_FULL_SCHEDULE, staggers the
+    # step schedule (check_schedule_args has vetted it).
+    staggered = args.full_schedule == "staggered"
+    # The comm plan of the mesh, from the global shapes: the stagger offsets
+    # and the drift monitor's bytes.
+    comm_plan = None
+    if engine is not None and args.optimizer != "adamw" and (
+            staggered or args.drift_threshold > 0):
+        from repro_torch.distributed import plan_comm
+
+        comm_plan = plan_comm(params, sh.param_specs(params, cfg, axis_sizes), axis_sizes,
+                              labels=labels, block_specs=bspecs, zero1=args.zero1,
+                              zero1_flatten=args.zero1_flatten)
     if ctx is not None and ctx.tensor_parallel:
         # Keep this rank's shards only: every rank built (or was given) the
         # same full parameters.
         params = tree_lib.map_with_path(
             lambda path, p: engine.cut(p, engine.pspec_by_path[path]).clone(), params)
-    ns = engine_config(args)
 
     sched = {"wsd": lambda peak: wsd(peak, args.steps),
              "cosine": lambda peak: cosine(peak, args.steps),
@@ -463,6 +532,22 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
     n_muon_matrices = sum(
         1 for lab, p in zip(tree_lib.leaves(labels), tree_lib.leaves(params))
         if lab == "muon" and p.ndim >= 2)
+    schedule = StaggerSchedule(period, "staggered" if staggered else "synchronous")
+    # The offsets come from the plan's balancer (plan.assign_stagger_offsets
+    # on the same leaves and bytes the program compiles with), persisted in
+    # run_meta so a resume under another schedule is refused by name.
+    stagger_offsets = due_by_residue = None
+    if staggered:
+        stagger_offsets = comm_plan.stagger_offsets(period)
+        due_by_residue = [0] * period
+        for r in stagger_offsets.values():
+            due_by_residue[r] += 1
+    bus.event("schedule", mode=schedule.mode, period=period, offsets=stagger_offsets,
+              max_staggered_dcn_bytes=(comm_plan.max_staggered_dcn_bytes(period)
+                                       if staggered else None),
+              full_dcn_bytes=(comm_plan.predicted_bytes("full", "dcn")
+                              if comm_plan is not None else None))
+    drift_mon = make_drift_monitor(comm_plan, schedule, args.drift_threshold, bus)
     guard_cfg = (
         resilience.GuardConfig(spike_factor=args.guard_spike_factor,
                                ema_beta=args.guard_ema_beta, warmup_steps=args.guard_warmup)
@@ -474,9 +559,10 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
     rows = _batch_rows(engine, args.batch)
     compute_dtype = COMPUTE_DTYPES[args.compute_dtype]
 
-    # Run metadata, the reference's fields for the synchronous schedule:
-    # checked on resume, so a wrong-arch/optimizer/mesh resume fails with a
-    # named mismatch instead of a shape error.
+    # Run metadata, the reference's fields: checked on resume, so a
+    # wrong-arch/optimizer/mesh/schedule resume fails with a named mismatch
+    # instead of a shape error. The residue needs no state of its own: the
+    # step is restored and the phase is a function of (step, schedule).
     run_meta = {
         "arch": cfg.name,
         "optimizer": args.optimizer,
@@ -486,7 +572,7 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
                  else {"data": 1, "model": args.mesh_model}),
         "zero1": bool(args.zero1),
         "seed": args.seed,
-        "schedule": {"mode": "synchronous", "period": period, "offsets": None},
+        "schedule": {"mode": schedule.mode, "period": period, "offsets": stagger_offsets},
     }
     if mesh_path is not None:
         run_meta["path"] = mesh_path
@@ -580,6 +666,8 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
 
     def finish(status):
         nonlocal profiler
+        if drift_mon is not None:
+            drift_mon.report()
         if profiler is not None:
             _stop_profiler(profiler, args.profile_dir, prof_window)
             profiler = None
@@ -595,12 +683,18 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
         if prof_window is not None and step == prof_window[0]:
             profiler = _start_profiler(device)
         batch = device_batch({k: v[rows] for k, v in next(pipe).items()}, device)
-        phase = phase_for_step(step, period) if args.optimizer != "adamw" else "block"
+        phase = schedule.phase_for(step) if args.optimizer != "adamw" else "block"
         if forced_full and args.optimizer != "adamw":
             phase = "full"
         forced_full = False
+        # The residue is the step's place in the period; due counts the Muon
+        # matrices on their full path this step (the residue's offset group
+        # when staggered, all of them on a full step).
         residue = step % period if period else 0
-        due = n_muon_matrices if phase == "full" else 0
+        if due_by_residue is not None and phase != "full":
+            due = due_by_residue[residue]
+        else:
+            due = n_muon_matrices if phase == "full" else 0
         fault = plan.grad_fault(step) if plan else None
         if before_step is not None:
             before_step(step, state, batch)
@@ -608,11 +702,13 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
             engine.comm.trace.step = step
         with span(bus, "step", sync=sync, step=step, phase=phase, residue=residue,
                   due=due) as sp:
-            with stage_scope(f"muonbp.{phase}"):
+            with stage_scope(f"muonbp.{phase.replace(':', '')}"):
                 state, metrics = train_step(state, batch, cfg=cfg, optimizer=optimizer,
                                             phase=phase, compute_dtype=compute_dtype,
                                             guard=guard_cfg, fault=fault, engine=engine,
                                             ctx=ctx)
+        if drift_mon is not None:
+            drift_mon.observe(step, phase, sp.dur_s)
         if profiler is not None and step == prof_window[1] - 1:
             _stop_profiler(profiler, args.profile_dir, prof_window)
             profiler = None
@@ -661,6 +757,30 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
     finish("ok")
     return TrainRun(cfg=cfg, state=state, block_specs=bspecs, records=records,
                     counters=dict(bus.counters), engine=engine, ctx=ctx, optimizer=optimizer)
+
+
+def make_drift_monitor(comm_plan, schedule: StaggerSchedule, threshold: float, bus):
+    """The plan-vs-runtime drift monitor of a run, or None (no plan, or a
+    threshold of 0). Synchronous: the full-minus-block bytes per link, which
+    the full steps' extra wall pays. Staggered: each residue's bytes per
+    link, since every step runs the same mixed body with another due set."""
+    if comm_plan is None or threshold <= 0 or schedule.period is None:
+        return None
+    from repro_torch.distributed.plan import LINKS
+
+    cfg = DriftConfig(threshold=threshold)
+    if schedule.mode == "staggered":
+        return ResidueDriftMonitor(
+            comm_bytes_by_residue=tuple(
+                {ln: comm_plan.predicted_bytes("staggered", ln, period=schedule.period,
+                                               residue=r) for ln in LINKS}
+                for r in range(schedule.period)),
+            cfg=cfg, bus=bus)
+    full_b = comm_plan.predicted_by_link("full")
+    block_b = comm_plan.predicted_by_link("block")
+    return DriftMonitor(
+        comm_bytes_by_link={k: max(full_b.get(k, 0) - block_b.get(k, 0), 0) for k in full_b},
+        cfg=cfg, bus=bus)
 
 
 def _batch_rows(engine, batch: int) -> slice:

@@ -1,8 +1,5 @@
-"""Structured observability of the port: event bus and span timing.
-
-Counterpart of ``repro/obs`` without its drift monitor (``obs/drift.py``
-prices collectives from the distributed plan, which the port does not have
-yet):
+"""Structured observability of the port: event bus, span timing, and the
+plan-vs-runtime drift monitor (counterpart of ``repro/obs``):
 
 * :mod:`repro_torch.obs.bus` -- the event/metric bus. Every telemetry
   record is one flat JSON object; sinks decide where it goes (crash-safe
@@ -13,6 +10,12 @@ yet):
 * :mod:`repro_torch.obs.spans` -- host-side span timers (step /
   checkpoint / resume, nested with parent attribution) and
   ``torch.profiler`` stage annotations.
+* :mod:`repro_torch.obs.drift` -- the drift monitor: joins the comm plan's
+  predicted bytes per link class against measured block and full step
+  walls (:class:`DriftMonitor`), or per residue of the staggered schedule
+  (:class:`ResidueDriftMonitor`), and emits a ``drift`` event when the
+  modeled rates (``distributed.plan.MODELED_LINK_BYTES_PER_S``, planning
+  constants, not a measurement) disagree with the run beyond a threshold.
 
 ``python -m repro_torch.scripts.obs_report`` aggregates a run's JSONL.
 """
@@ -35,4 +38,13 @@ from repro_torch.obs.spans import (  # noqa: F401
     record_span,
     span,
     stage_scope,
+)
+
+# Last: drift imports the distributed plan, whose package imports the
+# engine, which imports the names above.
+from repro_torch.obs.drift import (  # noqa: F401,E402
+    DriftConfig,
+    DriftMonitor,
+    ResidueDriftMonitor,
+    exposed_by_link,
 )

@@ -1,8 +1,7 @@
 """Aggregate a run's telemetry JSONL into a human-readable report.
 
 Counterpart of the reference's ``scripts/obs_report.py`` over the port's
-own bus and spans, without its comm-drift section (the port has no
-distributed plan to drift from yet). Input is the append-streamed trail
+own bus and spans. Input is the append-streamed trail
 ``repro_torch.launch.train --log-file`` or
 ``repro_torch.scripts.serve_sim --log-file`` writes (one JSON record per line;
 schema in ``repro_torch.obs.bus.EVENT_FIELDS``). Because the file is
@@ -14,8 +13,13 @@ kills and resumes show up in the incident timeline.
 Sections:
 
 * **step times** -- p50/p95/p99 wall-time percentiles from ``step`` span
-  records, overall and per MuonBP phase (block vs full), plus span
-  breakdowns for checkpoint.save / verify / restore / resume.
+  records, overall and per MuonBP phase (block vs full; per step residue
+  too on ``--full-schedule staggered`` runs), plus span breakdowns for
+  checkpoint.save / verify / restore / resume.
+* **comm drift** -- the last ``comm_rates`` summary (modeled vs achieved
+  bytes/s per link class; per residue on a staggered run) and every
+  ``drift`` event (``repro_torch.obs.drift``). The modeled rates are the
+  plan's planning constants, not a measurement.
 * **serving** -- present only when the trail carries serving traffic
   (``repro_torch.scripts.serve_sim`` / ``repro_torch.serving.engine``):
   outcome counts by type and reason, virtual-clock TTFT / per-token
@@ -29,8 +33,9 @@ Sections:
   no preceding run_end) / resumes / aborts.
 
 Exit status: 0 clean; 1 when --strict finds schema violations, when
---require-phase-spans finds a phase with no spans, or when
---require-event TYPE finds no event of TYPE.
+--require-phase-spans finds a phase with no spans, when
+--require-zero-drift finds drift events, or when --require-event TYPE
+finds no event of TYPE.
 """
 
 from __future__ import annotations
@@ -40,6 +45,14 @@ import sys
 
 from repro_torch.obs.bus import event_type, read_jsonl, validate_record
 from repro_torch.obs.spans import percentiles
+
+
+def fmt_bytes_per_s(v: float) -> str:
+    if v >= 1e9:
+        return f"{v / 1e9:.2f} GB/s"
+    if v >= 1e6:
+        return f"{v / 1e6:.2f} MB/s"
+    return f"{v:.0f} B/s"
 
 
 def step_time_section(records: list[dict]) -> list[str]:
@@ -54,6 +67,14 @@ def step_time_section(records: list[dict]) -> list[str]:
         by_phase.setdefault(str(r.get("phase", "?")), []).append(r["dur_s"])
     groups = [("all", [r["dur_s"] for r in steps])]
     groups += sorted(by_phase.items())
+    # Staggered, the phase is the step residue, and the question is whether
+    # the step time is flat across residues: percentiles per residue too.
+    if any(str(r.get("phase", "")).startswith("stagger:") for r in steps):
+        by_residue: dict[int, list[float]] = {}
+        for r in steps:
+            if "residue" in r:
+                by_residue.setdefault(int(r["residue"]), []).append(r["dur_s"])
+        groups += [(f"r={res}", vals) for res, vals in sorted(by_residue.items())]
     for name, vals in groups:
         p = percentiles(vals)
         lines.append(
@@ -68,6 +89,54 @@ def step_time_section(records: list[dict]) -> list[str]:
             f"p95={p['p95'] * 1e3:.2f}ms"
         )
     return lines
+
+
+def drift_section(records: list[dict]) -> tuple[list[str], int]:
+    lines = ["== comm drift =="]
+    drifts = [r for r in records if event_type(r) == "drift"]
+    rates = [r for r in records if event_type(r) == "comm_rates"]
+    if rates:
+        last = rates[-1]
+        modeled = last.get("modeled_bytes_per_s", {})
+        achieved = last.get("achieved_bytes_per_s", {})
+        for link in sorted(modeled):
+            got = achieved.get(link)
+            lines.append(
+                f"{link}: modeled {fmt_bytes_per_s(modeled[link])}"
+                + (f", achieved {fmt_bytes_per_s(got)}" if got is not None
+                   else ", achieved n/a (no measurable full-step comm)")
+            )
+        if last.get("measured_extra_s") is not None:
+            lines.append(
+                f"full-step extra wall: measured "
+                f"{last['measured_extra_s'] * 1e3:.2f}ms vs modeled "
+                f"{last['modeled_extra_s'] * 1e3:.2f}ms "
+                f"(block n={last.get('block_n')}, full n={last.get('full_n')})"
+            )
+        if last.get("modeled_s_by_residue") is not None:
+            # The staggered summary (ResidueDriftMonitor): each residue's
+            # modeled comm time and measured wall EMA.
+            emas = last.get("ema_s_by_residue") or {}
+            base = last.get("baseline_residue")
+            for res, modeled_s in enumerate(last["modeled_s_by_residue"]):
+                ema = emas.get(str(res))
+                lines.append(
+                    f"residue {res}{' (baseline)' if res == base else ''}: "
+                    f"modeled comm {modeled_s * 1e3:.2f}ms"
+                    + (f", wall EMA {ema * 1e3:.2f}ms" if ema is not None
+                       else ", no steps observed")
+                )
+    else:
+        lines.append("no comm_rates summary recorded")
+    lines.append(f"drift events: {len(drifts)}")
+    for r in drifts:
+        where = (f" [residue {r['residue']}]" if "residue" in r else "")
+        lines.append(
+            f"  step {r.get('step')}{where}: measured/modeled ratio "
+            f"{r.get('ratio')} "
+            f"({r.get('measured_extra_s')}s vs {r.get('modeled_extra_s')}s)"
+        )
+    return lines, len(drifts)
 
 
 def serving_section(records: list[dict]) -> list[str]:
@@ -181,6 +250,9 @@ def timeline_section(records: list[dict]) -> list[str]:
         elif ev == "abort":
             lines.append(f"{ts(r)}step {r.get('step')}: ABORT after "
                          f"{r.get('consecutive_skips')} consecutive skips")
+        elif ev == "drift":
+            lines.append(f"{ts(r)}step {r.get('step')}: comm drift "
+                         f"ratio={r.get('ratio')}")
     if open_run:
         lines.append(f"KILL inferred: trail ends without run_end "
                      f"(last step {last_step})")
@@ -196,6 +268,8 @@ def main() -> int:
     ap.add_argument("--require-phase-spans", action="store_true",
                     help="fail unless every phase seen in step records also "
                          "has >=1 step span")
+    ap.add_argument("--require-zero-drift", action="store_true",
+                    help="fail if any drift event is present")
     ap.add_argument("--require-event", action="append", default=[],
                     metavar="TYPE",
                     help="fail unless >=1 event of TYPE is present "
@@ -228,6 +302,9 @@ def main() -> int:
 
     for line in step_time_section(records):
         print(line)
+    drift_lines, n_drift = drift_section(records)
+    for line in drift_lines:
+        print(line)
     for line in serving_section(records):
         print(line)
     for line in counters_section(records):
@@ -246,6 +323,8 @@ def main() -> int:
                             f"{sorted(missing)}")
         if not span_phases:
             failures.append("no step spans at all")
+    if args.require_zero_drift and n_drift:
+        failures.append(f"{n_drift} drift event(s) present")
     if args.require_event:
         present = {event_type(r) for r in records}
         for want in args.require_event:

@@ -252,7 +252,11 @@ def check_run_meta(meta: dict, expect: dict, path: str = "<snapshot>") -> None:
     """Match a snapshot's ``meta['run']`` against the resuming run's values.
 
     Only keys present on both sides are compared; any disagreement raises
-    with every mismatch named.
+    with every mismatch named. The launcher's ``schedule`` entry (``mode``,
+    ``period`` and the staggered schedule's per-leaf ``offsets``) compares
+    as a whole after the snapshot's JSON round trip, so a staggered
+    snapshot refuses a synchronous resume, another period or another
+    offset map, and the reverse.
     """
     run = meta.get("run") or {}
     mismatches = {k: (run[k], v) for k, v in expect.items() if k in run and run[k] != v}

@@ -20,12 +20,13 @@ steps after it; this module detects both and reacts:
   under its partitioner; here the loss and the gradient norm are already
   reduced alike on every rank, and the agreement makes every rank take the
   same branch by construction, not by equal rounding. A skipped step then
-  issues no optimizer collective (``block``, ``full``, ``apply``) on any
-  rank.
+  issues no optimizer collective (``block``, ``full``, ``stagger``,
+  ``apply``) on any rank.
 
 * **Escalation ladder** (:class:`Escalator`): the launcher reads the
   cumulative skip counter each step and walks skip -> force an early
-  'full'-phase step -> LR backoff (``GuardState.lr_scale``, folded into the
+  'full'-phase step (the compiled 'full' phase under the staggered
+  schedule too) -> LR backoff (``GuardState.lr_scale``, folded into the
   update) -> checkpoint-and-abort.
 
 Fault injection for exercising all of this lives in

@@ -3,8 +3,9 @@
 Counterpart of ``repro/training/train_step.py``. Paper setup (Sec 4.2):
 fp32 master parameters; the forward and backward run on a cast to
 ``compute_dtype`` (bf16 by default); gradients and optimizer state are
-fp32. The MuonBP phase ('block' | 'full') is an argument, chosen per step
-by the launcher. ``guard=`` runs the optimizer apply behind the health
+fp32. The MuonBP phase ('block' | 'full', or a staggered step's
+``"stagger:r"``: any phase the optimizer compiled) is an argument, chosen
+per step by the launcher. ``guard=`` runs the optimizer apply behind the health
 check of ``training/resilience.py``; ``fault=`` injects a fault of
 ``training/faults.py`` into the step.
 

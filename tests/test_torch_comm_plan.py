@@ -304,11 +304,18 @@ def test_engine_program_matches_reference(name, schedule):
 
 
 def test_layer_shard_and_staggered_raise():
+    """layer_shard is not ported and raises; the staggered schedule is, and
+    raises only where the reference's does (no period), its mixed phases
+    compiled beside 'block' and 'full'."""
     engine = make_engine({"w": torch.empty(4, 8, 8, device="meta")},
                          {"w": (None, None, "model")}, {"model": 2})
     ls = (program.LeafSpec(key=("w",), shape=(4, 8, 8), dtype="float32"),)
-    with pytest.raises(NotImplementedError, match="later"):
+    with pytest.raises(ValueError, match="stagger_period >= 2"):
         program.compile_program(ls, engine=engine, full_schedule="staggered")
+    prog = program.compile_program(ls, engine=engine, full_schedule="staggered",
+                                   stagger_period=2)
+    assert set(prog.phases) == {"block", "full", "stagger:0", "stagger:1"}
+    assert prog.phase("stagger:0").due == (0,) and prog.phase("stagger:1").due == ()
     with pytest.raises(NotImplementedError, match="later"):
         program.compile_program(ls, engine=engine, layer_shard=(None, "model"))
 

@@ -297,6 +297,13 @@ def test_dion_block_equals_full():
     _assert_trees_close(s_b.basis, s_f.basis, atol=0)
     with pytest.raises(ValueError, match="phase"):
         port.update(g, state, p, "stagger:0")
+    # The reference's check and message: Dion has no per-leaf gathers to
+    # stagger.
+    with pytest.raises(ValueError, match="stagger") as ref_err:
+        j_build_variant("dion", LR, full_schedule="staggered")
+    with pytest.raises(ValueError, match="stagger") as port_err:
+        build_variant("dion", LR, full_schedule="staggered")
+    assert str(port_err.value) == str(ref_err.value)
 
 
 def test_dion_init_basis_is_column_normalized_and_seeded_per_width():
