@@ -43,7 +43,8 @@ rank and on four.
                  the plain versions in both phases, and each kernel against
                  its plain version, and timed, at the buckets the MoE path
                  adds (64 x 2048 router units, 128 x 2048 expert blocks,
-                 1024 x 2048 expert units);
+                 1024 x 2048 expert units); the peaks of one forward and
+                 backward and of one update apart;
   6. resilience -- the hardened launcher at full width (MuonBP, bf16,
                  --guard --guard-warmup 2 --fault-plan
                  nan_grads@2,spike_loss@4x8 --obs-block, constant LR): run A,
@@ -99,17 +100,20 @@ rank and on four.
                  the serve_decode percentiles, decode tokens/s at 4 slots
                  beside the bound and the peak memory;
  10. train_ssm -- MuonBP on full-width mamba2-1.3b (d 2048, d_inner 4096,
-                 64 SSM heads of 64, state 128) cut to 24 of its 48 layers,
-                 through the launcher (8-way block grid, batch 4 x seq 1024,
-                 bf16, --obs-block): six steps (full, block x4, full), the
-                 loss, launches (packed ones counted) and NS buckets of each
-                 step, the update from the kernels against the plain
-                 versions in both phases, and each kernel against its plain
-                 version, and timed with its bound, at the buckets the SSM
-                 paths add (2048 x 8 wdt blocks, 24 x 8 per-head scalar
-                 blocks, 2048 x 128 wb/wc units, 2048 x 512 wz/wx blocks,
-                 hymba's packed 32 x 50 scalars, the 2048 x 4096 full-phase
-                 units on the tiled products);
+                 64 SSM heads of 64, state 128) at all 48 layers, each
+                 checkpointed, through the launcher (8-way block grid,
+                 batch 4 x seq 1024, bf16, --obs-block): six steps (full,
+                 block x4, full), the loss, launches (packed ones counted)
+                 and NS buckets of each step, the update from the kernels
+                 against the plain versions in both phases, the peaks of
+                 one forward and backward and of one update apart; at 24
+                 layers one forward and backward with the checkpointing on
+                 and off, its wall and peak each; each kernel against its
+                 plain version, and timed with its bound, at the buckets
+                 the SSM paths add (2048 x 8 wdt blocks, 48 x 8 per-head
+                 scalar blocks, 2048 x 128 wb/wc units, 2048 x 512 wz/wx
+                 blocks, hymba's packed 32 x 50 scalars, the 2048 x 4096
+                 full-phase units on the tiled products);
  11. serve_ssm -- full-depth mamba2-1.3b in fp32 through generate (batch 4,
                  a 2048-token prompt, 64 new tokens); the same steps timed
                  one by one and held to teacher forcing (1e-3 of
@@ -130,7 +134,7 @@ rank and on four.
                  rank holds and computes with its parameter shards): run A,
                  full-width muonbp-960m at all 12 layers on data=2,model=2
                  with ZeRO-1, six steps, after one fp32 step (TF32 off)
-                 whose loss and gradients, joined on rank 0, are held
+                 whose loss, and each rank's gradient shards, are held
                  against the single-process port's; run B, NorMuon with the
                  flatten fallback at 3 layers, two steps; run C, 12 layers
                  on model=4, three steps; run D, internvl2-1b at 4 of 24
@@ -155,7 +159,14 @@ rank and on four.
                  step held against one process; run J, the replicated
                  path: internvl2-1b at 4 of 24 layers on data=4,model=1
                  with ZeRO-1 (whole leaves on every rank, no 'tp'), two
-                 steps. Every rank's loss each
+                 steps; run L, Dion on muonbp-960m at 4 of 12 layers on
+                 data=2,model=2 with ZeRO-1 (--optimizer-variant dion), two
+                 steps after its fp32 step held against one process: its
+                 factor collectives (class 'dion') against dion_bytes, two
+                 a split leaf, each smaller than the leaf's momentum shard,
+                 no block or full gathers, the fused chain's launches at
+                 K = 6. Every layer of every run is checkpointed, and the
+                 recompute's collectives count in tp. Every rank's loss each
                  step, its collective trace (the optimizer's against
                  plan_comm to the byte, no optimizer collective on block
                  steps; tp against tp_bytes; the gradient reduce against
@@ -273,7 +284,12 @@ SERVE_KILL_ARGV = ["--reduced", "--steps", "10", "--rate", "1", "--slots", "2",
 # The MoE paths: olmoe-1b-7b (16 layers, d 2048, 16/16 heads of 128, 64
 # experts top-8 of d_ff 1024, vocab 50304, untied). Training runs 4 of its
 # 16 layers at full width (the whole model's fp32 master, gradients and
-# momentum would take ~94 GB); serving runs all 16 in fp32 (27.7 GB).
+# momentum would take ~94 GB); serving runs all 16 in fp32 (27.7 GB). The
+# full update sets the training peak, not the forward and backward: 56.96
+# against 26.09 GiB apart, 64.48 GiB over the six steps (NVIDIA H100 80GB
+# HBM3, 700.00 W). A fifth layer adds its fp32 weights, gradients, old and
+# new momentum, Nesterov input and packed buckets (~1.7 GB each) to that
+# peak, so the depth stays 4.
 MOE_ARCH = "olmoe-1b-7b"
 MOE_TRAIN_LAYERS = 4
 MOE_TRAIN_ARGV = ["--arch", MOE_ARCH, "--optimizer", "muonbp", "--period", "5",
@@ -295,26 +311,30 @@ MOE_TF_PREFIX, MOE_TF_STEPS = 1024, 32
 MOE_SMALL_ARCHS = ("olmoe-1b-7b", "mixtral-8x7b")
 
 # The SSM, hybrid, VLM and audio paths. mamba2-1.3b (48 layers, d 2048,
-# d_inner 4096, 64 SSM heads of 64, state 128, vocab 50280) trains at
-# SSM_TRAIN_LAYERS of its 48 layers: without the reference's activation
-# checkpointing its saved activations come to ~1.3 GB a layer at 4 x 1024.
-# It serves at full depth in fp32 through generate.
+# d_inner 4096, 64 SSM heads of 64, state 128, vocab 50280) trains at all
+# 48 layers: each layer is checkpointed, as in the reference, so the
+# backward keeps one residual a layer (16 MiB at 4 x 1024 in bf16) where it
+# kept ~1.3-1.6 GiB of activations. A probe at SSM_PROBE_LAYERS, where both
+# fit, times one forward and backward and reads its peak with the
+# checkpointing on and off. It serves at full depth in fp32 through generate.
 SSM_ARCH = "mamba2-1.3b"
-SSM_TRAIN_LAYERS = 24
+SSM_TRAIN_LAYERS = 48
+SSM_PROBE_LAYERS = 24
+SSM_PROBE_ITERS = 3
 SSM_TRAIN_ARGV = ["--arch", SSM_ARCH, "--optimizer", "muonbp", "--period", "5",
                   "--mesh-model", "8", "--batch", "4", "--seq", "1024", "--obs-block",
                   "--steps", "6"]
-# The NS buckets the SSM path adds, on the small side (m <= n), at 24 layers
-# and an 8-way grid: the block phase's wdt blocks (24 x 8 of 2048 x 8), the
-# per-head scalar blocks (A_log, D, dt_bias: 3 x 8 of 24 x 8), wz/wx blocks
-# (2 x 24 x 8 of 2048 x 512) and the whole wb/wc units (2 x 24 of
-# 2048 x 128); the full phase's wz/wx/out_proj units (72 of 2048 x 4096, on
+# The NS buckets the SSM path adds, on the small side (m <= n), at 48 layers
+# and an 8-way grid: the block phase's wdt blocks (48 x 8 of 2048 x 8), the
+# per-head scalar blocks (A_log, D, dt_bias: 3 x 8 of 48 x 8), wz/wx blocks
+# (2 x 48 x 8 of 2048 x 512) and the whole wb/wc units (2 x 48 of
+# 2048 x 128); the full phase's wz/wx/out_proj units (144 of 2048 x 4096, on
 # the tiled products). hymba's whole (32, 50) per-head scalars have a
 # 200-byte row stride and are packed for TMA.
-SSM_FUSED_BUCKETS = {"wdt blocks": (192, 8, 2048), "per-head scalar blocks": (24, 8, 24),
-                     "wb/wc units": (48, 128, 2048), "wz/wx blocks": (384, 512, 2048),
+SSM_FUSED_BUCKETS = {"wdt blocks": (384, 8, 2048), "per-head scalar blocks": (24, 8, 48),
+                     "wb/wc units": (96, 128, 2048), "wz/wx blocks": (768, 512, 2048),
                      "hymba per-head scalars, packed": (3, 32, 50)}
-SSM_TILED = (72, 2048, 4096)
+SSM_TILED = (144, 2048, 4096)
 SSM_SERVE_BATCH, SSM_SERVE_PROMPT, SSM_SERVE_NEW = 4, 2048, 64
 # hymba-1.5b, internvl2-1b and whisper-small at full width and depth: two
 # MuonBP steps (full, block) at batch 2 x 1024, then greedy generate after a
@@ -424,9 +444,10 @@ CHAOS_ARGV = ["--arch", "muonbp-960m", "--reduced", "--steps", "6", "--batch", "
 # mesh without a model split: internvl2-1b at run D's depth on
 # data=4,model=1 with ZeRO-1, each rank the whole model on its 2 rows, two
 # steps (full, block). Before the ranks of runs A, D,
-# E, G, H and I train, one fp32 step (TF32 off) on the run's first
-# global batch and weights: the loss and every gradient joined on rank 0
-# against the single-process port's, computed in this process first (for
+# E, G, H, I and L train, one fp32 step (TF32 off) on the run's first
+# global batch and weights: the loss, and each rank's shard of every
+# gradient against the matching slice of the single-process port's,
+# computed in this process first (for
 # MoE on each data shard's rows and averaged, as the mesh routes each data
 # shard alone), and on run E each layer's routing against it.
 DIST_RANKS = 4
@@ -452,6 +473,10 @@ DIST_H_LAYERS = 4
 # estimated 70-88 GB of the card's 80.
 DIST_E_LAYERS = 2
 DIST_F_LAYERS = 3
+# Run L's depth: Dion on muonbp-960m at 4 of 12 layers (run K's), so that
+# the layers split over ZeRO-1's data axis as at full depth; its stacks
+# split four ways, and each split leaf pays its factor collectives.
+DIST_L_LAYERS = 4
 # Run F's faults and the steps they hit: NaN gradients at step 2 and an 8x
 # loss at step 4 (past the 2-step warmup) are skipped on every rank; the
 # escalation ladder forces step 3 to 'full'.
@@ -483,9 +508,11 @@ DIST_RUNS = (
      WHISPER_KERNELS),
     ("J", "internvl2-1b", "data=4,model=1", 8, ["--zero1"], 2, DIST_D_LAYERS, False,
      MAIN_PATH_KERNELS),
+    ("L", "muonbp-960m", "data=2,model=2", 4, ["--zero1", "--optimizer-variant", "dion"], 2,
+     DIST_L_LAYERS, True, ("ns_fused_chain",)),
 )
 # The runs whose first global batch is held in fp32 against one process.
-DIST_FP32_RUNS = ("A", "D", "E", "G", "H", "I")
+DIST_FP32_RUNS = ("A", "D", "E", "G", "H", "I", "L")
 # Run E's update is not joined on rank 0 against one process: its whole
 # gradients, parameters and optimizer state (~15 GB at 3 layers) do not fit
 # beside the four ranks' runs. tests/test_torch_moe_tensor_parallel.py
@@ -494,7 +521,7 @@ DIST_NO_UPDATE_CHECK = ("E",)
 # The runs whose Muon stacks all split four ways (model and ZeRO-1's data
 # axis, or model=4); the others hold what their specs give (E's router is
 # not split over model, F's 3 layers do not divide the data axis).
-DIST_QUARTER_STACKS = ("A", "B", "C", "D", "I", "J", "K")
+DIST_QUARTER_STACKS = ("A", "B", "C", "D", "I", "J", "K", "L")
 DIST_LOSS_TOL = 1e-5   # the fp32 step on the mesh vs one process, relative
 DIST_GRAD_TOL = 1e-4   # its gradients, max abs over the leaf's max|grad|
 
@@ -880,7 +907,9 @@ def phase_train_moe(smi: str, errors: dict) -> None:
     """MuonBP on the expert stacks: six steps of full-width olmoe-1b-7b cut
     to MOE_TRAIN_LAYERS layers, through the launcher with the 8-way grid;
     launch and bucket counts a step, the update from the kernels against the
-    plain versions in both phases, and the kernels at the new bucket shapes."""
+    plain versions in both phases, the peaks of one forward and backward and
+    of one update apart (which sets the run's peak), and the kernels at the
+    new bucket shapes."""
     import dataclasses
 
     import torch
@@ -942,6 +971,7 @@ def phase_train_moe(smi: str, errors: dict) -> None:
     check_update("muonbp", run, ("block", "full"), breakdown, tag="train_moe", profile=True)
     peak = torch.cuda.max_memory_allocated()
     log(f"[train_moe] breakdown {json.dumps(breakdown)}")
+    split_peaks("train_moe", run, MOE_TRAIN_ARGV)
     del run
     torch.cuda.empty_cache()
     moe_buckets(errors)
@@ -1262,23 +1292,36 @@ def subprocess_env() -> dict:
 
 def kill_drill(tmp: str) -> None:
     """chaos_run on the card: each kill fires in the step-4 save, and the
-    relaunch must resume from the step-2 snapshot and finish."""
+    relaunch must resume from the step-2 snapshot and finish. The two
+    drills run at once, each in its own checkpoint directory."""
     env = subprocess_env()
+    t0 = time.perf_counter()
+    procs = {}
     for kind in ("kill_mid_save", "kill_in_save"):
         cmd = [sys.executable, "-m", "repro_torch.scripts.chaos_run", "--plan", f"{kind}@3",
                "--max-restarts", "2", "--"] + CHAOS_ARGV + [
                "--checkpoint-dir", os.path.join(tmp, kind)]
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
-        lines = out.stdout.splitlines()
+        procs[kind] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True, cwd=ROOT, env=env)
+    outs = {}
+    try:
+        for kind, proc in procs.items():
+            outs[kind] = (*proc.communicate(timeout=600), proc.returncode)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for kind, (stdout, stderr, rc) in outs.items():
+        lines = stdout.splitlines()
         resumes = [json.loads(l) for l in lines if l.startswith('{"event": "resume"')]
-        if (out.returncode != 0 or not any(l.startswith("chaos_run: OK") for l in lines)
+        if (rc != 0 or not any(l.startswith("chaos_run: OK") for l in lines)
                 or [r["step"] for r in resumes] != [3]):
-            fail(f"kill drill {kind}: rc {out.returncode}, resumes {resumes}\n"
-                 f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+            fail(f"kill drill {kind}: rc {rc}, resumes {resumes}\n"
+                 f"{stdout[-3000:]}\n{stderr[-3000:]}")
         log(f"[resilience] kill drill {kind}@3: killed once, resumed at step 3 from "
-            f"{os.path.basename(resumes[0]['snapshot'])}, finished; "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{os.path.basename(resumes[0]['snapshot'])}, finished")
+    log(f"[resilience] both kill drills, at once: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_reference() -> None:
@@ -1900,10 +1943,12 @@ def train_path(tag: str, argv: list, cfg, required=MAIN_PATH_KERNELS):
 
 
 def phase_train_ssm(smi: str, errors: dict) -> None:
-    """MuonBP on mamba2-1.3b at full width, cut to SSM_TRAIN_LAYERS layers:
-    six steps through the launcher with the 8-way grid, the update from the
-    kernels against the plain versions in both phases, and the kernels at
-    the bucket shapes the SSM path adds."""
+    """MuonBP on mamba2-1.3b at full width and depth (SSM_TRAIN_LAYERS, every
+    layer checkpointed): six steps through the launcher with the 8-way grid,
+    the update from the kernels against the plain versions in both phases,
+    the peaks of one forward and backward and of one update apart, the
+    checkpointing probe at SSM_PROBE_LAYERS (:func:`remat_probe`), and the
+    kernels at the bucket shapes the SSM path adds."""
     import dataclasses
 
     import torch
@@ -1921,12 +1966,97 @@ def phase_train_ssm(smi: str, errors: dict) -> None:
     check_update("muonbp", run, ("block", "full"), breakdown, tag="train_ssm")
     peak = torch.cuda.max_memory_allocated()
     log(f"[train_ssm] breakdown {json.dumps(breakdown)}")
+    split_peaks("train_ssm", run, SSM_TRAIN_ARGV)
     del run
     torch.cuda.empty_cache()
+    remat_probe(dataclasses.replace(cfg, num_layers=SSM_PROBE_LAYERS))
     ssm_buckets(errors)
     log(f"[train_ssm] card: {smi}; {SSM_TRAIN_LAYERS} of {get_config(SSM_ARCH).num_layers} "
-        f"layers; peak memory {peak / 2**30:.2f} GiB (the six steps {train_peak / 2**30:.2f} "
-        f"GiB); phase {time.perf_counter() - t_phase:.1f} s")
+        f"layers, each checkpointed; peak memory {peak / 2**30:.2f} GiB (the six steps "
+        f"{train_peak / 2**30:.2f} GiB); phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def split_peaks(tag: str, run, argv: list) -> dict:
+    """The peak device memory of one forward and backward (bf16, every layer
+    checkpointed, as the launcher runs it) and, apart, of the full-phase
+    update that follows it, on the run's state and its first batch; each
+    with everything the step holds at that point (parameters, optimizer
+    state; the update also the gradients)."""
+    import torch
+
+    from repro_torch.training.train_step import loss_and_grads
+
+    state = run.state
+    batch = first_batch(run.cfg, argv)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _, _, grads = loss_and_grads(state.params, batch, run.cfg)
+    torch.cuda.synchronize()
+    fwd_bwd = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    updates, _ = run.optimizer.update(grads, state.opt_state, state.params, "full")
+    torch.cuda.synchronize()
+    update = torch.cuda.max_memory_allocated()
+    del grads, updates, batch
+    torch.cuda.empty_cache()
+    out = {"held_gib": held / 2**30, "fwd_bwd_peak_gib": fwd_bwd / 2**30,
+           "update_peak_gib": update / 2**30}
+    log(f"[{tag}] peaks apart (GiB): parameters and optimizer state held "
+        f"{out['held_gib']:.2f}; one forward and backward {out['fwd_bwd_peak_gib']:.2f}; the "
+        f"full update after it {out['update_peak_gib']:.2f}: the "
+        f"{'update' if update > fwd_bwd else 'forward and backward'} sets the peak")
+    return out
+
+
+def remat_probe(cfg) -> None:
+    """One bf16 forward and backward of ``cfg`` (mamba2-1.3b at
+    SSM_PROBE_LAYERS, where both fit) with the layers checkpointed and not:
+    the wall of each (synced, SSM_PROBE_ITERS after one warm-up) and its
+    peak device memory over the parameters, and whether the two give the
+    same loss and gradients on the card."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.models.model import init_params
+    from repro_torch.training.train_step import loss_and_grads
+
+    params = init_params(cfg, seed=0, device="cuda")
+    batch = first_batch(cfg, SSM_TRAIN_ARGV)
+    out, grads = {}, {}
+    for remat in (True, False):
+        loss_and_grads(params, batch, cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        walls = []
+        for _ in range(SSM_PROBE_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _, g = loss_and_grads(params, batch, cfg, remat=remat)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            del g
+        out[remat] = {"ms": walls, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "held_gib": held / 2**30}
+        grads[remat] = (loss, loss_and_grads(params, batch, cfg, remat=remat)[2])
+    (l_on, g_on), (l_off, g_off) = grads[True], grads[False]
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(tree_lib.leaves(g_on), tree_lib.leaves(g_off)))
+    del grads, g_on, g_off, params
+    torch.cuda.empty_cache()
+    for remat in (True, False):
+        o = out[remat]
+        log(f"[train_ssm] probe at {cfg.num_layers} layers, remat {'on' if remat else 'off'}: "
+            f"fwd+bwd {[round(w, 1) for w in o['ms']]} ms (min {min(o['ms']):.1f}), peak "
+            f"{o['peak_gib']:.2f} GiB over {o['held_gib']:.2f} GiB of parameters")
+    ratio = min(out[True]["ms"]) / min(out[False]["ms"])
+    above = {r: out[r]["peak_gib"] - out[r]["held_gib"] for r in (True, False)}
+    log(f"[train_ssm] probe: remat on/off, fwd+bwd {ratio:.3f}x the wall, {above[True]:.2f} "
+        f"against {above[False]:.2f} GiB above the parameters; loss "
+        f"{float(l_on)!r} / {float(l_off)!r}, gradients apart by at most {diff:.3e}")
 
 
 def ssm_buckets(errors: dict) -> None:
@@ -2379,9 +2509,10 @@ def dist_fp32_reference(spec: tuple, path: str) -> None:
             grads = g if grads is None else tree_lib.tree_map(torch.add, grads, g)
             del g
         loss = torch.stack(losses).mean()
+    flat = tree_lib.flatten_with_path(grads)
     torch.save({"loss": float(loss), "routes": routes,
-                "grads": {"/".join(k): g.cpu() for k, g in tree_lib.flatten_with_path(grads)}},
-               path)
+                "grads": {"/".join(k): g.cpu() for k, g in flat},
+                "grad_max": {"/".join(k): float(g.abs().max()) for k, g in flat}}, path)
     del params, grads
     torch.cuda.empty_cache()
 
@@ -2407,10 +2538,12 @@ def routing_flips(routes: list, ref: list, top_k: int) -> dict:
 
 def dist_fp32_check(rank: int, spec: tuple, ref_path: str) -> dict:
     """One fp32 step (TF32 off) of the tensor-parallel model on this rank's
-    shards of the launcher's weights and rows: the loss, and every gradient
-    after the reduce joined and held on rank 0 against the single-process
-    port's (:func:`dist_fp32_reference`); for MoE each layer's routing on
-    this rank against the reference's on its data shard."""
+    shards of the launcher's weights and rows: the loss, and this rank's
+    shard of every gradient after the reduce against the matching slice of
+    the single-process port's (:func:`dist_fp32_reference`), relative to the
+    whole leaf's max; for MoE each layer's routing (the forward's, then the
+    checkpointed layers' recompute) on this rank against the reference's on
+    its data shard."""
     import torch
 
     from repro_torch import tree as tree_lib
@@ -2444,18 +2577,15 @@ def dist_fp32_check(rank: int, spec: tuple, ref_path: str) -> dict:
         data = sh.data_axes_for(sizes)
         res["routing"] = routing_flips(rec.routes, ref["routes"][engine.comm.index(data)],
                                        cfg.top_k)
-    if rank:
-        ref = None
+    # Each rank's shard of every reduced gradient against the matching slice
+    # of the single-process gradient, relative to the whole leaf's max.
     rel = {}
     for k, g in tree_lib.flatten_with_path(grads):
-        whole = engine.join(g, engine.pspec_by_path[k], phase="check")
-        if rank == 0:
-            r = ref["grads"]["/".join(k)].to("cuda")
-            rel["/".join(k)] = (float((whole - r).abs().max())
-                                / max(float(r.abs().max()), 1e-30))
-        del whole
-    if rank == 0:
-        res["ref_loss"], res["grad_rel"] = ref["loss"], rel
+        key = "/".join(k)
+        want = engine.cut(ref["grads"][key], engine.pspec_by_path[k]).to("cuda")
+        rel[key] = float((g - want).abs().max()) / max(ref["grad_max"][key], 1e-30)
+        del want
+    res["ref_loss"], res["grad_rel"] = ref["loss"], rel
     del grads, ref
     torch.cuda.empty_cache()
     return res
@@ -2539,11 +2669,12 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
 
     from repro_torch import kernels
     from repro_torch import tree as tree_lib
-    from repro_torch.core import label_tree, muon
+    from repro_torch.core import build_variant, label_tree, muon
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.core.program import parse_stagger_phase
     from repro_torch.distributed import (assert_matches_plan_by_axes,
-                                         assert_staggered_matches_plan, plan_comm, tp_bytes)
+                                         assert_staggered_matches_plan, dion_bytes, plan_comm,
+                                         tp_bytes)
     from repro_torch.distributed.audit import PHASES as TRACE_PHASES
     from repro_torch.distributed import zero1 as zero1_lib
     from repro_torch.launch import train
@@ -2555,6 +2686,7 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     argv = dist_argv(arch, mesh, batch, extra, steps)
     cfg = dist_cfg(arch, layers)
     variant = "normuon" if "normuon" in extra else None
+    dion = "dion" in extra
     zero1, flatten = "--zero1" in extra, "--zero1-flatten" in extra
     guarded = "--guard" in extra
     staggered = "staggered" in extra
@@ -2606,6 +2738,17 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
         res["schedule"] = [r for r in sink.records if r.get("event") == "schedule"]
         res["comm_rates"] = [r for r in sink.records if r.get("event") == "comm_rates"]
     res["tp_pred"] = tp_bytes(cfg, batch // data, DIST_SEQ, sizes)
+    muon_state = run.state.opt_state.inner["muon"]
+    if dion:
+        res["dion_pred"] = dion_bytes(shapes, sh.param_specs(shapes, cfg, sizes), sizes,
+                                      labels=labels, zero1=zero1, zero1_flatten=flatten)
+        # Each leaf split in its matrix dims, in the update's order, pays
+        # P's collective, then (after the factor program) R's: each must be
+        # smaller than the leaf's momentum shard.
+        split_shards = [m.numel() * m.element_size() for k, m in muon_state.momentum.items()
+                        if any(sh.spec_entry_size(e, sizes) > 1
+                               for e in engine.spec_for(k, m.dim())[-2:])]
+        res["dion_events"] = []
     shard_bytes = sum(p.numel() * p.element_size() for p in tree_lib.leaves(params))
     # The gradient reduce: every shard, then one vector of the loss and its
     # metrics (ce; MoE's load_balance and z_loss; loss).
@@ -2623,6 +2766,25 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
                                               step=step, include_apply=True)
             except AssertionError as e:
                 res["trace_errors"].append(f"step {step}: {e}")
+        elif dion:
+            # Dion: the factor collectives and the 'apply' gathers, no other
+            # optimizer collective.
+            try:
+                assert_matches_plan_by_axes(trace, plan, "apply", step=step)
+            except AssertionError as e:
+                res["trace_errors"].append(f"step {step}: {e}")
+            events = [e.bytes for e in trace.select("dion", step=step)]
+            res["dion_events"].append(events)
+            n = len(split_shards)
+            if sum(events) != res["dion_pred"]:
+                res["trace_errors"].append(f"step {step}: dion moved {sum(events)} B, not "
+                                           f"{res['dion_pred']}")
+            if len(events) != 2 * n or any(
+                    events[i] >= s or events[n + i] >= s for i, s in enumerate(split_shards)):
+                res["trace_errors"].append(f"step {step}: dion's collectives {events} against "
+                                           f"the split leaves' shards {split_shards}")
+            if trace.select(("block", "full", "stagger"), step=step):
+                res["trace_errors"].append(f"step {step}: dion issued the plan's gathers")
         elif res["healthy"][step]:
             for phases in (phase, "apply"):
                 try:
@@ -2659,7 +2821,6 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
         if r.get("event") == "span":
             spans.setdefault(r["name"], []).append(r["dur_s"])
     res["spans"] = spans
-    muon_state = run.state.opt_state.inner["muon"]
     res["muon_state_bytes"] = zero1_lib.state_bytes(muon_state)
     # The stacks (ndim >= 3) split over model and ZeRO-1's data axes (a
     # lead dim of 1 stays whole); the 2-D norm gains stay whole.
@@ -2697,40 +2858,48 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     whole_g = {k: join(k, g) for k, g in tree_lib.flatten_with_path(g_m)}
     whole_p = {k: join(k, p) for k, p in tree_lib.flatten_with_path(p_m)}
     opt_kw = dict(period=5, weight_decay=0.1, block_specs=run.block_specs, variant=variant)
-    # The single process keeps no flatten pad: drop the (zero) pad layers.
+
+    def matrix(comm=None, schedule="pipelined"):
+        if dion:
+            return build_variant("dion", 0.02, weight_decay=0.1, comm=comm,
+                                 full_schedule=schedule)
+        return muon(0.02, 0.02, comm=comm, full_schedule=schedule, **opt_kw)
+
+    # The single process keeps no flatten pad: drop the (zero) pad layers of
+    # the stacks (a 2-D leaf is never padded; Dion's basis of one is (n, r)).
     full_state = zero1_lib.gather_state(muon_state, p_m, engine, phase="check")
     lead = {k: p.shape[0] for k, p in whole_p.items()}
-    unpad = lambda d: d if d is None else {k: v[:lead[k]] for k, v in d.items()}
-    full_state = full_state._replace(momentum=unpad(full_state.momentum),
-                                     second_moment=unpad(full_state.second_moment))
+    unpad = lambda d: d if d is None else {k: v[:lead[k]] if v.dim() >= 3 else v
+                                           for k, v in d.items()}
+    full_state = full_state._replace(**{
+        f: unpad(getattr(full_state, f)) for f in ("momentum", "second_moment", "basis")
+        if f in full_state._fields})
     if rank:
         del whole_g, whole_p, full_state
     res["update"] = {}
     refs = {}   # staggered runs: the one-process updates each residue joins
     for phase in ("full", "block"):
-        outs = {}
         for schedule in (("pipelined", "barrier") if phase == "full" else ("pipelined",)):
-            opt = muon(0.02, 0.02, comm=engine, full_schedule=schedule, **opt_kw)
+            opt = matrix(engine, schedule)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             upd, _ = opt.update(g_m, muon_state, p_m, phase)
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            outs[schedule] = {k: whole(k, u) for k, u in tree_lib.flatten_with_path(upd)}
-            res["update"][f"{phase}_{schedule}_ms"] = ms
+            res["update"][f"{phase}_{schedule}_ms"] = (time.perf_counter() - t0) * 1e3
+            upd = dict(tree_lib.flatten_with_path(upd))
+            if schedule == "pipelined":
+                mine, got = upd, {k: whole(k, u) for k, u in upd.items()}
+            else:
+                # The barrier's shards against the pipelined ones, on each rank.
+                res["update"]["pipelined_equals_barrier"] = all(
+                    torch.equal(mine[k], u) for k, u in upd.items())
             del upd
-        if "barrier" in outs:
-            res["update"]["pipelined_equals_barrier"] = all(
-                torch.equal(outs["pipelined"][k], outs["barrier"][k]) for k in outs["barrier"])
-            del outs["barrier"]
-        got = outs["pipelined"]
+        del mine
         res["update"][f"{phase}_checksum"] = sum(float(v.double().abs().sum())
                                                  for v in got.values())
         if rank == 0:
-            ref, _ = muon(0.02, 0.02, **opt_kw).update(tree_lib.unflatten(list(whole_g.items())),
-                                                       full_state,
-                                                       tree_lib.unflatten(list(whole_p.items())),
-                                                       phase)
+            ref, _ = matrix().update(tree_lib.unflatten(list(whole_g.items())), full_state,
+                                     tree_lib.unflatten(list(whole_p.items())), phase)
             err = max(float((got[k].double() - v.double()).abs().max())
                       for k, v in tree_lib.flatten_with_path(ref))
             scale = max(float(v.abs().max()) for _, v in tree_lib.flatten_with_path(ref))
@@ -2738,7 +2907,7 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
             if staggered:
                 refs[phase] = dict(tree_lib.flatten_with_path(ref))
             del ref
-        del got, outs
+        del got
         torch.cuda.empty_cache()
     if staggered:
         res["update"]["stagger"] = stagger_updates(
@@ -2828,7 +2997,9 @@ def phase_distributed(smi: str) -> None:
     process. Run I, whisper-small at full depth tensor-parallel,
     data=2,model=2 with ZeRO-1, three steps after its fp32 step (D's too)
     held against one process. Run J, the replicated path: internvl2-1b at
-    DIST_D_LAYERS layers on data=4,model=1 with ZeRO-1, two steps. Every
+    DIST_D_LAYERS layers on data=4,model=1 with ZeRO-1, two steps. Run L,
+    Dion on muonbp-960m at DIST_L_LAYERS layers, data=2,model=2 with
+    ZeRO-1, two steps after its fp32 step held against one process. Every
     rank's exit code is checked. gloo
     copies through the host: its times measure no link."""
     t_phase = time.perf_counter()
@@ -2895,11 +3066,13 @@ def dist_run(spec: tuple, smi: str) -> list:
     if "fp32" in r0:
         fp = r0["fp32"]
         loss_rel = abs(fp["loss"] - fp["ref_loss"]) / abs(fp["ref_loss"])
-        worst = max(fp["grad_rel"], key=fp["grad_rel"].get)
+        grad_rel = {k: max(r["fp32"]["grad_rel"][k] for r in res) for k in fp["grad_rel"]}
+        worst = max(grad_rel, key=grad_rel.get)
         log(f"[{tag}] fp32 step on the mesh vs one process: loss {fp['loss']!r} vs "
-            f"{fp['ref_loss']!r} (rel {loss_rel:.3e}, tol {DIST_LOSS_TOL:g}); gradients "
-            f"joined on rank 0, worst leaf {worst} {fp['grad_rel'][worst]:.3e} of its "
-            f"max|grad| (tol {DIST_GRAD_TOL:g}); tp {fp['tp_bytes']} B")
+            f"{fp['ref_loss']!r} (rel {loss_rel:.3e}, tol {DIST_LOSS_TOL:g}); each rank's "
+            f"gradient shards against the matching slices, worst leaf {worst} "
+            f"{grad_rel[worst]:.3e} of its max|grad| (tol {DIST_GRAD_TOL:g}); tp "
+            f"{fp['tp_bytes']} B")
         if any(r["fp32"]["loss"] != fp["loss"] for r in res):
             fail(f"{tag}: the ranks' fp32 losses differ")
         for rank, r in enumerate(res):
@@ -2912,11 +3085,17 @@ def dist_run(spec: tuple, smi: str) -> list:
                                                 if rt["flips"] else ""))
         if not loss_rel <= DIST_LOSS_TOL:
             fail(f"{tag}: the fp32 loss on the mesh disagrees with one process")
-        if not fp["grad_rel"][worst] <= DIST_GRAD_TOL:
+        if not grad_rel[worst] <= DIST_GRAD_TOL:
             fail(f"{tag}: the fp32 gradient of {worst} disagrees with one process")
     log(f"[{tag}] {'tensor-parallel' if want_tp else 'replicated'}; plan_comm a rank: "
         f"{r0['plan']} B; tp_bytes a rank and step {r0['tp_pred']} B; grad_reduce a rank "
         f"and step {r0['grad_reduce_pred']} B")
+    if "dion_pred" in r0:
+        log(f"[{tag}] Dion: dion_bytes a rank and step {r0['dion_pred']} B; rank 0's factor "
+            f"collectives a step {r0['dion_events']} B (P's, then R's, a split leaf each); "
+            f"fused chain launches at K = 6 (core.dion's ns_steps) "
+            f"{[r['launches'].get('ns_fused_chain', 0) for r in res]} over "
+            f"{len(r0['phases'])} steps a rank")
     if "guard" in r0:
         dist_guard_checks(tag, res)
     for rank, r in enumerate(res):

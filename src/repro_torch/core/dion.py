@@ -16,8 +16,29 @@ The polar factor of every ``P`` runs through the same compiled
 :class:`program.UpdateProgram` as the Muon variants: spectral pre-scale,
 then K = 6 NS steps on the small r side with the entry normalization off,
 bucketed across leaves. The products around it are plain ``torch.matmul``.
-The reference's ``_FactorEngineView`` belongs to its shard_map engine,
-which the port does not have.
+
+With ``comm=`` (``distributed.engine.ShardMapEngine``, under ``--mesh``)
+the program compiles against :class:`_FactorEngineView`, as the
+reference's: the factors are small and whole on every rank of their
+group, so the program gathers nothing on either phase and block equals
+full. Each rank keeps its momentum shard in the leaf's momentum layout and
+the basis ``V (..., n, r)`` split on ``n`` wherever the momentum splits
+its columns (a lead split, ZeRO-1's layers, cuts both alike). The
+reference leaves the products to GSPMD; here they run on the shard ``B_s``
+of ``B`` with their collectives written out, in the trace class
+``'dion'``:
+
+* columns split: ``P = sum_s B_s V_s``, one all-reduce of ``(m, r)``;
+  ``R_s = B_s^T Q`` is local; the column norms of ``R`` take one
+  all-reduce of the ``(r,)`` sums of squares;
+* rows split: ``P`` is one all-gather of the ``(m/k, r)`` rows;
+  ``R = sum_s B_s^T Q_s`` one all-reduce of ``(n, r)``.
+
+The error feedback ``M <- B - (1 - mu) Q R^T`` and the update ``Q V^T``
+are computed on the shard, so no collective moves a parameter-sized
+buffer: about ``(m + n) r`` fp32 a matrix (``distributed.plan.dion_bytes``).
+The updates leave in the momentum layout, and the engine's 'apply' gathers
+bring them to the param layout, as for MuonBP.
 """
 
 from __future__ import annotations
@@ -31,13 +52,58 @@ from repro_torch import tree as tree_lib
 from repro_torch.core import newton_schulz
 from repro_torch.core import program as program_lib
 from repro_torch.core.bucketing import dtype_name
-from repro_torch.core.muon import SPECTRAL_MARGIN, Optimizer, _as_schedule
+from repro_torch.core.muon import SPECTRAL_MARGIN, Optimizer, _as_schedule, _pad_lead
+
+
+PHASE = "dion"
 
 
 class DionState(NamedTuple):
-    momentum: dict  # path -> fp32 (..., m, n)
-    basis: dict     # path -> fp32 (..., n, r)
+    momentum: dict  # path -> fp32 (..., m, n), the momentum shard under an engine
+    basis: dict     # path -> fp32 (..., n, r), split on n as the momentum's columns
     count: int      # step counter
+
+
+class _FactorEngineView:
+    """The engine view the factor program compiles against (the reference's
+    ``_FactorEngineView``): every factor's spec replicated and no flatten
+    fallback, so the program has no gathers on either phase; it still runs
+    through the engine's ``run_program`` (its stage spans)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    @property
+    def axis_sizes(self):
+        return self.inner.axis_sizes
+
+    def spec_for(self, key, ndim: int) -> tuple:
+        return (None,) * ndim
+
+    def flatten_for(self, key):
+        return None
+
+    def run_program(self, prog, leaves, orth):
+        return self.inner.run_program(prog, leaves, orth)
+
+
+def _split_axes(comm, key, ndim: int) -> tuple[tuple, tuple]:
+    """The mesh axes (larger than one) that split the rows and the columns
+    of the leaf's momentum layout; none without an engine."""
+    from repro_torch.sharding.specs import spec_entry_names
+
+    if comm is None:
+        return (), ()
+    spec = comm.spec_for(key, ndim)
+    live = lambda entry: tuple(a for a in spec_entry_names(entry)
+                               if comm.axis_sizes.get(a, 1) > 1)
+    return live(spec[-2]), live(spec[-1])
+
+
+def basis_spec(momentum_spec: tuple) -> tuple:
+    """The basis' layout from its leaf's momentum layout: the lead entries,
+    then ``n`` split as the columns, ``r`` whole."""
+    return (*momentum_spec[:-2], momentum_spec[-1], None)
 
 
 def _column_normalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -83,9 +149,7 @@ def dion(
     'block' and 'full' do the same work. ``full_schedule`` accepts
     'barrier'/'pipelined' (with no gathers they are the same) and rejects
     'staggered': a low-rank update has no per-leaf full-step gathers to
-    stagger. ``comm`` (a distributed engine) raises: Dion on a mesh of ranks
-    needs the reference's ``_FactorEngineView``, which a later slice of the
-    port brings.
+    stagger. ``comm`` is the distributed engine (see the module docstring).
     """
     if full_schedule is None:
         full_schedule = os.environ.get("REPRO_FULL_SCHEDULE", "pipelined")
@@ -95,13 +159,10 @@ def dion(
     if full_schedule not in program_lib.FULL_SCHEDULES:
         raise ValueError(f"full_schedule must be one of {program_lib.FULL_SCHEDULES}, "
                          f"got {full_schedule!r}")
-    if comm is not None:
-        raise NotImplementedError(
-            "Dion on a mesh of ranks (--mesh) needs the reference's _FactorEngineView "
-            "(src/repro/core/dion.py), which a later slice of the port brings")
     lr_fn = _as_schedule(learning_rate)
     mu = momentum
     del period
+    view = _FactorEngineView(comm) if comm is not None else None
     programs: dict = {}
 
     def _program_for(leaf_specs: tuple, backend: str) -> program_lib.UpdateProgram:
@@ -109,7 +170,7 @@ def dion(
         if key not in programs:
             programs[key] = program_lib.compile_program(
                 leaf_specs, bucketing=bucketing, backend=backend, strategy=ns_strategy,
-                ns_steps=ns_steps,
+                engine=view, full_schedule=full_schedule, ns_steps=ns_steps,
             )
         return programs[key]
 
@@ -122,14 +183,52 @@ def dion(
         return newton_schulz.orthogonalize(u, steps=ns_steps, strategy=strategy,
                                            normalize=False)
 
+    def _local(path, x: torch.Tensor) -> torch.Tensor:
+        # This rank's momentum-layout shard of a tensor as the rank holds it.
+        if comm is None:
+            return x
+        return comm.shard(path, _pad_lead(x, comm.state_shape_for(
+            path, comm.full_shape(path, x.shape))[0]))
+
     def init(params) -> DionState:
-        flat = tree_lib.flatten_with_path(params)
-        return DionState(
-            momentum={path: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                      for path, p in flat},
-            basis={path: init_basis(tuple(p.shape), rank, p.device) for path, p in flat},
-            count=0,
-        )
+        momentum, basis = {}, {}
+        for path, p in tree_lib.flatten_with_path(params):
+            if comm is None:
+                momentum[path] = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                basis[path] = init_basis(tuple(p.shape), rank, p.device)
+                continue
+            state = comm.state_shape_for(path, comm.full_shape(path, p.shape))
+            momentum[path] = torch.zeros(comm.local_shape(path, state), dtype=torch.float32,
+                                         device=p.device)
+            # The whole basis from its seed, then this rank's shard of it.
+            whole = init_basis(state, rank, p.device)
+            basis[path] = comm.cut(whole, basis_spec(comm.spec_for(path, len(state)))).clone()
+        return DionState(momentum=momentum, basis=basis, count=0)
+
+    def _factor_p(key, b, v):
+        """P of ``B V``, whole on every rank of the leaf's group."""
+        rows, cols = _split_axes(comm, key, b.dim())
+        p = b @ v
+        if cols:
+            p = comm.comm.all_reduce(p, cols, phase=PHASE)
+        if rows:
+            p = comm.comm.all_gather(p, rows, dim=-2, phase=PHASE)
+        return p
+
+    def _power_step(key, q, b):
+        """(Q's rows of the shard, R's shard, the new basis shard)."""
+        rows, cols = _split_axes(comm, key, b.dim())
+        if rows:
+            m_local = b.shape[-2]
+            q = q.narrow(-2, comm.comm.index(rows) * m_local, m_local)
+        r_mat = b.transpose(-1, -2) @ q                           # (..., n, r)
+        if rows:
+            r_mat = comm.comm.all_reduce(r_mat, rows, phase=PHASE)
+        if not cols:
+            return q, r_mat, _column_normalize(r_mat)
+        sq = comm.comm.all_reduce(torch.sum(r_mat * r_mat, dim=-2, keepdim=True), cols,
+                                  phase=PHASE)
+        return q, r_mat, r_mat / (torch.sqrt(sq) + 1e-8)
 
     @torch.no_grad()
     def update(grads, state: DionState, params, phase: str = "block"):
@@ -142,9 +241,10 @@ def dion(
         flat = tree_lib.flatten_with_path(grads)
         keys = [path for path, _ in flat]
         p_by_key = dict(tree_lib.flatten_with_path(params))
-        b_leaves = [state.momentum[k] + g.to(torch.float32) for k, g in flat]
-        v_leaves = [state.basis[k] for k in keys]
-        p_factors = [b @ v for b, v in zip(b_leaves, v_leaves)]
+        full_shapes = [tuple(g.shape) if comm is None else comm.full_shape(k, g.shape)
+                       for k, g in flat]
+        b_leaves = [state.momentum[k] + _local(k, g.to(torch.float32)) for k, g in flat]
+        p_factors = [_factor_p(k, b, state.basis[k]) for k, b in zip(keys, b_leaves)]
 
         leaf_specs = tuple(
             program_lib.LeafSpec(key=k, shape=tuple(pf.shape), dtype=dtype_name(pf.dtype))
@@ -154,15 +254,14 @@ def dion(
         q_leaves = _program_for(leaf_specs, backend).execute(phase, p_factors, _orth)
 
         upd_items, new_m, new_v = [], {}, {}
-        for k, q, b in zip(keys, q_leaves, b_leaves):
+        for k, q, b, shape in zip(keys, q_leaves, b_leaves, full_shapes):
             p = p_by_key[k]
-            r_mat = b.transpose(-1, -2) @ q                       # (..., n, r)
+            q, r_mat, new_v[k] = _power_step(k, q, b)
             new_m[k] = b - (1.0 - mu) * (q @ r_mat.transpose(-1, -2))
-            new_v[k] = _column_normalize(r_mat)
-            scale = rms_target * float(max(p.shape[-2], p.shape[-1])) ** 0.5
+            scale = rms_target * float(max(shape[-2], shape[-1])) ** 0.5
             upd = -lr * scale * (q @ new_v[k].transpose(-1, -2))
             if weight_decay:
-                upd = upd - lr * weight_decay * p.to(torch.float32)
+                upd = upd - lr * weight_decay * _local(k, p.to(torch.float32))
             upd_items.append((k, upd.to(p.dtype)))
         return tree_lib.unflatten(upd_items), DionState(momentum=new_m, basis=new_v,
                                                         count=count)

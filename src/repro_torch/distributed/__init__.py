@@ -22,6 +22,7 @@ from repro_torch.distributed.plan import (
     CommPlan,
     LeafCommPlan,
     assign_stagger_offsets,
+    dion_bytes,
     layer_shard_collectives,
     link_class,
     ns_chain_flops,
@@ -43,6 +44,7 @@ __all__ = [
     "CollectiveTrace",
     "CommPlan",
     "DCN_AXES",
+    "dion_bytes",
     "layer_shard_collectives",
     "LeafCommPlan",
     "link_class",

@@ -20,7 +20,9 @@ forward and backward of ``distributed/tensor_parallel.py`` and the sum of
 the replicated leaves' gradients over the model axis; ``plan.tp_bytes``
 counts them), ``'norm'`` (the model-axis sums of the global gradient
 norms on that path), ``'normuon'`` (NorMuon's row and
-RMS sums of sharded leaves), ``'guard'`` (the guarded step's health flag,
+RMS sums of sharded leaves), ``'dion'`` (Dion's factor products on
+sharded leaves, ``core/dion.py``; ``plan.dion_bytes`` counts them),
+``'guard'`` (the guarded step's health flag,
 agreed over the whole mesh: 4 B a step) and ``'checkpoint'`` (state
 gathered for a snapshot): :data:`PHASES`.
 :func:`bytes_by_axes`, :func:`bytes_by_link`, :func:`assert_matches_plan`,
@@ -51,7 +53,7 @@ REDUCE = "all-reduce"
 REDUCE_SCATTER = "reduce-scatter"
 # Every phase class the port's own code records (see the module docstring).
 PHASES = ("block", "full", "apply", "stagger", "grad_reduce", "tp", "norm", "normuon",
-          "guard", "checkpoint")
+          "dion", "guard", "checkpoint")
 STAGGER = "stagger"
 
 

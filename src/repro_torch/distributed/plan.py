@@ -465,7 +465,47 @@ def plan_comm(params: Any, pspecs: Any, mesh, *, labels: Any = None,
     return CommPlan(axis_sizes=sizes, leaves=leaves)
 
 
-def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2) -> int:
+def dion_bytes(params: Any, pspecs: Any, mesh, *, labels: Any = None, rank: int = 64,
+               zero1: bool = False, zero1_flatten: bool = False) -> int:
+    """The ``'dion'`` collective bytes of one rank and optimizer step of
+    Dion on a mesh (``core/dion.py``), from the shapes and the layout.
+
+    Arguments as :func:`plan_comm`'s (ZeRO-1 over the data axes);
+    ``rank`` is Dion's. A Muon-labelled
+    leaf of momentum shard ``(..., m_s, n_s)`` (global ``m, n``, ``r =
+    min(rank, m, n)``, the lead dims the rank's layers) pays, fp32 result
+    buffers: with its columns split, the ``(m_s, r)`` all-reduce of ``P``
+    and the ``(r,)`` all-reduce of ``R``'s column sums of squares; with its
+    rows split, the ``(m, r)`` all-gather of ``P`` and the ``(n_s, r)``
+    all-reduce of ``R``. A leaf split on neither pays nothing, and the
+    factor program itself gathers nothing.
+    """
+    from repro_torch.distributed.engine import make_engine
+
+    sizes = sh.mesh_axis_sizes(mesh)
+    engine = make_engine(params, pspecs, sizes, zero1=zero1, zero1_flatten=zero1_flatten)
+    flat_p = tree_lib.flatten_with_path(params)
+    label_by_path = (dict(tree_lib.flatten_with_path(labels)) if labels is not None else
+                     {path: default_label_fn(sh.path_str(path), leaf) for path, leaf in flat_p})
+    total = 0
+    for path, leaf in flat_p:
+        if label_by_path[path] != "muon":
+            continue
+        state = engine.state_shape_for(path, tuple(leaf.shape))
+        spec = engine.spec_for(path, len(state))
+        local = engine.local_shape(path, state)
+        lead = math.prod(local[:-2])
+        m, n = state[-2], state[-1]
+        r = min(rank, m, n)
+        if sh.spec_entry_size(spec[-1], sizes) > 1:
+            total += FP32_BYTES * lead * (local[-2] * r + r)
+        if sh.spec_entry_size(spec[-2], sizes) > 1:
+            total += FP32_BYTES * lead * (m * r + local[-1] * r)
+    return total
+
+
+def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2,
+             remat: bool = True) -> int:
     """The ``'tp'`` collective bytes of one rank and training step of the
     tensor-parallel model (``distributed/tensor_parallel.py``), from the
     shapes; 0 where ``sharding.specs.mesh_path`` runs ``cfg`` replicated.
@@ -497,7 +537,15 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2) ->
       router's, the SSM's ``wb``, ``wc``, B/C convs and biases and
       ``gate_norm``, hymba's branch scales; with a sequence-sharded
       residual every other replicated leaf's on it too (the norm gains:
-      the encoder's under the encoder's rule).
+      the encoder's under the encoder's rule);
+    * with ``remat`` (the default, as ``models.transformer.forward``'s),
+      each decoder layer's forward collectives once more, in the backward's
+      recompute: the forward half of each sequence gather and reduce (a
+      gather's all-gather and a reduce's reduce-scatter when sharded, a
+      reduce's all-reduce when not; a gather pair and a reduce pair
+      together come to one pair's bytes), of each 'hd' column gather, and
+      the gated norm's forward all-reduce. whisper's encoder and the
+      gather of its output are not checkpointed.
     """
     sizes = sh.mesh_axis_sizes(axis_sizes)
     if sh.mesh_path(cfg, sizes) != sh.TENSOR_PARALLEL:
@@ -515,14 +563,18 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2) ->
         act = n * width * elt
         return act + act // m if sharded else act
 
-    def cols(width: int, n: int = tokens, elt: int = compute_bytes) -> int:
-        """A column gather of (rows, n / rows, width) and its reduce-scatter."""
+    def cols(width: int, n: int = tokens, elt: int = compute_bytes, fwd: bool = False) -> int:
+        """A column gather of (rows, n / rows, width) and its reduce-scatter
+        (``fwd``: the gather alone)."""
         act = n * width * elt
-        return act + act // m
+        return act if fwd else act + act // m
 
     ssm = arch in ("ssm", "hybrid")
     attn = bool(cfg.num_heads) and arch != "ssm"
-    per_layer = (2 if arch == "ssm" else 6 if audio else 4) * pair(d)
+    # Sequence gathers a layer (as many reduces): into and out of each branch.
+    gathers = 1 if arch == "ssm" else 3 if audio else 2
+    per_layer = 2 * gathers * pair(d)
+    recompute = gathers * pair(d)
     # Elements a layer of the replicated leaves: partial in either layout,
     # and partial only when the residual is sequence-sharded.
     always = cfg.num_experts * d
@@ -531,11 +583,14 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2) ->
     if attn:
         ql, kvl = sh.attn_layouts(cfg, m)
         q_cols = cols(cfg.q_dim) if ql == "hd" else 0
+        q_fwd = cols(cfg.q_dim, fwd=True) if ql == "hd" else 0
         per_layer += (2 * cols(cfg.kv_dim) if kvl == "hd" else 0) + q_cols
+        recompute += (2 * cols(cfg.kv_dim, fwd=True) if kvl == "hd" else 0) + q_fwd
     if ssm:
         dims = sh.ssm_dims(cfg)
         n, k = dims.state_size, dims.conv_kernel
         per_layer += 2 * tokens * FP32_BYTES
+        recompute += tokens * FP32_BYTES
         always += 2 * (d * n + k * n + n) + dims.d_inner
         norms += d
     if arch == "hybrid":
@@ -551,7 +606,11 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2) ->
         # The encoder's layers, its output's gather, the cross-attention's Q and K/V columns.
         total += (cfg.encoder_layers * enc_layer + pair(d, enc, enc_shard, FP32_BYTES)
                   + cfg.num_layers * (q_cols + kv))
+        recompute += q_fwd + (2 * cols(cfg.kv_dim, enc, FP32_BYTES, fwd=True)
+                              if kvl == "hd" else 0)
         partial += (cfg.encoder_layers * 2 * d + d) if enc_shard else 0
+    if remat:
+        total += cfg.num_layers * recompute
     return total + FP32_BYTES * partial
 
 

@@ -46,6 +46,13 @@ with its sequence parallelism):
 
 ``ctx`` is a ``sharding.specs.ShardCtx`` whose ``comm`` is the mesh's
 ``Collectives``.
+
+In train mode each decoder layer is checkpointed
+(``models.transformer.forward(remat=True)``): the backward runs the layer's
+forward again before its own backward, so the forward collectives of the
+functions above that a layer calls recur once a layer, on every rank in
+the same order (``plan.tp_bytes`` counts them). The embedding, the logits'
+gather, the cross entropy and whisper's encoder are not checkpointed.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/distributed/zero1.py``. The optimizer-state layout
 follows the param layout by path-suffix matching (the momentum trees mirror
-the param tree inside ``OptState`` / ``CombinedState``); the ZeRO-1 rule is
+the param tree inside ``OptState`` / ``CombinedState``; Dion's basis,
+``(..., n, r)``, is split on ``n`` as its momentum's columns); the ZeRO-1 rule is
 ``sharding.specs.momentum_spec``: split the lead dim over the data axes
 where it divides (for Muon leaves only a stack dim, ndim >= 3; AdamW's
 coordinate-wise state from ndim 2, so the embedding and head moments
@@ -67,6 +68,11 @@ def _layout(engine, key: str, leaf, index: dict) -> LeafSharding:
     sizes = engine.axis_sizes
     state = engine.state_shape_for(path, index[path])
     spec = engine.spec_for(path, len(state))
+    if len(state) >= 2 and ".basis" in key.split("/"):
+        # Dion's basis (..., n, r): n split as the momentum's columns.
+        from repro_torch.core.dion import basis_spec
+
+        return LeafSharding(basis_spec(spec), (*state[:-2], state[-1], shape[-1]))
     candidates = [LeafSharding(spec, state)]
     if len(state) >= 2:
         candidates.append(LeafSharding((*spec[:-1], None), (*state[:-1], 1)))

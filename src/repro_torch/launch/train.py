@@ -95,9 +95,12 @@ Guarded, with snapshots and a resume:
 process and, tensor-parallel, under ``--mesh``.
 
 ``--optimizer-variant {muon,turbo_muon,normuon,dion}`` picks the optimizer
-variant (``core/variants.py``), as ``--optimizer dion`` picks Dion.
-``--device cpu`` runs the same path on the CPU (every kernel wrapper then
-runs its plain PyTorch version); without it the launcher needs a card.
+variant (``core/variants.py``), as ``--optimizer dion`` picks Dion, with or
+without ``--mesh`` (not with ``--full-schedule staggered``). Every step
+checkpoints each decoder layer, as the reference's (no flag: only the
+residual between layers is kept for the backward). ``--device cpu`` runs
+the same path on the CPU (every kernel wrapper then runs its plain PyTorch
+version); without it the launcher needs a card.
 """
 
 from __future__ import annotations
@@ -150,8 +153,7 @@ def build_optimizer(name, params, *, lr, adam_lr, period, schedule_fn=None,
 
     ``--optimizer dion`` and the ``dion`` variant build the same low-rank
     program, whose period is 1 (the same work every step). ``comm`` is the
-    distributed engine (Dion refuses it), ``full_schedule`` its full-step
-    schedule.
+    distributed engine, ``full_schedule`` its full-step schedule.
     """
     labels = label_tree(params)
     lr_s = schedule_fn(lr) if schedule_fn else lr

@@ -26,7 +26,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.sum((lse - label_logit) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, ctx=None) -> tuple[torch.Tensor, dict]:
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, ctx=None,
+            remat: bool = True) -> tuple[torch.Tensor, dict]:
     """(loss, metrics): the masked CE, plus ``LB_COEF * load_balance +
     Z_COEF * z_loss`` for an MoE model, whose metrics then also carry the
     layer-summed ``load_balance`` and ``z_loss``. A VLM's logits at its
@@ -36,10 +37,12 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, ctx=None) -> tuple[t
     ``ctx`` (``sharding.specs.ShardCtx``) is passed to ``forward``; on a
     tensor-parallel rank the CE is the vocab-parallel one over the rank's
     logit columns (``distributed.tensor_parallel.cross_entropy``), so the
-    whole (B, S, Vp) logits never exist."""
+    whole (B, S, Vp) logits never exist. ``remat`` goes to ``forward``: on,
+    as in the reference, every layer is checkpointed; the launcher has no
+    flag for it."""
     logits, aux = forward(params, batch["tokens"], cfg, return_aux=True,
                           extra_embeds=batch.get("vision_embeds"),
-                          encoder_frames=batch.get("audio_frames"), ctx=ctx)
+                          encoder_frames=batch.get("audio_frames"), ctx=ctx, remat=remat)
     if cfg.vision_tokens:
         logits = logits[:, cfg.vision_tokens:, :]
     if ctx is not None and ctx.tensor_parallel:

@@ -9,9 +9,10 @@ runs the train-mode (and prefill) pass as a Python loop over the stacked
 layers, in place of the reference's ``lax.scan``; ``decode_step`` runs one
 token through the same loop against a cache: the KV buffers written in
 place (or the reference's ring cache), the SSM state replaced by the new
-state tensors. The reference's activation checkpointing changes no numbers
-and is not ported yet: the full-width dense and MoE models the card trains
-fit without it, and ``mamba2-1.3b`` trains there at a cut depth.
+state tensors. In train mode each layer runs under activation
+checkpointing, as the reference's ``jax.checkpoint`` of its scan body:
+only the residual entering the layer is kept for the backward, and the
+layer's forward runs again there (its collectives too, tensor-parallel).
 
 With a tensor-parallel ``ctx`` (``sharding.specs.ShardCtx``; every arch)
 each rank holds its ``param_specs`` shards and ``forward`` computes with
@@ -40,6 +41,8 @@ positions). A VLM prepends its ``extra_embeds`` to the token embeddings.
 
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Optional
 
 import torch
@@ -302,9 +305,54 @@ def _stack_states(states: list) -> dict:
     return {k: torch.stack([s[k] for s in states]) for k in states[0]}
 
 
+class _KeepInput(torch.autograd.Function):
+    """Keeps a checkpointed layer's input for the backward through autograd,
+    where saved-tensor hooks outside the checkpoint see it; its output is
+    an empty tensor."""
+
+    @staticmethod
+    def forward(fctx, x):
+        fctx.save_for_backward(x)
+        return x.new_empty(0)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return None
+
+
+def _checkpointed(body, x):
+    """``body(x)`` under activation checkpointing: autograd keeps ``x`` (the
+    residual entering a layer) and nothing the body saves; the backward's
+    first read of one of those runs the whole body again on ``x`` and keeps
+    what it saves, in the same order. So a tensor-parallel layer's
+    recompute issues every forward collective of the layer once more, on
+    every rank in the same order. This is ``torch.utils.checkpoint``'s
+    non-reentrant scheme without its early stop; that function also imports
+    ``torch._dynamo`` on its first call, seconds in every process (each rank
+    of a mesh). No layer draws random numbers, so no RNG state is kept."""
+    if not torch.is_grad_enabled():
+        return body(x)
+    keep = _KeepInput.apply(x) if x.requires_grad else x
+    again: list = []
+
+    def unpack(i: int):
+        if not again:
+            h = keep.grad_fn.saved_tensors[0] if keep.grad_fn is not None else keep
+            # Detached: the recompute's own graph is dropped, and a saved-
+            # tensor hook that held it would keep a cycle through autograd.
+            with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+                    lambda t: again.append(t.detach()), lambda _: None):
+                body(h.detach().requires_grad_(h.requires_grad))
+        return again[i]
+
+    count = itertools.count()
+    with torch.autograd.graph.saved_tensors_hooks(lambda _: next(count), unpack):
+        return body(x)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
             return_aux: bool = False, extra_embeds: Optional[torch.Tensor] = None,
-            encoder_frames: Optional[torch.Tensor] = None, ctx=None):
+            encoder_frames: Optional[torch.Tensor] = None, ctx=None, remat: bool = True):
     """Full-sequence forward: (B, S) token ids -> (B, S', Vp) logits.
 
     ``extra_embeds`` (B, V, D): a VLM's patch embeddings, prepended to the
@@ -328,6 +376,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
     ``tokens`` (and the extras) the rows of its data coordinate, and the
     logits the rank's (B, S', Vp/m) vocab columns; ``ctx.seq_shard`` was
     made for the residual's whole length S'.
+
+    ``remat`` (the reference's, on by default): in 'train' mode each
+    decoder layer (its slice of the stacked parameters and
+    ``decoder_layer``) runs under activation checkpointing, so the backward
+    keeps one residual a layer, the rank's sequence shard when
+    tensor-parallel, and recomputes the rest; the MoE aux losses leave the
+    checkpoint as an output. The numbers are those of ``remat=False``,
+    bitwise. whisper's encoder is not checkpointed, as the reference's is
+    not; prefill never is.
     """
     tp = ctx is not None and ctx.tensor_parallel
     # The whole sequence: a tensor-parallel rank's residual holds its shard.
@@ -364,12 +421,19 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
         vs = torch.empty(shape, dtype=x.dtype, device=x.device)
     states = []
     aux = torch.zeros(2, dtype=torch.float32, device=x.device)
-    for i, window in enumerate(window_flags(cfg)):
+
+    def layer_at(h, i: int, window: int):
         layer = _slice_layer(params["layers"], i)
-        x, kv, new_ssm, layer_aux = decoder_layer(
-            x, layer, cfg, window=window, positions=positions, inv_freq=inv_freq,
-            mode="prefill" if prefill else "train",
-            cross_kv=cross_kv if "cross" in layer else None, ctx=ctx)
+        return decoder_layer(h, layer, cfg, window=window, positions=positions,
+                             inv_freq=inv_freq, mode="prefill" if prefill else "train",
+                             cross_kv=cross_kv if "cross" in layer else None, ctx=ctx)
+
+    for i, window in enumerate(window_flags(cfg)):
+        if remat and mode == "train":
+            x, kv, new_ssm, layer_aux = _checkpointed(
+                functools.partial(layer_at, i=i, window=window), x)
+        else:
+            x, kv, new_ssm, layer_aux = layer_at(x, i, window)
         if layer_aux is not None:
             aux = aux + layer_aux
         if prefill:

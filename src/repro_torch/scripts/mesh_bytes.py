@@ -4,8 +4,11 @@ What the launcher under ``--mesh`` will move, counted before it runs (the
 parameters are fake tensors: no memory, no device): the path
 (``sharding.specs.mesh_path``), the parameters a rank holds, and by trace
 phase the bytes ``plan_comm`` predicts for the optimizer (``block``,
-``full``, ``apply``), ``tp_bytes`` for the tensor-parallel forward and
-backward (the VLM's vision tokens and whisper's encoder included), and the
+``full``, ``apply``), ``dion_bytes`` for Dion's factor products a step
+(``--optimizer dion`` pays these and ``apply`` in place of
+``block``/``full``), ``tp_bytes`` for the tensor-parallel
+forward and backward with each layer's recompute (the VLM's vision tokens
+and whisper's encoder included), and the
 gradient reduce (every gradient a rank holds, then one vector of the loss
 and its metrics). No step moves a replica gather. A run's trace equals
 these to the byte (``chip_smoke.py``'s ``distributed``
@@ -25,7 +28,7 @@ import math
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs import get_config
-from repro_torch.distributed import plan_comm, tp_bytes
+from repro_torch.distributed import dion_bytes, plan_comm, tp_bytes
 from repro_torch.launch.mesh import parse_mesh_spec
 from repro_torch.launch.train import matrix_block_specs
 from repro_torch.models.transformer import init_params
@@ -56,6 +59,7 @@ def mesh_bytes(cfg, sizes: dict, *, batch: int, seq: int, zero1: bool = False,
         "params": sum(p.numel() for p in tree_lib.leaves(params)),
         "params_a_rank": held,
         **{ph: plan.predicted_bytes(ph) for ph in ("block", "full", "apply")},
+        "dion": dion_bytes(params, specs, sizes, zero1=zero1),
         "tp": tp_bytes(cfg, batch // data, seq, sizes, compute_bytes=compute_bytes),
         "grad_reduce": 4 * (held + values) if data > 1 else 0,
     }

@@ -75,10 +75,12 @@ def cast_tree(tree, dtype):
 
 
 def loss_and_grads(params, batch, cfg, compute_dtype=torch.bfloat16, bf16_grads: bool = False,
-                   ctx=None):
+                   ctx=None, *, remat: bool = True):
     """(loss, metrics, grads) with grads shaped like ``params`` (``ctx``:
     the model's ``ShardCtx``; tensor-parallel, ``params`` are the rank's
-    shards and so are the grads)."""
+    shards and so are the grads). Every layer is checkpointed, as in the
+    reference; ``remat=False`` (no caller but tests and measurements) keeps
+    every activation instead, with the same numbers."""
     flat = tree_lib.flatten_with_path(params)
     if bf16_grads:
         # Differentiate w.r.t. the compute-dtype copies: grads arrive in
@@ -89,7 +91,7 @@ def loss_and_grads(params, batch, cfg, compute_dtype=torch.bfloat16, bf16_grads:
         leaves = [p.detach().requires_grad_(True) for _, p in flat]
         compute = cast_tree(tree_lib.unflatten([(k, t) for (k, _), t in zip(flat, leaves)]),
                             compute_dtype)
-    loss, metrics = loss_fn(compute, batch, cfg, ctx=ctx)
+    loss, metrics = loss_fn(compute, batch, cfg, ctx=ctx, remat=remat)
     # A leaf the loss does not read (hymba's ssm_norm: its hybrid layer
     # norms once, with attn_norm) gets zeros, as jax.grad gives it.
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)

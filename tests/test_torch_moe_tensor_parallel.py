@@ -184,7 +184,10 @@ def _rank_cases(rank, world_size, port, world, params_np) -> dict:
                 routes.clear()
                 loss, metrics, grads = loss_and_grads(params, batch, cfg, torch.float32,
                                                       ctx=ctx)
-                out[(arch, "top_idx", seq)] = list(routes)
+                # The forward's routes, then the backward's recompute of
+                # each checkpointed layer, last layer first.
+                out[(arch, "top_idx", seq)] = routes[:cfg.num_layers]
+                out[(arch, "recompute_idx", seq)] = routes[cfg.num_layers:][::-1]
                 loss, metrics = reduce_grads(engine, loss, metrics, grads, ctx)
                 out[(arch, "seq_shard", seq)] = ctx.seq_shard
                 out[(arch, "metrics", seq)] = {k: float(v) for k, v in metrics.items()}
@@ -318,7 +321,8 @@ def _case_reference(params_np, name: str, arch: str, seq: int) -> list:
 def test_routing_matches_reference(case, worlds, params_np):
     """Every rank's top_idx of every layer equals the reference's on its
     data shard; a flip names its tokens' gap between the k-th and (k+1)-th
-    router logits."""
+    router logits. The backward's recompute of each checkpointed layer
+    routes exactly as its forward did."""
     name, arch = CASES[case]
     k = _cfg(arch).top_k
     for seq in WORLDS[name].seqs:
@@ -327,6 +331,9 @@ def test_routing_matches_reference(case, worlds, params_np):
             idx, logits = ref[res["coords"].get("data", 0)][:2]
             got = res[(arch, "top_idx", seq)]
             assert len(got) == len(idx) == _cfg(arch).num_layers, (case, seq)
+            again = res[(arch, "recompute_idx", seq)]
+            assert len(again) == len(got) and all(
+                np.array_equal(a, g) for a, g in zip(again, got)), (case, seq)
             for layer, (g, r, lg) in enumerate(zip(got, idx, logits)):
                 flips = np.nonzero((g != r.reshape(g.shape)).any(axis=-1))[0]
                 top = -np.sort(-lg.reshape(-1, lg.shape[-1]), axis=-1)
