@@ -12,7 +12,7 @@ Mixture-of-Experts model, and serving of both; MuonBP training and
 generate on the SSM, hybrid, VLM and audio models; the tensor-parallel
 dense and MoE models, the guarded step and the distributed optimizer on
 four ranks that share the card; the staggered full-step schedule on one
-rank and on four.
+rank and on four; a 32768-token prefill.
 
   1. device   -- the card's name and power limit (nvidia-smi), device count;
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
@@ -151,8 +151,9 @@ rank and on four.
                  to the unguarded mesh step bitwise; run G, mamba2-1.3b at
                  4 of 48 layers tensor-parallel (d_inner and the SSM heads
                  split) on data=2,model=2 with ZeRO-1, and run H,
-                 hymba-1.5b at 4 of 32 layers tensor-parallel (Q and K/V
-                 in 'hd', 25 SSM heads a rank) on data=2,model=2, and run
+                 hymba-1.5b at 4 of 32 layers tensor-parallel on model=4
+                 (Q and K/V in 'hd', 800 d_inner columns a rank, the 50
+                 SSM heads whole on every rank), and run
                  I, whisper-small at full depth (12 encoder and 12 decoder
                  layers over 1500 frames) on data=2,model=2 with ZeRO-1,
                  three steps each; runs D, G, H and I after their fp32
@@ -199,7 +200,15 @@ rank and on four.
                  each residue's update on rank 0 per leaf against one
                  process's full and block updates. It prints each
                  residue's step walls and update times;
- 15. times    -- each kernel, its plain version and the one-call PyTorch
+ 15. prefill_long -- full-width, full-depth muonbp-960m prefills one row of
+                 SHAPES["prefill_32k"] (32768 tokens) in bf16 with the
+                 KV-blocked online-softmax attention (flash_block_k 1024):
+                 the least wall of two, the peak memory, finite logits;
+                 then in fp32 the blocked prefill of 8192 tokens against
+                 one block, and the logits at position 32767 against
+                 decode_step there after a prefill of the 32767 before it,
+                 each to 1e-3 of max|logit|;
+ 16. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
                  the least time the card could take for the same work; the
                  tiled Gram with its B operand K-major and N-major (the
@@ -435,9 +444,11 @@ CHAOS_ARGV = ["--arch", "muonbp-960m", "--reduced", "--steps", "6", "--batch", "
 # gradients at step 2 and a loss spike at step 4, six steps. Run G:
 # full-width mamba2-1.3b tensor-parallel (each rank half of d_inner and of
 # the 64 SSM heads) on data=2,model=2 with ZeRO-1, three steps (full,
-# block, full). Run H: full-width hymba-1.5b tensor-parallel on
-# data=2,model=2 (Q 'hd' on its 25 heads, K/V 'hd' on its 5, 25 SSM heads a
-# rank), three steps. Run I: whisper-small at full width and depth
+# block, full). Run H: full-width hymba-1.5b tensor-parallel on model=4
+# (Q 'hd' on its 25 heads, K/V 'hd' on its 5; 800 of the 3200 d_inner
+# columns a rank, the 50 SSM heads whole on every rank: each rank gathers
+# the convolved x, runs the SSD on every head and keeps its columns), global
+# batch 2 as run C's, three steps. Run I: whisper-small at full width and depth
 # tensor-parallel (its 1500-frame encoder sequence-sharded, the output
 # gathered once for every decoder layer's cross-attention) on
 # data=2,model=2 with ZeRO-1, three steps. Run J: the replicated path, a
@@ -462,7 +473,8 @@ DIST_D_LAYERS = 4
 # Run G's depth: mamba2-1.3b at 4 of 48 layers, run D's old depth, so that
 # its block step compares with the replicated one's (the replica gather
 # gone); a rank holds 156.0 M of the 310.0 M parameters. Run H's: hymba-1.5b
-# at 4 of 32 layers, 147.9 M of 295.5 M parameters a rank.
+# at 4 of 32 layers, 74.3 M of 295.5 M parameters a rank on model=4
+# (scripts/mesh_bytes).
 DIST_G_LAYERS = 4
 DIST_H_LAYERS = 4
 # Run E's depth: olmoe-1b-7b's layer holds 419.6 M parameters, its
@@ -502,7 +514,7 @@ DIST_RUNS = (
      MAIN_PATH_KERNELS),
     ("G", "mamba2-1.3b", "data=2,model=2", 4, ["--zero1", "--period", "2"], 3, DIST_G_LAYERS,
      True, MAIN_PATH_KERNELS),
-    ("H", "hymba-1.5b", "data=2,model=2", 4, ["--period", "2"], 3, DIST_H_LAYERS, True,
+    ("H", "hymba-1.5b", "model=4", 2, ["--period", "2"], 3, DIST_H_LAYERS, True,
      MAIN_PATH_KERNELS),
     ("I", "whisper-small", "data=2,model=2", 4, ["--zero1", "--period", "2"], 3, None, True,
      WHISPER_KERNELS),
@@ -548,6 +560,18 @@ STAGGER_K_PREDICTED = [94371840, 94371840, 84934656]
 # The single-process MuonBP update (PERF.md section 5, kernels): block and
 # full, ms, NVIDIA H100 80GB HBM3, 700.00 W; printed beside run S's.
 SYNC_UPDATE_MS = {"block": 116.4, "full": 154.3}
+
+# The prefill_long phase: full-width, full-depth muonbp-960m prefills
+# SHAPES["prefill_32k"] (32768 tokens) with the KV-blocked attention at the
+# reference's flash_block_k. The reference shape's rows (2 a rank on its
+# data=16 mesh) are cut to one. Its checks run in fp32: a bf16 logit in the
+# top binade rounds by 2^-9 to 2^-8 of max|logit|, over LONG_TOL.
+LONG_ARCH = "muonbp-960m"
+LONG_ROWS = 1
+LONG_BLOCK_K = 1024
+LONG_TIMED = 2
+LONG_CHECK_SEQ = 8192   # one block of it: 4 GiB of fp32 scores a layer
+LONG_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -2991,12 +3015,13 @@ def phase_distributed(smi: str) -> None:
     olmoe-1b-7b at DIST_E_LAYERS layers tensor-parallel, data=2,model=2 with
     ZeRO-1, three steps, after its fp32 step and routing held against one
     process. Run F, the guarded step on the mesh (see
-    :func:`dist_guard_checks`). Runs G and H, mamba2-1.3b and hymba-1.5b at
-    DIST_G_LAYERS and DIST_H_LAYERS layers tensor-parallel, data=2,model=2
-    (G with ZeRO-1), three steps each after the fp32 step held against one
-    process. Run I, whisper-small at full depth tensor-parallel,
-    data=2,model=2 with ZeRO-1, three steps after its fp32 step (D's too)
-    held against one process. Run J, the replicated path: internvl2-1b at
+    :func:`dist_guard_checks`). Runs G and H, mamba2-1.3b at DIST_G_LAYERS
+    layers tensor-parallel on data=2,model=2 with ZeRO-1 and hymba-1.5b at
+    DIST_H_LAYERS on model=4 (its 50 SSM heads whole on every rank), three
+    steps each after the fp32 step held against one process. Run I,
+    whisper-small at full depth tensor-parallel, data=2,model=2 with
+    ZeRO-1, three steps after its fp32 step (D's too) held against one
+    process. Run J, the replicated path: internvl2-1b at
     DIST_D_LAYERS layers on data=4,model=1 with ZeRO-1, two steps. Run L,
     Dion on muonbp-960m at DIST_L_LAYERS layers, data=2,model=2 with
     ZeRO-1, two steps after its fp32 step held against one process. Every
@@ -3337,6 +3362,97 @@ def phase_stagger(smi: str) -> None:
     log(f"[stagger] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_prefill_long(smi: str) -> None:
+    """Full-width, full-depth muonbp-960m prefills one row of
+    SHAPES["prefill_32k"] tokens in bf16 with the KV-blocked attention
+    (flash_block_k = LONG_BLOCK_K): the least wall of LONG_TIMED prefills,
+    the peak memory, finite logits. Then, in fp32 (TF32 off), the blocked
+    prefill of LONG_CHECK_SEQ tokens against one block (the whole score
+    tensor, the old path's memory), and the prefill's logits at the last
+    position against decode_step there after a prefill of all the tokens
+    before it, each to LONG_TOL of max|logit|."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.serving.serve_step import cache_from_prefill
+    from repro_torch.sharding.specs import ShardCtx
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LONG_ARCH)
+    seq = SHAPES["prefill_32k"].seq_len
+    gen = torch.Generator().manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (LONG_ROWS, seq), generator=gen).to("cuda")
+    ctx = ShardCtx(flash_block_k=LONG_BLOCK_K)
+    # 16 heads x S^2 x 96 x 2 FLOP each for QK^T and PV, every block (none skipped).
+    flops = 4 * LONG_ROWS * cfg.num_layers * cfg.num_heads * seq * seq * cfg.head_dim
+    log(f"[prefill_long] full-width {LONG_ARCH} ({cfg.num_layers} layers), {LONG_ROWS} x "
+        f"{seq} tokens, flash_block_k {LONG_BLOCK_K}: attention {flops:.3e} fp32 FLOP; one "
+        f"block's scores {4 * LONG_ROWS * cfg.num_heads * seq * LONG_BLOCK_K / 2**30:.2f} GiB, "
+        f"the whole score tensor {4 * LONG_ROWS * cfg.num_heads * seq * seq / 2**30:.1f} GiB a "
+        f"layer")
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    walls, peaks = [], []
+    with torch.no_grad():
+        for _ in range(LONG_TIMED):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, {"tokens": tokens}, cfg, ctx=ctx)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated())
+            if tuple(logits.shape) != (LONG_ROWS, seq, cfg.padded_vocab):
+                fail(f"prefill_long: logits {tuple(logits.shape)}")
+            finite = bool(torch.isfinite(logits).all())
+            del logits, cache
+            if not finite:
+                fail("prefill_long: non-finite bf16 logits")
+        # Informational: the bf16 blocked prefill against one block (bf16
+        # logits round apart wherever the fp32 attention outputs do).
+        short = tokens[:, :LONG_CHECK_SEQ]
+        a, _ = prefill(params, {"tokens": short}, cfg, ctx=ctx)
+        b, _ = prefill(params, {"tokens": short}, cfg, ctx=ShardCtx(flash_block_k=LONG_CHECK_SEQ))
+        bf16_rel = float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+        del a, b
+    del params
+    torch.cuda.empty_cache()
+    log(f"[prefill_long] bf16 prefill of {seq} tokens: wall {min(walls):.3f} s (least of "
+        f"{LONG_TIMED}: {', '.join(f'{w:.3f}' for w in walls)} s), "
+        f"{flops / min(walls) / 1e12:.1f} TFLOP/s of attention over the wall; peak "
+        f"{max(peaks) / 2**30:.2f} GiB; logits finite; bf16 blocked vs one block at "
+        f"{LONG_CHECK_SEQ}: {bf16_rel:.3e} of max|logit| (not held: a bf16 logit near the "
+        f"max is {2 ** -8:.1e} of it an ulp)")
+
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        short = tokens[:, :LONG_CHECK_SEQ]
+        a, _ = prefill(params, {"tokens": short}, cfg, ctx=ctx)
+        b, _ = prefill(params, {"tokens": short}, cfg, ctx=ShardCtx(flash_block_k=LONG_CHECK_SEQ))
+        block_rel = float((a - b).abs().max()) / float(b.abs().max())
+        del a, b
+        logits, _ = prefill(params, {"tokens": tokens}, cfg, ctx=ctx)
+        last = logits[:, -1].clone()
+        del logits
+        _, pcache = prefill(params, {"tokens": tokens[:, :-1]}, cfg, ctx=ctx)
+        cache = cache_from_prefill(pcache, cfg, seq, dtype=torch.float32)
+        del pcache
+        dec, _ = decode_step(params, tokens[:, -1:], cache, seq - 1, cfg)
+        decode_rel = float((dec[:, 0] - last).abs().max()) / float(last.abs().max())
+        del cache, dec
+    del params
+    torch.cuda.empty_cache()
+    log(f"[prefill_long] fp32: blocked ({LONG_BLOCK_K}) vs one block at {LONG_CHECK_SEQ} "
+        f"tokens {block_rel:.3e} of max|logit|; prefill at position {seq - 1} vs decode_step "
+        f"after a {seq - 1}-token prefill {decode_rel:.3e} (tolerance {LONG_TOL})")
+    if not block_rel <= LONG_TOL:
+        fail(f"prefill_long: blocked vs one block {block_rel:.3e} > {LONG_TOL}")
+    if not decode_rel <= LONG_TOL:
+        fail(f"prefill_long: prefill vs decode at {seq - 1}: {decode_rel:.3e} > {LONG_TOL}")
+    log(f"[prefill_long] card: {smi}; phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_times(errors: dict, launches: dict) -> list:
     import torch
 
@@ -3521,6 +3637,7 @@ def main() -> int:
     phase_archs(device["smi"])
     phase_distributed(device["smi"])
     phase_stagger(device["smi"])
+    phase_prefill_long(device["smi"])
     rows = phase_times(errors, launches)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     print(device["smi"], flush=True)

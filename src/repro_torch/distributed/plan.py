@@ -527,6 +527,9 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2,
       layer's at ``rows x encoder_seq`` under the encoder's own rule;
     * on the 'hd' layouts, the column gathers and their reduce-scatters:
       K and V's (of the encoder output, for the cross-attention), and Q's;
+    * on an SSM or hybrid layer whose heads stay whole
+      (``sharding.specs.ssm_heads_split``), the gather of the convolved
+      ``(rows, S, d_inner)`` input and its reduce-scatter;
     * whisper's encoder output, gathered once, and its backward;
     * an SSM layer's gated-norm statistic: a (rows, S) fp32 all-reduce
       forward and another backward;
@@ -535,7 +538,9 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2,
     * the sum over the model axis of the gradients
       ``tensor_parallel.grad_is_partial`` names: in either layout the MoE
       router's, the SSM's ``wb``, ``wc``, B/C convs and biases and
-      ``gate_norm``, hymba's branch scales; with a sequence-sharded
+      ``gate_norm``, hymba's branch scales, and where the SSM heads stay
+      whole its ``wdt``, ``A_log``, ``D`` and ``dt_bias`` (``d * H + 3 * H``
+      elements a layer); with a sequence-sharded
       residual every other replicated leaf's on it too (the norm gains:
       the encoder's under the encoder's rule);
     * with ``remat`` (the default, as ``models.transformer.forward``'s),
@@ -543,9 +548,9 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2,
       recompute: the forward half of each sequence gather and reduce (a
       gather's all-gather and a reduce's reduce-scatter when sharded, a
       reduce's all-reduce when not; a gather pair and a reduce pair
-      together come to one pair's bytes), of each 'hd' column gather, and
-      the gated norm's forward all-reduce. whisper's encoder and the
-      gather of its output are not checkpointed.
+      together come to one pair's bytes), of each column gather ('hd', the
+      SSM's whole-head input), and the gated norm's forward all-reduce.
+      whisper's encoder and the gather of its output are not checkpointed.
     """
     sizes = sh.mesh_axis_sizes(axis_sizes)
     if sh.mesh_path(cfg, sizes) != sh.TENSOR_PARALLEL:
@@ -593,6 +598,11 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2,
         recompute += tokens * FP32_BYTES
         always += 2 * (d * n + k * n + n) + dims.d_inner
         norms += d
+        if not sh.ssm_heads_split(cfg, m):
+            h = dims.num_heads
+            per_layer += cols(dims.d_inner)
+            recompute += cols(dims.d_inner, fwd=True)
+            always += d * h + 3 * h
     if arch == "hybrid":
         always += 2 * d
     total = cfg.num_layers * per_layer + 2 * pair(d) + 3 * rows * seq * FP32_BYTES

@@ -20,7 +20,8 @@ with its sequence parallelism):
   the sequence dim, all-gathered in the backward; without sequence
   sharding an all-reduce, and the identity in the backward;
 * :func:`gather_cols` -- the Q and K/V projection columns of the 'hd'
-  layout all-gathered over ``model``, reduce-scattered in the backward;
+  layout, and the SSM's convolved ``x`` where its heads stay whole, all-
+  gathered over ``model``, reduce-scattered in the backward;
 * :func:`sum_over_model` -- the SSM's gated-norm statistic: each rank's
   ``(rows, S, 1)`` fp32 sum of squares over its ``d_inner`` slice,
   all-reduced into the sum over the whole ``d_inner``. Its backward is an
@@ -167,6 +168,11 @@ def replica_mean(x: torch.Tensor, ctx) -> torch.Tensor:
 PARTIAL_IN_EITHER_LAYOUT = frozenset({
     "router", "wb", "wc", "conv_b", "conv_b_bias", "conv_c", "conv_c_bias", "gate_norm",
     "attn_scale", "ssm_scale"})
+# The SSM's per-head leaves: split with the heads where their count divides
+# the model axis; whole on every rank otherwise (``sharding.specs.
+# ssm_heads_split``), where each rank runs every head but keeps its own
+# d_inner columns of the output, so its gradient comes from those columns.
+PARTIAL_WHEN_WHOLE = frozenset({"wdt", "A_log", "D", "dt_bias"})
 
 
 def grad_is_partial(key, model_split: bool, ctx) -> bool:
@@ -176,14 +182,18 @@ def grad_is_partial(key, model_split: bool, ctx) -> bool:
     only), and in either layout the leaves of
     :data:`PARTIAL_IN_EITHER_LAYOUT`: the MoE router; the SSM's ``wb``,
     ``wc``, ``conv_b``, ``conv_b_bias``, ``conv_c``, ``conv_c_bias`` and
-    ``gate_norm``; hymba's ``attn_scale`` and ``ssm_scale``. A leaf under
-    ``encoder/`` (whisper's) lives on the encoder's residual, which follows
-    its own length (``ctx.encoder_seq_shard``); every other leaf, the
-    decoder's ``cross_norm`` among them, on the decoder's."""
+    ``gate_norm``; hymba's ``attn_scale`` and ``ssm_scale``; and the SSM's
+    ``wdt``, ``A_log``, ``D`` and ``dt_bias`` where ``model`` does not
+    split them (:data:`PARTIAL_WHEN_WHOLE`: the heads whole on every rank,
+    so ``model_split``, read from the parameter's spec, decides). A leaf
+    under ``encoder/`` (whisper's) lives on the encoder's residual, which
+    follows its own length (``ctx.encoder_seq_shard``); every other leaf,
+    the decoder's ``cross_norm`` among them, on the decoder's."""
     if model_split:
         return False
     seq_shard = ctx.encoder_seq_shard if key[0] == "encoder" else ctx.seq_shard
-    return seq_shard or key[-1] in PARTIAL_IN_EITHER_LAYOUT
+    return (seq_shard or key[-1] in PARTIAL_IN_EITHER_LAYOUT
+            or key[-1] in PARTIAL_WHEN_WHOLE)
 
 
 def vocab_range(rows: int, ctx) -> tuple[int, int]:

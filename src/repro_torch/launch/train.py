@@ -491,7 +491,10 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
         ctx = sh.make_ctx(cfg, engine, seq=sh.residual_len(cfg, args.seq))
         if rank == 0:
             encoder = (f", sequence-sharded encoder {ctx.encoder_seq_shard}"
-                       if cfg.arch_type == "audio" else "")
+                       if cfg.arch_type == "audio" else
+                       f", SSM heads "
+                       f"{'split' if sh.ssm_heads_split(cfg, ctx.size) else 'whole'}"
+                       if cfg.arch_type in ("ssm", "hybrid") else "")
             print(f"mesh path: {mesh_path} (model axis {axis_sizes.get('model', 1)}, "
                   f"Q layout {ctx.q_layout!r}, KV layout {ctx.kv_layout!r}, sequence-sharded "
                   f"residual {ctx.seq_shard}{encoder}); collectives: {args.dist_backend}'s own "

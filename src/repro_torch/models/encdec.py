@@ -61,7 +61,10 @@ def encode(enc_params: dict, frames: torch.Tensor, cfg: ModelConfig, ctx=None) -
     RMSNorm. ``ctx`` (``sharding.specs.ShardCtx``) gives the head layouts,
     as the reference's does; tensor-parallel, ``enc_params`` are the rank's
     shards and the encoder's residual follows ``ctx.encoder_seq_shard`` (see
-    the module doc). The output is whole on every rank.
+    the module doc). The output is whole on every rank. Its self-attention
+    scans K/V in ``attention_block``'s default blocks of 1024 whatever
+    ``ctx.flash_block_k`` says, as the reference's ``encode`` passes no
+    block size; the decoder's cross-attention takes the context's.
     """
     seq = frames.shape[1]
     tp = ctx is not None and ctx.tensor_parallel

@@ -2,14 +2,16 @@
 (self and cross), gated MLPs.
 
 Counterpart of ``repro/models/layers.py``. Attention in the reference is
-plain jnp (an online softmax over KV blocks, ``layers.py:128``), not a
-Pallas kernel, so it is plain PyTorch here: fp32 scores, the causal, window
-and kv_len masks of ``_mask_scores``, softmax, fp32 accumulation, output in
-the query dtype. The full softmax and the reference's online softmax are
-the same function up to rounding order; for one query (decode) the
-reference computes this full softmax too (``_decode_attention``). Query
-positions and KV lengths may be given per row, so one batched decode serves
-slots at different positions.
+plain jnp (``flash_attention``, an online softmax over KV blocks), not a
+Pallas kernel, so it is plain PyTorch here, with the reference's numerics
+at the reference's memory: for more than one query the keys are scanned in
+blocks of ``block_k`` with a running max, sum and accumulator in fp32, so
+the fp32 scores of one block exist at a time, never the whole
+``(B, Hkv, G, Sq, T)``; for one query (decode) the whole softmax at once,
+the reference's ``_decode_attention``. The causal, window and kv_len masks
+are ``_mask_scores``'s; the output takes the query dtype. Query positions
+and KV lengths may be given per row, so one batched decode serves slots at
+different positions.
 """
 
 from __future__ import annotations
@@ -93,9 +95,14 @@ def sinusoidal_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+FLASH_BLOCK_K = 1024   # the reference's default KV block (its ShardCtx.flash_block_k)
+
+
 def _mask_scores(s, q_pos, k_pos, *, causal: bool, window, kv_len):
     """s: (B, Hkv, G, Sq, T); q_pos: (Sq,), or (B, Sq) per row; k_pos: (T,);
-    kv_len: None, an int, or (B,) per row."""
+    kv_len: None, an int, or (B,) per row. Masked scores become NEG_INF."""
+    if not causal and window is None and kv_len is None:
+        return s
     q = q_pos[..., :, None]
     valid = torch.ones((*q_pos.shape, k_pos.shape[0]), dtype=torch.bool, device=s.device)
     if causal:
@@ -109,19 +116,21 @@ def _mask_scores(s, q_pos, k_pos, *, causal: bool, window, kv_len):
         valid &= k_pos < kv_len
     if valid.dim() == 3:  # per-row positions: (B, Sq, T) -> (B, 1, 1, Sq, T)
         valid = valid[:, None, None]
-    return torch.where(valid, s, torch.full_like(s, NEG_INF))
+    return s.masked_fill(~valid, NEG_INF)
 
 
-def attention(q, k, v, *, causal: bool = True, window=None, attn_softcap=None,
-              q_offset=0, kv_len=None) -> torch.Tensor:
-    """GQA attention. q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd), Hq % Hkv == 0.
+def _query_positions(q_offset, sq: int, device) -> torch.Tensor:
+    """(Sq,) positions from an int offset, (B, Sq) from a (B,) tensor."""
+    if isinstance(q_offset, torch.Tensor):  # (B,) per-row positions
+        return q_offset[:, None] + torch.arange(sq, device=device)
+    return torch.arange(q_offset, q_offset + sq, device=device)
 
-    ``q_offset`` is the position of the first query (an int, or a (B,)
-    tensor of per-row positions, as a batched decode over slots at
-    different positions gives); ``kv_len`` masks keys at and past it (an
-    int or (B,)). Returns (B, Sq, Hq, hd) in q.dtype; scores and
-    accumulation are fp32.
-    """
+
+def _direct_attention(q, k, v, *, causal=True, window=None, attn_softcap=None, q_offset=0,
+                      kv_len=None) -> torch.Tensor:
+    """The whole softmax at once, the reference's ``_decode_attention``: the
+    (B, Hkv, G, Sq, T) fp32 scores of every key. :func:`attention` runs it
+    for one query."""
     batch, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     groups = hq // hkv
@@ -129,15 +138,75 @@ def attention(q, k, v, *, causal: bool = True, window=None, attn_softcap=None,
     s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.to(torch.float32)) * hd ** -0.5
     if attn_softcap is not None:
         s = softcap(s, attn_softcap)
-    if isinstance(q_offset, torch.Tensor):  # (B,) per-row positions
-        q_pos = q_offset[:, None] + torch.arange(sq, device=q.device)
-    else:
-        q_pos = torch.arange(q_offset, q_offset + sq, device=q.device)
-    k_pos = torch.arange(skv, device=q.device)
-    s = _mask_scores(s, q_pos, k_pos, causal=causal, window=window, kv_len=kv_len)
+    s = _mask_scores(s, _query_positions(q_offset, sq, q.device),
+                     torch.arange(skv, device=q.device), causal=causal, window=window,
+                     kv_len=kv_len)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(torch.float32))
     return out.reshape(batch, sq, hq, hd).to(q.dtype)
+
+
+def attention(q, k, v, *, causal: bool = True, window=None, attn_softcap=None,
+              q_offset=0, kv_len=None, block_k: int = FLASH_BLOCK_K) -> torch.Tensor:
+    """GQA attention. q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd), Hq % Hkv == 0.
+
+    ``q_offset`` is the position of the first query (an int, or a (B,)
+    tensor of per-row positions, as a batched decode over slots at
+    different positions gives); ``kv_len`` masks keys at and past it (an
+    int or (B,)). Returns (B, Sq, Hq, hd) in q.dtype; scores and
+    accumulation are fp32.
+
+    One query runs :func:`_direct_attention`. More run the reference's
+    ``flash_attention``: K/V padded to a multiple of ``min(block_k, Skv)``
+    (the padded keys masked through ``kv_len``), then one block at a time
+    the scores, the running max ``m``, the rescaling ``exp(m_prev - m_new)``
+    of the running sum ``l`` and of the accumulator, in that order, and
+    ``acc / max(l, 1e-30)`` at the end. No block is skipped: a row whose
+    leading blocks are all masked (a window, a ``kv_len`` cut) keeps ``m``
+    at NEG_INF there and sums ``exp(0)``, and its first block with a valid
+    key rescales that by ``exp(NEG_INF - m_new)``, exactly 0, as in the
+    reference. Under autograd each block's scores stay for the backward, as
+    the reference's ``jax.grad`` of its scan keeps them.
+    """
+    batch, sq, hq, hd = q.shape
+    if sq == 1:
+        return _direct_attention(q, k, v, causal=causal, window=window,
+                                 attn_softcap=attn_softcap, q_offset=q_offset, kv_len=kv_len)
+    skv, hkv = k.shape[1], k.shape[2]
+    groups = hq // hkv
+    block_k = min(block_k, skv)
+    k, v = k.to(torch.float32), v.to(torch.float32)
+    if skv % block_k:
+        pad = block_k - skv % block_k
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_len = (torch.clamp(kv_len, max=skv) if isinstance(kv_len, torch.Tensor)
+                  else skv if kv_len is None else min(kv_len, skv))
+    # Queries (B, Hkv, G*Sq, hd); keys (B, Hkv, hd, T) and values (B, Hkv, T, hd).
+    qg = q.reshape(batch, sq, hkv, groups, hd).permute(0, 2, 3, 1, 4).to(torch.float32)
+    qg = qg.reshape(batch, hkv, groups * sq, hd)
+    kt, vt = k.permute(0, 2, 3, 1), v.permute(0, 2, 1, 3)
+    q_pos = _query_positions(q_offset, sq, q.device)
+    rows = (batch, hkv, groups, sq)
+    m = torch.full(rows, NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(rows, dtype=torch.float32, device=q.device)
+    acc = torch.zeros((*rows, hd), dtype=torch.float32, device=q.device)
+    for start in range(0, k.shape[1], block_k):
+        blk = slice(start, start + block_k)
+        s = (qg @ kt[..., blk]).view(*rows, block_k) * hd ** -0.5
+        if attn_softcap is not None:
+            s = softcap(s, attn_softcap)
+        s = _mask_scores(s, q_pos, torch.arange(start, start + block_k, device=q.device),
+                         causal=causal, window=window, kv_len=kv_len)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        pv = p.view(batch, hkv, groups * sq, block_k) @ vt[:, :, blk]
+        acc = acc * corr[..., None] + pv.view(*rows, hd)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]                  # (B, Hkv, G, Sq, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(batch, sq, hq, hd).to(q.dtype)
 
 
 class DenseKV(NamedTuple):
@@ -210,7 +279,7 @@ def _rank_kv(k, v, num_heads: int, num_kv_heads: int, head_dim: int, q_heads: in
 def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
                     positions, inv_freq, causal: bool = True, window=None,
                     attn_softcap=None, kv_cache=None, cache_index=None, kv_len=None,
-                    cross_kv=None, ctx=None):
+                    cross_kv=None, block_k: int = FLASH_BLOCK_K, ctx=None):
     """Attention sub-block: projections + RoPE + attention + out-proj.
 
     Returns ``(out, new_kv)``. Without a cache ``new_kv`` is the post-RoPE
@@ -226,7 +295,8 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
     With ``cross_kv`` (B, S_enc, D) this is cross-attention (whisper's
     decoder): K/V come from the encoder output, with no RoPE, no causal
     mask and no cache. Mixed dtypes promote (:func:`linear`), as in the
-    reference.
+    reference. ``block_k``: the KV block of :func:`attention` (the caller's
+    ``ShardCtx.flash_block_k``).
 
     ``ctx`` (``sharding.specs.ShardCtx``, one device by default) gives the
     columns' head layouts (:func:`split_heads`). Tensor-parallel, ``x`` is
@@ -270,7 +340,8 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
         q_offset = cache_index
         kv_len = cache_index + s if kv_len is None else kv_len
     out = merge_heads(attention(q, k, v, causal=causal and cross_kv is None, window=window,
-                                attn_softcap=attn_softcap, q_offset=q_offset, kv_len=kv_len),
+                                attn_softcap=attn_softcap, q_offset=q_offset, kv_len=kv_len,
+                                block_k=block_k),
                       q_layout)
     if tp and q_layout == "hd":
         out = out.narrow(-1, ctx.index * q_cols, q_cols)

@@ -60,14 +60,17 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, ctx=None,
     return loss, metrics
 
 
-def prefill(params: dict, batch: dict, cfg: ModelConfig):
+def prefill(params: dict, batch: dict, cfg: ModelConfig, *, ctx=None):
     """Full-sequence prefill of ``batch["tokens"]`` (and the batch's
     ``vision_embeds`` / ``audio_frames``): returns ``(logits, cache)`` (the
     reference returns its aux losses between them; a caller that wants them
-    calls ``forward(mode="prefill", return_aux=True)``)."""
+    calls ``forward(mode="prefill", return_aux=True)``). ``ctx``, a
+    one-device ``sharding.specs.ShardCtx``, gives the head layouts and the
+    attention's ``flash_block_k``; without one, 1024, as the serving
+    engine's prefill takes it."""
     return forward(params, batch["tokens"], cfg, mode="prefill",
                    extra_embeds=batch.get("vision_embeds"),
-                   encoder_frames=batch.get("audio_frames"))
+                   encoder_frames=batch.get("audio_frames"), ctx=ctx)
 
 
 __all__ = ["IGNORE_LABEL", "LB_COEF", "Z_COEF", "cross_entropy", "decode_step", "forward",

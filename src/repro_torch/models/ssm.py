@@ -192,25 +192,48 @@ def ssm_forward(x: torch.Tensor, params: dict, dims: SSMDims, *, chunk: int = 12
 
     ``ctx`` (``sharding.specs.ShardCtx``): tensor-parallel, ``x`` is the
     whole (sequence-gathered) input and ``params`` the rank's
-    ``param_specs`` shards: ``z``, ``x``, ``dt`` and the conv on ``x`` are
-    the rank's ``d_inner`` columns and heads, ``B`` and ``C`` whole; the SSD
-    runs on the rank's heads, the gated norm over the whole ``d_inner``
-    (:func:`_gated_norm_tp`), and the output is the rank's partial sum of
+    ``param_specs`` shards: ``z``, ``x`` and the conv on ``x`` are the
+    rank's ``d_inner`` columns, ``B`` and ``C`` whole. With the heads split
+    (``sharding.specs.ssm_heads_split``: the shards hold the rank's share of
+    them) ``dt`` is the rank's heads and the SSD runs on them alone. With
+    the heads whole (their count does not divide the model axis, as hymba's
+    50 on model 4, 8 or 16: the shards hold every head) the rank gathers the
+    convolved ``x`` over ``model`` (``tensor_parallel.gather_cols``,
+    reduce-scattered in the backward), takes ``dt`` from the whole ``wdt``,
+    runs the SSD and ``D * x`` on every head and keeps its own ``d_inner``
+    columns of ``y``, cut where the head reshape is undone: a rank's columns
+    may end inside a head (800 a rank at model=4 are 12.5 heads of 64).
+    That is the reference's placement under GSPMD; the SSD then runs ``m``
+    times over, once on each rank, and a rank's gradients of ``wdt``,
+    ``A_log``, ``D`` and ``dt_bias`` come from its columns only
+    (``tensor_parallel.grad_is_partial`` sums them over ``model``). Either
+    way the gated norm runs over the whole ``d_inner``
+    (:func:`_gated_norm_tp`) and the output is the rank's partial sum of
     ``out_proj``, which the caller reduces. Train mode only: prefill and
     decode run on one device.
     """
     bsz, seq, _ = x.shape
+    tp = ctx is not None and ctx.tensor_parallel
     heads = params["A_log"].shape[-1]      # the rank's heads (all on one device)
     z, xs_raw, b_raw, c_raw, dt = _project(x, params)
     xs = _causal_conv(xs_raw, params["conv_x"], params["conv_x_bias"])
     b_mat = _causal_conv(b_raw, params["conv_b"], params["conv_b_bias"])
     c_mat = _causal_conv(c_raw, params["conv_c"], params["conv_c_bias"])
+    cols = xs.shape[-1]                    # the rank's d_inner columns
+    whole_heads = tp and heads == dims.num_heads
+    if whole_heads:
+        from repro_torch.distributed import tensor_parallel
+
+        xs = tensor_parallel.gather_cols(xs, ctx)
     dt, a = _dt_a(dt, params)
     xh = xs.reshape(bsz, seq, heads, dims.head_dim)
     y, h_final = ssd_chunked(xh, dt, a, b_mat, c_mat, chunk=chunk, initial_state=initial_state)
     y = y + params["D"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(bsz, seq, heads * dims.head_dim).to(x.dtype) * F.silu(z)
-    if ctx is not None and ctx.tensor_parallel:
+    y = y.reshape(bsz, seq, heads * dims.head_dim)
+    if whole_heads:
+        y = y.narrow(-1, ctx.index * cols, cols)
+    y = y.to(x.dtype) * F.silu(z)
+    if tp:
         y = _gated_norm_tp(y, params["gate_norm"], dims.d_inner, ctx)
     else:
         y = rms_norm(y, params["gate_norm"])

@@ -50,6 +50,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
+    FLASH_BLOCK_K,
     DenseKV,
     attention_block,
     geglu,
@@ -206,11 +207,14 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
     is the SSM's ``out_proj``. hymba's attention and SSM read one gathered
     input, and one reduce closes both: ``0.5 * (attn * attn_scale + ssm *
     ssm_scale)`` is linear in the two partial sums, so this is the
-    reference's sum in another order, with half the reduce bytes.
+    reference's sum in another order, with half the reduce bytes. The
+    self- and cross-attention scan K/V in blocks of ``ctx.flash_block_k``
+    (``layers.attention``; 1024 without a context).
     """
     norms = layer["norms"]
     new_kv = new_ssm = None
     tp = ctx is not None and ctx.tensor_parallel
+    block_k = FLASH_BLOCK_K if ctx is None else ctx.flash_block_k
     # Into and out of a tensor-parallel branch: the sequence gather and the
     # reduce of the row-parallel partial sums; the identity on one device.
     enter = (lambda h: _tp().gather_seq(h, ctx)) if tp else (lambda h: h)
@@ -223,7 +227,8 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
             h, layer["attn"], num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, positions=positions, inv_freq=inv_freq,
             window=None if ring else window, causal=not ring, attn_softcap=cfg.attn_softcap,
-            kv_cache=kv_cache, cache_index=cache_index, kv_len=kv_len, ctx=ctx,
+            kv_cache=kv_cache, cache_index=cache_index, kv_len=kv_len, block_k=block_k,
+            ctx=ctx,
         )
 
     if "attn" in layer and "ssm" in layer:  # hymba: both branches on one normed input
@@ -247,7 +252,8 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
         cross_out, _ = attention_block(
             enter(rms_norm(x, norms["cross_norm"])), layer["cross"], num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, positions=positions,
-            inv_freq=None, attn_softcap=cfg.attn_softcap, cross_kv=cross_kv, ctx=ctx)
+            inv_freq=None, attn_softcap=cfg.attn_softcap, cross_kv=cross_kv, block_k=block_k,
+            ctx=ctx)
         x = x + leave(cross_out)
 
     aux = None
@@ -371,8 +377,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
     over the layers (fp32 zeros but for MoE), and the default leaves them
     out: ``logits`` or ``(logits, cache)``.
 
-    ``ctx`` (``sharding.specs.ShardCtx``): the heads' layouts on one device;
-    tensor-parallel ('train' mode), ``params`` are the rank's shards,
+    ``ctx`` (``sharding.specs.ShardCtx``): the heads' layouts and the
+    attention's KV block (``flash_block_k``) on one device; tensor-parallel
+    ('train' mode), ``params`` are the rank's shards,
     ``tokens`` (and the extras) the rows of its data coordinate, and the
     logits the rank's (B, S', Vp/m) vocab columns; ``ctx.seq_shard`` was
     made for the residual's whole length S'.

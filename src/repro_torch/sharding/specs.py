@@ -24,7 +24,12 @@ the ``model`` axis:
   splits), the router replicated;
 * SSM: wz/wx and conv_x / conv_x_bias on d_inner, wdt and the per-head
   A_log / D / dt_bias on heads (each where the axis divides them), wb/wc
-  and the B/C convs replicated, out_proj row-parallel on d_inner;
+  and the B/C convs replicated, out_proj row-parallel on d_inner. Where
+  d_inner divides the axis and the head count does not (hymba's 50 heads
+  on model 4, 8 or 16), d_inner splits off the head boundaries and wdt
+  and the per-head scalars stay whole (:func:`ssm_heads_split`); their
+  MuonBP block grids (:func:`block_specs_for`), momentum specs and
+  flatten fallback follow from these specs, whole, as the reference's do;
 * norms (gate_norm too: the name rule comes first, as in the reference),
   hymba's attn_scale / ssm_scale and everything else replicated.
 """
@@ -38,6 +43,7 @@ from typing import Any, Optional, Union
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core.blocking import block_spec_from_partition
+from repro_torch.models.layers import FLASH_BLOCK_K
 from repro_torch.models.transformer import ssm_dims
 
 MODEL_AXIS = "model"
@@ -129,13 +135,16 @@ def mesh_path(cfg: ModelConfig, axis_sizes) -> str:
     ``split_heads``): a ``None`` layout raises here, naming it, so that no
     mesh computes another head split than the reference's. The
     tensor-parallel path also needs the padded vocab and ``d_ff`` (an MoE
-    model's expert ``d_ff``), and an SSM's ``d_inner`` and head count, to
-    divide the axis (their splits are what its collectives assume). The
-    port does not run two cases the reference does, and raises on them,
-    naming the count: experts kept replicated where their ``d_ff`` does not
-    divide (``repro/models/moe.py:141-145``), and SSM heads that do not
-    divide (``d_inner`` split off the head boundaries, which GSPMD gathers
-    again at the head reshape).
+    model's expert ``d_ff``), and an SSM's ``d_inner``, to divide the axis
+    (their splits are what its collectives assume). SSM heads that do not
+    divide it run with the heads whole on every rank (:func:`ssm_heads_split`,
+    ``models/ssm.py``): ``d_inner`` splits off the head boundaries, as in the
+    reference, whose GSPMD gathers the activations again at the head
+    reshape. The port does not run two cases the reference does, and
+    raises on them, naming the count: experts kept replicated where their
+    ``d_ff`` does not divide (``repro/models/moe.py:141-145``), and an SSM
+    ``d_inner`` that does not divide (the reference replicates ``wz``/``wx``
+    there; no config of the registry meets it on model 2-16).
     """
     m = mesh_axis_sizes(axis_sizes).get(MODEL_AXIS, 1)
     if m <= 1:
@@ -152,12 +161,20 @@ def mesh_path(cfg: ModelConfig, axis_sizes) -> str:
               (cfg.d_ff, f"{ff} {cfg.d_ff} does")]
     if cfg.arch_type in ("ssm", "hybrid"):
         dims = ssm_dims(cfg)
-        counts += [(dims.d_inner, f"d_inner {dims.d_inner} does"),
-                   (dims.num_heads, f"{dims.num_heads} SSM heads do")]
+        counts.append((dims.d_inner, f"d_inner {dims.d_inner} does"))
     for n, what in counts:
         if not _divides(n, m):
             raise ValueError(f"{cfg.name} on model={m}: the {what} not divide the model axis")
     return TENSOR_PARALLEL
+
+
+def ssm_heads_split(cfg: ModelConfig, model_size: int) -> bool:
+    """Whether the SSM heads split over a model axis of ``model_size``: the
+    head count divides it. Otherwise ``wdt``, ``A_log``, ``D`` and
+    ``dt_bias`` stay whole on every rank while ``d_inner`` splits
+    (:func:`param_specs`); ``models/ssm.py``, finding every head in a
+    rank's shards, then runs every head on every rank."""
+    return _divides(ssm_dims(cfg).num_heads, model_size)
 
 
 def sequence_sharded(seq: int, model_size: int) -> bool:
@@ -180,6 +197,8 @@ class ShardCtx:
     ``encoder_seq_shard`` whether whisper's encoder residual is (its own
     length, so its own rule). The layouts give the head order of the Q and
     K/V projections' columns (``layers.split_heads``), on one device too.
+    ``flash_block_k`` is the KV block of the attention's online softmax
+    (``layers.attention``), the reference's field and default.
     """
 
     comm: Any = None
@@ -190,6 +209,7 @@ class ShardCtx:
     kv_layout: str = "head"
     seq_shard: bool = False
     encoder_seq_shard: bool = False
+    flash_block_k: int = FLASH_BLOCK_K
 
     @property
     def tensor_parallel(self) -> bool:
@@ -228,7 +248,7 @@ def param_specs(params, cfg: ModelConfig, axis_sizes) -> dict:
     m = mesh_axis_sizes(axis_sizes).get(MODEL_AXIS, 1)
     ql, kvl = attn_layouts(cfg, m)
     dims = ssm_dims(cfg) if cfg.arch_type in ("ssm", "hybrid") else None
-    heads_ok = dims is not None and _divides(dims.num_heads, m)
+    heads_ok = dims is not None and ssm_heads_split(cfg, m)
     inner_ok = dims is not None and _divides(dims.d_inner, m)
 
     def rep(leaf):
@@ -268,7 +288,8 @@ def param_specs(params, cfg: ModelConfig, axis_sizes) -> dict:
         if group == "ssm":
             # gate_norm never gets here: the "norm" rule replicates it first, as in the reference.
             # Weights shard on d_inner whenever it divides, even where the
-            # head count does not (hymba's 50 heads), as in the reference.
+            # head count does not (hymba's 50 heads): wdt and the per-head
+            # scalars stay whole then (ssm_heads_split), as in the reference.
             if name in ("wz", "wx", "conv_x", "conv_x_bias"):
                 return col(leaf, inner_ok)
             if name in ("wdt", "A_log", "D", "dt_bias"):

@@ -63,7 +63,7 @@ def _i32(value, device) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.int32, device=device)
 
 
-def init_guard_state(device="cpu") -> GuardState:
+def init_guard_state(device="cuda") -> GuardState:
     return GuardState(ema_loss=_f32(0.0, device), ema_count=_i32(0, device),
                       skipped=_i32(0, device), lr_scale=_f32(1.0, device))
 
@@ -232,7 +232,7 @@ def guard_to_meta(gstate: Optional[GuardState]) -> Optional[dict]:
     }
 
 
-def guard_from_meta(meta: Optional[dict], device="cpu") -> GuardState:
+def guard_from_meta(meta: Optional[dict], device="cuda") -> GuardState:
     if not meta:
         return init_guard_state(device)
     return GuardState(

@@ -78,6 +78,12 @@ CASES = {
     "olmoe_reduced": Case("olmoe-1b-7b", {"data": 2, "model": 4}, zero1=True, reduced=True),
     "mamba2_reduced": Case("mamba2-1.3b", {"data": 2, "model": 2}, zero1=True,
                            zero1_flatten=True, reduced=True),
+    # hymba's 50 SSM heads on axes that do not divide them: d_inner splits,
+    # wdt and the per-head scalars stay whole (their grids, momentum specs
+    # and flatten fallback included).
+    "hymba16x16_zero1": Case("hymba-1.5b", {"data": 16, "model": 16}, zero1=True),
+    "hymba_data2_model4_flatten": Case("hymba-1.5b", {"data": 2, "model": 4}, zero1=True,
+                                       zero1_flatten=True),
 }
 
 
@@ -252,7 +258,7 @@ def _commop(c):
 
 
 @pytest.mark.parametrize("name", ["granite16x16_flatten", "muonbp960m_model8_hd",
-                                  "granite_pod2_data2_model2"])
+                                  "granite_pod2_data2_model2", "hymba16x16_zero1"])
 @pytest.mark.parametrize("schedule", ["pipelined", "barrier"])
 def test_engine_program_matches_reference(name, schedule):
     from repro.core.blocking import BlockSpec2D as JBS

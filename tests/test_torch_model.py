@@ -5,9 +5,9 @@ over with ``repro_torch.interop``, and see the same numpy token batches.
 Tolerances, each with its reason:
 
 * layers and the model in fp32 compute: rtol 1e-4 / atol 1e-5. The two
-  frameworks sum in other orders (the reference's attention is an online
-  softmax over KV blocks, the port's a full softmax), which costs a few
-  fp32 ulps per reduction of ~256 terms;
+  frameworks sum in other orders (both attentions are online softmaxes
+  over KV blocks, here of other sizes), which costs a few fp32 ulps per
+  reduction of ~256 terms;
 * the model in bf16 compute: logits atol 0.1 on values of O(1) and loss
   atol 2e-2. bf16 keeps 8 bits of mantissa (a relative 4e-3 a rounding),
   and the two frameworks round the activations at other places.

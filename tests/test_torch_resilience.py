@@ -73,7 +73,7 @@ def _t(x):
 
 def test_health_check_finiteness():
     cfg = GuardConfig()
-    g = init_guard_state()
+    g = init_guard_state(device="cpu")
     ok = _t(2.0)
     assert bool(health_check(cfg, ok, ok, g))
     assert not bool(health_check(cfg, _t(np.nan), ok, g))
@@ -114,7 +114,7 @@ def test_fold_and_debias_match_the_reference(loss, healthy):
 
 def test_debiased_ema_matches_first_sample():
     cfg = GuardConfig(ema_beta=0.98)
-    g = fold_observation(cfg, init_guard_state(), _t(7.5), torch.tensor(True))
+    g = fold_observation(cfg, init_guard_state(device="cpu"), _t(7.5), torch.tensor(True))
     assert float(debiased_ema(cfg, g)) == pytest.approx(7.5, rel=1e-6)
     assert int(g.ema_count) == 1 and int(g.skipped) == 0
 
@@ -170,11 +170,11 @@ def test_guard_meta_roundtrip_across_packages():
     meta = guard_to_meta(g)
     ref = j_resilience.guard_from_meta(meta)
     assert j_resilience.guard_to_meta(ref) == meta
-    g2 = guard_from_meta(j_resilience.guard_to_meta(ref))
+    g2 = guard_from_meta(j_resilience.guard_to_meta(ref), device="cpu")
     assert guard_to_meta(g2) == meta
     assert g2.ema_count.dtype == i32 and g2.lr_scale.dtype == f32
     assert guard_to_meta(None) is None
-    assert int(guard_from_meta(None).skipped) == 0
+    assert int(guard_from_meta(None, device="cpu").skipped) == 0
 
 
 @pytest.mark.parametrize("spec", ["nan_grads@7,spike_loss@9x8,kill_in_save@12",
