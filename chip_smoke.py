@@ -12,7 +12,8 @@ Mixture-of-Experts model, and serving of both; MuonBP training and
 generate on the SSM, hybrid, VLM and audio models; the tensor-parallel
 dense and MoE models, the guarded step and the distributed optimizer on
 four ranks that share the card; the staggered full-step schedule on one
-rank and on four; a 32768-token prefill.
+rank and on four; tensor-parallel prefill and decode of every arch on four
+ranks; a 32768-token prefill.
 
   1. device   -- the card's name and power limit (nvidia-smi), device count;
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
@@ -131,13 +132,14 @@ rank and on four; a 32768-token prefill.
                  ranks on one GPU), through the launcher (the kernels built
                  once, here, before any rank starts), batch 2 x 1024 a rank,
                  bf16, every model on a model split tensor-parallel (each
-                 rank holds and computes with its parameter shards): run A,
-                 full-width muonbp-960m at all 12 layers on data=2,model=2
+                 rank holds and computes with its parameter shards), every
+                 run in one world of four processes: run A, full-width,
+                 full-depth muonbp-960m on data=2,model=2
                  with ZeRO-1, six steps, after one fp32 step (TF32 off)
                  whose loss, and each rank's gradient shards, are held
                  against the single-process port's; run B, NorMuon with the
-                 flatten fallback at 3 layers, two steps; run C, 12 layers
-                 on model=4, three steps; run D, internvl2-1b at 4 of 24
+                 flatten fallback at 3 layers, two steps; run C, full
+                 depth on model=4, three steps; run D, internvl2-1b at 4 of 24
                  layers (256 vision tokens ahead of the text) on
                  data=2,model=2 with ZeRO-1, three steps; run E,
                  olmoe-1b-7b at 2 of 16 layers tensor-parallel (the experts'
@@ -200,7 +202,33 @@ rank and on four; a 32768-token prefill.
                  each residue's update on rank 0 per leaf against one
                  process's full and block updates. It prints each
                  residue's step walls and update times;
- 15. prefill_long -- full-width, full-depth muonbp-960m prefills one row of
+ 15. tp_serve -- tensor-parallel prefill and greedy decode on four ranks
+                 that share the card (gloo), fp32, each rank holding its
+                 param_specs shards and its cache_specs shard of the decode
+                 cache. Run M on model=4: gemma2-9b at 4 of 42 layers
+                 ('head' Q and K/V, both softcaps; 4 rows, a 4608-token
+                 prompt past its 4096 window, 32 steps), mamba2-1.3b at 48
+                 of 48 (16 of its 64 SSM heads a rank; 4 x 2048, 32 steps),
+                 hymba-1.5b at 4 of 32 (Q and K/V 'hd', its 50 SSM heads
+                 whole on every rank; a ring of its 1024-slot window after a
+                 1536-token prompt, 32 steps), whisper-small at full depth
+                 (1500 stub frames; 4 x 64, 32 steps). Run N on
+                 data=2,model=2: muonbp-960m at 12 of 12 layers with the
+                 cache's sequence over model (kv_seq_shard; 2 rows, one a
+                 data rank, 4096 prompt tokens, 32 steps) and a batch of one
+                 whose cache splits its sequence over data (8192 prompt
+                 tokens, 32 steps), then olmoe-1b-7b at 2 of 16 layers (2 x
+                 1024, 16 steps). Each model against one process's fp32
+                 prefill + decode_step on the same weights (an MoE model's
+                 on each data shard's rows): the prefill's logits at 8
+                 positions and every step's to 1e-4 of max|logit|, the
+                 greedy tokens (fed the one process's) equal but at a
+                 near-tie, each rank's cache shard at the end to 1e-5 of the
+                 leaf's max and its bytes equal to local_cache_shapes', the
+                 'tp' bytes of the prefill and of each step equal to
+                 tp_bytes, no NS kernel launched. It prints the prefill wall
+                 and the decode p50/p95 a rank (gloo host copies: no link);
+ 16. prefill_long -- full-width, full-depth muonbp-960m prefills one row of
                  SHAPES["prefill_32k"] (32768 tokens) in bf16 with the
                  KV-blocked online-softmax attention (flash_block_k 1024):
                  the least wall of two, the peak memory, finite logits;
@@ -208,7 +236,7 @@ rank and on four; a 32768-token prefill.
                  one block, and the logits at position 32767 against
                  decode_step there after a prefill of the 32767 before it,
                  each to 1e-3 of max|logit|;
- 16. times    -- each kernel, its plain version and the one-call PyTorch
+ 17. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
                  the least time the card could take for the same work; the
                  tiled Gram with its B operand K-major and N-major (the
@@ -430,11 +458,12 @@ CHAOS_ARGV = ["--arch", "muonbp-960m", "--reduced", "--steps", "6", "--batch", "
 # rank, bf16. The dense, MoE, SSM and hybrid models run tensor-parallel:
 # each rank holds and computes with its param_specs shards,
 # sequence-sharded between layers.
-# Run A: full-width muonbp-960m at all 12 layers on data=2,model=2 with
-# ZeRO-1, six steps. Run B: NorMuon with the flatten fallback at 3 of 12
-# layers (3 does not divide 2: padded lead, padded row statistics), two
-# steps. Run C: 12 layers on model=4 (the 4 KV heads split 4 ways), three
-# steps. Run D: full-width internvl2-1b tensor-parallel (its 256 vision
+# Every run goes in one world of four processes (dist_world). Run A:
+# full-width, full-depth muonbp-960m on
+# data=2,model=2 with ZeRO-1, six steps. Run B: NorMuon with the flatten
+# fallback at 3 of 12 layers (3 does not divide 2: padded lead, padded row
+# statistics), two steps. Run C: full depth on model=4 (the 4 KV
+# heads split 4 ways), three steps. Run D: full-width internvl2-1b tensor-parallel (its 256 vision
 # tokens put ahead of the text in the embedding's partial sum on model
 # index 0) on data=2,model=2 with ZeRO-1, three steps (full, block, full).
 # Run E: full-width olmoe-1b-7b
@@ -501,7 +530,8 @@ DIST_SKIP_CLASSES = {"grad_reduce", "norm", "tp", "guard"}
 # (label, arch, mesh, global batch, extra flags, steps, layers (None: all),
 # tensor-parallel, kernels that must launch)
 DIST_RUNS = (
-    ("A", "muonbp-960m", "data=2,model=2", 4, ["--zero1"], 6, None, True, MAIN_PATH_KERNELS),
+    ("A", "muonbp-960m", "data=2,model=2", 4, ["--zero1"], 6, None, True,
+     MAIN_PATH_KERNELS),
     ("B", "muonbp-960m", "data=2,model=2", 4, ["--zero1", "--optimizer-variant", "normuon",
                                                "--zero1-flatten"], 2, 3, True,
      MAIN_PATH_KERNELS + ("normuon",)),
@@ -572,6 +602,24 @@ LONG_BLOCK_K = 1024
 LONG_TIMED = 2
 LONG_CHECK_SEQ = 8192   # one block of it: 4 GiB of fp32 scores a layer
 LONG_TOL = 1e-3
+
+
+# tp_serve: tensor-parallel prefill + decode on DIST_RANKS ranks (gloo). A case
+# is (arch, layers or None for full depth, global rows, prompt tokens, decode
+# steps, kv_seq_shard, ring_cache); the cache holds the prompt and the steps,
+# or on a ring the arch's window.
+TP_SERVE_RUNS = {
+    "M": ("model=4", (("gemma2-9b", 4, 4, 4608, 32, False, False),
+                      ("mamba2-1.3b", None, 4, 2048, 32, False, False),
+                      ("hymba-1.5b", 4, 4, 1536, 32, False, True),
+                      ("whisper-small", None, 4, 64, 32, False, False))),
+    "N": ("data=2,model=2", (("muonbp-960m", None, 2, 4096, 32, True, False),
+                             ("muonbp-960m", None, 1, 8192, 32, False, False),
+                             ("olmoe-1b-7b", 2, 2, 1024, 16, False, False))),
+}
+TP_SERVE_PROBES = 8       # prefill positions compared, evenly spaced, the last one among them
+TP_SERVE_TOL = 1e-4       # logits, of max|logit|
+TP_CACHE_TOL = 1e-5       # a cache shard, of the leaf's max
 
 
 def log(msg: str) -> None:
@@ -2420,11 +2468,14 @@ def dist_cfg(arch: str, layers):
     return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
-def dist_rank(rank: int, port: int, spec: tuple, out_dir: str) -> None:
-    """One rank of the distributed phase (started by torch.multiprocessing):
-    the fp32 step check (DIST_FP32_RUNS), the launcher on the mesh, then the
-    checks of :func:`dist_checks`; the results go to ``out_dir/rank<r>.json``.
-    An exception fails the rank."""
+def dist_rank(rank: int, port: int, specs: tuple, out_dir: str) -> None:
+    """One rank of a world of the distributed phase (started by
+    torch.multiprocessing), which runs every run of ``specs`` in turn: the
+    fp32 step check (DIST_FP32_RUNS), the launcher on the run's mesh, then
+    the checks of :func:`dist_checks`; each run's results go to
+    ``out_dir/<label>.rank<r>.json``. Between runs the rank frees what it
+    holds, and rank 0 deletes the run's fp32 reference once every rank has
+    read it. An exception fails the rank."""
     sys.path.insert(0, str(SRC))
     # Four processes share the card: expandable segments keep each one's
     # cached but unused blocks small (read at the rank's first allocation).
@@ -2438,9 +2489,26 @@ def dist_rank(rank: int, port: int, spec: tuple, out_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=DIST_RANKS)
     try:
-        res = dist_checks(rank, spec, out_dir)
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(res, f)
+        import gc
+
+        for spec in specs:
+            label = spec[0]
+            if rank == 0:
+                free, total = torch.cuda.mem_get_info()
+                log(f"[distributed:{label}] {DIST_RANKS} ranks start the run: card "
+                    f"{free / 2**30:.2f} GiB free of {total / 2**30:.2f}")
+            t0 = time.perf_counter()
+            res = dist_checks(rank, spec, out_dir)
+            res["run_s"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            res["left_bytes"] = torch.cuda.memory_allocated()
+            with open(os.path.join(out_dir, f"{label}.rank{rank}.json"), "w") as f:
+                json.dump(res, f)
+            dist.barrier()
+            ref = os.path.join(out_dir, f"{label}.fp32_ref.pt")
+            if rank == 0 and os.path.exists(ref):
+                os.remove(ref)
     except BaseException:
         import traceback
 
@@ -2717,7 +2785,8 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     period = int(extra[extra.index("--period") + 1]) if "--period" in extra else 5
     res = {}
     if label in DIST_FP32_RUNS:
-        res["fp32"] = dist_fp32_check(rank, spec, os.path.join(out_dir, "fp32_ref.pt"))
+        res["fp32"] = dist_fp32_check(rank, spec,
+                                      os.path.join(out_dir, f"{label}.fp32_ref.pt"))
     sink = MemorySink()
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -3006,11 +3075,12 @@ def dist_guard_checks(tag: str, res: list) -> None:
 
 def phase_distributed(smi: str) -> None:
     """Four ranks on the one card, gloo, through the launcher, every model
-    on a model split tensor-parallel: run A, full-width muonbp-960m at 12
-    layers on data=2,model=2 with ZeRO-1, six steps (full, block x4, full),
-    after the fp32 step held against one process; run B, NorMuon with the
-    flatten fallback at 3 of its 12 layers, two steps; run C, 12 layers on
-    model=4, three steps. Run D, internvl2-1b at DIST_D_LAYERS layers
+    on a model split tensor-parallel, every run in one world
+    (:func:`dist_world`): run A, full-width, full-depth muonbp-960m on
+    data=2,model=2 with ZeRO-1, six steps (full,
+    block x4, full), after the fp32 step held against one process; run B,
+    NorMuon with the flatten fallback at 3 of its 12 layers, two steps; run
+    C, full depth on model=4, three steps. Run D, internvl2-1b at DIST_D_LAYERS layers
     tensor-parallel, data=2,model=2 with ZeRO-1, three steps. Run E,
     olmoe-1b-7b at DIST_E_LAYERS layers tensor-parallel, data=2,model=2 with
     ZeRO-1, three steps, after its fp32 step and routing held against one
@@ -3028,58 +3098,72 @@ def phase_distributed(smi: str) -> None:
     rank's exit code is checked. gloo
     copies through the host: its times measure no link."""
     t_phase = time.perf_counter()
-    for spec in DIST_RUNS:
-        dist_run(spec, smi)
+    dist_world(DIST_RUNS, smi)
     log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def dist_run(spec: tuple, smi: str) -> list:
-    """One run of the distributed phase: DIST_RANKS ranks on the one card
-    through gloo and the checks every run shares; returns the ranks'
-    results (:func:`dist_checks`)."""
+def dist_world(specs: tuple, smi: str) -> list:
+    """The runs of ``specs`` in one world of DIST_RANKS ranks on the one
+    card through gloo (:func:`dist_rank`): the fp32 references of
+    DIST_FP32_RUNS first, each saved and freed, then the world, then each
+    run's checks (:func:`dist_report`). Returns each run's ranks' results."""
     import gc
     import tempfile
 
     import torch
     import torch.multiprocessing as mp
 
-    label, arch, mesh, batch, extra, steps, layers, want_tp, required = spec
-    t_run = time.perf_counter()
-    tag = f"distributed:{label}"
-    # The ranks need the card's memory: tensors of earlier phases that
-    # only a reference cycle keeps go first, then the parent's cache.
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    log(f"[{tag}] before the ranks: card {free / 2**30:.2f} GiB free of "
-        f"{total / 2**30:.2f}; this process {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-    argv = dist_argv(arch, mesh, batch, extra, steps)
-    log(f"[{tag}] {DIST_RANKS} ranks (gloo, one card): python -m repro_torch.launch.train "
-        f"{' '.join(argv)}" + (f", cfg num_layers={layers}" if layers else ""))
     with tempfile.TemporaryDirectory() as out_dir:
-        if label in DIST_FP32_RUNS:
-            t0 = time.perf_counter()
-            dist_fp32_reference(spec, os.path.join(out_dir, "fp32_ref.pt"))
-            gc.collect()
-            torch.cuda.empty_cache()
-            log(f"[{tag}] fp32 single-process reference step: "
-                f"{time.perf_counter() - t0:.1f} s, freed before the ranks start")
+        ref_s = {}
+        for spec in specs:
+            label, arch, mesh, batch, extra, steps, layers = spec[:7]
+            log(f"[distributed:{label}] {DIST_RANKS} ranks (gloo, one card): python -m "
+                f"repro_torch.launch.train {' '.join(dist_argv(arch, mesh, batch, extra, steps))}"
+                + (f", cfg num_layers={layers}" if layers else ""))
+            if label in DIST_FP32_RUNS:
+                t0 = time.perf_counter()
+                dist_fp32_reference(spec, os.path.join(out_dir, f"{label}.fp32_ref.pt"))
+                gc.collect()
+                torch.cuda.empty_cache()
+                ref_s[label] = time.perf_counter() - t0
+                log(f"[distributed:{label}] fp32 single-process reference step: "
+                    f"{ref_s[label]:.1f} s, freed before the ranks start")
+        # The ranks need the card's memory: tensors of earlier phases that
+        # only a reference cycle keeps go first, then the parent's cache.
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"[distributed] before the ranks: card {free / 2**30:.2f} GiB free of "
+            f"{total / 2**30:.2f}; this process {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
             port = sock.getsockname()[1]
+        t0 = time.perf_counter()
         # join=True raises if any rank raised or exited non-zero.
         try:
-            mp.start_processes(dist_rank, args=(port, spec, out_dir),
+            mp.start_processes(dist_rank, args=(port, specs, out_dir),
                                nprocs=DIST_RANKS, start_method="spawn", join=True)
         except Exception:
             for r in range(DIST_RANKS):
                 err = os.path.join(out_dir, f"rank{r}.err")
                 if os.path.exists(err):
-                    log(f"[{tag}] rank {r} failed:\n{open(err).read()}")
+                    log(f"[distributed] rank {r} failed:\n{open(err).read()}")
             raise
-        res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
-               for r in range(DIST_RANKS)]
+        log(f"[distributed] one world of {DIST_RANKS} ranks for runs "
+            f"{', '.join(spec[0] for spec in specs)}: {time.perf_counter() - t0:.1f} s")
+        out = [[json.load(open(os.path.join(out_dir, f"{spec[0]}.rank{r}.json")))
+                for r in range(DIST_RANKS)] for spec in specs]
+    for spec, res in zip(specs, out):
+        dist_report(spec, res, smi, ref_s.get(spec[0], 0.0))
+    return out
+
+
+def dist_report(spec: tuple, res: list, smi: str, ref_s: float) -> None:
+    """The checks every run of the distributed phase shares, on its ranks'
+    results ``res``; ``ref_s`` its fp32 reference's wall."""
+    label, arch, mesh, batch, extra, steps, layers, want_tp, required = spec
+    tag = f"distributed:{label}"
     r0 = res[0]
     log(f"[{tag}] losses {r0['losses']} phases {r0['phases']}")
     if any(r["losses"] != r0["losses"] for r in res):
@@ -3167,9 +3251,10 @@ def dist_run(spec: tuple, smi: str) -> list:
         split = {name: [round(v, 4) for v in vals] for name, vals in sorted(r["spans"].items())
                  if name.startswith(("train.", "muonbp."))}
         log(f"[{tag}] rank {rank} spans (s, --obs-block): {json.dumps(split)}")
-    log(f"[{tag}] {time.perf_counter() - t_run:.1f} s; times measure no link (gloo copies "
-        f"through the host); card: {smi}")
-    return res
+    log(f"[{tag}] {res[0]['run_s']:.1f} s on the ranks (its fp32 reference {ref_s:.1f} s "
+        f"before the world); each rank's memory left allocated after it "
+        f"{[round(r['left_bytes'] / 2**30, 3) for r in res]} GiB; times measure no link "
+        f"(gloo copies through the host); card: {smi}")
 
 
 def stagger_rank(rank: int, port: int, out_dir: str) -> None:
@@ -3324,7 +3409,7 @@ def phase_stagger(smi: str) -> None:
         f"card: {smi}")
 
     tag = "stagger:K"
-    res = dist_run(STAGGER_K, smi)
+    (res,) = dist_world((STAGGER_K,), smi)
     r0 = res[0]
     log(f"[{tag}] plan a rank and residue {r0['plan_residues']} B (predicted "
         f"{STAGGER_K_PREDICTED}); offsets {r0['offsets']}")
@@ -3360,6 +3445,346 @@ def phase_stagger(smi: str) -> None:
     log(f"[{tag}] comm_rates (modeled rates are the plan's planning constants; gloo walls "
         f"measure no link): {json.dumps(rates)}")
     log(f"[stagger] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def tp_serve_case(case: tuple) -> tuple:
+    """(cfg, cache length, first decode position) of a TP_SERVE_RUNS case."""
+    arch, layers, rows, prompt, new, kv_seq_shard, ring = case
+    cfg = dist_cfg(arch, layers)
+    start = cfg.vision_tokens + prompt
+    return cfg, cfg.window_size if ring else start + new, start
+
+
+def tp_serve_inputs(cfg, rows: int, prompt: int) -> dict:
+    """The case's whole batch on the card, from a seeded CPU generator:
+    prompt tokens and whisper's stub frames, N(0, 0.1^2)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(31)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, prompt), generator=gen)}
+    if cfg.arch_type == "audio":
+        batch["audio_frames"] = 0.1 * torch.randn((rows, cfg.encoder_seq, cfg.d_model),
+                                                  generator=gen)
+    return {k: v.to("cuda") for k, v in batch.items()}
+
+
+def tp_serve_probes(seq: int) -> list:
+    return sorted({(seq - 1) * i // (TP_SERVE_PROBES - 1) for i in range(TP_SERVE_PROBES)})
+
+
+def tp_serve_reference(case: tuple, sizes: dict, path: str) -> float:
+    """One process's fp32 prefill and greedy decode of ``case`` (TF32 off)
+    with the mesh's head layouts and the case's cache, saved to ``path``:
+    the prefill's logits at the probes, each step's logits, the tokens fed,
+    each step's argmax and top-2 gap over max|logit|, the final cache. An
+    MoE model runs each data shard's rows alone (its routing group on the
+    mesh); the others prefill each row alone (a prefill's logits are GBs)
+    and decode the rows together. Returns the wall."""
+    import torch
+
+    from repro_torch.models.encdec import encode
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.sharding import specs as sh
+
+    t0 = time.perf_counter()
+    arch, layers, rows, prompt, new, kv_seq_shard, ring = case
+    cfg, cache_len, start = tp_serve_case(case)
+    ql, kvl = sh.attn_layouts(cfg, sizes["model"])
+    ctx = sh.ShardCtx(q_layout=ql, kv_layout=kvl, cache_len=cache_len, ring_cache=ring)
+    params = init_params(cfg, seed=0, device="cuda")
+    batch = tp_serve_inputs(cfg, rows, prompt)
+    shards = math.prod(sizes[a] for a in sh.batch_axes_for(rows, sizes))
+    group = rows // shards if cfg.num_experts else rows
+    probes = tp_serve_probes(start)
+
+    def join(caches: list) -> dict:
+        out = {}
+        if "kv" in caches[0]:
+            out["kv"] = tuple(torch.cat([c["kv"][j] for c in caches], dim=1) for j in range(2))
+        if "ssm" in caches[0]:
+            out["ssm"] = {k: torch.cat([c["ssm"][k] for c in caches], dim=1)
+                          for k in caches[0]["ssm"]}
+        return out
+
+    parts = []
+    with torch.no_grad():
+        for g in range(0, rows, group):
+            part = {k: v[g:g + group] for k, v in batch.items()}
+            probe, first, caches = [], [], []
+            for r in range(group if cfg.num_experts == 0 else 1):
+                one = part if cfg.num_experts else {k: v[r:r + 1] for k, v in part.items()}
+                logits, cache = prefill(params, one, cfg, ctx=ctx)
+                probe.append(logits[:, probes].cpu())
+                first.append(torch.argmax(logits[:, -1:], dim=-1))
+                caches.append(cache)
+                del logits
+            cache = join(caches)
+            del caches
+            token = torch.cat(first)
+            enc = (encode(params["encoder"], part["audio_frames"], cfg, ctx)
+                   if cfg.arch_type == "audio" else None)
+            fed, steps, best, gaps = [], [], [], []
+            for t in range(new):
+                fed.append(token)
+                lg, cache = decode_step(params, token, cache, start + t, cfg, ring_cache=ring,
+                                        encoder_out=enc, ctx=ctx)
+                top = torch.topk(lg[:, 0], 2).values
+                gaps.append(((top[:, 0] - top[:, 1]) / lg[:, 0].abs().amax(dim=-1)).cpu())
+                steps.append(lg[:, 0].cpu())
+                token = torch.argmax(lg, dim=-1)
+                best.append(token.cpu())
+            parts.append({"probes": torch.cat(probe), "tokens": torch.cat(fed, dim=1).cpu(),
+                          "argmax": torch.cat(best, dim=1), "logits": torch.stack(steps),
+                          "gaps": torch.stack(gaps),
+                          **({"kv": tuple(t.cpu() for t in cache["kv"])} if "kv" in cache else {}),
+                          **({"ssm": {k: v.cpu() for k, v in cache["ssm"].items()}}
+                             if "ssm" in cache else {})})
+            del cache, enc
+    ref = {"probes": torch.cat([p["probes"] for p in parts]),
+           "tokens": torch.cat([p["tokens"] for p in parts]),
+           "argmax": torch.cat([p["argmax"] for p in parts]),
+           "logits": torch.cat([p["logits"] for p in parts], dim=1),
+           "gaps": torch.cat([p["gaps"] for p in parts], dim=1),
+           **join(parts)}
+    ref["probe_max"] = float(ref["probes"].abs().max())
+    ref["logit_max"] = [float(x) for x in ref["logits"].abs().amax(dim=(1, 2))]
+    torch.save(ref, path)
+    del params, parts, ref
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def tp_serve_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of the tp_serve world (started by torch.multiprocessing):
+    every run of TP_SERVE_RUNS on its mesh over the one world, the checks
+    of :func:`tp_serve_checks` to ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, str(SRC))
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=DIST_RANKS)
+    try:
+        res = {label: tp_serve_checks(rank, label, out_dir) for label in TP_SERVE_RUNS}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_serve_checks(rank: int, label: str, out_dir: str) -> list:
+    """Each case of run ``label`` on this rank: its shards of the seeded
+    weights (each rank builds the whole and keeps its slices), the prefill
+    of its rows, the decode steps fed the one process's tokens, each held
+    against the one process's saved outputs (:func:`tp_serve_reference`)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import tensor_parallel, tp_bytes
+    from repro_torch.distributed.audit import Collectives
+    from repro_torch.launch.mesh import make_mesh_from_spec
+    from repro_torch.models.encdec import encode
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.sharding import specs as sh
+
+    spec, cases = TP_SERVE_RUNS[label]
+    comm = Collectives(make_mesh_from_spec(spec))
+    sizes, coords = comm.axis_sizes, comm.coords
+    kernels.reset_launch_counts()
+    sync = torch.cuda.synchronize
+    out = []
+    for n_case, case in enumerate(cases):
+        arch, layers, rows, prompt, new, kv_seq_shard, ring = case
+        cfg, cache_len, start = tp_serve_case(case)
+        t_case = time.perf_counter()
+        full = init_params(cfg, seed=0, device="cuda")
+        specs = sh.param_specs(full, cfg, sizes)
+        params = tree_lib.map_with_path(
+            lambda _, leaf, sp: leaf[sh.spec_slices(sp, leaf.shape, sizes, coords)].clone(),
+            full, specs)
+        del full
+        torch.cuda.empty_cache()
+        dist.barrier()
+        build_s = time.perf_counter() - t_case
+        ctx = sh.make_ctx(cfg, comm=comm, seq=start, batch=rows, cache_len=cache_len,
+                          kv_seq_shard=kv_seq_shard, ring_cache=ring)
+        baxes = sh.batch_axes_for(rows, sizes)
+        n, i = comm.size(baxes), comm.index(baxes)
+        sl = slice(i * rows // n, (i + 1) * rows // n)
+        batch = {k: v[sl] for k, v in tp_serve_inputs(cfg, rows, prompt).items()}
+        ref = torch.load(os.path.join(out_dir, f"ref{label}{n_case}.pt"), mmap=True)
+        vp = cfg.padded_vocab // ctx.size
+        cols = slice(ctx.index * vp, (ctx.index + 1) * vp)
+        comm.trace.events.clear()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            comm.trace.step = "prefill"
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, batch, cfg, ctx=ctx)
+            sync()
+            prefill_s = time.perf_counter() - t0
+            got = logits[:, tp_serve_probes(start)]
+            del logits
+            want = ref["probes"][sl][..., cols].to("cuda")
+            prefill_err = float((got - want).abs().max()) / ref["probe_max"]
+            del got, want
+            shapes, held = ctx.cache_shapes, sh.held_cache_shapes(cache)
+            cache_bytes = sum(t.numel() * t.element_size() for t in
+                              [*cache.get("kv", ()), *cache.get("ssm", {}).values()])
+            enc = None
+            if cfg.arch_type == "audio":
+                comm.trace.step = "encode"
+                enc = encode(params["encoder"], batch["audio_frames"], cfg, ctx)
+            errs, walls, tops = [], [], []
+            for t in range(new):
+                token = ref["tokens"][sl, t:t + 1].to("cuda")
+                comm.trace.step = ("decode", t)
+                sync()
+                t0 = time.perf_counter()
+                lg, cache = decode_step(params, token, cache, start + t, cfg, encoder_out=enc,
+                                        ctx=ctx)
+                sync()
+                walls.append(time.perf_counter() - t0)
+                want = ref["logits"][t][sl][..., cols].to("cuda")
+                errs.append(float((lg[:, 0] - want).abs().max()) / ref["logit_max"][t])
+                top = lg[:, 0].max(dim=-1)
+                tops.append(torch.stack([top.values, (top.indices + cols.start).float()], -1))
+            # Each step's argmax over the whole vocab from every rank's
+            # (max, index) pair, one gather for the case: the first rank's
+            # at a tie, the lower vocab index, as torch.argmax picks.
+            comm.trace.step = "argmax"
+            pairs = tensor_parallel.gather_over_model(torch.stack(tops, 1)[:, :, None], ctx, 2)
+            best = torch.gather(pairs[..., 1], 2, pairs[..., 0].argmax(dim=2, keepdim=True))
+            best = best[..., 0].long().cpu()                          # (rows, new)
+            parts = [(t, j, float(ref["gaps"][t][sl][j])) for t in range(new)
+                     for j in range(best.shape[0]) if int(best[j, t]) != int(ref["argmax"][sl][j, t])]
+        # The cache shard after the last step against the one process's, sliced.
+        cache_errs = {}
+        specs = sh.cache_specs(cfg, sh.decode_shape(rows, cache_len), sizes,
+                               kv_seq_shard=kv_seq_shard, cache_len=cache_len)
+        leaves = [(f"kv{j}", cache["kv"][j], ref["kv"][j], specs["kv"][j])
+                  for j in range(2) if "kv" in cache]
+        leaves += [(k, v, ref["ssm"][k], specs["ssm"][k]) for k, v in cache.get("ssm", {}).items()]
+        for key, shard, whole, sp in leaves:
+            piece = whole[sh.spec_slices(sp, whole.shape, sizes, coords)].to("cuda")
+            cache_errs[key] = (float((shard.float() - piece.float()).abs().max())
+                               / max(float(whole.abs().max()), 1e-30))
+            del piece
+        trace = comm.trace
+        kw = dict(batch=rows, kv_seq_shard=kv_seq_shard, compute_bytes=4)
+        steps_ms = sorted(1e3 * w for w in walls)
+        out.append({
+            "case": f"{arch} ({cfg.num_layers} layers)", "rows": sl.stop - sl.start,
+            "layouts": [ctx.q_layout, ctx.kv_layout], "kv_seq_axes": list(ctx.kv_seq_axes),
+            "prefill_err": prefill_err, "decode_err": max(errs), "token_parts": parts,
+            "cache_errs": cache_errs, "cache_shapes_ok": held == shapes,
+            "cache_bytes": cache_bytes, "local_bytes": sh.cache_bytes(shapes, 4),
+            "tp_prefill": trace.total_bytes("tp", step="prefill"),
+            "tp_prefill_pred": tp_bytes(cfg, sl.stop - sl.start, prompt, sizes, mode="prefill",
+                                        cache_len=cache_len, **kw),
+            "tp_decode": [trace.total_bytes("tp", step=("decode", t)) for t in range(new)],
+            "tp_decode_pred": tp_bytes(cfg, sl.stop - sl.start, cache_len, sizes, mode="decode",
+                                       **kw),
+            "prefill_s": prefill_s, "decode_s": sum(walls), "build_s": build_s,
+            "case_s": time.perf_counter() - t_case,
+            "decode_ms_p50": steps_ms[len(steps_ms) // 2],
+            "decode_ms_p95": steps_ms[min(len(steps_ms) - 1, math.ceil(0.95 * len(steps_ms)) - 1)],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        del params, cache, enc, ref
+        torch.cuda.empty_cache()
+        dist.barrier()
+    launches = kernels.launch_counts()
+    for r in out:
+        r["launches"] = launches
+    return out
+
+
+def phase_tp_serve(smi: str) -> None:
+    """Runs M and N of TP_SERVE_RUNS (see the module doc): one process's
+    references of every case first, saved and freed, then one world of
+    DIST_RANKS ranks on the card through gloo that runs both meshes in
+    turn, each case checked on every rank."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import parse_mesh_spec
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        for label, (spec, cases) in TP_SERVE_RUNS.items():
+            sizes = dict(zip(*parse_mesh_spec(spec)))
+            for n_case, case in enumerate(cases):
+                wall = tp_serve_reference(case, sizes,
+                                          os.path.join(out_dir, f"ref{label}{n_case}.pt"))
+                log(f"[tp_serve:{label}] one process fp32 reference of {case}: {wall:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        try:
+            mp.start_processes(tp_serve_rank, args=(port, out_dir), nprocs=DIST_RANKS,
+                               start_method="spawn", join=True)
+        except Exception:
+            for r in range(DIST_RANKS):
+                err = os.path.join(out_dir, f"rank{r}.err")
+                if os.path.exists(err):
+                    log(f"[tp_serve] rank {r} failed:\n{open(err).read()}")
+            raise
+        ranks_s = time.perf_counter() - t0
+        res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+               for r in range(DIST_RANKS)]
+    for label, (spec, cases) in TP_SERVE_RUNS.items():
+        tag = f"tp_serve:{label}"
+        for n_case, case in enumerate(cases):
+            name = f"{tag}:{res[0][label][n_case]['case']}"
+            for rank, r in enumerate(x[label][n_case] for x in res):
+                log(f"[{name}] rank {rank}: {r['rows']} rows, layouts {r['layouts']}, cache "
+                    f"sequence over {r['kv_seq_axes'] or 'no axis'}; prefill logits "
+                    f"{r['prefill_err']:.3e}, decode {r['decode_err']:.3e} of max|logit| (tol "
+                    f"{TP_SERVE_TOL:g}); cache shard {json.dumps({k: float(f'{v:.3e}') for k, v in r['cache_errs'].items()})} "
+                    f"of the leaf's max (tol {TP_CACHE_TOL:g}); cache {r['cache_bytes']} B "
+                    f"(local_cache_shapes {r['local_bytes']} B); tp prefill {r['tp_prefill']} B "
+                    f"(tp_bytes {r['tp_prefill_pred']}), a decode step {r['tp_decode'][0]} B "
+                    f"(tp_bytes {r['tp_decode_pred']}); prefill wall {r['prefill_s']:.3f} s, "
+                    f"decode p50 {r['decode_ms_p50']:.2f} ms p95 {r['decode_ms_p95']:.2f} ms "
+                    f"(gloo host copies: no link); peak {r['peak_gib']:.2f} GiB; case "
+                    f"{r['case_s']:.1f} s (shards built {r['build_s']:.1f} s, decode "
+                    f"{r['decode_s']:.1f} s)")
+                if not r["prefill_err"] <= TP_SERVE_TOL or not r["decode_err"] <= TP_SERVE_TOL:
+                    fail(f"{name}: rank {rank}'s logits disagree with one process")
+                for t, j, gap in r["token_parts"]:
+                    log(f"[{name}] rank {rank}: step {t} row {j} argmax differs; the one "
+                        f"process's top-2 gap {gap:.3e} of max|logit| (tie rule {TIE_REL:g})")
+                    if not gap < TIE_REL:
+                        fail(f"{name}: greedy token differs at step {t} away from a near-tie")
+                if any(not v <= TP_CACHE_TOL for v in r["cache_errs"].values()):
+                    fail(f"{name}: rank {rank}'s cache shard disagrees with one process")
+                if not r["cache_shapes_ok"] or r["cache_bytes"] != r["local_bytes"]:
+                    fail(f"{name}: rank {rank} holds another cache than its cache_specs shard")
+                if r["tp_prefill"] != r["tp_prefill_pred"] or any(
+                        b != r["tp_decode_pred"] for b in r["tp_decode"]):
+                    fail(f"{name}: rank {rank}'s tp bytes differ from tp_bytes")
+                if any(r["launches"].values()):
+                    fail(f"{name}: rank {rank} launched NS kernels {r['launches']}")
+    log(f"[tp_serve] one world of {DIST_RANKS} ranks, both meshes: {ranks_s:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; card: {smi}")
 
 
 def phase_prefill_long(smi: str) -> None:
@@ -3637,6 +4062,7 @@ def main() -> int:
     phase_archs(device["smi"])
     phase_distributed(device["smi"])
     phase_stagger(device["smi"])
+    phase_tp_serve(device["smi"])
     phase_prefill_long(device["smi"])
     rows = phase_times(errors, launches)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")

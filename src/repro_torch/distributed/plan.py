@@ -505,10 +505,14 @@ def dion_bytes(params: Any, pspecs: Any, mesh, *, labels: Any = None, rank: int 
 
 
 def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2,
-             remat: bool = True) -> int:
+             remat: bool = True, mode: str = "train", batch: Optional[int] = None,
+             cache_len: Optional[int] = None, kv_seq_shard: bool = False) -> int:
     """The ``'tp'`` collective bytes of one rank and training step of the
     tensor-parallel model (``distributed/tensor_parallel.py``), from the
     shapes; 0 where ``sharding.specs.mesh_path`` runs ``cfg`` replicated.
+    ``mode="prefill"`` and ``"decode"`` count one prefill and one decode
+    step instead (:func:`_tp_serve_bytes`; ``batch``, ``cache_len`` and
+    ``kv_seq_shard`` are its).
 
     ``rows`` x ``seq`` text tokens a rank (its data coordinate's rows); the
     residual is ``sharding.specs.residual_len`` long (a VLM's vision tokens
@@ -555,73 +559,188 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2,
     sizes = sh.mesh_axis_sizes(axis_sizes)
     if sh.mesh_path(cfg, sizes) != sh.TENSOR_PARALLEL:
         return 0
+    if mode != "train":
+        return _tp_serve_bytes(cfg, rows, seq, sizes, mode=mode, batch=batch,
+                               cache_len=cache_len, kv_seq_shard=kv_seq_shard,
+                               compute_bytes=compute_bytes)
     m = sizes[sh.MODEL_AXIS]
+    seq_shard = sh.sequence_sharded(sh.residual_len(cfg, seq), m)
+    d, arch = cfg.d_model, cfg.arch_type
+    audio = arch == "audio"
+    (edge, _), (layer_f, layer_b), (enc_f, enc_b) = _tp_forward(cfg, rows, seq, m,
+                                                                compute_bytes)
+    total = (2 * edge + cfg.num_layers * (layer_f + layer_b + (layer_f if remat else 0))
+             + enc_f + enc_b + 3 * rows * seq * FP32_BYTES)
+    # Elements a layer of the replicated leaves: partial in either layout,
+    # and partial only when the residual is sequence-sharded.
+    attn = bool(cfg.num_heads) and arch != "ssm"
+    always = cfg.num_experts * d
+    norms = ((2 * d if attn else 0) + (2 * d if cfg.use_post_norms else 0)
+             + (d if audio else 0))
+    if arch in ("ssm", "hybrid"):
+        dims = sh.ssm_dims(cfg)
+        n, k = dims.state_size, dims.conv_kernel
+        always += 2 * (d * n + k * n + n) + dims.d_inner
+        norms += d
+        if not sh.ssm_heads_split(cfg, m):
+            always += d * dims.num_heads + 3 * dims.num_heads
+    if arch == "hybrid":
+        always += 2 * d
+    partial = cfg.num_layers * always + (cfg.num_layers * norms + d if seq_shard else 0)
+    if audio and sh.sequence_sharded(cfg.encoder_seq, m):
+        partial += cfg.encoder_layers * 2 * d + d
+    return total + FP32_BYTES * partial
+
+
+def _tp_forward(cfg, rows: int, seq: int, m: int, elt: int) -> tuple:
+    """The forward's ``'tp'`` collectives of the tensor-parallel model on
+    ``rows`` x ``seq`` text tokens a rank and a model axis of ``m``, each
+    with its backward, as :func:`tp_bytes` counts them: ``(edge, layer,
+    encoder)``, each a (forward, backward) pair of bytes. ``edge``: the
+    embedding's reduce and the logits' gather; ``layer``: one decoder
+    layer's sequence gathers and reduces, its 'hd' column gathers (the
+    cross-attention's too), an SSM layer's gated-norm all-reduce and, with
+    its heads whole, the gather of its convolved input; ``encoder``:
+    whisper's encoder layers and the gather of their output (0 without an
+    encoder). A column gather's backward is its reduce-scatter; a sequence
+    gather and reduce together move a pair's bytes each way."""
     res_len = sh.residual_len(cfg, seq)
     seq_shard = sh.sequence_sharded(res_len, m)
     tokens = rows * res_len
     d, arch = cfg.d_model, cfg.arch_type
     audio = arch == "audio"
 
-    def pair(width: int, n: int = tokens, sharded: bool = seq_shard,
-             elt: int = compute_bytes) -> int:
-        """A gather (or reduce) of (rows, n / rows, width) and its backward."""
-        act = n * width * elt
+    def pair(n: int = tokens, sharded: bool = seq_shard, size: int = elt) -> int:
+        """A gather and a reduce of (rows, n / rows, d), one way."""
+        act = n * d * size
         return act + act // m if sharded else act
 
-    def cols(width: int, n: int = tokens, elt: int = compute_bytes, fwd: bool = False) -> int:
-        """A column gather of (rows, n / rows, width) and its reduce-scatter
-        (``fwd``: the gather alone)."""
-        act = n * width * elt
-        return act if fwd else act + act // m
+    def cols(width: int, n: int = tokens, size: int = elt) -> tuple:
+        """A column gather of (rows, n / rows, width) and its reduce-scatter."""
+        act = n * width * size
+        return act, act // m
 
-    ssm = arch in ("ssm", "hybrid")
-    attn = bool(cfg.num_heads) and arch != "ssm"
+    def add(*terms) -> tuple:
+        return tuple(map(sum, zip((0, 0), *terms)))
+
     # Sequence gathers a layer (as many reduces): into and out of each branch.
     gathers = 1 if arch == "ssm" else 3 if audio else 2
-    per_layer = 2 * gathers * pair(d)
-    recompute = gathers * pair(d)
-    # Elements a layer of the replicated leaves: partial in either layout,
-    # and partial only when the residual is sequence-sharded.
-    always = cfg.num_experts * d
-    norms = ((2 * d if attn else 0) + (2 * d if cfg.use_post_norms else 0)
-             + (d if audio else 0))
+    layer = [(gathers * pair(), gathers * pair())]
+    encoder = []
+    if bool(cfg.num_heads) and arch != "ssm":
+        ql, kvl = sh.attn_layouts(cfg, m)
+        # The self-attention's columns; whisper's cross-attention's Q too.
+        q = [cols(cfg.q_dim)] * (2 if audio else 1) if ql == "hd" else []
+        kv = [cols(cfg.kv_dim)] * 2 if kvl == "hd" else []
+        layer += q + kv
+        if audio:
+            enc = rows * cfg.encoder_seq
+            enc_shard = sh.sequence_sharded(cfg.encoder_seq, m)
+            enc_kv = [cols(cfg.kv_dim, enc, FP32_BYTES)] * 2 if kvl == "hd" else []
+            enc_q = [cols(cfg.q_dim, enc, FP32_BYTES)] if ql == "hd" else []
+            # The cross-attention's K/V, from the encoder output.
+            layer += enc_kv
+            enc_layer = add((2 * pair(enc, enc_shard, FP32_BYTES),) * 2, *enc_kv, *enc_q)
+            # The output's gather: an all-gather forward when sharded, else
+            # the identity forward and an all-reduce backward.
+            act = enc * d * FP32_BYTES
+            out = (act, act // m) if enc_shard else (0, act)
+            encoder = [tuple(cfg.encoder_layers * x for x in enc_layer), out]
+    if arch in ("ssm", "hybrid"):
+        layer.append((tokens * FP32_BYTES, tokens * FP32_BYTES))
+        if not sh.ssm_heads_split(cfg, m):
+            layer.append(cols(sh.ssm_dims(cfg).d_inner))
+    return (pair(), pair()), add(*layer), add(*encoder)
+
+
+def _tp_serve_bytes(cfg, rows: int, seq: int, sizes: dict, *, mode: str,
+                    batch: Optional[int] = None, cache_len: Optional[int] = None,
+                    kv_seq_shard: bool = False, compute_bytes: int = 2) -> int:
+    """The ``'tp'`` collective bytes of one rank for one tensor-parallel
+    prefill (``mode="prefill"``: ``rows`` x ``seq`` text tokens, the
+    residual :func:`sharding.specs.residual_len` long) or one decode step
+    (``mode="decode"``: ``rows`` tokens against a cache of ``seq``
+    positions), from the shapes. ``rows`` are the rank's data
+    coordinate's; the cache is laid out by ``sharding.specs.cache_specs``
+    for ``batch`` rows over the mesh (``rows`` times the data axes' size
+    unless given), ``cache_len`` positions (prefill: the residual's length
+    unless given; decode: ``seq``) and ``kv_seq_shard``. Activations and
+    the cache of ``compute_bytes`` (a prefill writes the cache in the
+    activations' dtype); whisper's encoder and the cross-attention's K/V
+    fp32, as :func:`tp_bytes` takes them. No backward and no recompute.
+    Counted:
+
+    prefill -- the train forward's collectives once (:func:`_tp_forward`);
+    and for the cache: with its sequence over ``model`` in the 'head' KV
+    layout, each attention layer's K and V heads gathered over ``model``
+    ((rows, S', Hkv, hd) each); with the SSM heads whole, each layer's last
+    K-1 raw inputs gathered ((rows, K-1, d_inner)).
+
+    decode -- the embedding's all-reduce and each layer's reduces of
+    (rows, 1, d) (the one-position residual is never sequence-sharded:
+    the gathers are the identity); in each self-attention layer, Q's
+    columns gathered where the cache's sequence is over ``model`` or Q is
+    'hd', the fresh K/V's where it is over ``model`` or KV is 'hd'; in the
+    'hd' KV layout (the sequence not over ``model``) the rank's cache, K and
+    V, gathered over ``model`` on head_dim ((rows, T_local, Hkv, hd)); with
+    the sequence split (over ``model``, or over the data axes), the merge
+    of the softmax: a (rows, heads) fp32 max and a (rows, heads, hd + 1)
+    fp32 sum, ``heads`` the Q heads the rank attends (every head over
+    ``model`` or in Q 'hd', else its own); whisper's cross-attention: Q's
+    columns in 'hd', K/V's of the whole encoder output in 'hd'; an SSM
+    layer's gated-norm (rows, 1) fp32 all-reduce, and with its heads whole
+    its raw and convolved (rows, d_inner) inputs gathered.
+    """
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
+    m = sizes[sh.MODEL_AXIS]
+    d, arch, elt = cfg.d_model, cfg.arch_type, compute_bytes
+    data = math.prod(v for a, v in sizes.items() if a != sh.MODEL_AXIS)
+    batch = rows * data if batch is None else batch
+    prefill = mode == "prefill"
+    res_len = sh.residual_len(cfg, seq) if prefill else 1
+    length = seq if not prefill else (res_len if cache_len is None else cache_len)
+    specs = sh.cache_specs(cfg, sh.decode_shape(batch, length), sizes,
+                           kv_seq_shard=kv_seq_shard, cache_len=length)
+    tokens = rows * res_len
+    attn = bool(cfg.num_heads) and arch != "ssm"
+    ssm_whole = arch in ("ssm", "hybrid") and not sh.ssm_heads_split(cfg, m)
+    d_inner = sh.ssm_dims(cfg).d_inner if arch in ("ssm", "hybrid") else 0
     if attn:
         ql, kvl = sh.attn_layouts(cfg, m)
-        q_cols = cols(cfg.q_dim) if ql == "hd" else 0
-        q_fwd = cols(cfg.q_dim, fwd=True) if ql == "hd" else 0
-        per_layer += (2 * cols(cfg.kv_dim) if kvl == "hd" else 0) + q_cols
-        recompute += (2 * cols(cfg.kv_dim, fwd=True) if kvl == "hd" else 0) + q_fwd
-    if ssm:
-        dims = sh.ssm_dims(cfg)
-        n, k = dims.state_size, dims.conv_kernel
-        per_layer += 2 * tokens * FP32_BYTES
-        recompute += tokens * FP32_BYTES
-        always += 2 * (d * n + k * n + n) + dims.d_inner
-        norms += d
-        if not sh.ssm_heads_split(cfg, m):
-            h = dims.num_heads
-            per_layer += cols(dims.d_inner)
-            recompute += cols(dims.d_inner, fwd=True)
-            always += d * h + 3 * h
-    if arch == "hybrid":
-        always += 2 * d
-    total = cfg.num_layers * per_layer + 2 * pair(d) + 3 * rows * seq * FP32_BYTES
-    partial = cfg.num_layers * always + (cfg.num_layers * norms + d if seq_shard else 0)
-    if audio:
-        enc = rows * cfg.encoder_seq
-        enc_shard = sh.sequence_sharded(cfg.encoder_seq, m)
-        kv = 2 * cols(cfg.kv_dim, enc, FP32_BYTES) if kvl == "hd" else 0
-        enc_layer = (4 * pair(d, enc, enc_shard, FP32_BYTES) + kv
-                     + (cols(cfg.q_dim, enc, FP32_BYTES) if ql == "hd" else 0))
-        # The encoder's layers, its output's gather, the cross-attention's Q and K/V columns.
-        total += (cfg.encoder_layers * enc_layer + pair(d, enc, enc_shard, FP32_BYTES)
-                  + cfg.num_layers * (q_cols + kv))
-        recompute += q_fwd + (2 * cols(cfg.kv_dim, enc, FP32_BYTES, fwd=True)
-                              if kvl == "hd" else 0)
-        partial += (cfg.encoder_layers * 2 * d + d) if enc_shard else 0
-    if remat:
-        total += cfg.num_layers * recompute
-    return total + FP32_BYTES * partial
+        seq_axes = sh.spec_entry_names(specs["kv"][0][2])
+        over_model = sh.MODEL_AXIS in seq_axes
+        kv_cols = 2 * tokens * cfg.kv_dim * elt
+    if prefill:
+        (edge, _), (layer, _), (encoder, _) = _tp_forward(cfg, rows, seq, m, elt)
+        cache = 0
+        if attn and over_model and kvl == "head":
+            cache += kv_cols
+        if ssm_whole:
+            cache += rows * (sh.ssm_dims(cfg).conv_kernel - 1) * d_inner * elt
+        return edge + cfg.num_layers * (layer + cache) + encoder
+    # One position: a reduce of (rows, 1, d) for each branch and the
+    # embedding; no gather.
+    per_layer = (1 if arch == "ssm" else 3 if arch == "audio" else 2) * tokens * d * elt
+    if attn:
+        per_layer += tokens * cfg.q_dim * elt if over_model or ql == "hd" else 0
+        per_layer += kv_cols if over_model or kvl == "hd" else 0
+        if kvl == "hd" and not over_model:
+            local_len = length // sh.spec_entry_size(specs["kv"][0][2], sizes)
+            per_layer += 2 * rows * local_len * cfg.kv_dim * elt
+        if seq_axes:
+            heads = cfg.num_heads if over_model or ql == "hd" else cfg.num_heads // m
+            per_layer += FP32_BYTES * rows * heads * (cfg.head_dim + 2)
+    if arch in ("ssm", "hybrid"):
+        per_layer += tokens * FP32_BYTES
+        if ssm_whole:
+            per_layer += 2 * tokens * d_inner * elt
+    total = tokens * d * elt + cfg.num_layers * per_layer
+    if arch == "audio":
+        # The cross-attention: Q's columns and the encoder output's K/V in 'hd'.
+        enc_kv = 2 * rows * cfg.encoder_seq * cfg.kv_dim * FP32_BYTES if kvl == "hd" else 0
+        total += cfg.num_layers * ((tokens * cfg.q_dim * elt if ql == "hd" else 0) + enc_kv)
+    return total
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,10 @@ with its sequence parallelism):
 * :func:`embed_lookup` -- the vocab-parallel lookup: tokens outside the
   rank's rows give zeros, and :func:`reduce_seq` sums the partial rows (a
   VLM's vision rows ahead of them, on model index 0 only);
+* :func:`gather_over_model` and :func:`merge_softmax` -- prefill's and
+  decode's (no backward): K/V heads or head_dim slices all-gathered over
+  ``model``, and the merge of each rank's partial softmax over its shard
+  of the cache's keys (the sequence split over ``model`` or the data axes);
 * :func:`cross_entropy` -- the masked mean cross entropy over the rank's
   ``Vp / model`` logits: the global max, the log-sum-exp and the label
   logit each through one all-reduce over ``model``. Pad columns stay in
@@ -146,6 +150,33 @@ def reduce_seq(x: torch.Tensor, ctx) -> torch.Tensor:
 def gather_cols(x: torch.Tensor, ctx) -> torch.Tensor:
     """(..., n/m) -> (..., n): every rank's columns, in rank order."""
     return _GatherCols.apply(x, ctx)
+
+
+def gather_over_model(x: torch.Tensor, ctx, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` over ``model``, concatenated along ``dim`` in rank
+    order, without a backward: prefill and decode run no gradient. The
+    'head' layout's K/V heads of a prefill whose cache splits its sequence
+    over ``model`` (dim 2), and the cache's head_dim slices in the 'hd'
+    layout, each decode step (dim -1)."""
+    return _all_gather(x, ctx, dim)
+
+
+def merge_softmax(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, ctx,
+                  axes) -> torch.Tensor:
+    """The attention output from each rank's partial softmax over its shard
+    of the keys (``layers._partial_attention``: fp32 running max ``m`` and
+    sum ``l`` (..., ) and accumulator ``acc`` (..., hd)), the shards split
+    over ``axes``: the max over the axes (an all-reduce with ``max``),
+    then each rank's sum and accumulator rescaled by ``exp(m - max)`` and
+    summed over the axes in one all-reduce of (..., hd + 1), and
+    ``acc / max(l, 1e-30)``, as :func:`layers.attention` ends. The direct
+    softmax over every key, up to summation order."""
+    comm = ctx.comm
+    top = comm.all_reduce(m.clone(), axes, phase=PHASE, op="max")
+    corr = torch.exp(m - top)[..., None]
+    packed = comm.all_reduce(torch.cat([acc * corr, l[..., None] * corr], dim=-1), axes,
+                             phase=PHASE)
+    return packed[..., :-1] / torch.clamp(packed[..., -1:], min=1e-30)
 
 
 def sum_over_model(x: torch.Tensor, ctx) -> torch.Tensor:

@@ -50,21 +50,6 @@ def params_to_numpy(tree) -> dict:
     return tree_lib.map_with_path(convert, tree)
 
 
-def _spec_slices(spec, shape, axis_sizes: dict, coords: dict) -> tuple:
-    """The slice of each dim a rank at ``coords`` holds of a leaf of
-    ``shape`` laid out by ``spec`` (an entry's axes major to minor)."""
-    from repro_torch.sharding import specs as sh
-
-    out = []
-    for d, entry in zip(shape, sh.spec_entries(spec, len(shape))):
-        idx, k = 0, 1
-        for name in sh.spec_entry_names(entry):
-            idx = idx * axis_sizes.get(name, 1) + coords.get(name, 0)
-            k *= axis_sizes.get(name, 1)
-        out.append(slice(idx * (d // k), (idx + 1) * (d // k)))
-    return tuple(out)
-
-
 def shard_params(tree, cfg, axis_sizes: dict, coords: dict, device="cuda") -> dict:
     """The parameter shards one tensor-parallel rank holds: each leaf of a
     full tree (the reference's numpy parameters, or tensors) cut by its
@@ -76,7 +61,7 @@ def shard_params(tree, cfg, axis_sizes: dict, coords: dict, device="cuda") -> di
     return tree_lib.map_with_path(
         lambda path, leaf, spec: torch.as_tensor(np.ascontiguousarray(
             np.asarray(leaf.detach().cpu() if isinstance(leaf, torch.Tensor) else leaf)[
-                _spec_slices(spec, leaf.shape, axis_sizes, coords)])).to(device),
+                sh.spec_slices(spec, leaf.shape, axis_sizes, coords)])).to(device),
         tree, specs)
 
 
@@ -96,7 +81,7 @@ def join_params(pieces, specs, axis_sizes: dict) -> dict:
         full = np.zeros(tuple(d * sh.spec_entry_size(e, axis_sizes) for d, e in zip(
             shard.shape, sh.spec_entries(spec, shard.ndim))), shard.dtype)
         for (coords, _), flat in zip(pieces, trees):
-            full[_spec_slices(spec, full.shape, axis_sizes, coords)] = flat[path]
+            full[sh.spec_slices(spec, full.shape, axis_sizes, coords)] = flat[path]
         return full
 
     return tree_lib.map_with_path(join, specs)

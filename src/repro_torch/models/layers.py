@@ -11,7 +11,10 @@ the fp32 scores of one block exist at a time, never the whole
 the reference's ``_decode_attention``. The causal, window and kv_len masks
 are ``_mask_scores``'s; the output takes the query dtype. Query positions
 and KV lengths may be given per row, so one batched decode serves slots at
-different positions.
+different positions. A tensor-parallel decode attends against the rank's
+shard of the cache (``_cached_attention_tp``); where that shard holds a
+slice of the cache's positions, each rank's softmax over its keys
+(``_partial_attention``) is merged across the ranks.
 """
 
 from __future__ import annotations
@@ -255,25 +258,104 @@ def merge_heads(t: torch.Tensor, layout: str) -> torch.Tensor:
     return t.reshape(b, s, h * hd)
 
 
-def _rank_kv(k, v, num_heads: int, num_kv_heads: int, head_dim: int, q_heads: int, ctx):
-    """The K/V heads a tensor-parallel rank's Q heads read, from its
-    projection columns: in 'head' its own heads, aligned with its Q heads;
-    in 'hd' (head_dim-major columns) every rank's columns gathered over the
-    model axis and split; with Q in 'head' the KV head of each of the
-    rank's Q heads is then taken, one a Q head, and with Q in 'hd' (every
-    head on every rank) all of them."""
-    if ctx.kv_layout == "head":
-        local = k.shape[-1] // head_dim
-        return split_heads(k, local, head_dim, "head"), split_heads(v, local, head_dim, "head")
-    from repro_torch.distributed import tensor_parallel as tp
-
-    k = split_heads(tp.gather_cols(k, ctx), num_kv_heads, head_dim, "hd")
-    v = split_heads(tp.gather_cols(v, ctx), num_kv_heads, head_dim, "hd")
-    if ctx.q_layout == "hd":
-        return k, v
+def _kv_for_q_heads(k, v, num_heads: int, num_kv_heads: int, q_heads: int, ctx):
+    """Every KV head (B, T, Hkv, hd) -> the KV head of each of a
+    tensor-parallel rank's ``q_heads`` Q heads (Q in 'head'), one a Q head."""
     group = num_heads // num_kv_heads
     index = (ctx.index * q_heads + torch.arange(q_heads, device=k.device)) // group
     return k.index_select(2, index), v.index_select(2, index)
+
+
+def _partial_attention(q, k, v, *, k_start: int, causal: bool, window, attn_softcap, q_offset,
+                       kv_len):
+    """:func:`_direct_attention`'s softmax over a shard of the keys, the
+    ones at positions ``k_start ..`` of the whole cache: the running max
+    ``m`` and sum ``l`` (B, Hkv, G, Sq) and the unnormalized accumulator
+    (B, Hkv, G, Sq, hd), fp32, as :func:`attention`'s blocks keep them. A
+    shard whose every key is masked has ``m`` at NEG_INF; the merge
+    (``tensor_parallel.merge_softmax``) scales it by ``exp(NEG_INF - M)``,
+    exactly 0."""
+    batch, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(batch, sq, hkv, hq // hkv, hd).to(torch.float32)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.to(torch.float32)) * hd ** -0.5
+    if attn_softcap is not None:
+        s = softcap(s, attn_softcap)
+    s = _mask_scores(s, _query_positions(q_offset, sq, q.device),
+                     torch.arange(k_start, k_start + skv, device=q.device), causal=causal,
+                     window=window, kv_len=kv_len)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bkgqt,btkd->bkgqd", p, v.to(torch.float32))
+    return m, p.sum(dim=-1), acc
+
+
+def _cached_attention_tp(x, params: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
+                         positions, inv_freq, causal: bool, window, attn_softcap, kv_cache,
+                         cache_index: int, kv_len, ctx) -> torch.Tensor:
+    """One position's self-attention on a tensor-parallel rank against its
+    shard of the decode cache (``sharding.specs.cache_specs``, laid out by
+    ``ctx``); returns the rank's partial sum of the out-projection.
+
+    * 'head': the rank's Q heads attend over its KV heads;
+    * 'hd': the fresh K/V columns are gathered over ``model`` (every head's
+      head_dim slices), RoPE'd, and the rank's slice written; then every
+      rank gathers the cache's head_dim slices over ``model`` and attends
+      over whole heads, as GSPMD does for the layout (Q in 'hd' gathered
+      too, as in training);
+    * the cache's sequence over ``model`` (kv_seq_shard): Q and the fresh
+      K/V are gathered over ``model`` (every head), the rank attends over
+      its positions of every head and keeps its Q columns of the output;
+    * over the data axes (a batch of one): heads as above, the rank's
+      positions.
+
+    With the sequence split the rank that holds ``cache_index`` writes the
+    fresh K/V; each rank's softmax over its keys (positions offset by its
+    shard's start in the masks) is merged over the split axes
+    (``tensor_parallel.merge_softmax``): the direct softmax's result up to
+    summation order.
+    """
+    from repro_torch.distributed import tensor_parallel as tp
+
+    ql, kvl = ctx.q_layout, ctx.kv_layout
+    over_model = ctx.cache_seq_over_model
+    q = linear(x, params["wq"])
+    q_cols = q.shape[-1]
+    k, v = linear(x, params["wk"]), linear(x, params["wv"])
+    if over_model or ql == "hd":
+        q = tp.gather_cols(q, ctx)
+    if over_model or kvl == "hd":
+        k, v = tp.gather_cols(k, ctx), tp.gather_cols(v, ctx)
+    q = split_heads(q, q.shape[-1] // head_dim, head_dim, ql)
+    k = split_heads(k, k.shape[-1] // head_dim, head_dim, kvl)
+    v = split_heads(v, v.shape[-1] // head_dim, head_dim, kvl)
+    if inv_freq is not None:
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+    hd_split = kvl == "hd" and not over_model
+    if hd_split:  # the rank's head_dim slice of every head
+        w = head_dim // ctx.size
+        k, v = k.narrow(-1, ctx.index * w, w), v.narrow(-1, ctx.index * w, w)
+    start, stop = ctx.kv_seq_range()
+    if start <= cache_index < stop:
+        kv_cache.write(k, v, cache_index - start)
+    ck, cv = kv_cache.k, kv_cache.v
+    if hd_split:
+        ck, cv = tp.gather_over_model(ck, ctx, -1), tp.gather_over_model(cv, ctx, -1)
+        if ql == "head":
+            ck, cv = _kv_for_q_heads(ck, cv, num_heads, num_kv_heads, q.shape[2], ctx)
+    masks = dict(causal=causal, window=window, attn_softcap=attn_softcap, q_offset=cache_index,
+                 kv_len=kv_len)
+    if ctx.kv_seq_axes:
+        out = tp.merge_softmax(*_partial_attention(q, ck, cv, k_start=start, **masks), ctx,
+                               ctx.kv_seq_axes)                       # (B, Hkv, G, 1, hd)
+        out = out.permute(0, 3, 1, 2, 4).reshape(q.shape).to(q.dtype)
+    else:
+        out = attention(q, ck, cv, **masks)
+    out = merge_heads(out, ql)
+    if over_model or ql == "hd":
+        out = out.narrow(-1, ctx.index * q_cols, q_cols)
+    return linear(out, params["wo"])
 
 
 def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_dim: int,
@@ -308,12 +390,22 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
     model axis (``tensor_parallel.gather_cols``), attends over every head
     and keeps its own 'hd' slice of the merged output, the rows of ``wo``
     it holds. So every rank repeats the whole attention, as the layout
-    implies: the reference's GSPMD gathers Q there too.
+    implies: the reference's GSPMD gathers Q there too. K/V in 'hd' are
+    gathered likewise (``new_kv`` then holds every head; with Q in 'head'
+    each Q head attends over its KV head). With a ``kv_cache`` (decode)
+    the rank attends against its shard of the cache
+    (:func:`_cached_attention_tp`) and ``new_kv`` is None.
     """
     b, s, _ = x.shape
     q_layout = "head" if ctx is None else ctx.q_layout
     kv_layout = "head" if ctx is None else ctx.kv_layout
     tp = ctx is not None and ctx.tensor_parallel
+    if tp and kv_cache is not None:
+        return _cached_attention_tp(
+            x, params, num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
+            positions=positions, inv_freq=inv_freq, causal=causal, window=window,
+            attn_softcap=attn_softcap, kv_cache=kv_cache, cache_index=cache_index,
+            kv_len=cache_index + s if kv_len is None else kv_len, ctx=ctx), None
     kv_src = cross_kv if cross_kv is not None else x
     q = linear(x, params["wq"])
     q_cols = q.shape[-1]
@@ -325,15 +417,18 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
     q = split_heads(q, q_heads, head_dim, q_layout)
     k = linear(kv_src, params["wk"])
     v = linear(kv_src, params["wv"])
-    if tp:
-        k, v = _rank_kv(k, v, num_heads, num_kv_heads, head_dim, q_heads, ctx)
-    else:
-        k = split_heads(k, num_kv_heads, head_dim, kv_layout)
-        v = split_heads(v, num_kv_heads, head_dim, kv_layout)
+    if tp and kv_layout == "hd":  # every rank's head_dim-major columns: every head
+        from repro_torch.distributed import tensor_parallel
+
+        k, v = tensor_parallel.gather_cols(k, ctx), tensor_parallel.gather_cols(v, ctx)
+    k = split_heads(k, k.shape[-1] // head_dim, head_dim, kv_layout)
+    v = split_heads(v, v.shape[-1] // head_dim, head_dim, kv_layout)
     if inv_freq is not None and cross_kv is None:
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
     new_kv = (k, v)
+    if tp and kv_layout == "hd" and q_layout == "head":
+        k, v = _kv_for_q_heads(k, v, num_heads, num_kv_heads, q_heads, ctx)
     q_offset = 0
     if kv_cache is not None:
         k, v = new_kv = kv_cache.write(k, v, cache_index)

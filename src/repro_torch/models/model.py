@@ -64,10 +64,15 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, *, ctx=None):
     """Full-sequence prefill of ``batch["tokens"]`` (and the batch's
     ``vision_embeds`` / ``audio_frames``): returns ``(logits, cache)`` (the
     reference returns its aux losses between them; a caller that wants them
-    calls ``forward(mode="prefill", return_aux=True)``). ``ctx``, a
-    one-device ``sharding.specs.ShardCtx``, gives the head layouts and the
+    calls ``forward(mode="prefill", return_aux=True)``). ``ctx``
+    (``sharding.specs.ShardCtx``) gives the head layouts and the
     attention's ``flash_block_k``; without one, 1024, as the serving
-    engine's prefill takes it."""
+    engine's prefill takes it. Tensor-parallel (a context made for a decode
+    layout, ``sharding.specs.make_ctx(..., batch=, cache_len=)``), the
+    rank's shards prefill its data coordinate's rows, and the logits are
+    its vocab columns and the cache its ``cache_specs`` shard of the
+    decode buffer, which ``decode_step(ctx=)`` takes as it is (see
+    ``transformer.forward``)."""
     return forward(params, batch["tokens"], cfg, mode="prefill",
                    extra_embeds=batch.get("vision_embeds"),
                    encoder_frames=batch.get("audio_frames"), ctx=ctx)

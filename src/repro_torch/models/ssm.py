@@ -209,8 +209,11 @@ def ssm_forward(x: torch.Tensor, params: dict, dims: SSMDims, *, chunk: int = 12
     (``tensor_parallel.grad_is_partial`` sums them over ``model``). Either
     way the gated norm runs over the whole ``d_inner``
     (:func:`_gated_norm_tp`) and the output is the rank's partial sum of
-    ``out_proj``, which the caller reduces. Train mode only: prefill and
-    decode run on one device.
+    ``out_proj``, which the caller reduces. The state it returns (prefill)
+    is the rank's ``sharding.specs.cache_specs`` shard: ``h`` of its heads
+    (every head where they stay whole), ``conv_x`` its ``d_inner`` columns
+    (every column where the heads stay whole: the last K-1 raw inputs
+    gathered over ``model``), ``conv_b``/``conv_c`` whole.
     """
     bsz, seq, _ = x.shape
     tp = ctx is not None and ctx.tensor_parallel
@@ -240,7 +243,10 @@ def ssm_forward(x: torch.Tensor, params: dict, dims: SSMDims, *, chunk: int = 12
     out = y @ params["out_proj"]
     if return_state:
         kk = dims.conv_kernel - 1
-        return out, {"h": h_final, "conv_x": xs_raw[:, -kk:, :], "conv_b": b_raw[:, -kk:, :],
+        conv_x = xs_raw[:, -kk:, :]
+        if whole_heads:
+            conv_x = tensor_parallel.gather_cols(conv_x, ctx)
+        return out, {"h": h_final, "conv_x": conv_x, "conv_b": b_raw[:, -kk:, :],
                      "conv_c": c_raw[:, -kk:, :]}
     return out
 
@@ -267,21 +273,52 @@ def _conv_step(window, new, w, b):
     return out, full[:, 1:, :]
 
 
-def ssm_decode_step(x: torch.Tensor, state: dict, params: dict, dims: SSMDims):
-    """One-token recurrent update. x: (B, 1, D) -> ((B, 1, D), new state)."""
+def ssm_decode_step(x: torch.Tensor, state: dict, params: dict, dims: SSMDims, ctx=None):
+    """One-token recurrent update. x: (B, 1, D) -> ((B, 1, D), new state).
+
+    ``ctx``: tensor-parallel, ``x`` is the whole input, ``params`` and
+    ``state`` the rank's shards (``sharding.specs.cache_specs``), as in
+    :func:`ssm_forward`: with the heads split the rank steps its heads and
+    ``d_inner`` columns; with the heads whole it gathers the raw ``x`` of
+    the token over ``model`` for the whole conv window, convolves its
+    columns, gathers them, steps every head and keeps its columns of ``y``.
+    Either way the gated norm sums its statistic over ``model`` and the
+    output is the rank's partial sum of ``out_proj``.
+    """
     bsz = x.shape[0]
+    tp = ctx is not None and ctx.tensor_parallel
+    heads = params["A_log"].shape[-1]      # the rank's heads (all on one device)
     z, xs_raw, b_raw, c_raw, dt = _project(x[:, 0, :], params)
-    xs, conv_x = _conv_step(state["conv_x"], xs_raw, params["conv_x"], params["conv_x_bias"])
+    cols = xs_raw.shape[-1]                # the rank's d_inner columns
+    whole_heads = tp and heads == dims.num_heads
+    if whole_heads:
+        from repro_torch.distributed import tensor_parallel
+
+        window = state["conv_x"]
+        xs, _ = _conv_step(window.narrow(-1, ctx.index * cols, cols), xs_raw,
+                           params["conv_x"], params["conv_x_bias"])
+        conv_x = torch.cat([window, tensor_parallel.gather_cols(xs_raw, ctx)[:, None, :]],
+                           dim=1)[:, 1:, :]
+        xs = tensor_parallel.gather_cols(xs, ctx)
+    else:
+        xs, conv_x = _conv_step(state["conv_x"], xs_raw, params["conv_x"],
+                                params["conv_x_bias"])
     b_mat, conv_b = _conv_step(state["conv_b"], b_raw, params["conv_b"], params["conv_b_bias"])
     c_mat, conv_c = _conv_step(state["conv_c"], c_raw, params["conv_c"], params["conv_c_bias"])
     dt, a = _dt_a(dt, params)
-    xh = xs.reshape(bsz, dims.num_heads, dims.head_dim).to(torch.float32)
+    xh = xs.reshape(bsz, heads, dims.head_dim).to(torch.float32)
     decay = torch.exp(dt * a)                                     # (B, H)
     h = state["h"] * decay[..., None, None] + torch.einsum(
         "bn,bhp->bhpn", b_mat.to(torch.float32), xh * dt[..., None])
     y = torch.einsum("bn,bhpn->bhp", c_mat.to(torch.float32), h)
     y = y + params["D"].to(torch.float32)[None, :, None] * xh
-    y = y.reshape(bsz, dims.d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["gate_norm"])
+    y = y.reshape(bsz, heads * dims.head_dim)
+    if whole_heads:
+        y = y.narrow(-1, ctx.index * cols, cols)
+    y = y.to(x.dtype) * F.silu(z)
+    if tp:
+        y = _gated_norm_tp(y, params["gate_norm"], dims.d_inner, ctx)
+    else:
+        y = rms_norm(y, params["gate_norm"])
     out = (y @ params["out_proj"])[:, None, :]
     return out, {"h": h, "conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c}

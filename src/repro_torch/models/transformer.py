@@ -9,7 +9,8 @@ runs the train-mode (and prefill) pass as a Python loop over the stacked
 layers, in place of the reference's ``lax.scan``; ``decode_step`` runs one
 token through the same loop against a cache: the KV buffers written in
 place (or the reference's ring cache), the SSM state replaced by the new
-state tensors. In train mode each layer runs under activation
+state tensors; tensor-parallel, against the rank's ``cache_specs`` shard of
+the cache (``decode_layers``). In train mode each layer runs under activation
 checkpointing, as the reference's ``jax.checkpoint`` of its scan body:
 only the residual entering the layer is kept for the backward, and the
 layer's forward runs again there (its collectives too, tensor-parallel).
@@ -29,7 +30,12 @@ the residual is sequence-sharded over the model axis where the reference's
 rank's sequence shard; ``distributed/tensor_parallel.py`` holds the
 collectives. whisper's encoder follows its own length's rule
 (``encdec.encode``) and its output is gathered whole once, as the K/V
-source of every decoder layer's cross-attention.
+source of every decoder layer's cross-attention. Training, prefill and
+decode all run so; a prefill lays its cache out as the rank's
+``sharding.specs.cache_specs`` shard (its heads, its head_dim slice of
+every head, or its positions where the cache's sequence splits over
+``model`` or the data axes), and a decode step attends against that shard
+(``layers._cached_attention_tp``).
 
 Layers by ``arch_type``: dense and vlm (attention + MLP), moe (attention +
 MoE block), ssm (Mamba2 only), hybrid (hymba: attention and SSM on one
@@ -41,6 +47,7 @@ positions). A VLM prepends its ``extra_embeds`` to the token embeddings.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 from typing import Optional
@@ -164,12 +171,12 @@ def _mlp_apply(x, mlp, cfg):
 
 def _ssm_apply(h, layer, cfg, mode, ssm_state, ctx=None):
     """The SSM branch in ``mode``: (out, new state or None); ``ctx`` as
-    ``ssm.ssm_forward``'s (train mode)."""
+    ``ssm.ssm_forward``'s and ``ssm.ssm_decode_step``'s."""
     dims = ssm_dims(cfg)
     if mode == "decode":
-        return ssm_lib.ssm_decode_step(h, ssm_state, layer["ssm"], dims)
+        return ssm_lib.ssm_decode_step(h, ssm_state, layer["ssm"], dims, ctx=ctx)
     if mode == "prefill":
-        return ssm_lib.ssm_forward(h, layer["ssm"], dims, return_state=True)
+        return ssm_lib.ssm_forward(h, layer["ssm"], dims, return_state=True, ctx=ctx)
     return ssm_lib.ssm_forward(h, layer["ssm"], dims, ctx=ctx), None
 
 
@@ -199,8 +206,10 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
     window mask, only ``kv_len``. ``group_rows`` routes each row of the
     batch alone (``moe.moe_block``). ``cross_kv``: the encoder's output for
     whisper's cross-attention. ``ctx``: the model's context; tensor-parallel
-    ('train' mode), ``x`` is the rank's sequence shard of the residual (or
-    the whole of it, unsharded) and so is the output; the cross-attention's
+    (every mode), ``x`` is the rank's sequence shard of the residual (or
+    the whole of it, unsharded, as a decode step's one position always
+    is) and so is the output; ``kv_cache`` the rank's shard
+    (``layers.attention_block``), ``ssm_state`` too; the cross-attention's
     Q comes from the gathered sequence and its K/V from the rank's heads of
     the whole encoder output; the MoE block routes the gathered sequence
     and its partial output is reduced as the row-parallel ``wo``'s, and so
@@ -303,7 +312,11 @@ def _logits(params, x, cfg, ctx=None):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
     if cfg.final_softcap is not None:
-        logits = softcap(logits.to(torch.float32), cfg.final_softcap)
+        logits = logits.to(torch.float32)
+        if torch.is_grad_enabled():
+            logits = softcap(logits, cfg.final_softcap)
+        else:  # in place, the same ops: a prefill's (B, S, Vp) logits are GBs
+            logits = logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
     return logits
 
 
@@ -379,10 +392,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
 
     ``ctx`` (``sharding.specs.ShardCtx``): the heads' layouts and the
     attention's KV block (``flash_block_k``) on one device; tensor-parallel
-    ('train' mode), ``params`` are the rank's shards,
-    ``tokens`` (and the extras) the rows of its data coordinate, and the
-    logits the rank's (B, S', Vp/m) vocab columns; ``ctx.seq_shard`` was
-    made for the residual's whole length S'.
+    (both modes), ``params`` are the rank's shards, ``tokens`` (and the
+    extras) the rows of its data coordinate, and the logits the rank's
+    (B, S', Vp/m) vocab columns; ``ctx.seq_shard`` was made for the
+    residual's whole length S'. A context made for a decode layout
+    (``cache_len``: ``sharding.specs.make_ctx(..., cache_len=)``, required
+    for a tensor-parallel prefill, optional on one device) makes the
+    prefill's cache that decode buffer: ``cache_len`` positions, the
+    prompt's at their own (zeros past it), or on a ``ring_cache`` the last
+    ``cache_len`` at ``p % cache_len``; tensor-parallel, each leaf is the
+    rank's ``cache_specs`` shard (``_cache_kv``; the SSM state
+    ``ssm.ssm_forward``'s), the prefill's forward the train mode's
+    sequence-parallel one without checkpointing.
 
     ``remat`` (the reference's, on by default): in 'train' mode each
     decoder layer (its slice of the stacked parameters and
@@ -396,15 +417,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
     tp = ctx is not None and ctx.tensor_parallel
     # The whole sequence: a tensor-parallel rank's residual holds its shard.
     seq = tokens.shape[1] + (0 if extra_embeds is None else extra_embeds.shape[1])
+    prefill = mode == "prefill"
     if tp:
         from repro_torch.sharding.specs import sequence_sharded
 
-        if mode != "train":
-            raise NotImplementedError(f"the tensor-parallel forward runs in 'train' mode, "
-                                      f"not {mode!r}")
         if ctx.seq_shard != sequence_sharded(seq, ctx.size):
             raise ValueError(f"the context's seq_shard={ctx.seq_shard} was made for another "
                              f"residual length than {seq}")
+        if prefill:
+            _check_decode_ctx(cfg, ctx, rows=tokens.shape[0])
     x = _embed(params, tokens, cfg, ctx, prefix=extra_embeds)
     b = x.shape[0]
     positions = torch.arange(seq, device=x.device)
@@ -420,10 +441,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
         if tp and ctx.seq_shard:
             pos = pos.narrow(0, ctx.index * x.shape[1], x.shape[1])
         x = x + pos[None]
-    prefill = mode == "prefill"
     has_kv = "attn" in params["layers"]
+    laid_out = prefill and ctx is not None and ctx.cache_len is not None
     if prefill and has_kv:
         shape = (cfg.num_layers, b, seq, cfg.num_kv_heads, cfg.head_dim)
+        if laid_out:
+            shape = (cfg.num_layers, *_local_kv_shape(cfg, ctx, b))
         ks = torch.empty(shape, dtype=x.dtype, device=x.device)
         vs = torch.empty(shape, dtype=x.dtype, device=x.device)
     states = []
@@ -445,7 +468,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
             aux = aux + layer_aux
         if prefill:
             if has_kv:
-                ks[i], vs[i] = kv
+                ks[i], vs[i] = _cache_kv(kv, cfg, ctx) if laid_out else kv
             if new_ssm is not None:
                 states.append(new_ssm)
     out = [_logits(params, x, cfg, ctx)]
@@ -459,28 +482,119 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
     return out[0] if len(out) == 1 else tuple(out)
 
 
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The whole decode cache's leaf shapes (:func:`init_cache`'s tree):
+    ``"kv"`` (k, v), each (L, B, max_len, Hkv, hd), for every arch with
+    attention; ``"ssm"`` for mamba2 and hymba: ``h`` (L, B, H, P, N) and the
+    conv windows (L, B, K-1, C)."""
+    shapes: dict = {}
+    L = cfg.num_layers
+    if cfg.num_heads and cfg.arch_type != "ssm":
+        kv = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        shapes["kv"] = (kv, kv)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        dims = ssm_dims(cfg)
+        kk = dims.conv_kernel - 1
+        shapes["ssm"] = {"h": (L, batch, dims.num_heads, dims.head_dim, dims.state_size),
+                         "conv_x": (L, batch, kk, dims.d_inner),
+                         "conv_b": (L, batch, kk, dims.state_size),
+                         "conv_c": (L, batch, kk, dims.state_size)}
+    return shapes
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16,
-               device="cuda") -> dict:
+               device="cuda", ctx=None) -> dict:
     """Empty decode cache: ``"kv"`` (k, v), each (L, B, max_len, Hkv, hd) in
     ``dtype``, for every arch with attention; ``"ssm"`` for mamba2 and hymba:
     ``h`` (L, B, H, P, N) fp32 and the conv windows (L, B, K-1, C) in
-    ``dtype``."""
+    ``dtype`` (:func:`cache_shapes`).
+
+    With a tensor-parallel ``ctx`` made for a decode layout
+    (``sharding.specs.make_ctx(..., batch=, cache_len=)``; ``batch`` and
+    ``max_len`` must be its), each leaf is the rank's
+    ``sharding.specs.cache_specs`` shard, never the whole (the context's
+    ``cache_shapes``)."""
+    shapes = cache_shapes(cfg, batch, max_len)
+    if ctx is not None and ctx.tensor_parallel:
+        _check_decode_ctx(cfg, ctx)
+        if (batch, max_len) != (ctx.cache_batch, ctx.cache_len):
+            raise ValueError(f"the context's decode layout is {ctx.cache_batch} rows x "
+                             f"{ctx.cache_len} positions, not {batch} x {max_len}")
+        shapes = ctx.cache_shapes
     cache: dict = {}
-    L = cfg.num_layers
-    if cfg.num_heads and cfg.arch_type != "ssm":
-        shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-        cache["kv"] = (torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device))
-    if cfg.arch_type in ("ssm", "hybrid"):
-        state = ssm_lib.init_decode_state(batch * L, ssm_dims(cfg), dtype=dtype, device=device)
-        cache["ssm"] = {k: v.reshape(L, batch, *v.shape[1:]) for k, v in state.items()}
+    if "kv" in shapes:
+        cache["kv"] = tuple(torch.zeros(shape, dtype=dtype, device=device)
+                            for shape in shapes["kv"])
+    if "ssm" in shapes:
+        cache["ssm"] = {k: torch.zeros(shape, dtype=torch.float32 if k == "h" else dtype,
+                                       device=device)
+                        for k, shape in shapes["ssm"].items()}
     return cache
+
+
+def _check_decode_ctx(cfg: ModelConfig, ctx, rows: Optional[int] = None) -> None:
+    """A tensor-parallel prefill or decode needs a context made for a decode
+    layout, and the rows its data coordinate holds (``rows``: the batch's)."""
+    if ctx.cache_len is None:
+        raise ValueError(f"{cfg.name}: a tensor-parallel prefill or decode needs a context "
+                         "made for a decode layout (sharding.specs.make_ctx(..., batch=, "
+                         "cache_len=))")
+    if rows is not None:
+        want = ctx.cache_shapes
+        want = want["kv"][0][1] if "kv" in want else want["ssm"]["h"][1]
+        if rows != want:
+            raise ValueError(f"{cfg.name}: the rank's batch holds {rows} rows; its data "
+                             f"coordinate's share of {ctx.cache_batch} is {want}")
+
+
+def _local_kv_shape(cfg: ModelConfig, ctx, rows: int) -> tuple:
+    """One layer's (rows, T, Hkv, hd) K (or V) cache shard of the rank."""
+    if not ctx.tensor_parallel:
+        return (rows, ctx.cache_len, cfg.num_kv_heads, cfg.head_dim)
+    return ctx.cache_shapes["kv"][0][1:]
+
+
+def _in_buffer(t: torch.Tensor, length: int, ring: bool) -> torch.Tensor:
+    """(B, S, ...) prefill K or V at positions 0..S-1 -> the (B, length, ...)
+    decode buffer holding them: position p at slot p (zeros past S), or on
+    a ring slot ``p % length``, the last ``length`` positions kept."""
+    seq = t.shape[1]
+    if seq > length and not ring:
+        raise ValueError(f"prefill of {seq} positions does not fit a cache of {length}")
+    buf = t.new_zeros((t.shape[0], length, *t.shape[2:]))
+    first = max(0, seq - length)
+    slots = torch.arange(first, seq, device=t.device) % length
+    buf[:, slots] = t[:, first:]
+    return buf
+
+
+def _cache_kv(kv, cfg: ModelConfig, ctx) -> tuple:
+    """A prefill layer's post-RoPE (k, v) (``layers.attention_block``'s
+    ``new_kv``: the rank's KV heads in 'head', every head in 'hd') -> the
+    rank's shard of the decode buffer ``ctx`` lays out: its heads, or its
+    head_dim slice of every head ('hd'), or with the cache's sequence over
+    the model axis every head (the 'head' layout's gathered over ``model``)
+    at its positions; over the data axes (a batch of one) its positions."""
+    k, v = kv
+    if ctx.tensor_parallel:
+        over_model = ctx.cache_seq_over_model
+        if over_model and ctx.kv_layout == "head":
+            k, v = _tp().gather_over_model(k, ctx, 2), _tp().gather_over_model(v, ctx, 2)
+        elif not over_model and ctx.kv_layout == "hd":
+            w = cfg.head_dim // ctx.size
+            k, v = k.narrow(-1, ctx.index * w, w), v.narrow(-1, ctx.index * w, w)
+    k = _in_buffer(k, ctx.cache_len, ctx.ring_cache)
+    v = _in_buffer(v, ctx.cache_len, ctx.ring_cache)
+    if ctx.kv_seq_axes:
+        start, stop = ctx.kv_seq_range()
+        k, v = k[:, start:stop], v[:, start:stop]
+    return k, v
 
 
 def decode_layers(params: dict, token: torch.Tensor, pos, cfg: ModelConfig, layer_kv, *,
                   cache_index=None, kv_len=None, ring: bool = False,
                   group_rows: bool = False, ssm_cache: Optional[dict] = None,
-                  encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  encoder_out: Optional[torch.Tensor] = None, ctx=None) -> torch.Tensor:
     """One token (B, 1) through every layer at position ``pos``.
 
     ``pos`` is an int, or a (B,) tensor of per-row positions (slots of a
@@ -497,8 +611,26 @@ def decode_layers(params: dict, token: torch.Tensor, pos, cfg: ModelConfig, laye
     cross-attention (required when the layers have it); whisper's position
     embedding is row ``pos`` of the sinusoidal table. Returns the (B, 1, Vp)
     logits.
+
+    ``ctx``: one device by default. Tensor-parallel (a context made for a
+    decode layout, ``sharding.specs.make_ctx(..., cache_len=)``; ``pos`` an
+    int), ``params`` are the rank's shards, ``token`` (and ``encoder_out``)
+    its data coordinate's rows, the caches its ``cache_specs`` shards
+    (``cache_index`` and ``kv_len`` the whole cache's), and the logits the
+    rank's (B, 1, Vp/m) vocab columns: the embedding vocab-parallel, Q/K/V
+    column-parallel against the rank's cache shard
+    (``layers.attention_block``), the row-parallel ``wo``, MLP, MoE block
+    and SSM out-projection each closed by one reduce over ``model`` (the
+    residual of one position is never sequence-sharded), the SSM step on
+    the rank's heads (``ssm.ssm_decode_step``).
     """
-    x = _embed(params, token, cfg)
+    tp = ctx is not None and ctx.tensor_parallel
+    if tp:
+        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+            raise NotImplementedError("a tensor-parallel decode steps every row at one "
+                                      "position; per-row positions are single-device")
+        ctx = dataclasses.replace(ctx, seq_shard=False)
+    x = _embed(params, token, cfg, ctx)
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         positions = pos[:, None]
     else:
@@ -518,16 +650,28 @@ def decode_layers(params: dict, token: torch.Tensor, pos, cfg: ModelConfig, laye
             mode="decode", kv_cache=layer_kv(i) if "attn" in layer else None,
             ssm_state=_slice_layer(ssm_cache, i) if "ssm" in layer else None,
             cache_index=cache_index, kv_len=kv_len, ring=ring, group_rows=group_rows,
-            cross_kv=encoder_out if "cross" in layer else None)
+            cross_kv=encoder_out if "cross" in layer else None, ctx=ctx)
         if new_ssm is not None:
             states.append(new_ssm)
     if states:
         ssm_cache.update(_stack_states(states))
-    return _logits(params, x, cfg)
+    return _logits(params, x, cfg, ctx)
+
+
+def _check_rank_cache(cache: dict, cfg: ModelConfig, ctx) -> None:
+    """The cache a tensor-parallel decode is given is the rank's
+    ``cache_specs`` shard, leaf by leaf: a whole cache raises."""
+    from repro_torch.sharding.specs import held_cache_shapes
+
+    got = held_cache_shapes(cache)
+    if got != ctx.cache_shapes:
+        raise ValueError(f"{cfg.name}: the cache's shapes {got} are not the rank's "
+                         f"cache_specs shard {ctx.cache_shapes}")
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: dict, pos, cfg: ModelConfig, *,
-                ring_cache: bool = False, encoder_out: Optional[torch.Tensor] = None):
+                ring_cache: bool = False, encoder_out: Optional[torch.Tensor] = None,
+                ctx=None):
     """One decode step against a dense cache. Returns ((B, 1, Vp) logits, cache).
 
     ``cache`` is :func:`init_cache`'s (or ``serving.cache_from_prefill``'s);
@@ -543,18 +687,32 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict, pos, cfg: ModelC
     runs over the ``min(pos + 1, T)`` slots filled so far with no causal or
     window mask: RoPE was applied at absolute positions before caching, so
     eviction alone keeps the window.
+
+    ``ctx``: tensor-parallel, a context made for the cache's decode layout
+    (``sharding.specs.make_ctx(..., cache_len=, ring_cache=)``, ``T`` its
+    ``cache_len``, the ring its ``ring_cache``: the argument is one
+    device's) and ``cache`` the rank's shard of it (:func:`init_cache`
+    with the context, or ``model.prefill``'s); see :func:`decode_layers`.
+    The token's K/V are written by the rank that holds position ``pos``
+    (``pos % T``) of the cache's sequence. The logits are the rank's vocab
+    columns (``tensor_parallel.gather_cols`` joins them).
     """
     kv = cache.get("kv")
     cache_index = kv_len = None
+    tp = ctx is not None and ctx.tensor_parallel
+    if tp:
+        _check_decode_ctx(cfg, ctx, rows=token.shape[0])
+        _check_rank_cache(cache, cfg, ctx)
+        ring_cache = ctx.ring_cache
     if ring_cache:
         if cfg.attention_pattern != "swa":
             raise ValueError("ring_cache requires a uniform sliding-window arch")
-        cache_len = kv[0].shape[2]
+        cache_len = ctx.cache_len if tp else kv[0].shape[2]
         cache_index = pos % cache_len
         kv_len = (torch.clamp(pos + 1, max=cache_len) if isinstance(pos, torch.Tensor)
                   else min(pos + 1, cache_len))
     layer_kv = (lambda i: DenseKV(kv[0][i], kv[1][i])) if kv is not None else None
     logits = decode_layers(params, token, pos, cfg, layer_kv, cache_index=cache_index,
                            kv_len=kv_len, ring=ring_cache, ssm_cache=cache.get("ssm"),
-                           encoder_out=encoder_out)
+                           encoder_out=encoder_out, ctx=ctx)
     return logits, cache

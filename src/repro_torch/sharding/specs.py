@@ -199,6 +199,17 @@ class ShardCtx:
     K/V projections' columns (``layers.split_heads``), on one device too.
     ``flash_block_k`` is the KV block of the attention's online softmax
     (``layers.attention``), the reference's field and default.
+
+    The decode cache's layout, for prefill and decode (``make_ctx(...,
+    cache_len=)``; ``cache_len`` None: none): the buffer's ``cache_len``
+    positions (the window of a ``ring_cache``), ``cache_batch`` rows in
+    all, ``kv_seq_shard`` as :func:`cache_specs` takes it, and
+    ``kv_seq_axes``, the axes its sequence dim splits over there: the
+    model axis (``kv_seq_shard``), the data axes (rows that no data axis
+    divides, a batch of one) or none; ``cache_shapes``, the rank's
+    :func:`local_cache_shapes` of that layout, which
+    ``transformer.init_cache`` allocates and a prefill and a decode step
+    hold their cache to.
     """
 
     comm: Any = None
@@ -210,30 +221,84 @@ class ShardCtx:
     seq_shard: bool = False
     encoder_seq_shard: bool = False
     flash_block_k: int = FLASH_BLOCK_K
+    cache_len: Optional[int] = None
+    cache_batch: int = 0
+    kv_seq_shard: bool = False
+    ring_cache: bool = False
+    kv_seq_axes: tuple = ()
+    cache_shapes: Optional[dict] = dataclasses.field(default=None, compare=False)
 
     @property
     def tensor_parallel(self) -> bool:
         return self.size > 1
 
+    @property
+    def cache_seq_over_model(self) -> bool:
+        """The cache's sequence dim splits over the model axis
+        (``kv_seq_shard`` taken): every head on every rank."""
+        return MODEL_AXIS in self.kv_seq_axes
 
-def make_ctx(cfg: ModelConfig, engine=None, seq: Optional[int] = None) -> ShardCtx:
+    def kv_seq_range(self) -> tuple[int, int]:
+        """The rank's first and past-the-last position of the cache's
+        ``cache_len``."""
+        if not self.kv_seq_axes:
+            return 0, self.cache_len
+        n = self.cache_len // self.comm.size(self.kv_seq_axes)
+        start = self.comm.index(self.kv_seq_axes) * n
+        return start, start + n
+
+
+def make_ctx(cfg: ModelConfig, engine=None, seq: Optional[int] = None, *, comm=None,
+             batch: Optional[int] = None, cache_len: Optional[int] = None,
+             kv_seq_shard: bool = False, ring_cache: bool = False) -> ShardCtx:
     """The model's context on the mesh of ``engine``
-    (``distributed.engine.ShardMapEngine``) for a residual of ``seq``
-    positions, the whole length (a VLM's ``vision_tokens`` plus its text;
-    :func:`residual_len`): tensor-parallel on a model axis larger than one
-    (the engine's ``tensor_parallel``), else the one-device context (the
-    replicated path). Without an engine, one device. whisper's encoder
-    residual is ``cfg.encoder_seq`` frames long."""
-    if engine is None or not engine.tensor_parallel:
+    (``distributed.engine.ShardMapEngine``), or of ``comm``
+    (``distributed.audit.Collectives``: prefill and decode hold no engine),
+    for a residual of ``seq`` positions, the whole length (a VLM's
+    ``vision_tokens`` plus its text; :func:`residual_len`): tensor-parallel
+    on a model axis larger than one (the engine's ``tensor_parallel``),
+    else the one-device context (the replicated path). Without either, one
+    device. whisper's encoder residual is ``cfg.encoder_seq`` frames long.
+
+    ``cache_len`` makes the context of a prefill of ``seq`` positions and
+    of the decode steps after it: a cache of ``cache_len`` positions (the
+    ring's window with ``ring_cache``) for ``batch`` rows over the mesh,
+    laid out by :func:`cache_specs` (``kv_seq_shard`` as it takes it).
+    Prefill and decode run tensor-parallel only: a mesh without a model
+    split raises, naming it.
+    """
+    if engine is not None:
+        comm, tp = engine.comm, engine.tensor_parallel
+    else:
+        tp = comm is not None and comm.size((MODEL_AXIS,)) > 1
+    if cache_len is not None:
+        if not tp:
+            raise NotImplementedError(
+                f"{cfg.name}: prefill and decode on a mesh run tensor-parallel, and the mesh "
+                f"{comm.axis_sizes if comm is not None else {}} has no model split")
+        if batch is None or seq is None:
+            raise ValueError("a decode layout needs the global rows and the prefill's length")
+    if not tp:
         return ShardCtx()
     if seq is None:
         raise ValueError("a tensor-parallel context needs the sequence length")
-    comm, axes = engine.comm, (MODEL_AXIS,)
+    axes = (MODEL_AXIS,)
     m = comm.size(axes)
     ql, kvl = attn_layouts(cfg, m)
-    return ShardCtx(comm=comm, model_axes=axes, size=m, index=comm.index(axes),
-                    q_layout=ql, kv_layout=kvl, seq_shard=sequence_sharded(seq, m),
-                    encoder_seq_shard=sequence_sharded(cfg.encoder_seq, m))
+    ctx = ShardCtx(comm=comm, model_axes=axes, size=m, index=comm.index(axes),
+                   q_layout=ql, kv_layout=kvl, seq_shard=sequence_sharded(seq, m),
+                   encoder_seq_shard=sequence_sharded(cfg.encoder_seq, m))
+    if cache_len is None:
+        return ctx
+    sizes = comm.axis_sizes
+    specs = cache_specs(cfg, decode_shape(batch, cache_len), sizes, kv_seq_shard=kv_seq_shard,
+                        cache_len=cache_len)
+    return dataclasses.replace(
+        ctx, cache_len=cache_len, cache_batch=batch, kv_seq_shard=kv_seq_shard,
+        ring_cache=ring_cache,
+        kv_seq_axes=spec_entry_names(specs["kv"][0][2]) if "kv" in specs else (),
+        cache_shapes=local_cache_shapes(cfg, batch, cache_len, sizes,
+                                        kv_seq_shard=kv_seq_shard))
 
 
 def residual_len(cfg: ModelConfig, seq: int) -> int:
@@ -487,3 +552,65 @@ def cache_specs(cfg: ModelConfig, shape: InputShape, mesh, kv_seq_shard: bool = 
             "conv_c": (None, b, None, None),
         }
     return specs
+
+
+def decode_shape(batch: int, cache_len: int) -> InputShape:
+    """The decode shape of ``batch`` rows against a cache of ``cache_len``
+    positions, as :func:`cache_specs` reads it."""
+    return InputShape("decode", "decode", cache_len, batch)
+
+
+def spec_slices(spec, shape, sizes: dict[str, int], coords: dict[str, int]) -> tuple:
+    """The slice of each dim a rank at ``coords`` holds of a tensor of
+    ``shape`` laid out by ``spec`` (an entry's axes major to minor)."""
+    out = []
+    for d, entry in zip(shape, spec_entries(spec, len(shape))):
+        idx, k = 0, 1
+        for name in spec_entry_names(entry):
+            idx = idx * sizes.get(name, 1) + coords.get(name, 0)
+            k *= sizes.get(name, 1)
+        out.append(slice(idx * (d // k), (idx + 1) * (d // k)))
+    return tuple(out)
+
+
+def local_cache_shapes(cfg: ModelConfig, batch: int, cache_len: int, mesh, *,
+                       kv_seq_shard: bool = False) -> dict:
+    """The shape of each leaf of a rank's decode cache of ``batch`` rows
+    and ``cache_len`` positions on ``mesh``: its :func:`cache_specs` shard
+    of ``transformer.cache_shapes``, in the same tree (``"kv"``: the (k, v)
+    pair; ``"ssm"``: the state's dict)."""
+    from repro_torch.models.transformer import cache_shapes
+
+    sizes = mesh_axis_sizes(mesh)
+    specs = cache_specs(cfg, decode_shape(batch, cache_len), sizes, kv_seq_shard=kv_seq_shard,
+                        cache_len=cache_len)
+    shapes = cache_shapes(cfg, batch, cache_len)
+    out: dict = {}
+    if "kv" in shapes:
+        out["kv"] = tuple(local_shape(sp, shape, sizes)
+                          for sp, shape in zip(specs["kv"], shapes["kv"]))
+    if "ssm" in shapes:
+        out["ssm"] = {k: local_shape(specs["ssm"][k], shape, sizes)
+                      for k, shape in shapes["ssm"].items()}
+    return out
+
+
+def held_cache_shapes(cache: dict) -> dict:
+    """The leaf shapes of a decode cache of tensors, in
+    :func:`local_cache_shapes`'s tree."""
+    out: dict = {}
+    if "kv" in cache:
+        out["kv"] = tuple(tuple(t.shape) for t in cache["kv"])
+    if "ssm" in cache:
+        out["ssm"] = {k: tuple(t.shape) for k, t in cache["ssm"].items()}
+    return out
+
+
+def cache_bytes(shapes: dict, dtype_bytes: int) -> int:
+    """The bytes of a decode cache of leaf ``shapes`` (:func:`local_cache_shapes`'s
+    tree): ``h`` fp32, the rest ``dtype_bytes`` an element, as
+    ``transformer.init_cache`` allocates them."""
+    total = sum(math.prod(s) * dtype_bytes for s in shapes.get("kv", ()))
+    for k, s in shapes.get("ssm", {}).items():
+        total += math.prod(s) * (4 if k == "h" else dtype_bytes)
+    return total
