@@ -13,7 +13,8 @@ generate on the SSM, hybrid, VLM and audio models; the tensor-parallel
 dense and MoE models, the guarded step and the distributed optimizer on
 four ranks that share the card; the staggered full-step schedule on one
 rank and on four; tensor-parallel prefill and decode of every arch on four
-ranks; a 32768-token prefill.
+ranks; a 32768-token prefill; the dry-run and the perf runner as one rank
+of the production mesh.
 
   1. device   -- the card's name and power limit (nvidia-smi), device count;
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
@@ -133,13 +134,13 @@ ranks; a 32768-token prefill.
                  once, here, before any rank starts), batch 2 x 1024 a rank,
                  bf16, every model on a model split tensor-parallel (each
                  rank holds and computes with its parameter shards), every
-                 run in one world of four processes: run A, full-width,
-                 full-depth muonbp-960m on data=2,model=2
+                 run in one world of four processes: run A, full-width
+                 muonbp-960m at 4 of 12 layers on data=2,model=2
                  with ZeRO-1, six steps, after one fp32 step (TF32 off)
                  whose loss, and each rank's gradient shards, are held
                  against the single-process port's; run B, NorMuon with the
-                 flatten fallback at 3 layers, two steps; run C, full
-                 depth on model=4, three steps; run D, internvl2-1b at 4 of 24
+                 flatten fallback at 3 layers, two steps; run C, 4 of
+                 12 layers on model=4, three steps; run D, internvl2-1b at 4 of 24
                  layers (256 vision tokens ahead of the text) on
                  data=2,model=2 with ZeRO-1, three steps; run E,
                  olmoe-1b-7b at 2 of 16 layers tensor-parallel (the experts'
@@ -180,8 +181,16 @@ ranks; a 32768-token prefill.
                  launches, peak memory, momentum shards and spans; the
                  update on the run's state and fresh gradients against the
                  single-process update on rank 0, both phases (not on run
-                 E), and pipelined against barrier (torch.equal). gloo
-                 copies through the host: these times measure no link;
+                 E), and pipelined against barrier (torch.equal). Run K of
+                 the stagger phase runs in the same world. After run F's
+                 checks each rank replays one full update with the
+                 layer_shard fold over data (muon(layer_shard=), an engine
+                 without ZeRO-1, the run's gradients and momentum): against
+                 the update without it to 1e-5 of each leaf's max (bitwise
+                 or not, reported), the MLP's wo stack of 3 padded to 4,
+                 the 'full' gathers the plan's plus the fold's
+                 layer_shard_collectives, stage by stage. gloo copies
+                 through the host: these times measure no link;
  14. stagger  -- the staggered full-step schedule (--full-schedule staggered)
                  through the launcher. Run S: full-width, full-depth
                  muonbp-960m on one card as a one-rank NCCL world (--mesh
@@ -191,8 +200,8 @@ ranks; a 32768-token prefill.
                  (counted from zero just before it), its comm_rates record;
                  then on its state and fresh gradients each residue's
                  update, timed, per leaf against one process's synchronous
-                 full and block updates by the offsets. Run K: the
-                 distributed phase's run on four ranks (gloo) with the
+                 full and block updates by the offsets. Run K (in the
+                 distributed phase's world): the run on four ranks (gloo) with the
                  schedule, muonbp-960m at 4 of 12 layers on data=2,model=2
                  with ZeRO-1, P = 3, four steps, with that phase's checks;
                  on every rank each step's gathers equal the plan's residue
@@ -236,7 +245,24 @@ ranks; a 32768-token prefill.
                  one block, and the logits at position 32767 against
                  decode_step there after a prefill of the 32767 before it,
                  each to 1e-3 of max|logit|;
- 17. times    -- each kernel, its plain version and the one-call PyTorch
+ 17. dryrun   -- the port's dry-run and perf runner, one rank (0) of a fake
+                 world of 256 on (data=16, model=16), each in a process of
+                 its own, on the card and with fake tensors on the CPU, all
+                 eight at once: (a) python -m repro_torch.launch.dryrun
+                 --arch muonbp-960m --shape train_4k (--phase block and
+                 --phase full, a process each), (b)
+                 python -m repro_torch.launch.perf --arch muonbp-960m
+                 --shape train_4k --phase full --layer-shard, (c) python -m
+                 repro_torch.launch.perf --arch gemma2-9b --shape
+                 decode_32k --kv-seq-shard. Each record's bytes a rank equal
+                 scripts/mesh_bytes.py's to the byte (full 1,642,070,016,
+                 tp 18,321,659,904, grad_reduce 201,283,596, the block step
+                 no optimizer byte; (b) the plan's plus the fold's; (c) tp
+                 15,927,296 and a cache of 5,637,144,576); the card's
+                 records equal the fake ones in every collective and FLOP;
+                 (a) and (b) launch the NS kernels on the card; each peak
+                 on the card beside the fake count;
+ 18. times    -- each kernel, its plain version and the one-call PyTorch
                  counterpart (where one exists) timed with CUDA events, with
                  the least time the card could take for the same work; the
                  tiled Gram with its B operand K-major and N-major (the
@@ -459,10 +485,10 @@ CHAOS_ARGV = ["--arch", "muonbp-960m", "--reduced", "--steps", "6", "--batch", "
 # each rank holds and computes with its param_specs shards,
 # sequence-sharded between layers.
 # Every run goes in one world of four processes (dist_world). Run A:
-# full-width, full-depth muonbp-960m on
+# full-width muonbp-960m at DIST_AC_LAYERS of 12 layers on
 # data=2,model=2 with ZeRO-1, six steps. Run B: NorMuon with the flatten
 # fallback at 3 of 12 layers (3 does not divide 2: padded lead, padded row
-# statistics), two steps. Run C: full depth on model=4 (the 4 KV
+# statistics), two steps. Run C: DIST_AC_LAYERS layers on model=4 (the 4 KV
 # heads split 4 ways), three steps. Run D: full-width internvl2-1b tensor-parallel (its 256 vision
 # tokens put ahead of the text in the embedding's partial sum on model
 # index 0) on data=2,model=2 with ZeRO-1, three steps (full, block, full).
@@ -494,6 +520,11 @@ DIST_RANKS = 4
 DIST_ARGV = ["--optimizer", "muonbp", "--period", "5", "--seq", "1024", "--dist-backend",
              "gloo", "--obs-block", "--log-every", "1"]
 DIST_SEQ, DIST_SEED = 1024, 0
+# Runs A and C at 4 of muonbp-960m's 12 layers, which keeps the script
+# well inside its 1200 s (1150.5 s with both at full depth, NVIDIA H100
+# 80GB HBM3, 700 W): the dryrun phase runs the full-depth model
+# tensor-parallel on the card, as one rank of (data=16, model=16).
+DIST_AC_LAYERS = 4
 # Run D's depth: internvl2-1b at 4 of 24 layers, the depth it ran at
 # replicated before (a layer holds 14.9 M parameters, the embedding and
 # head 272.0 M; 331.7 M at 4 layers, half of it a rank), so that its block
@@ -530,12 +561,12 @@ DIST_SKIP_CLASSES = {"grad_reduce", "norm", "tp", "guard"}
 # (label, arch, mesh, global batch, extra flags, steps, layers (None: all),
 # tensor-parallel, kernels that must launch)
 DIST_RUNS = (
-    ("A", "muonbp-960m", "data=2,model=2", 4, ["--zero1"], 6, None, True,
+    ("A", "muonbp-960m", "data=2,model=2", 4, ["--zero1"], 6, DIST_AC_LAYERS, True,
      MAIN_PATH_KERNELS),
     ("B", "muonbp-960m", "data=2,model=2", 4, ["--zero1", "--optimizer-variant", "normuon",
                                                "--zero1-flatten"], 2, 3, True,
      MAIN_PATH_KERNELS + ("normuon",)),
-    ("C", "muonbp-960m", "model=4", 2, [], 3, None, True, MAIN_PATH_KERNELS),
+    ("C", "muonbp-960m", "model=4", 2, [], 3, DIST_AC_LAYERS, True, MAIN_PATH_KERNELS),
     ("D", "internvl2-1b", "data=2,model=2", 4, ["--zero1", "--period", "2"], 3, DIST_D_LAYERS,
      True, MAIN_PATH_KERNELS),
     ("E", MOE_ARCH, "data=2,model=2", 4, ["--zero1", "--period", "2"], 3, DIST_E_LAYERS, True,
@@ -590,6 +621,32 @@ STAGGER_K_PREDICTED = [94371840, 94371840, 84934656]
 # The single-process MuonBP update (PERF.md section 5, kernels): block and
 # full, ms, NVIDIA H100 80GB HBM3, 700.00 W; printed beside run S's.
 SYNC_UPDATE_MS = {"block": 116.4, "full": 154.3}
+
+# The dryrun phase: the port's dry-run and perf runner, each one rank (0)
+# of a fake production world (data=16, model=16) in a process of its own,
+# on the card and again with fake tensors on the CPU, all at once: (a)
+# muonbp-960m train_4k, block and full (a process each); (b) its full step
+# with the layer_shard fold over 'data'; (c) gemma2-9b decode_32k with the
+# cache's sequence over 'model'.
+DRYRUN_A = ["-m", "repro_torch.launch.dryrun", "--arch", "muonbp-960m", "--shape", "train_4k"]
+DRYRUN_COMBOS = (
+    ("a", DRYRUN_A + ["--phase", "block"]),
+    ("a", DRYRUN_A + ["--phase", "full"]),
+    ("b", ["-m", "repro_torch.launch.perf", "--arch", "muonbp-960m", "--shape", "train_4k",
+           "--phase", "full", "--layer-shard"]),
+    ("c", ["-m", "repro_torch.launch.perf", "--arch", "gemma2-9b", "--shape", "decode_32k",
+           "--kv-seq-shard"]),
+)
+# A rank's bytes, predicted by scripts/mesh_bytes.py from the shapes
+# (--mesh data=16,model=16 --batch 256 --seq 4096, and gemma2-9b's
+# --batch 128 --seq 32768 --cache-len 32768 --kv-seq-shard, its docstring).
+DRYRUN_TRAIN_BYTES = {"full": 1642070016, "tp": 18321659904, "grad_reduce": 201283596}
+DRYRUN_DECODE_TP, DRYRUN_DECODE_CACHE = 15927296, 5637144576
+DRYRUN_TIMEOUT_S = 400
+# The layer_shard replay of the distributed phase, on run F's mesh and
+# depth (3 layers: the MLP's wo stack of 3 pads to 4 over data=2).
+DIST_FOLD_RUN = "F"
+FOLD_TOL = 1e-5        # folded vs unfolded full update, of each leaf's max
 
 # The prefill_long phase: full-width, full-depth muonbp-960m prefills
 # SHAPES["prefill_32k"] (32768 tokens) with the KV-blocked attention at the
@@ -3002,6 +3059,9 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
             del ref
         del got
         torch.cuda.empty_cache()
+    if label == DIST_FOLD_RUN:
+        res["fold"] = dist_fold_replay(engine, cfg, shapes, run.block_specs, g_m, p_m,
+                                       muon_state)
     if staggered:
         res["update"]["stagger"] = stagger_updates(
             muon(0.02, 0.02, comm=engine, full_schedule="staggered",
@@ -3010,6 +3070,68 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
         del refs
     res["check_peak_bytes"] = torch.cuda.max_memory_allocated()
     return res
+
+
+def dist_fold_replay(engine, cfg, shapes, block_specs, grads, params, state) -> dict:
+    """One full update with the layer_shard fold over 'data' on a rank of
+    run F, against the same update without it: an engine on the run's mesh
+    without ZeRO-1 (the fold skips a lead dim ZeRO-1 already splits), the
+    run's gradients and its momentum in the param layout, the same for
+    both. Each leaf's difference over its max, whether all are bitwise,
+    both walls, the unfolded program's stacks that pad, and each trace's
+    'full' gathers against the plan (and the fold's; audit's
+    assert_pipelined_matches_plan, stage by stage)."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import muon, program
+    from repro_torch.distributed import (assert_pipelined_matches_plan, make_engine,
+                                         plan_comm)
+    from repro_torch.sharding import specs as sh
+
+    sizes = engine.axis_sizes
+    specs = sh.param_specs(shapes, cfg, sizes)
+    fold_engine = make_engine(shapes, specs, engine.mesh)
+    plan = plan_comm(shapes, specs, sizes, block_specs=block_specs)
+    state = state._replace(momentum={k: engine.to_param_layout(k, m)
+                                     for k, m in state.momentum.items()})
+    blocks = dict(tree_lib.flatten_with_path(block_specs))
+    leaf_specs = tuple(
+        program.LeafSpec(key=k, shape=tuple(engine.full_shape(k, g.shape)), dtype="float32",
+                         block=blocks.get(k))
+        for k, g in tree_lib.flatten_with_path(grads))
+    layer_shard = (engine.mesh, "data")
+    out = {"errors": [], "ms": {}, "padded": []}
+    upd = {}
+    for name, ls in (("plain", None), ("fold", layer_shard)):
+        opt = muon(0.02, 0.02, period=5, weight_decay=0.1, block_specs=block_specs,
+                   comm=fold_engine, layer_shard=ls)
+        prog = program.compile_program(leaf_specs, engine=fold_engine, layer_shard=ls)
+        fold_engine.comm.trace.step = name
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, _ = opt.update(grads, state, params, "full")
+        torch.cuda.synchronize()
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        upd[name] = dict(tree_lib.flatten_with_path(u))
+        try:
+            by_stage = assert_pipelined_matches_plan(fold_engine.comm.trace, prog.phase("full"),
+                                                     plan, step=name)
+            out[f"{name}_full_bytes"] = sum(by_stage.values())
+        except AssertionError as e:
+            out["errors"].append(f"{name}: {e}")
+        if ls is None:
+            out["padded"] = [list(op.packed_shape) for op in prog.phase("full").ops
+                             if len(op.packed_shape) >= 3
+                             and math.prod(op.packed_shape[:-2]) % sizes["data"]]
+        else:
+            out["fold_bytes"] = sum(op.comm.predicted_bytes for op in prog.phase("full").ops
+                                    if op.comm is not None)
+    out["plan_full"] = plan.predicted_bytes("full")
+    out["bitwise"] = all(torch.equal(upd["fold"][k], v) for k, v in upd["plain"].items())
+    out["rel"] = max(float((upd["fold"][k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                     for k, v in upd["plain"].items())
+    return out
 
 
 def stagger_updates(opt, grads, state, params, period: int, offsets: dict, refs: dict,
@@ -3073,14 +3195,14 @@ def dist_guard_checks(tag: str, res: list) -> None:
         "full; each healthy guarded step torch.equal to the unguarded mesh step")
 
 
-def phase_distributed(smi: str) -> None:
+def phase_distributed(smi: str) -> list:
     """Four ranks on the one card, gloo, through the launcher, every model
     on a model split tensor-parallel, every run in one world
-    (:func:`dist_world`): run A, full-width, full-depth muonbp-960m on
-    data=2,model=2 with ZeRO-1, six steps (full,
+    (:func:`dist_world`): run A, full-width muonbp-960m at DIST_AC_LAYERS
+    layers on data=2,model=2 with ZeRO-1, six steps (full,
     block x4, full), after the fp32 step held against one process; run B,
     NorMuon with the flatten fallback at 3 of its 12 layers, two steps; run
-    C, full depth on model=4, three steps. Run D, internvl2-1b at DIST_D_LAYERS layers
+    C, DIST_AC_LAYERS layers on model=4, three steps. Run D, internvl2-1b at DIST_D_LAYERS layers
     tensor-parallel, data=2,model=2 with ZeRO-1, three steps. Run E,
     olmoe-1b-7b at DIST_E_LAYERS layers tensor-parallel, data=2,model=2 with
     ZeRO-1, three steps, after its fp32 step and routing held against one
@@ -3094,12 +3216,15 @@ def phase_distributed(smi: str) -> None:
     process. Run J, the replicated path: internvl2-1b at
     DIST_D_LAYERS layers on data=4,model=1 with ZeRO-1, two steps. Run L,
     Dion on muonbp-960m at DIST_L_LAYERS layers, data=2,model=2 with
-    ZeRO-1, two steps after its fp32 step held against one process. Every
-    rank's exit code is checked. gloo
-    copies through the host: its times measure no link."""
+    ZeRO-1, two steps after its fp32 step held against one process; run K,
+    the stagger phase's four-rank run, whose ranks' results it returns.
+    After run F's checks each rank replays one full update with the
+    layer_shard fold (:func:`dist_fold_replay`). Every rank's exit code is
+    checked. gloo copies through the host: its times measure no link."""
     t_phase = time.perf_counter()
-    dist_world(DIST_RUNS, smi)
+    out = dist_world(DIST_RUNS + (STAGGER_K,), smi)
     log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s")
+    return out[-1]
 
 
 def dist_world(specs: tuple, smi: str) -> list:
@@ -3207,6 +3332,24 @@ def dist_report(spec: tuple, res: list, smi: str, ref_s: float) -> None:
             f"{len(r0['phases'])} steps a rank")
     if "guard" in r0:
         dist_guard_checks(tag, res)
+    if "fold" in r0:
+        for rank, r in enumerate(res):
+            fo = r["fold"]
+            log(f"[{tag}] rank {rank} layer_shard fold over data (no ZeRO-1): full update "
+                f"{fo['ms']['fold']:.1f} ms against {fo['ms']['plain']:.1f} ms unfolded, "
+                f"{'bitwise' if fo['bitwise'] else 'not bitwise'}, worst leaf "
+                f"{fo['rel']:.3e} of its max (tol {FOLD_TOL:g}); padded stacks "
+                f"{fo['padded']}; 'full' gathers {fo.get('fold_full_bytes')} B = plan "
+                f"{fo['plan_full']} + fold {fo.get('fold_bytes')}")
+            if fo["errors"]:
+                fail(f"{tag}: rank {rank}'s fold trace disagrees: {fo['errors']}")
+            if not fo["padded"]:
+                fail(f"{tag}: no packed stack pads at this depth")
+            if not fo["rel"] <= FOLD_TOL:
+                fail(f"{tag}: rank {rank}'s folded update disagrees with the unfolded one")
+            if fo["fold_full_bytes"] != fo["plan_full"] + fo["fold_bytes"] or \
+                    fo["plain_full_bytes"] != fo["plan_full"]:
+                fail(f"{tag}: rank {rank}'s full gathers are not the plan plus the fold")
     for rank, r in enumerate(res):
         if r["trace_errors"]:
             fail(f"{tag}: rank {rank}'s trace disagrees: {r['trace_errors']}")
@@ -3344,10 +3487,11 @@ def stagger_one_card() -> dict:
     return res
 
 
-def phase_stagger(smi: str) -> None:
+def phase_stagger(smi: str, k_res: list) -> None:
     """The staggered full-step schedule through the launcher: run S on one
-    card (a one-rank NCCL world), then run K on four ranks (gloo), each with
-    the checks the module docstring lists."""
+    card (a one-rank NCCL world), then the checks of run K, which ran on
+    four ranks (gloo) in the distributed phase's world (``k_res``: its
+    ranks' results), each with the checks the module docstring lists."""
     import gc
     import tempfile
 
@@ -3409,7 +3553,7 @@ def phase_stagger(smi: str) -> None:
         f"card: {smi}")
 
     tag = "stagger:K"
-    (res,) = dist_world((STAGGER_K,), smi)
+    res = k_res
     r0 = res[0]
     log(f"[{tag}] plan a rank and residue {r0['plan_residues']} B (predicted "
         f"{STAGGER_K_PREDICTED}); offsets {r0['offsets']}")
@@ -3878,6 +4022,119 @@ def phase_prefill_long(smi: str) -> None:
     log(f"[prefill_long] card: {smi}; phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def dryrun_fold_bytes() -> int:
+    """The layer_shard fold's gathers of (b): ``layer_shard_collectives``
+    over 'data' of every packed stack of muonbp-960m's full step on
+    data=16,model=16 (the program compiled on the shapes, unfolded)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core import label_tree, program
+    from repro_torch.distributed import layer_shard_collectives, make_engine
+    from repro_torch.launch.dryrun import abstract_params
+    from repro_torch.sharding import specs as sh
+
+    cfg = get_config("muonbp-960m")
+    sizes = {"data": 16, "model": 16}
+    full = abstract_params(cfg)
+    engine = make_engine(full, sh.param_specs(full, cfg, sizes), sizes)
+    labels = dict(tree_lib.flatten_with_path(label_tree(full)))
+    specs = tuple(program.LeafSpec(key=k, shape=tuple(p.shape), dtype="float32")
+                  for k, p in tree_lib.flatten_with_path(full) if labels[k] == "muon")
+    prog = program.compile_program(specs, engine=engine, backend="cuda")
+    return sum(b for op in prog.phase("full").ops for _, _, b in layer_shard_collectives(
+        op.packed_shape, "data", sizes["data"], mode="engine"))
+
+
+def phase_dryrun(smi: str) -> None:
+    """The dry-run and the perf runner (DRYRUN_COMBOS), each on the card and
+    with fake tensors, every process at once: each record's bytes against
+    scripts/mesh_bytes.py's (the block step no optimizer byte; (b) the
+    plan's plus the fold's ``layer_shard_collectives``; (c) the cache a
+    rank), the card's records against the fake ones in every collective and
+    FLOP, the NS kernels launched in (a) and (b) on the card (the records'
+    counts, from zero before each step), each peak beside the fake count."""
+    t_phase = time.perf_counter()
+    fold = dryrun_fold_bytes()
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = {}
+        for i, (label, argv) in enumerate(DRYRUN_COMBOS):
+            for device in ("cuda", "fake"):
+                cmd = [sys.executable] + argv + ["--device", device, "--force",
+                                                 "--results-dir", os.path.join(out_dir, device)]
+                log(f"[dryrun:{label}] {device}: {' '.join(cmd[1:])}")
+                procs[(i, label, device)] = subprocess.Popen(
+                    cmd, cwd=ROOT, env=subprocess_env(), stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+        try:
+            for (_, label, device), proc in procs.items():
+                try:
+                    out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    fail(f"dryrun:{label} {device}: over {DRYRUN_TIMEOUT_S} s")
+                if proc.returncode != 0:
+                    fail(f"dryrun:{label} {device} exited {proc.returncode}:\n{out[-4000:]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        recs = {}
+        for device in ("cuda", "fake"):
+            for name in sorted(os.listdir(os.path.join(out_dir, device))):
+                rec = json.load(open(os.path.join(out_dir, device, name)))
+                if "error" in rec:
+                    fail(f"dryrun: {device} {name} failed:\n{rec['error']}")
+                recs[(device, name)] = rec
+    log(f"[dryrun] {len(procs)} processes: {time.perf_counter() - t_phase:.1f} s")
+    names = sorted({name for _, name in recs})
+    expect = {
+        "muonbp-960m__train_4k__16x16__block.json": ("a", {
+            "tp": DRYRUN_TRAIN_BYTES["tp"], "grad_reduce": DRYRUN_TRAIN_BYTES["grad_reduce"]}),
+        "muonbp-960m__train_4k__16x16__full.json": ("a", dict(DRYRUN_TRAIN_BYTES)),
+        "muonbp-960m__train_4k__full.json": ("b", {**DRYRUN_TRAIN_BYTES,
+                                                  "full": DRYRUN_TRAIN_BYTES["full"] + fold}),
+        "gemma2-9b__decode_32k.json": ("c", {"tp": DRYRUN_DECODE_TP}),
+    }
+    if names != sorted(expect):
+        fail(f"dryrun: records {names}, not {sorted(expect)}")
+    for name in names:
+        label, want = expect[name]
+        tag = f"dryrun:{label}"
+        card, fake = recs[("cuda", name)], recs[("fake", name)]
+        for rec in (card, fake):
+            got = {k: v for k, v in rec["collectives_by_class"].items() if k != "norm"}
+            if got != want:
+                fail(f"{tag} {rec['device']} {name}: bytes {got}, not {want}")
+        if card["collectives"] != fake["collectives"]:
+            fail(f"{tag} {name}: the card's collectives {card['collectives']} differ from the "
+                 f"fake {fake['collectives']}")
+        for key in ("flops", "counted_flops", "ns_chain_flops", "ns_chains"):
+            if card["cost"][key] != fake["cost"][key]:
+                fail(f"{tag} {name}: {key} on the card {card['cost'][key]}, fake "
+                     f"{fake['cost'][key]}")
+        launches = card["cost"]["kernel_launches"]
+        if label in ("a", "b"):
+            need = ("ns_fused_chain",) if card["phase"] == "block" else MAIN_PATH_KERNELS
+            missing = [k for k in need if launches.get(k, 0) <= 0]
+            if missing:
+                fail(f"{tag} {name}: the step never launched {missing} ({launches})")
+        if label == "c" and card["cache_bytes"] != DRYRUN_DECODE_CACHE:
+            fail(f"{tag}: a rank's cache {card['cache_bytes']} B, not {DRYRUN_DECODE_CACHE}")
+        mem, fmem = card["memory"], fake["memory"]
+        log(f"[{tag}] {name}: bytes {json.dumps(card['collectives_by_class'])} (fake equal); "
+            f"FLOPs {card['cost']['flops']:.6e} = counted {card['cost']['counted_flops']:.6e} "
+            f"+ NS chains {card['cost']['ns_chain_flops']:.6e} (fake equal); launches "
+            f"{launches}; arguments {mem['argument_bytes']} B; peak on the card "
+            f"{mem['peak_bytes']} B ({mem['peak_bytes'] / 2**30:.2f} GiB), the fake count "
+            f"{fmem['peak_bytes']} B ({fmem['peak_bytes'] / 2**30:.2f} GiB, "
+            f"{mem['peak_bytes'] / fmem['peak_bytes']:.4f} of it); build / step "
+            f"{card['build_s']} / {card['step_s']} s (fake {fake['build_s']} / "
+            f"{fake['step_s']} s, {len(procs)} processes at once)"
+            + (f"; cache {card['cache_bytes']} B a rank" if label == "c" else "")
+            + (f"; the fold's gathers {fold} B" if label == "b" else ""))
+    log(f"[dryrun] phase {time.perf_counter() - t_phase:.1f} s; card: {smi}")
+
+
 def phase_times(errors: dict, launches: dict) -> list:
     import torch
 
@@ -4060,10 +4317,11 @@ def main() -> int:
     phase_train_ssm(device["smi"], errors)
     phase_serve_ssm(device["smi"])
     phase_archs(device["smi"])
-    phase_distributed(device["smi"])
-    phase_stagger(device["smi"])
+    k_res = phase_distributed(device["smi"])
+    phase_stagger(device["smi"], k_res)
     phase_tp_serve(device["smi"])
     phase_prefill_long(device["smi"])
+    phase_dryrun(device["smi"])
     rows = phase_times(errors, launches)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     print(device["smi"], flush=True)

@@ -36,5 +36,16 @@ def get_config(name: str) -> ModelConfig:
     )
 
 
+def get_shape(name: str) -> InputShape:
+    return SHAPES[name]
+
+
+def shape_applies(cfg: ModelConfig, shape: InputShape) -> bool:
+    """The assignment's rule: ``long_500k`` only for sub-quadratic archs."""
+    if shape.name == "long_500k":
+        return cfg.sub_quadratic
+    return True
+
+
 __all__ = ["ARCHS", "InputShape", "ModelConfig", "NSEngineConfig", "PAPER_CONFIGS", "SHAPES",
-           "get_config"]
+           "get_config", "get_shape", "shape_applies"]

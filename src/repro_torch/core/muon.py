@@ -155,6 +155,7 @@ def muon(
     bucketing: bool = True,
     ns_strategy: Optional[str] = None,
     comm: Optional[Any] = None,
+    layer_shard: Optional[tuple] = None,
     full_schedule: Optional[str] = None,
     variant: Any = None,
 ) -> Optimizer:
@@ -169,7 +170,11 @@ def muon(
     None reads ``REPRO_FULL_SCHEDULE``), ``"barrier"`` or ``"staggered"``
     (needs ``comm`` and ``period >= 2``; ``update`` then also takes the
     phases ``"stagger:r"``); without an engine the first two have no
-    effect. ``variant`` is a name of ``core.variants.VARIANTS`` ("muon" |
+    effect. ``layer_shard=(mesh, axis)`` splits the full step's stacks over
+    ``axis``, so each rank orthogonalizes only its share of the layers and
+    one all-gather over ``axis`` restores each stack (the engine's fold,
+    ``core/program.py``); without ``comm`` only an axis of size one is
+    accepted, where it changes nothing. ``variant`` is a name of ``core.variants.VARIANTS`` ("muon" |
     "turbo_muon" | "normuon"), a ``VariantSpec``, or None for the baseline;
     a low-rank variant raises ``ValueError`` (build it with
     ``variants.build_variant``).
@@ -203,7 +208,8 @@ def muon(
         if key not in programs:
             programs[key] = program_lib.compile_program(
                 leaf_specs, bucketing=bucketing, backend=backend, strategy=ns_strategy,
-                engine=comm, full_schedule=full_schedule, ns_steps=eff_ns_steps,
+                engine=comm, layer_shard=layer_shard, full_schedule=full_schedule,
+                ns_steps=eff_ns_steps,
                 stagger_period=period if full_schedule == "staggered" else None,
                 precondition=vspec.precondition, epilogue=vspec.epilogue,
             )

@@ -30,8 +30,17 @@ bytes, the plan's own balancer), and in phase ``"stagger:r"`` the leaves
 due at ``r`` gather and orthogonalize whole while every other leaf takes
 its block path, under one pipeline schedule over the due buckets.
 
-The reference's layer_shard split is not in this port yet: asking for it
-raises ``NotImplementedError``.
+``layer_shard=(mesh, axis)`` splits each full-step stack over ``axis`` so
+that a rank orthogonalizes only its share of the layers: with an engine, a
+``layer_shard`` :class:`CommOp` on each full-phase bucket whose packed
+stack has a lead dim (the engine's fold: a local slice of the padded stack,
+NS on the share, one all-gather over ``axis``; ``plan.layer_shard_dims``
+pads it, ``plan.layer_shard_collectives(mode='engine')`` prices it). A
+bucket whose leaves ZeRO-1 already splits over ``axis`` keeps its layers
+whole, and no 2-D leaf or block phase is ever folded. The reference also
+re-shards without an engine, through its compiler's partitioner; the port
+has none, so without an engine only an axis of size one compiles (the op
+is then numerically inert) and a larger one raises.
 """
 
 from __future__ import annotations
@@ -53,8 +62,6 @@ FP32_BYTES = 4  # NS inputs are fp32 (momentum dtype): plan.py's convention
 # mixed phase per step residue ("stagger:r") in which only the leaves due
 # at that residue run their full-step path and the rest their block path.
 FULL_SCHEDULES = ("barrier", "pipelined", "staggered")
-NOT_PORTED = ("is not in this slice of the port; the layer_shard schedule comes in a "
-              "later one")
 
 # Residue r of the staggered schedule runs the compiled phase "stagger:r";
 # the plain 'full' phase is compiled beside them (the guard's forced-full
@@ -176,6 +183,7 @@ class BucketOp:
     kernel: KernelPlan
     packed_shape: tuple = ()                # shape the kernel actually sees
     compute_dtype: Optional[str] = None     # launch-merge cast target
+    comm: Optional[CommOp] = None           # bucket-level layer_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +195,8 @@ class PipelineStage:
     move (plan.py's convention), ``overlap_bytes`` what the concurrent NS
     chain can hide at the modeled rates (``plan.overlappable_ns_bytes``),
     per link class; the exposed bytes are their clamped difference.
+    ``compute_comm_bytes`` is what the compute op's own layer_shard gather
+    moves, kept apart: it overlaps the next stage's compute, not this one's.
     """
 
     index: int
@@ -195,6 +205,7 @@ class PipelineStage:
     writeback: tuple[int, ...]
     gather_bytes: int = 0
     overlap_bytes: int = 0
+    compute_comm_bytes: int = 0
     dcn_gather_bytes: int = 0
     dcn_overlap_bytes: int = 0
 
@@ -254,7 +265,10 @@ class PipelineSchedule:
                 link = f", {s.dcn_gather_bytes} B dcn" if s.dcn_gather_bytes else ""
                 parts.append(f"gather {len(s.gathers)} leaf/leaves ({s.gather_bytes} B{link})")
             if s.compute is not None:
-                parts.append(f"ns op{s.compute} (hides {s.overlap_bytes} B)")
+                ns = f"ns op{s.compute} (hides {s.overlap_bytes} B)"
+                if s.compute_comm_bytes:
+                    ns += f" +comm {s.compute_comm_bytes} B"
+                parts.append(ns)
             if s.writeback:
                 parts.append(f"writeback {len(s.writeback)} leaf/leaves")
             lines.append(f"  s{s.index}: " + (" | ".join(parts) if parts else "idle")
@@ -275,9 +289,11 @@ class PhaseProgram:
 
     def predicted_comm_bytes(self) -> int:
         """Predicted collective bytes a step of this phase (plan.py's
-        convention): the leaf gathers; the flatten writeback belongs to the
-        plan's 'apply' (:meth:`predicted_apply_bytes`)."""
-        return sum(le.gather.predicted_bytes for le in self.leaf_execs if le.gather)
+        convention): the leaf gathers and the buckets' layer_shard gathers;
+        the flatten writeback belongs to the plan's 'apply'
+        (:meth:`predicted_apply_bytes`)."""
+        return (sum(le.gather.predicted_bytes for le in self.leaf_execs if le.gather)
+                + sum(op.comm.predicted_bytes for op in self.ops if op.comm))
 
     def predicted_apply_bytes(self) -> int:
         """ZeRO-1 flatten-fallback writeback bytes (the plan's 'apply')."""
@@ -321,7 +337,8 @@ class UpdateProgram:
                          f"{prog.predicted_comm_bytes()} B"
                          + (f" (+{apply_b} B zero1 apply)" if apply_b else "") + due)
             for op in prog.ops:
-                comm = "gather" if any(le.gather for le in op.leaves) else "none"
+                comm = op.comm.kind if op.comm else (
+                    "gather" if any(le.gather for le in op.leaves) else "none")
                 merged = (f" merge={'+'.join(op.kernel.merged_dtypes)}"
                           if op.kernel.merged_dtypes else "")
                 variant = ""
@@ -341,8 +358,23 @@ class UpdateProgram:
         return "\n".join(lines)
 
 
-def execute_op(op: BucketOp, leaves: Sequence, orth: Callable) -> list[tuple[int, Any]]:
-    """Run ONE BucketOp; returns ``(leaf_index, orthogonalized)`` pairs."""
+def _flat_stack(x: torch.Tensor) -> tuple[torch.Tensor, Callable]:
+    """A packed ``(..., m, n)`` stack as ``(stack, m, n)``, and the inverse:
+    the layer_shard op without an engine, on an axis of size one."""
+    *lead, m, n = x.shape
+
+    def undo(o: torch.Tensor) -> torch.Tensor:
+        return o.reshape(*lead, m, n)
+
+    return x.reshape(-1, m, n), undo
+
+
+def execute_op(op: BucketOp, leaves: Sequence, orth: Callable, *,
+               layer_shard_apply: Optional[Callable] = None) -> list[tuple[int, Any]]:
+    """Run ONE BucketOp: pack -> layer_shard -> orthogonalize -> unpack;
+    returns ``(leaf_index, orthogonalized)`` pairs. ``layer_shard_apply(packed,
+    op) -> (share, undo)`` is the engine's fold of a ``layer_shard`` op;
+    without one the op is the inert size-one split."""
     parts = []
     for le in op.leaves:
         x = bucketing_lib.partition_leaf(leaves[le.index], le.plan)
@@ -350,7 +382,13 @@ def execute_op(op: BucketOp, leaves: Sequence, orth: Callable) -> list[tuple[int
             x = x.to(getattr(torch, op.compute_dtype))
         parts.append(x)
     packed = bucketing_lib.pack_bucket(parts, op.mode)
+    undo = None
+    if op.comm is not None and op.comm.kind == "layer_shard":
+        apply = layer_shard_apply or (lambda x, _op: _flat_stack(x))
+        packed, undo = apply(packed, op)
     orthed = orth(packed, strategy=op.kernel.strategy)
+    if undo is not None:
+        orthed = undo(orthed)
     plans = [le.plan for le in op.leaves]
     outs = []
     for le, out in zip(op.leaves, bucketing_lib.unpack_bucket(orthed, plans, op.mode)):
@@ -360,11 +398,12 @@ def execute_op(op: BucketOp, leaves: Sequence, orth: Callable) -> list[tuple[int
     return outs
 
 
-def execute_ops(ops: Sequence[BucketOp], leaves: list, orth: Callable) -> list:
+def execute_ops(ops: Sequence[BucketOp], leaves: list, orth: Callable, *,
+                layer_shard_apply: Optional[Callable] = None) -> list:
     """Interpret a phase's BucketOps; results in flat leaf order."""
     results: list = [None] * len(leaves)
     for op in ops:
-        for idx, out in execute_op(op, leaves, orth):
+        for idx, out in execute_op(op, leaves, orth, layer_shard_apply=layer_shard_apply):
             results[idx] = out
     missing = [i for i, r in enumerate(results) if r is None]
     if missing:
@@ -429,8 +468,11 @@ def _packed_shape(plans: Sequence[bucketing_lib.LeafPlan], mode: str) -> tuple:
 
 
 def _compile_phase(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketing: bool,
-                   backend: str, strategy: Optional[str], stages: dict) -> PhaseProgram:
-    """Counterpart of the reference's ``_compile_phase_gspmd`` with no layer_shard."""
+                   backend: str, strategy: Optional[str], stages: dict,
+                   layer_shard: Optional[tuple] = None) -> PhaseProgram:
+    """Counterpart of the reference's ``_compile_phase_gspmd``. A
+    ``layer_shard`` (its axis of size one: see :func:`compile_program`)
+    marks every unblocked stack as the reference's does, flattened."""
     mode = "concat" if phase == "full" else "stack"
     leaf_execs: list[LeafExec] = []
     for i, ls in enumerate(leaf_specs):
@@ -444,6 +486,12 @@ def _compile_phase(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketing: boo
     ops = []
     for key, members, compute_dtype, merged in _group_buckets(leaf_execs, mode, bucketing):
         packed = _packed_shape([le.plan for le in members], mode)
+        comm = None
+        if layer_shard is not None and members[0].plan.spec is None and len(packed) >= 3:
+            from repro_torch.distributed.plan import layer_shard_dims
+
+            stack, _, m, n = layer_shard_dims(packed, 1)
+            comm, packed = CommOp(kind="layer_shard", axes=(layer_shard[1],)), (stack, m, n)
         ops.append(BucketOp(
             bucket_key=key,
             leaves=tuple(members),
@@ -451,8 +499,34 @@ def _compile_phase(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketing: boo
             kernel=_kernel_plan(packed, backend, strategy, merged, **stages),
             packed_shape=packed,
             compute_dtype=compute_dtype,
+            comm=comm,
         ))
     return PhaseProgram(phase=phase, leaf_execs=tuple(leaf_execs), ops=tuple(ops))
+
+
+def _engine_layer_shard_comm(packed_shape: tuple, axis: str, axis_size: int,
+                             members: Sequence[LeafExec]) -> tuple[Optional[CommOp], tuple]:
+    """The engine's fold of one full-step bucket: ``(comm_op, share_shape)``.
+
+    The packed stack is whole over ``axis`` once the trailing gathers are
+    in, so the rank's slice of the padded stack is local; the one
+    collective is the all-gather that restores it
+    (``plan.layer_shard_collectives(mode='engine')``). A 2-D bucket has no
+    layer dim to split, and a bucket whose leaves ZeRO-1 splits over
+    ``axis`` already holds only its own layers: both keep their shape.
+    """
+    from repro_torch.distributed.plan import layer_shard_collectives, layer_shard_dims
+    from repro_torch.sharding.specs import spec_entry_names
+
+    if len(packed_shape) < 3:
+        return None, packed_shape
+    if any(axis in spec_entry_names(e) for le in members for e in le.spec[:-2]):
+        return None, packed_shape
+    _, stack_p, m, n = layer_shard_dims(packed_shape, axis_size)
+    comm = CommOp(kind="layer_shard", axes=(axis,),
+                  collectives=layer_shard_collectives(packed_shape, axis, axis_size,
+                                                      mode="engine"))
+    return comm, (stack_p // max(axis_size, 1), m, n)
 
 
 def _gather_comm(spec, shape: tuple, sizes: dict) -> Optional[CommOp]:
@@ -510,6 +584,8 @@ def _compile_schedule(ops: Sequence[BucketOp], ns_steps: int) -> Optional[Pipeli
             gather_bytes=_op_gather_bytes(ops[g_op]) if g_op is not None else 0,
             overlap_bytes=plan_lib.overlappable_ns_bytes(ops[c_op].packed_shape, ns_steps)
             if c_op is not None else 0,
+            compute_comm_bytes=ops[c_op].comm.predicted_bytes
+            if c_op is not None and ops[c_op].comm is not None else 0,
             dcn_gather_bytes=_op_gather_link_bytes(ops[g_op], "dcn") if g_op is not None else 0,
             dcn_overlap_bytes=plan_lib.overlappable_ns_bytes(
                 ops[c_op].packed_shape, ns_steps, link="dcn") if c_op is not None else 0,
@@ -520,7 +596,8 @@ def _compile_schedule(ops: Sequence[BucketOp], ns_steps: int) -> Optional[Pipeli
 def _compile_phase_engine(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketing: bool,
                           backend: str, strategy: Optional[str], engine: Any,
                           full_schedule: str, stages: dict,
-                          full_leaves: Optional[frozenset] = None) -> PhaseProgram:
+                          full_leaves: Optional[frozenset] = None,
+                          layer_shard: Optional[tuple] = None) -> PhaseProgram:
     """Engine mode: plan on each rank's local (post-gather) shapes.
 
     Every array is rank-local, so packing is always ``concat`` and bucket
@@ -532,6 +609,8 @@ def _compile_phase_engine(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketi
     ``full_leaves`` compiles a mixed staggered phase: those leaf indices
     take their full-step path and every other leaf its block path, in one
     body whose pipeline schedule spans the due buckets' gathers.
+    ``layer_shard`` folds the plain full phase's stacks
+    (:func:`_engine_layer_shard_comm`).
     """
     from repro_torch.distributed.plan import lead_gather_collectives
     from repro_torch.sharding.specs import local_shape, spec_entries, spec_entry_size
@@ -584,10 +663,14 @@ def _compile_phase_engine(leaf_specs: Sequence[LeafSpec], phase: str, *, bucketi
     ops = []
     for key, members, compute_dtype, merged in _group_buckets(leaf_execs, mode, bucketing):
         packed = _packed_shape([le.plan for le in members], mode)
+        comm = None
+        if layer_shard is not None and phase == "full":
+            axis = layer_shard[1]
+            comm, packed = _engine_layer_shard_comm(packed, axis, sizes.get(axis, 1), members)
         ops.append(BucketOp(
             bucket_key=key, leaves=tuple(members), mode=mode,
             kernel=_kernel_plan(packed, backend, strategy, merged, **stages),
-            packed_shape=packed, compute_dtype=compute_dtype,
+            packed_shape=packed, compute_dtype=compute_dtype, comm=comm,
         ))
     # A mixed phase always pipelines (its due buckets' gathers overlap the
     # other buckets' NS); the plain full phase under 'staggered' too, as the
@@ -630,12 +713,26 @@ def compile_program(
     (``plan.assign_stagger_offsets``); the program carries the period and
     the offsets. ``ns_steps`` is the effective chain length K and
     ``precondition`` / ``epilogue`` the variant's stage names, recorded on
-    every KernelPlan. ``layer_shard`` raises ``NotImplementedError``.
+    every KernelPlan. ``layer_shard=(mesh, axis)`` folds the full phase's
+    stacks over ``axis`` (see the module docstring): with an engine the axis
+    must be one of its axes; without one (``mesh`` a ``DeviceMesh`` or an
+    ``{axis: size}`` dict) it must have size one.
     """
     if full_schedule not in FULL_SCHEDULES:
         raise ValueError(f"full_schedule must be one of {FULL_SCHEDULES}, got {full_schedule!r}")
     if layer_shard is not None:
-        raise NotImplementedError(f"layer_shard {NOT_PORTED}")
+        axis = layer_shard[1]
+        if engine is not None and axis not in dict(engine.axis_sizes):
+            raise ValueError(f"layer_shard axis {axis!r} not in engine mesh axes "
+                             f"{tuple(dict(engine.axis_sizes))}")
+        if engine is None:
+            from repro_torch.sharding.specs import mesh_axis_sizes
+
+            if mesh_axis_sizes(layer_shard[0]).get(axis, 1) > 1:
+                raise ValueError(
+                    f"layer_shard over {axis!r} without an engine: the reference re-shards "
+                    "through its partitioner, which eager PyTorch has not; pass comm= (the "
+                    "distributed engine, distributed.engine.ShardMapEngine), which folds it")
     offsets: Optional[dict] = None
     period: Optional[int] = None
     if full_schedule == "staggered":
@@ -668,9 +765,10 @@ def compile_program(
             phases[phase] = _compile_phase_engine(
                 leaf_specs, phase, bucketing=bucketing, backend=backend, strategy=strategy,
                 engine=engine, full_schedule=full_schedule, stages=stages,
-                full_leaves=full_leaves)
+                full_leaves=full_leaves, layer_shard=layer_shard)
         else:
             phases[phase] = _compile_phase(leaf_specs, phase, bucketing=bucketing,
-                                           backend=backend, strategy=strategy, stages=stages)
+                                           backend=backend, strategy=strategy, stages=stages,
+                                           layer_shard=layer_shard)
     return UpdateProgram(leaf_specs=tuple(leaf_specs), phases=phases, engine=engine,
                          stagger_period=period, stagger_offsets=offsets)

@@ -9,6 +9,7 @@ from repro_torch.distributed.audit import (
     CollectiveTrace,
     assert_matches_plan,
     assert_matches_plan_by_axes,
+    assert_pipelined_matches_plan,
     assert_staggered_matches_plan,
     bytes_by_axes,
     bytes_by_link,
@@ -24,6 +25,7 @@ from repro_torch.distributed.plan import (
     assign_stagger_offsets,
     dion_bytes,
     layer_shard_collectives,
+    layer_shard_dims,
     link_class,
     ns_chain_flops,
     overlappable_ns_bytes,
@@ -34,6 +36,7 @@ from repro_torch.distributed.plan import (
 __all__ = [
     "assert_matches_plan",
     "assert_matches_plan_by_axes",
+    "assert_pipelined_matches_plan",
     "assert_staggered_matches_plan",
     "assign_stagger_offsets",
     "bytes_by_axes",
@@ -46,6 +49,7 @@ __all__ = [
     "DCN_AXES",
     "dion_bytes",
     "layer_shard_collectives",
+    "layer_shard_dims",
     "LeafCommPlan",
     "link_class",
     "LINKS",

@@ -26,8 +26,8 @@ sharded leaves, ``core/dion.py``; ``plan.dion_bytes`` counts them),
 agreed over the whole mesh: 4 B a step) and ``'checkpoint'`` (state
 gathered for a snapshot): :data:`PHASES`.
 :func:`bytes_by_axes`, :func:`bytes_by_link`, :func:`assert_matches_plan`,
-:func:`assert_matches_plan_by_axes` and
-:func:`assert_staggered_matches_plan` read the trace.
+:func:`assert_matches_plan_by_axes`, :func:`assert_pipelined_matches_plan`
+and :func:`assert_staggered_matches_plan` read the trace.
 
 The wrapper's groups: one axis is the ``DeviceMesh``'s own group
 (``mesh.get_group(name)``); several axes (the ZeRO entry ``('pod',
@@ -44,6 +44,7 @@ import math
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.distributed.plan import CommPlan, link_class
@@ -148,7 +149,10 @@ class Collectives:
         self.sync = None
         self.trace = CollectiveTrace()
         self.axis_names = tuple(mesh.mesh_dim_names)
-        self.axis_sizes = dict(zip(self.axis_names, mesh.mesh.shape))
+        # The mesh's ranks as host data, read once: a group is made later,
+        # possibly under a FakeTensorMode (launch/dryrun.py).
+        self._ranks = np.asarray(mesh.mesh.tolist())
+        self.axis_sizes = dict(zip(self.axis_names, self._ranks.shape))
         self.coords = dict(zip(self.axis_names, mesh.get_coordinate()))
         self._groups: dict = {}
 
@@ -173,9 +177,9 @@ class Collectives:
 
                 # Every rank enumerates every group (new_group is collective
                 # over the world), in the mesh's row-major rank order.
-                ranks = self.mesh.mesh.movedim(
-                    [self.axis_names.index(a) for a in axes],
-                    list(range(self.mesh.mesh.dim() - len(axes), self.mesh.mesh.dim())))
+                nd = self._ranks.ndim
+                ranks = np.moveaxis(self._ranks, [self.axis_names.index(a) for a in axes],
+                                    list(range(nd - len(axes), nd)))
                 lists = ranks.reshape(-1, self.size(axes)).tolist()
                 self._groups[axes], _ = dist.new_subgroups_by_enumeration(lists)
         return self._groups[axes]
@@ -347,3 +351,36 @@ def assert_staggered_matches_plan(trace: CollectiveTrace, plan: CommPlan, *, per
                              f"events of residues {sorted(wrong)}")
     return _assert_axes_bytes_equal(trace, pred, phases, kinds, step,
                                     label=f"staggered residue {residue}/{period}")
+
+
+def assert_pipelined_matches_plan(trace: CollectiveTrace, prog_phase, plan: CommPlan, *,
+                                  phase: str = "full", step: Optional[int] = None) -> dict:
+    """A full step's gathers against the plan and the compiled program.
+
+    The reference's check of the same name reads its compiled HLO; here the
+    trace. (1) The phase's gather bytes equal ``plan.predicted_bytes(phase)``
+    plus the program's bucket-level comm (the layer_shard fold's gathers,
+    which the program prices and the leaf-level plan does not), to the byte.
+    (2) With a pipeline schedule, each stage's traced gathers equal what
+    the stage issues: its leaves' gathers and its compute op's fold. Returns
+    the traced bytes by stage (None: outside a stage).
+    """
+    events = trace.select(phase, step=step, kinds=(GATHER,))
+    measured = sum(e.bytes for e in events)
+    bucket = sum(b for op in prog_phase.ops if op.comm is not None
+                 for kind, _, b in op.comm.collectives if kind == GATHER)
+    predicted = plan.predicted_bytes(phase) + bucket
+    if measured != predicted:
+        raise AssertionError(
+            f"{phase!r} gather bytes {measured} != plan {predicted} (leaf "
+            f"{plan.predicted_bytes(phase)} + bucket {bucket})\n"
+            f"  trace: {bytes_by_axes(trace, phase, step=step)}")
+    by_stage: dict = {}
+    for e in events:
+        by_stage[e.stage] = by_stage.get(e.stage, 0) + e.bytes
+    if prog_phase.schedule is not None:
+        want = {s.index: s.gather_bytes + s.compute_comm_bytes
+                for s in prog_phase.schedule.stages if s.gather_bytes + s.compute_comm_bytes}
+        if by_stage != want:
+            raise AssertionError(f"{phase!r} gathers by stage {by_stage}, the schedule's {want}")
+    return by_stage

@@ -21,6 +21,12 @@ counterpart, not a ``shard_map``.
     default) bucket i+1's gathers are issued asynchronously before bucket
     i's NS, so at most two buckets' gathered momentum is live; the barrier
     body gathers all, orthogonalizes all, writes back all.
+  * **layer_shard** (``muon(layer_shard=(mesh, axis))``) -- on the full
+    phase each packed stack the program folds is whole over ``axis`` once
+    its gathers are in: the rank takes its slice of the padded layers
+    (local), runs NS on that share through the same ``orth`` (the kernels
+    on the card) and one tiled all-gather over ``axis`` restores the stack
+    (trace class ``'full'``, at the stage that computes the bucket).
 
 All decisions are made at compile time: ``core/program.py`` builds the
 engine-mode program from this engine's momentum specs (gather CommOps,
@@ -298,7 +304,8 @@ class ShardMapEngine:
                 ins = [gather(x, le) if le.gather is not None else x
                        for x, le in zip(u_leaves, leaf_execs)]
             with self._scope(f"muonbp.{scope}.ns"):
-                outs = program_lib.execute_ops(prog.ops, ins, orth)
+                outs = program_lib.execute_ops(prog.ops, ins, orth,
+                                               layer_shard_apply=self._fold(phase))
             del ins
             with self._scope(f"muonbp.{scope}.writeback"):
                 return [writeback(o, le) for o, le in zip(outs, leaf_execs)]
@@ -318,7 +325,8 @@ class ShardMapEngine:
                     for le in op.leaves:
                         if le.index in in_flight:
                             ins[le.index] = in_flight.pop(le.index).wait()
-                    for idx, out in program_lib.execute_op(op, ins, orth):
+                    for idx, out in program_lib.execute_op(
+                            op, ins, orth, layer_shard_apply=self._fold(phase, stage.index)):
                         pending[idx] = out
                     del ins
             with self._scope(f"muonbp.{scope}.s{stage.index}.writeback"):
@@ -327,6 +335,35 @@ class ShardMapEngine:
         if pending or in_flight or any(r is None for r in results):
             raise AssertionError("pipeline schedule left leaves unwritten")
         return results
+
+    def _fold(self, phase: str, stage: Optional[int] = None) -> Callable:
+        """The layer_shard fold of a bucket (``execute_op``'s
+        ``layer_shard_apply``): this rank's share of the packed stack's
+        padded layers, and the gather that restores the stack after NS."""
+
+        def apply(packed: torch.Tensor, op):
+            from repro_torch.distributed.plan import layer_shard_dims
+
+            comm = self._comm()
+            axis = op.comm.axes[0]
+            d = self.axis_sizes.get(axis, 1)
+            *lead, m, n = packed.shape
+            stack, stack_p, _, _ = layer_shard_dims(packed.shape, d)
+            share = stack_p // d
+            start = comm.index((axis,)) * share
+            local = packed.reshape(stack, m, n)[start:start + share]
+            if local.shape[0] < share:
+                # The pad layers are zero, which NS maps to zero.
+                local = torch.cat([local, local.new_zeros((share - local.shape[0], m, n))])
+
+            def undo(o: torch.Tensor) -> torch.Tensor:
+                if d > 1:
+                    o = comm.all_gather(o, (axis,), dim=0, phase=phase, stage=stage)
+                return o[:stack].reshape(*lead, m, n)
+
+            return local, undo
+
+        return apply
 
 
 class _TrailingGather:

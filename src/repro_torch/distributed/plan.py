@@ -787,11 +787,8 @@ def overlappable_ns_bytes(packed_shape, ns_steps: int, link: str = "ici") -> int
 
 def layer_shard_dims(packed_shape, axis_size: int) -> tuple[int, int, int, int]:
     """``(stack, stack_padded, m, n)`` of a layer-sharded packed stack: the
-    flatten + ceil-pad arithmetic of :func:`layer_shard_collectives`.
-
-    The layer_shard schedule itself (each rank orthogonalizing a share of
-    the layers) is not executed by the port yet; its pricing is the
-    reference's, carried by :class:`CommPlan`.
+    flatten + ceil-pad arithmetic of :func:`layer_shard_collectives`, which
+    the program's layer_shard op and the engine's fold share.
     """
     m, n = int(packed_shape[-2]), int(packed_shape[-1])
     stack = 1

@@ -25,7 +25,8 @@ the multi-device engine, which is not ported.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from typing import Callable, ContextManager, Optional
 
 import torch
 
@@ -40,6 +41,19 @@ def set_launch_hook(fn: Optional[Callable[[str, str, tuple], None]]) -> None:
     """Install (or with None, clear) the NS dispatch observer."""
     global _launch_hook
     _launch_hook = fn
+
+
+# Chain scope: ``fn(device_type, strategy, shape, steps)`` returns a context
+# manager entered around each chain. The dry-run's FLOP counter pauses in
+# it: a kernel on the card is opaque to the counter, so every device counts
+# the chains from their shapes instead (``launch/dryrun.py``).
+_chain_scope: Optional[Callable[[str, str, tuple, int], ContextManager]] = None
+
+
+def set_chain_scope(fn: Optional[Callable[[str, str, tuple, int], ContextManager]]) -> None:
+    """Install (or with None, clear) the context entered around each chain."""
+    global _chain_scope
+    _chain_scope = fn
 
 
 def plan_strategy(shape, *, budget: Optional[int] = None) -> str:
@@ -77,15 +91,24 @@ def orthogonalize(
     strategy: Optional[str] = None, normalize: bool = True,
 ) -> torch.Tensor:
     """``Orth(g)`` over the trailing two dims through the chosen strategy."""
-    from repro_torch.core.newton_schulz import orthogonalize_plain
-    from repro_torch.kernels.newton_schulz import fused, ops
-
     if strategy is None or strategy == "auto":
         strategy = plan_strategy(g.shape)
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown NS strategy {strategy!r}; available: {STRATEGIES}")
     if _launch_hook is not None:
         _launch_hook(g.device.type, strategy, tuple(g.shape))
+    scope = (contextlib.nullcontext() if _chain_scope is None
+             else _chain_scope(g.device.type, strategy, tuple(g.shape), steps))
+    with scope:
+        return _run(g, steps=steps, coeffs=coeffs, eps=eps, strategy=strategy,
+                    normalize=normalize)
+
+
+def _run(g: torch.Tensor, *, steps: int, coeffs, eps: float, strategy: str,
+         normalize: bool) -> torch.Tensor:
+    from repro_torch.core.newton_schulz import orthogonalize_plain
+    from repro_torch.kernels.newton_schulz import fused, ops
+
     if strategy == "plain":
         return orthogonalize_plain(g, steps=steps, coeffs=coeffs, eps=eps, normalize=normalize)
     if strategy in ("fused_chain", "fused_iter"):

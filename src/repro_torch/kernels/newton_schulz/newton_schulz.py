@@ -75,6 +75,12 @@ def _tma_operand(t: torch.Tensor):
     return scratch, ld, rows * ld, True
 
 
+def _same_storage(x, y) -> bool:
+    """Whether two tensors view one storage (read without the data pointer,
+    which a fake tensor has not)."""
+    return x.untyped_storage()._cdata == y.untyped_storage()._cdata
+
+
 def _check_symmetric(x, y, fma: bool) -> None:
     """What ``symmetric=True`` needs that the shapes can show."""
     if x.dim() < 2 or y.dim() < 2 or x.shape[-2] != y.shape[-1]:
@@ -82,7 +88,8 @@ def _check_symmetric(x, y, fma: bool) -> None:
     if fma:
         if y.shape[-2] != y.shape[-1]:
             raise ValueError(f"symmetric fma_matmul reads y as its own transpose; y is {tuple(y.shape)}")
-    elif not (y.data_ptr() == x.data_ptr() and y.shape == x.mT.shape and y.stride() == x.mT.stride()):
+    elif not (_same_storage(x, y) and y.storage_offset() == x.storage_offset()
+              and y.shape == x.mT.shape and y.stride() == x.mT.stride()):
         raise ValueError("symmetric matmul is the Gram x @ x^T: y must be x's transposed view")
 
 

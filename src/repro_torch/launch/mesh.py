@@ -72,6 +72,16 @@ def make_mesh_from_spec(spec: str, device_type: str = "cpu"):
     return _device_mesh(axes, shape, device_type)
 
 
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cpu"):
+    """The reference's production mesh over the live world: ``(data=16,
+    model=16)`` (one pod of 256), or ``(pod=2, data=16, model=16)`` with
+    ``multi_pod``; the world size must be the mesh's product (the dry-run's
+    fake world, ``launch/dryrun.py``). Initializes nothing."""
+    if multi_pod:
+        return _device_mesh(MESH_AXES, (2, 16, 16), device_type)
+    return _device_mesh(("data", "model"), (16, 16), device_type)
+
+
 def make_local_mesh(model: int | None = None, data: int | None = None,
                     pod: int | None = None, device_type: str = "cpu"):
     """A mesh over the whole live world (tests, small runs): hierarchical

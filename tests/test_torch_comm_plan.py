@@ -310,7 +310,8 @@ def test_engine_program_matches_reference(name, schedule):
 
 
 def test_layer_shard_and_staggered_raise():
-    """layer_shard is not ported and raises; the staggered schedule is, and
+    """layer_shard compiles the engine's fold (and raises only where the
+    reference's does: an axis the engine lacks); the staggered schedule
     raises only where the reference's does (no period), its mixed phases
     compiled beside 'block' and 'full'."""
     engine = make_engine({"w": torch.empty(4, 8, 8, device="meta")},
@@ -322,8 +323,13 @@ def test_layer_shard_and_staggered_raise():
                                    stagger_period=2)
     assert set(prog.phases) == {"block", "full", "stagger:0", "stagger:1"}
     assert prog.phase("stagger:0").due == (0,) and prog.phase("stagger:1").due == ()
-    with pytest.raises(NotImplementedError, match="later"):
-        program.compile_program(ls, engine=engine, layer_shard=(None, "model"))
+    folded = program.compile_program(ls, engine=engine, layer_shard=(None, "model"))
+    (op,) = folded.phase("full").ops
+    assert op.comm.kind == "layer_shard" and op.packed_shape == (2, 8, 8)
+    assert op.comm.collectives == (("all-gather", ("model",), 4 * 8 * 8 * 4),)
+    assert all(o.comm is None for o in folded.phase("block").ops)
+    with pytest.raises(ValueError, match="axis"):
+        program.compile_program(ls, engine=engine, layer_shard=(None, "data"))
 
 
 # ---------------------------------------------------------------------------
