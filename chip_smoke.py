@@ -13,8 +13,10 @@ generate on the SSM, hybrid, VLM and audio models; the tensor-parallel
 dense and MoE models, the guarded step and the distributed optimizer on
 four ranks that share the card; the staggered full-step schedule on one
 rank and on four; tensor-parallel prefill and decode of every arch on four
-ranks; a 32768-token prefill; the dry-run and the perf runner as one rank
-of the production mesh.
+ranks, and on a mesh without a model split; three ranks on model=3, where
+what the axis does not divide is whole on every rank; a 32768-token
+prefill; the dry-run and the perf runner as one rank of the production
+mesh.
 
   1. device   -- the card's name and power limit (nvidia-smi), device count;
   2. build    -- one nvcc per kernel source, in parallel; -Xptxas -v report;
@@ -61,7 +63,7 @@ of the production mesh.
                  restored state torch.equal to run B's, skipped = 2, the data
                  position, and steps 7-8 against run A's; the kill drill
                  (chaos_run with kill_mid_save and kill_in_save) on the
-                 reduced model;
+                 reduced model, its two processes beside runs A-C;
   7. reference -- six reduced steps on the card against the same steps on
                  the CPU (plain versions), from the same weights, for the
                  baseline and for NorMuon;
@@ -189,7 +191,8 @@ of the production mesh.
                  the update without it to 1e-5 of each leaf's max (bitwise
                  or not, reported), the MLP's wo stack of 3 padded to 4,
                  the 'full' gathers the plan's plus the fold's
-                 layer_shard_collectives, stage by stage. gloo copies
+                 layer_shard_collectives, stage by stage. Then the same
+                 world runs the tp_serve runs M, N and O (15). gloo copies
                  through the host: these times measure no link;
  14. stagger  -- the staggered full-step schedule (--full-schedule staggered)
                  through the launcher. Run S: full-width, full-depth
@@ -211,32 +214,51 @@ of the production mesh.
                  each residue's update on rank 0 per leaf against one
                  process's full and block updates. It prints each
                  residue's step walls and update times;
- 15. tp_serve -- tensor-parallel prefill and greedy decode on four ranks
-                 that share the card (gloo), fp32, each rank holding its
-                 param_specs shards and its cache_specs shard of the decode
-                 cache. Run M on model=4: gemma2-9b at 4 of 42 layers
-                 ('head' Q and K/V, both softcaps; 4 rows, a 4608-token
-                 prompt past its 4096 window, 32 steps), mamba2-1.3b at 48
-                 of 48 (16 of its 64 SSM heads a rank; 4 x 2048, 32 steps),
-                 hymba-1.5b at 4 of 32 (Q and K/V 'hd', its 50 SSM heads
-                 whole on every rank; a ring of its 1024-slot window after a
-                 1536-token prompt, 32 steps), whisper-small at full depth
-                 (1500 stub frames; 4 x 64, 32 steps). Run N on
-                 data=2,model=2: muonbp-960m at 12 of 12 layers with the
-                 cache's sequence over model (kv_seq_shard; 2 rows, one a
-                 data rank, 4096 prompt tokens, 32 steps) and a batch of one
-                 whose cache splits its sequence over data (8192 prompt
-                 tokens, 32 steps), then olmoe-1b-7b at 2 of 16 layers (2 x
-                 1024, 16 steps). Each model against one process's fp32
-                 prefill + decode_step on the same weights (an MoE model's
-                 on each data shard's rows): the prefill's logits at 8
-                 positions and every step's to 1e-4 of max|logit|, the
+ 15. tp_serve -- (in the distributed phase's world) prefill and greedy
+                 decode on four ranks that share the card (gloo), fp32, each
+                 rank holding its param_specs shards and its cache_specs
+                 shard of the decode cache, 16 decode steps a case. Run M on
+                 model=4: gemma2-9b at 4 of 42 layers ('head' Q and K/V,
+                 both softcaps; 4 rows, a 4608-token prompt past its 4096
+                 window), mamba2-1.3b at 16 of 48 (16 of its 64 SSM heads a
+                 rank; 4 x 2048), hymba-1.5b at 4 of 32 (Q and K/V 'hd', its
+                 50 SSM heads whole on every rank; a ring of its 1024-slot
+                 window after a 1536-token prompt), whisper-small at full
+                 depth (1500 stub frames; 4 x 64). Run N on data=2,model=2:
+                 muonbp-960m at 12 of 12 layers with the cache's sequence
+                 over model (kv_seq_shard; 2 rows, one a data rank, 4096
+                 prompt tokens) and a batch of one whose cache splits its
+                 sequence over data (8192 prompt tokens), then olmoe-1b-7b
+                 at 2 of 16 layers (2 x 1024). Run O on data=4, a mesh
+                 without a model split: muonbp-960m at 12 of 12 layers, a
+                 batch of one of 8192 prompt tokens whose cache splits its
+                 sequence over data (every rank computes the same prefill
+                 and keeps its quarter of the positions; each step merges
+                 the softmax over data). Each model against one process's
+                 fp32 prefill + decode_step on the same weights (an MoE
+                 model's on each data shard's rows): the prefill's logits at
+                 8 positions and every step's to 1e-4 of max|logit|, the
                  greedy tokens (fed the one process's) equal but at a
                  near-tie, each rank's cache shard at the end to 1e-5 of the
                  leaf's max and its bytes equal to local_cache_shapes', the
                  'tp' bytes of the prefill and of each step equal to
                  tp_bytes, no NS kernel launched. It prints the prefill wall
                  and the decode p50/p95 a rank (gloo host copies: no link);
+ 15b. replicated -- three ranks on model=3 (gloo, one card), which divides
+                 little: what it does not divide is whole on every rank and
+                 computed whole there, as the reference keeps it replicated.
+                 Full width: run P phi4-mini-3.8b at 1 of 32 layers (its K/V,
+                 d_ff and tied vocab whole, Q split by heads), run Q
+                 olmoe-1b-7b at 1 of 16 (attention, experts and vocab
+                 whole: no collective), run R hymba-1.5b at 4 of 32
+                 (attention, d_ff and d_inner whole, the vocab split), each
+                 after its fp32 step held against one process, three steps
+                 (full, block, full) with the distributed phase's checks
+                 (the update against one process on rank 0 but on Q); then
+                 run T: a prefill and 32 decode steps of each (phi4 1 x
+                 3072, the cache every KV head on every rank; olmoe 2 x
+                 1024; hymba 2 x 1536 on its ring) with the tp_serve
+                 checks;
  16. prefill_long -- full-width, full-depth muonbp-960m prefills one row of
                  SHAPES["prefill_32k"] (32768 tokens) in bf16 with the
                  KV-blocked online-softmax attention (flash_block_k 1024):
@@ -247,8 +269,9 @@ of the production mesh.
                  each to 1e-3 of max|logit|;
  17. dryrun   -- the port's dry-run and perf runner, one rank (0) of a fake
                  world of 256 on (data=16, model=16), each in a process of
-                 its own, on the card and with fake tensors on the CPU, all
-                 eight at once: (a) python -m repro_torch.launch.dryrun
+                 its own, on the card and with fake tensors on the CPU (the
+                 four fake ones started before prefill_long, beside it; the
+                 card's four at once): (a) python -m repro_torch.launch.dryrun
                  --arch muonbp-960m --shape train_4k (--phase block and
                  --phase full, a process each), (b)
                  python -m repro_torch.launch.perf --arch muonbp-960m
@@ -286,6 +309,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -585,12 +609,12 @@ DIST_RUNS = (
      DIST_L_LAYERS, True, ("ns_fused_chain",)),
 )
 # The runs whose first global batch is held in fp32 against one process.
-DIST_FP32_RUNS = ("A", "D", "E", "G", "H", "I", "L")
+DIST_FP32_RUNS = ("A", "D", "E", "G", "H", "I", "L", "P", "Q", "R")
 # Run E's update is not joined on rank 0 against one process: its whole
 # gradients, parameters and optimizer state (~15 GB at 3 layers) do not fit
 # beside the four ranks' runs. tests/test_torch_moe_tensor_parallel.py
 # holds the MoE updates on the mesh against the reference.
-DIST_NO_UPDATE_CHECK = ("E",)
+DIST_NO_UPDATE_CHECK = ("E", "Q")
 # The runs whose Muon stacks all split four ways (model and ZeRO-1's data
 # axis, or model=4); the others hold what their specs give (E's router is
 # not split over model, F's 3 layers do not divide the data axis).
@@ -661,19 +685,67 @@ LONG_CHECK_SEQ = 8192   # one block of it: 4 GiB of fp32 scores a layer
 LONG_TOL = 1e-3
 
 
+# The replicated phase: three ranks on model=3 (gloo, one card), where the
+# axis divides little, so the port keeps whole on every rank what the
+# reference keeps replicated (sharding.specs.whole_sub_blocks). Full width,
+# the depth cut where three whole copies would not fit: phi4-mini-3.8b at 1
+# of 32 layers (its K/V, d_ff and tied 200192-row vocab whole: 703.1 M of
+# its 715.6 M parameters a rank, scripts/mesh_bytes; at 2 layers each rank
+# reached 23.8 GiB allocated in its first block step, AdamW's old and new
+# moments of the whole vocab 9.2 GiB of it, and three ranks ran out of the
+# card's 79.2 GiB, NVIDIA H100 80GB HBM3, 700.00 W), olmoe-1b-7b at 1 of 16
+# (attention, experts and vocab whole: every parameter on every rank, and
+# one process's update alone takes 14.2 GiB a layer, PERF.md section 5),
+# hymba-1.5b at 4 of 32 (attention, d_ff and d_inner whole, the vocab
+# split: 226.7 M of 295.5 M). Each after its fp32 step held against one
+# process, three MuonBP steps (full, block, full) at 1152 tokens (the axis
+# divides it: the residual sequence-sharded; olmoe at 1024, where
+# everything is whole), then run T's prefill and 32 decode steps.
+REPL_RANKS = 3
+REPL_LAYERS = {"phi4-mini-3.8b": 1, "olmoe-1b-7b": 1, "hymba-1.5b": 4}
+REPL_RUNS = (
+    ("P", "phi4-mini-3.8b", "model=3", 2, ["--period", "2", "--seq", "1152"], 3,
+     REPL_LAYERS["phi4-mini-3.8b"], True, MAIN_PATH_KERNELS),
+    ("Q", "olmoe-1b-7b", "model=3", 2, ["--period", "2"], 3, REPL_LAYERS["olmoe-1b-7b"], True,
+     MAIN_PATH_KERNELS),
+    ("R", "hymba-1.5b", "model=3", 2, ["--period", "2", "--seq", "1152"], 3,
+     REPL_LAYERS["hymba-1.5b"], True, MAIN_PATH_KERNELS),
+)
+# To make room for the replicated phase: mamba2's tp_serve case at 16 of 48
+# layers (43.3 s of its world's 151.5 at 48, NVIDIA H100 80GB HBM3, 700.00
+# W), and 16 decode steps a case of runs M, N and O (a step 0.2-0.8 s
+# through gloo on the one card).
+TP_SERVE_SSM_LAYERS = 16
+TP_SERVE_STEPS = 16
+
 # tp_serve: tensor-parallel prefill + decode on DIST_RANKS ranks (gloo). A case
 # is (arch, layers or None for full depth, global rows, prompt tokens, decode
 # steps, kv_seq_shard, ring_cache); the cache holds the prompt and the steps,
 # or on a ring the arch's window.
 TP_SERVE_RUNS = {
-    "M": ("model=4", (("gemma2-9b", 4, 4, 4608, 32, False, False),
-                      ("mamba2-1.3b", None, 4, 2048, 32, False, False),
-                      ("hymba-1.5b", 4, 4, 1536, 32, False, True),
-                      ("whisper-small", None, 4, 64, 32, False, False))),
-    "N": ("data=2,model=2", (("muonbp-960m", None, 2, 4096, 32, True, False),
-                             ("muonbp-960m", None, 1, 8192, 32, False, False),
+    "M": ("model=4", (("gemma2-9b", 4, 4, 4608, TP_SERVE_STEPS, False, False),
+                      ("mamba2-1.3b", TP_SERVE_SSM_LAYERS, 4, 2048, TP_SERVE_STEPS, False,
+                       False),
+                      ("hymba-1.5b", 4, 4, 1536, TP_SERVE_STEPS, False, True),
+                      ("whisper-small", None, 4, 64, TP_SERVE_STEPS, False, False))),
+    "N": ("data=2,model=2", (("muonbp-960m", None, 2, 4096, TP_SERVE_STEPS, True, False),
+                             ("muonbp-960m", None, 1, 8192, TP_SERVE_STEPS, False, False),
                              ("olmoe-1b-7b", 2, 2, 1024, 16, False, False))),
+    # A mesh without a model split: a batch of one whose cache splits its
+    # sequence over data (each rank computes the prefill whole and keeps
+    # its quarter of the positions; each step merges the softmax).
+    "O": ("data=4", (("muonbp-960m", None, 1, 8192, TP_SERVE_STEPS, False, False),)),
+    # The replicated phase's: model=3 leaves phi4's K/V heads, d_ff and
+    # vocab, olmoe's attention, experts and vocab, hymba's attention,
+    # d_ff and d_inner whole on every rank (the cache holds every KV head on
+    # every rank; hymba's is its ring).
+    "T": ("model=3", (("phi4-mini-3.8b", REPL_LAYERS["phi4-mini-3.8b"], 1, 3072, 32, False,
+                       False),
+                      ("olmoe-1b-7b", REPL_LAYERS["olmoe-1b-7b"], 2, 1024, 32, False, False),
+                      ("hymba-1.5b", REPL_LAYERS["hymba-1.5b"], 2, 1536, 32, False, True))),
 }
+# The runs the distributed phase's world serves after its training runs.
+DIST_SERVE = ("M", "N", "O")
 TP_SERVE_PROBES = 8       # prefill positions compared, evenly spaced, the last one among them
 TP_SERVE_TOL = 1e-4       # logits, of max|logit|
 TP_CACHE_TOL = 1e-5       # a cache shard, of the leaf's max
@@ -1229,10 +1301,15 @@ def phase_resilience(smi: str) -> None:
     removed at the end."""
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    drills = None
     try:
+        # The kill drills (reduced, two processes) run beside the full-width runs.
+        drills = kill_drill_start(tmp)
         walls = resilience_runs(tmp)
-        kill_drill(tmp)
+        kill_drill_finish(*drills)
     finally:
+        if drills is not None:
+            stop_processes(drills[0].values())
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[resilience] card: {smi}")
     for line in walls:
@@ -1419,10 +1496,19 @@ def subprocess_env() -> dict:
         [str(SRC)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))}
 
 
-def kill_drill(tmp: str) -> None:
+def stop_processes(procs) -> None:
+    """Kills each process of ``procs`` still running, and waits for it."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def kill_drill_start(tmp: str) -> tuple:
     """chaos_run on the card: each kill fires in the step-4 save, and the
     relaunch must resume from the step-2 snapshot and finish. The two
-    drills run at once, each in its own checkpoint directory."""
+    drills start at once, each in its own checkpoint directory:
+    ``({kind: process}, start)`` for :func:`kill_drill_finish`."""
     env = subprocess_env()
     t0 = time.perf_counter()
     procs = {}
@@ -1432,15 +1518,17 @@ def kill_drill(tmp: str) -> None:
                "--checkpoint-dir", os.path.join(tmp, kind)]
         procs[kind] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                        text=True, cwd=ROOT, env=env)
+    return procs, t0
+
+
+def kill_drill_finish(procs: dict, t0: float) -> None:
+    """Waits for the drills of :func:`kill_drill_start` and checks them."""
     outs = {}
     try:
         for kind, proc in procs.items():
             outs[kind] = (*proc.communicate(timeout=600), proc.returncode)
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_processes(procs.values())
     for kind, (stdout, stderr, rc) in outs.items():
         lines = stdout.splitlines()
         resumes = [json.loads(l) for l in lines if l.startswith('{"event": "resume"')]
@@ -1450,7 +1538,8 @@ def kill_drill(tmp: str) -> None:
                  f"{stdout[-3000:]}\n{stderr[-3000:]}")
         log(f"[resilience] kill drill {kind}@3: killed once, resumed at step 3 from "
             f"{os.path.basename(resumes[0]['snapshot'])}, finished")
-    log(f"[resilience] both kill drills, at once: {time.perf_counter() - t0:.1f} s")
+    log(f"[resilience] both kill drills, at once, beside the full-width runs: "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_reference() -> None:
@@ -2525,14 +2614,17 @@ def dist_cfg(arch: str, layers):
     return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
-def dist_rank(rank: int, port: int, specs: tuple, out_dir: str) -> None:
-    """One rank of a world of the distributed phase (started by
-    torch.multiprocessing), which runs every run of ``specs`` in turn: the
-    fp32 step check (DIST_FP32_RUNS), the launcher on the run's mesh, then
-    the checks of :func:`dist_checks`; each run's results go to
-    ``out_dir/<label>.rank<r>.json``. Between runs the rank frees what it
-    holds, and rank 0 deletes the run's fp32 reference once every rank has
-    read it. An exception fails the rank."""
+def dist_rank(rank: int, port: int, specs: tuple, out_dir: str, ranks: int = DIST_RANKS,
+              serve: tuple = ()) -> None:
+    """One rank of a world of ``ranks`` ranks of the distributed or the
+    replicated phase (started by torch.multiprocessing), which runs every
+    run of ``specs`` in turn: the fp32 step check (DIST_FP32_RUNS), the
+    launcher on the run's mesh, then the checks of :func:`dist_checks`;
+    each run's results go to ``out_dir/<label>.rank<r>.json``. Then the
+    prefill and decode runs ``serve`` of TP_SERVE_RUNS
+    (:func:`tp_serve_checks`), to ``out_dir/serve.rank<r>.json``. Between
+    runs the rank frees what it holds, and rank 0 deletes the run's fp32
+    reference once every rank has read it. An exception fails the rank."""
     sys.path.insert(0, str(SRC))
     # Four processes share the card: expandable segments keep each one's
     # cached but unused blocks small (read at the rank's first allocation).
@@ -2544,7 +2636,7 @@ def dist_rank(rank: int, port: int, specs: tuple, out_dir: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     os.environ["LOCAL_RANK"] = str(rank)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=DIST_RANKS)
+                            world_size=ranks)
     try:
         import gc
 
@@ -2552,7 +2644,7 @@ def dist_rank(rank: int, port: int, specs: tuple, out_dir: str) -> None:
             label = spec[0]
             if rank == 0:
                 free, total = torch.cuda.mem_get_info()
-                log(f"[distributed:{label}] {DIST_RANKS} ranks start the run: card "
+                log(f"[distributed:{label}] {ranks} ranks start the run: card "
                     f"{free / 2**30:.2f} GiB free of {total / 2**30:.2f}")
             t0 = time.perf_counter()
             res = dist_checks(rank, spec, out_dir)
@@ -2566,6 +2658,12 @@ def dist_rank(rank: int, port: int, specs: tuple, out_dir: str) -> None:
             ref = os.path.join(out_dir, f"{label}.fp32_ref.pt")
             if rank == 0 and os.path.exists(ref):
                 os.remove(ref)
+        if serve:
+            t0 = time.perf_counter()
+            res = {label: tp_serve_checks(rank, label, out_dir) for label in serve}
+            res["serve_s"] = time.perf_counter() - t0
+            with open(os.path.join(out_dir, f"serve.rank{rank}.json"), "w") as f:
+                json.dump(res, f)
     except BaseException:
         import traceback
 
@@ -2840,6 +2938,7 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
     guarded = "--guard" in extra
     staggered = "staggered" in extra
     period = int(extra[extra.index("--period") + 1]) if "--period" in extra else 5
+    seq = train.parser().parse_args(argv).seq
     res = {}
     if label in DIST_FP32_RUNS:
         res["fp32"] = dist_fp32_check(rank, spec,
@@ -2887,7 +2986,7 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
         res["plan_residues"] = list(plan.staggered_bytes_by_residue(period))
         res["schedule"] = [r for r in sink.records if r.get("event") == "schedule"]
         res["comm_rates"] = [r for r in sink.records if r.get("event") == "comm_rates"]
-    res["tp_pred"] = tp_bytes(cfg, batch // data, DIST_SEQ, sizes)
+    res["tp_pred"] = tp_bytes(cfg, batch // data, seq, sizes)
     muon_state = run.state.opt_state.inner["muon"]
     if dion:
         res["dion_pred"] = dion_bytes(shapes, sh.param_specs(shapes, cfg, sizes), sizes,
@@ -2994,7 +3093,7 @@ def dist_checks(rank: int, spec: tuple, out_dir: str) -> dict:
         res["check_peak_bytes"] = torch.cuda.max_memory_allocated()
         return res
     rows = train._batch_rows(engine, batch)
-    fresh = next(iter(SyntheticLM(cfg, batch, DIST_SEQ, seed=1)))
+    fresh = next(iter(SyntheticLM(cfg, batch, seq, seed=1)))
     fresh = train.device_batch({k: v[rows] for k, v in fresh.items()}, "cuda")
     loss, metrics, grads = loss_and_grads(params, fresh, cfg, ctx=ctx)
     reduce_grads(engine, loss, metrics, grads, ctx)
@@ -3222,27 +3321,42 @@ def phase_distributed(smi: str) -> list:
     layer_shard fold (:func:`dist_fold_replay`). Every rank's exit code is
     checked. gloo copies through the host: its times measure no link."""
     t_phase = time.perf_counter()
-    out = dist_world(DIST_RUNS + (STAGGER_K,), smi)
+    out = dist_world(DIST_RUNS + (STAGGER_K,), smi, serve=DIST_SERVE)
     log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s")
     return out[-1]
 
 
-def dist_world(specs: tuple, smi: str) -> list:
-    """The runs of ``specs`` in one world of DIST_RANKS ranks on the one
-    card through gloo (:func:`dist_rank`): the fp32 references of
-    DIST_FP32_RUNS first, each saved and freed, then the world, then each
-    run's checks (:func:`dist_report`). Returns each run's ranks' results."""
+def phase_replicated(smi: str) -> None:
+    """Three ranks on model=3 (REPL_RUNS, TP_SERVE_RUNS' T; see the module
+    doc), in one world of their own: each sub-block the axis does not
+    divide whole on every rank, as the reference keeps it. The distributed
+    phase's checks for each run and the tp_serve ones for T."""
+    t_phase = time.perf_counter()
+    dist_world(REPL_RUNS, smi, ranks=REPL_RANKS, serve=("T",), tag="replicated")
+    log(f"[replicated] phase {time.perf_counter() - t_phase:.1f} s; card: {smi}")
+
+
+def dist_world(specs: tuple, smi: str, ranks: int = DIST_RANKS, serve: tuple = (),
+               tag: str = "distributed") -> list:
+    """The runs of ``specs`` and then the prefill and decode runs ``serve``
+    (TP_SERVE_RUNS) in one world of ``ranks`` ranks on the one card through
+    gloo (:func:`dist_rank`): the fp32 references of DIST_FP32_RUNS and
+    the one-process references of ``serve`` first, each saved and freed,
+    then the world, then each run's checks (:func:`dist_report`,
+    :func:`tp_serve_report`). Returns each run of ``specs``' ranks'
+    results."""
     import gc
-    import tempfile
 
     import torch
     import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import parse_mesh_spec
 
     with tempfile.TemporaryDirectory() as out_dir:
         ref_s = {}
         for spec in specs:
             label, arch, mesh, batch, extra, steps, layers = spec[:7]
-            log(f"[distributed:{label}] {DIST_RANKS} ranks (gloo, one card): python -m "
+            log(f"[{tag}:{label}] {ranks} ranks (gloo, one card): python -m "
                 f"repro_torch.launch.train {' '.join(dist_argv(arch, mesh, batch, extra, steps))}"
                 + (f", cfg num_layers={layers}" if layers else ""))
             if label in DIST_FP32_RUNS:
@@ -3251,14 +3365,21 @@ def dist_world(specs: tuple, smi: str) -> list:
                 gc.collect()
                 torch.cuda.empty_cache()
                 ref_s[label] = time.perf_counter() - t0
-                log(f"[distributed:{label}] fp32 single-process reference step: "
+                log(f"[{tag}:{label}] fp32 single-process reference step: "
                     f"{ref_s[label]:.1f} s, freed before the ranks start")
+        for label in serve:
+            spec, cases = TP_SERVE_RUNS[label]
+            sizes = dict(zip(*parse_mesh_spec(spec)))
+            for n_case, case in enumerate(cases):
+                wall = tp_serve_reference(case, sizes,
+                                          os.path.join(out_dir, f"ref{label}{n_case}.pt"))
+                log(f"[tp_serve:{label}] one process fp32 reference of {case}: {wall:.1f} s")
         # The ranks need the card's memory: tensors of earlier phases that
         # only a reference cycle keeps go first, then the parent's cache.
         gc.collect()
         torch.cuda.empty_cache()
         free, total = torch.cuda.mem_get_info()
-        log(f"[distributed] before the ranks: card {free / 2**30:.2f} GiB free of "
+        log(f"[{tag}] before the ranks: card {free / 2**30:.2f} GiB free of "
             f"{total / 2**30:.2f}; this process {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         with socket.socket() as sock:
@@ -3267,28 +3388,35 @@ def dist_world(specs: tuple, smi: str) -> list:
         t0 = time.perf_counter()
         # join=True raises if any rank raised or exited non-zero.
         try:
-            mp.start_processes(dist_rank, args=(port, specs, out_dir),
-                               nprocs=DIST_RANKS, start_method="spawn", join=True)
+            mp.start_processes(dist_rank, args=(port, specs, out_dir, ranks, serve),
+                               nprocs=ranks, start_method="spawn", join=True)
         except Exception:
-            for r in range(DIST_RANKS):
+            for r in range(ranks):
                 err = os.path.join(out_dir, f"rank{r}.err")
                 if os.path.exists(err):
-                    log(f"[distributed] rank {r} failed:\n{open(err).read()}")
+                    log(f"[{tag}] rank {r} failed:\n{open(err).read()}")
             raise
-        log(f"[distributed] one world of {DIST_RANKS} ranks for runs "
-            f"{', '.join(spec[0] for spec in specs)}: {time.perf_counter() - t0:.1f} s")
+        log(f"[{tag}] one world of {ranks} ranks for runs "
+            f"{', '.join([spec[0] for spec in specs] + list(serve))}: "
+            f"{time.perf_counter() - t0:.1f} s")
         out = [[json.load(open(os.path.join(out_dir, f"{spec[0]}.rank{r}.json")))
-                for r in range(DIST_RANKS)] for spec in specs]
+                for r in range(ranks)] for spec in specs]
+        served = ([json.load(open(os.path.join(out_dir, f"serve.rank{r}.json")))
+                   for r in range(ranks)] if serve else None)
     for spec, res in zip(specs, out):
-        dist_report(spec, res, smi, ref_s.get(spec[0], 0.0))
+        dist_report(spec, res, smi, ref_s.get(spec[0], 0.0), tag)
+    if serve:
+        tp_serve_report(served, serve, smi)
     return out
 
 
-def dist_report(spec: tuple, res: list, smi: str, ref_s: float) -> None:
-    """The checks every run of the distributed phase shares, on its ranks'
-    results ``res``; ``ref_s`` its fp32 reference's wall."""
+def dist_report(spec: tuple, res: list, smi: str, ref_s: float,
+                where: str = "distributed") -> None:
+    """The checks every run of the distributed and the replicated phase
+    shares, on its ranks' results ``res``; ``ref_s`` its fp32 reference's
+    wall."""
     label, arch, mesh, batch, extra, steps, layers, want_tp, required = spec
-    tag = f"distributed:{label}"
+    tag = f"{where}:{label}"
     r0 = res[0]
     log(f"[{tag}] losses {r0['losses']} phases {r0['phases']}")
     if any(r["losses"] != r0["losses"] for r in res):
@@ -3384,7 +3512,7 @@ def dist_report(spec: tuple, res: list, smi: str, ref_s: float) -> None:
                  f"stacks' momentum, not a quarter of {r['unsharded_stack_bytes']}")
     for phase in ("full", "block") if r0["update"] is not None else ():
         rel = r0["update"][f"{phase}_rel_err"]
-        log(f"[{tag}] {phase} update, 4 ranks vs one process (kernels both): rel {rel:.3e} "
+        log(f"[{tag}] {phase} update, {len(res)} ranks vs one process (kernels both): rel {rel:.3e} "
             f"(tol {UPDATE_TOL:g}); {r0['update'][f'{phase}_pipelined_ms']:.1f} ms on the "
             f"mesh" + (f", barrier {r0['update']['full_barrier_ms']:.1f} ms"
                        if phase == "full" else ""))
@@ -3633,8 +3761,9 @@ def tp_serve_reference(case: tuple, sizes: dict, path: str) -> float:
     t0 = time.perf_counter()
     arch, layers, rows, prompt, new, kv_seq_shard, ring = case
     cfg, cache_len, start = tp_serve_case(case)
-    ql, kvl = sh.attn_layouts(cfg, sizes["model"])
-    ctx = sh.ShardCtx(q_layout=ql, kv_layout=kvl, cache_len=cache_len, ring_cache=ring)
+    ql, kvl = sh.attn_layouts(cfg, sizes.get("model", 1))
+    ctx = sh.ShardCtx(q_layout=ql or "head", kv_layout=kvl or "head", cache_len=cache_len,
+                      ring_cache=ring)
     params = init_params(cfg, seed=0, device="cuda")
     batch = tp_serve_inputs(cfg, rows, prompt)
     shards = math.prod(sizes[a] for a in sh.batch_axes_for(rows, sizes))
@@ -3698,33 +3827,6 @@ def tp_serve_reference(case: tuple, sizes: dict, path: str) -> float:
     return time.perf_counter() - t0
 
 
-def tp_serve_rank(rank: int, port: int, out_dir: str) -> None:
-    """One rank of the tp_serve world (started by torch.multiprocessing):
-    every run of TP_SERVE_RUNS on its mesh over the one world, the checks
-    of :func:`tp_serve_checks` to ``out_dir/rank<r>.json``."""
-    sys.path.insert(0, str(SRC))
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    import torch
-    import torch.distributed as dist
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=DIST_RANKS)
-    try:
-        res = {label: tp_serve_checks(rank, label, out_dir) for label in TP_SERVE_RUNS}
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(res, f)
-    except BaseException:
-        import traceback
-
-        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
-            f.write(traceback.format_exc())
-        raise
-    finally:
-        dist.destroy_process_group()
-
-
 def tp_serve_checks(rank: int, label: str, out_dir: str) -> list:
     """Each case of run ``label`` on this rank: its shards of the seeded
     weights (each rank builds the whole and keeps its slices), the prefill
@@ -3768,8 +3870,11 @@ def tp_serve_checks(rank: int, label: str, out_dir: str) -> list:
         sl = slice(i * rows // n, (i + 1) * rows // n)
         batch = {k: v[sl] for k, v in tp_serve_inputs(cfg, rows, prompt).items()}
         ref = torch.load(os.path.join(out_dir, f"ref{label}{n_case}.pt"), mmap=True)
-        vp = cfg.padded_vocab // ctx.size
-        cols = slice(ctx.index * vp, (ctx.index + 1) * vp)
+        # The rank's vocab columns: all of them where the vocab is whole on
+        # every rank, or the mesh has no model split.
+        split_vocab = ctx.tensor_parallel and not ctx.vocab_whole
+        vp = cfg.padded_vocab // ctx.size if split_vocab else cfg.padded_vocab
+        cols = slice(ctx.index * vp if split_vocab else 0, (ctx.index + 1) * vp)
         comm.trace.events.clear()
         torch.cuda.reset_peak_memory_stats()
         with torch.no_grad():
@@ -3809,9 +3914,14 @@ def tp_serve_checks(rank: int, label: str, out_dir: str) -> list:
             # (max, index) pair, one gather for the case: the first rank's
             # at a tie, the lower vocab index, as torch.argmax picks.
             comm.trace.step = "argmax"
-            pairs = tensor_parallel.gather_over_model(torch.stack(tops, 1)[:, :, None], ctx, 2)
-            best = torch.gather(pairs[..., 1], 2, pairs[..., 0].argmax(dim=2, keepdim=True))
-            best = best[..., 0].long().cpu()                          # (rows, new)
+            if split_vocab:
+                pairs = tensor_parallel.gather_over_model(torch.stack(tops, 1)[:, :, None],
+                                                          ctx, 2)
+                best = torch.gather(pairs[..., 1], 2,
+                                    pairs[..., 0].argmax(dim=2, keepdim=True))[..., 0]
+            else:
+                best = torch.stack(tops, 1)[..., 1]
+            best = best.long().cpu()                                  # (rows, new)
             parts = [(t, j, float(ref["gaps"][t][sl][j])) for t in range(new)
                      for j in range(best.shape[0]) if int(best[j, t]) != int(ref["argmax"][sl][j, t])]
         # The cache shard after the last step against the one process's, sliced.
@@ -3832,6 +3942,7 @@ def tp_serve_checks(rank: int, label: str, out_dir: str) -> list:
         out.append({
             "case": f"{arch} ({cfg.num_layers} layers)", "rows": sl.stop - sl.start,
             "layouts": [ctx.q_layout, ctx.kv_layout], "kv_seq_axes": list(ctx.kv_seq_axes),
+            "whole": [k for k, v in sh.whole_sub_blocks(cfg, sizes).items() if v],
             "prefill_err": prefill_err, "decode_err": max(errs), "token_parts": parts,
             "cache_errs": cache_errs, "cache_shapes_ok": held == shapes,
             "cache_bytes": cache_bytes, "local_bytes": sh.cache_bytes(shapes, 4),
@@ -3856,50 +3967,27 @@ def tp_serve_checks(rank: int, label: str, out_dir: str) -> list:
 
 
 def phase_tp_serve(smi: str) -> None:
-    """Runs M and N of TP_SERVE_RUNS (see the module doc): one process's
-    references of every case first, saved and freed, then one world of
-    DIST_RANKS ranks on the card through gloo that runs both meshes in
-    turn, each case checked on every rank."""
-    import gc
-    import tempfile
-
-    import torch
-    import torch.multiprocessing as mp
-
-    from repro_torch.launch.mesh import parse_mesh_spec
-
+    """The prefill and decode runs of TP_SERVE_RUNS alone, in one world of
+    DIST_RANKS ranks (the distributed phase runs M, N and O in its world,
+    the replicated phase T in its own): one process's references of every
+    case first, saved and freed, then the world, each case checked on every
+    rank."""
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as out_dir:
-        for label, (spec, cases) in TP_SERVE_RUNS.items():
-            sizes = dict(zip(*parse_mesh_spec(spec)))
-            for n_case, case in enumerate(cases):
-                wall = tp_serve_reference(case, sizes,
-                                          os.path.join(out_dir, f"ref{label}{n_case}.pt"))
-                log(f"[tp_serve:{label}] one process fp32 reference of {case}: {wall:.1f} s")
-        gc.collect()
-        torch.cuda.empty_cache()
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        t0 = time.perf_counter()
-        try:
-            mp.start_processes(tp_serve_rank, args=(port, out_dir), nprocs=DIST_RANKS,
-                               start_method="spawn", join=True)
-        except Exception:
-            for r in range(DIST_RANKS):
-                err = os.path.join(out_dir, f"rank{r}.err")
-                if os.path.exists(err):
-                    log(f"[tp_serve] rank {r} failed:\n{open(err).read()}")
-            raise
-        ranks_s = time.perf_counter() - t0
-        res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
-               for r in range(DIST_RANKS)]
-    for label, (spec, cases) in TP_SERVE_RUNS.items():
+    dist_world((), smi, serve=DIST_SERVE, tag="tp_serve")
+    log(f"[tp_serve] phase {time.perf_counter() - t_phase:.1f} s; card: {smi}")
+
+
+def tp_serve_report(res: list, labels: tuple, smi: str) -> None:
+    """The checks of each case of the runs ``labels`` on every rank's
+    results ``res`` (:func:`tp_serve_checks`)."""
+    for label in labels:
+        spec, cases = TP_SERVE_RUNS[label]
         tag = f"tp_serve:{label}"
         for n_case, case in enumerate(cases):
             name = f"{tag}:{res[0][label][n_case]['case']}"
             for rank, r in enumerate(x[label][n_case] for x in res):
-                log(f"[{name}] rank {rank}: {r['rows']} rows, layouts {r['layouts']}, cache "
+                log(f"[{name}] rank {rank}: {r['rows']} rows, layouts {r['layouts']}, whole "
+                    f"on every rank {r['whole'] or 'none'}, cache "
                     f"sequence over {r['kv_seq_axes'] or 'no axis'}; prefill logits "
                     f"{r['prefill_err']:.3e}, decode {r['decode_err']:.3e} of max|logit| (tol "
                     f"{TP_SERVE_TOL:g}); cache shard {json.dumps({k: float(f'{v:.3e}') for k, v in r['cache_errs'].items()})} "
@@ -3927,8 +4015,8 @@ def phase_tp_serve(smi: str) -> None:
                     fail(f"{name}: rank {rank}'s tp bytes differ from tp_bytes")
                 if any(r["launches"].values()):
                     fail(f"{name}: rank {rank} launched NS kernels {r['launches']}")
-    log(f"[tp_serve] one world of {DIST_RANKS} ranks, both meshes: {ranks_s:.1f} s; phase "
-        f"{time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    log(f"[tp_serve] runs {', '.join(labels)} on the ranks: "
+        f"{max(r['serve_s'] for r in res):.1f} s; card: {smi}")
 
 
 def phase_prefill_long(smi: str) -> None:
@@ -4045,9 +4133,27 @@ def dryrun_fold_bytes() -> int:
         op.packed_shape, "data", sizes["data"], mode="engine"))
 
 
-def phase_dryrun(smi: str) -> None:
+def dryrun_start(device: str, out_dir: Optional[str] = None) -> tuple:
+    """Starts the DRYRUN_COMBOS processes on ``device`` ("cuda" or "fake"),
+    their records under ``out_dir/<device>`` (a new temporary directory
+    unless given): ``(out_dir, {(i, label, device): process}, start)``."""
+    out_dir = out_dir or tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    procs = {}
+    for i, (label, argv) in enumerate(DRYRUN_COMBOS):
+        cmd = [sys.executable] + argv + ["--device", device, "--force",
+                                         "--results-dir", os.path.join(out_dir, device)]
+        log(f"[dryrun:{label}] {device}: {' '.join(cmd[1:])}")
+        procs[(i, label, device)] = subprocess.Popen(
+            cmd, cwd=ROOT, env=subprocess_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    return out_dir, procs, time.perf_counter()
+
+
+def phase_dryrun(smi: str, fakes: Optional[tuple] = None) -> None:
     """The dry-run and the perf runner (DRYRUN_COMBOS), each on the card and
-    with fake tensors, every process at once: each record's bytes against
+    with fake tensors, the card's processes at once (the fake ones started
+    with them, or earlier by the caller, ``fakes`` from
+    :func:`dryrun_start`): each record's bytes against
     scripts/mesh_bytes.py's (the block step no optimizer byte; (b) the
     plan's plus the fold's ``layer_shard_collectives``; (c) the cache a
     rank), the card's records against the fake ones in every collective and
@@ -4055,16 +4161,10 @@ def phase_dryrun(smi: str) -> None:
     counts, from zero before each step), each peak beside the fake count."""
     t_phase = time.perf_counter()
     fold = dryrun_fold_bytes()
-    with tempfile.TemporaryDirectory() as out_dir:
-        procs = {}
-        for i, (label, argv) in enumerate(DRYRUN_COMBOS):
-            for device in ("cuda", "fake"):
-                cmd = [sys.executable] + argv + ["--device", device, "--force",
-                                                 "--results-dir", os.path.join(out_dir, device)]
-                log(f"[dryrun:{label}] {device}: {' '.join(cmd[1:])}")
-                procs[(i, label, device)] = subprocess.Popen(
-                    cmd, cwd=ROOT, env=subprocess_env(), stdout=subprocess.PIPE,
-                    stderr=subprocess.STDOUT, text=True)
+    fakes = fakes or dryrun_start("fake")
+    out_dir, procs, t_fake = fakes
+    procs = {**dryrun_start("cuda", out_dir)[1], **procs}
+    try:
         try:
             for (_, label, device), proc in procs.items():
                 try:
@@ -4074,10 +4174,7 @@ def phase_dryrun(smi: str) -> None:
                 if proc.returncode != 0:
                     fail(f"dryrun:{label} {device} exited {proc.returncode}:\n{out[-4000:]}")
         finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+            stop_processes(procs.values())
         recs = {}
         for device in ("cuda", "fake"):
             for name in sorted(os.listdir(os.path.join(out_dir, device))):
@@ -4085,7 +4182,10 @@ def phase_dryrun(smi: str) -> None:
                 if "error" in rec:
                     fail(f"dryrun: {device} {name} failed:\n{rec['error']}")
                 recs[(device, name)] = rec
-    log(f"[dryrun] {len(procs)} processes: {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[dryrun] {len(procs)} processes: the card's {time.perf_counter() - t_phase:.1f} s, "
+        f"the fake ones {time.perf_counter() - t_fake:.1f} s since they started")
     names = sorted({name for _, name in recs})
     expect = {
         "muonbp-960m__train_4k__16x16__block.json": ("a", {
@@ -4319,9 +4419,17 @@ def main() -> int:
     phase_archs(device["smi"])
     k_res = phase_distributed(device["smi"])
     phase_stagger(device["smi"], k_res)
-    phase_tp_serve(device["smi"])
-    phase_prefill_long(device["smi"])
-    phase_dryrun(device["smi"])
+    phase_replicated(device["smi"])
+    # The dry-run's fake processes run on the CPU while prefill_long runs on
+    # the card.
+    fakes = dryrun_start("fake")
+    try:
+        phase_prefill_long(device["smi"])
+    except BaseException:
+        stop_processes(fakes[1].values())
+        shutil.rmtree(fakes[0], ignore_errors=True)
+        raise
+    phase_dryrun(device["smi"], fakes)
     rows = phase_times(errors, launches)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     print(device["smi"], flush=True)

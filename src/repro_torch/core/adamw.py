@@ -58,24 +58,30 @@ def adamw(
         flat = tree_lib.flatten_with_path(grads)
         p_by_key = dict(tree_lib.flatten_with_path(params))
         gs = {k: g.to(torch.float32) for k, g in flat}
+        scale = None
         if grad_clip is not None and gs:
             if comm is not None:
                 gnorm = torch.sqrt(comm.global_sq_sum(gs.items()))
             else:
                 gnorm = torch.sqrt(sum(torch.sum(g * g) for g in gs.values()))
             scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
-            gs = {k: g * scale for k, g in gs.items()}
-        gs = {k: local(k, g) for k, g in gs.items()}
-        new_mu = {k: b1 * state.mu[k] + (1 - b1) * g for k, g in gs.items()}
-        new_nu = {k: b2 * state.nu[k] + (1 - b2) * (g * g) for k, g in gs.items()}
         c1 = 1 - b1 ** count
         c2 = 1 - b2 ** count
-        items = []
-        for k in gs:
+        new_mu, new_nu, items = {}, {}, []
+        for k, g in gs.items():
+            # One leaf at a time, in place where the op allows (the same
+            # ops, so the same values): a whole embedding (a vocab no model
+            # axis divides, on every rank) keeps two temporaries of its size.
+            g = local(k, g if scale is None else g * scale)
+            new_mu[k] = (state.mu[k] * b1).add_(g * (1 - b1))
+            new_nu[k] = (state.nu[k] * b2).add_((g * g).mul_(1 - b2))
+            del g
             p = p_by_key[k]
-            upd = -lr * (new_mu[k] / c1) / (torch.sqrt(new_nu[k] / c2) + eps)
+            den = new_nu[k] / c2
+            upd = (new_mu[k] / c1).mul_(-lr).div_(den.sqrt_().add_(eps))
+            del den
             if weight_decay:
-                upd = upd - lr * weight_decay * local(k, p.to(torch.float32))
+                upd.sub_(local(k, p.to(torch.float32)) * (lr * weight_decay))
             items.append((k, upd.to(p.dtype)))
         return tree_lib.unflatten(items), AdamWState(mu=new_mu, nu=new_nu, count=count)
 

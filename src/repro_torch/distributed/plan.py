@@ -512,7 +512,7 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2,
     shapes; 0 where ``sharding.specs.mesh_path`` runs ``cfg`` replicated.
     ``mode="prefill"`` and ``"decode"`` count one prefill and one decode
     step instead (:func:`_tp_serve_bytes`; ``batch``, ``cache_len`` and
-    ``kv_seq_shard`` are its).
+    ``kv_seq_shard`` are its), on a mesh without a model split too.
 
     ``rows`` x ``seq`` text tokens a rank (its data coordinate's rows); the
     residual is ``sharding.specs.residual_len`` long (a VLM's vision tokens
@@ -520,76 +520,102 @@ def tp_bytes(cfg, rows: int, seq: int, axis_sizes, *, compute_bytes: int = 2,
     whisper's encoder and its cross-attention K/V in fp32 (the frames are
     fp32 and promote, as in the reference); the replicated leaves'
     gradients fp32. Result-buffer bytes, as the plan's (a reduce-scatter's
-    is the rank's slice). A sequence gather or reduce counts with its
-    backward: an all-gather and a reduce-scatter when its residual is
-    sequence-sharded, else one all-reduce. Counted:
+    is the rank's slice). A split sub-block's sequence gather and reduce
+    count with their backward: an all-gather and a reduce-scatter each way
+    when its residual is sequence-sharded, else one all-reduce each way. A
+    sub-block the axis leaves whole (``sharding.specs.whole_sub_blocks``;
+    ``tensor_parallel.enter_whole`` / ``leave_whole``) moves one all-gather
+    each way when sequence-sharded, else nothing. Counted:
 
-    * each layer's sequence gathers and reduces: two of each for a dense,
-      MoE, hybrid or encoder layer (into and out of the attention, the SSM
-      or both, then the MLP or MoE block), three for a whisper decoder
-      layer (and its cross-attention), one for an SSM layer; an encoder
-      layer's at ``rows x encoder_seq`` under the encoder's own rule;
+    * each layer's branches: the attention (hymba's attention and SSM
+      together, mamba2's SSM), whisper's cross-attention, then the MLP or
+      MoE block; an encoder layer's two at ``rows x encoder_seq`` under the
+      encoder's own rule;
     * on the 'hd' layouts, the column gathers and their reduce-scatters:
       K and V's (of the encoder output, for the cross-attention), and Q's;
-    * on an SSM or hybrid layer whose heads stay whole
-      (``sharding.specs.ssm_heads_split``), the gather of the convolved
-      ``(rows, S, d_inner)`` input and its reduce-scatter;
-    * whisper's encoder output, gathered once, and its backward;
-    * an SSM layer's gated-norm statistic: a (rows, S) fp32 all-reduce
-      forward and another backward;
-    * the embedding's reduce and the logits' gather (the whole residual);
-      the cross entropy's three (rows, S) fp32 all-reduces (text only);
+    * on an SSM or hybrid layer whose ``d_inner`` splits and whose heads
+      stay whole (``sharding.specs.ssm_heads_split``), the gather of the
+      convolved ``(rows, S, d_inner)`` input and its reduce-scatter;
+    * whisper's encoder output, gathered once, and its backward (the
+      reduce of the partial cotangents; none with whole heads);
+    * a split SSM layer's gated-norm statistic: a (rows, S) fp32
+      all-reduce forward and another backward;
+    * the embedding and the logits' gather (the whole residual); the
+      vocab-parallel cross entropy's three (rows, S) fp32 all-reduces
+      (text only), none with the vocab whole;
     * the sum over the model axis of the gradients
-      ``tensor_parallel.grad_is_partial`` names: in either layout the MoE
-      router's, the SSM's ``wb``, ``wc``, B/C convs and biases and
-      ``gate_norm``, hymba's branch scales, and where the SSM heads stay
-      whole its ``wdt``, ``A_log``, ``D`` and ``dt_bias`` (``d * H + 3 * H``
-      elements a layer); with a sequence-sharded
-      residual every other replicated leaf's on it too (the norm gains:
-      the encoder's under the encoder's rule);
+      ``tensor_parallel.grad_is_partial`` names, counted leaf by leaf from
+      the parameters' shapes (fake tensors, nothing allocated);
     * with ``remat`` (the default, as ``models.transformer.forward``'s),
       each decoder layer's forward collectives once more, in the backward's
-      recompute: the forward half of each sequence gather and reduce (a
-      gather's all-gather and a reduce's reduce-scatter when sharded, a
-      reduce's all-reduce when not; a gather pair and a reduce pair
-      together come to one pair's bytes), of each column gather ('hd', the
-      SSM's whole-head input), and the gated norm's forward all-reduce.
-      whisper's encoder and the gather of its output are not checkpointed.
+      recompute (whisper's encoder and the gather of its output are not
+      checkpointed).
     """
     sizes = sh.mesh_axis_sizes(axis_sizes)
-    if sh.mesh_path(cfg, sizes) != sh.TENSOR_PARALLEL:
-        return 0
     if mode != "train":
         return _tp_serve_bytes(cfg, rows, seq, sizes, mode=mode, batch=batch,
                                cache_len=cache_len, kv_seq_shard=kv_seq_shard,
                                compute_bytes=compute_bytes)
+    if sh.mesh_path(cfg, sizes) != sh.TENSOR_PARALLEL:
+        return 0
     m = sizes[sh.MODEL_AXIS]
-    seq_shard = sh.sequence_sharded(sh.residual_len(cfg, seq), m)
-    d, arch = cfg.d_model, cfg.arch_type
-    audio = arch == "audio"
-    (edge, _), (layer_f, layer_b), (enc_f, enc_b) = _tp_forward(cfg, rows, seq, m,
-                                                                compute_bytes)
-    total = (2 * edge + cfg.num_layers * (layer_f + layer_b + (layer_f if remat else 0))
-             + enc_f + enc_b + 3 * rows * seq * FP32_BYTES)
-    # Elements a layer of the replicated leaves: partial in either layout,
-    # and partial only when the residual is sequence-sharded.
-    attn = bool(cfg.num_heads) and arch != "ssm"
-    always = cfg.num_experts * d
-    norms = ((2 * d if attn else 0) + (2 * d if cfg.use_post_norms else 0)
-             + (d if audio else 0))
-    if arch in ("ssm", "hybrid"):
-        dims = sh.ssm_dims(cfg)
-        n, k = dims.state_size, dims.conv_kernel
-        always += 2 * (d * n + k * n + n) + dims.d_inner
-        norms += d
-        if not sh.ssm_heads_split(cfg, m):
-            always += d * dims.num_heads + 3 * dims.num_heads
-    if arch == "hybrid":
-        always += 2 * d
-    partial = cfg.num_layers * always + (cfg.num_layers * norms + d if seq_shard else 0)
-    if audio and sh.sequence_sharded(cfg.encoder_seq, m):
-        partial += cfg.encoder_layers * 2 * d + d
-    return total + FP32_BYTES * partial
+    (edge_f, edge_b), (layer_f, layer_b), (enc_f, enc_b) = _tp_forward(cfg, rows, seq, m,
+                                                                       compute_bytes)
+    total = (edge_f + edge_b + cfg.num_layers * (layer_f + layer_b + (layer_f if remat else 0))
+             + enc_f + enc_b)
+    if not sh.whole_sub_blocks(cfg, {sh.MODEL_AXIS: m})["vocab"]:
+        total += 3 * rows * seq * FP32_BYTES
+    return total + FP32_BYTES * _partial_grad_elements(cfg, m, sh.residual_len(cfg, seq))
+
+
+def _partial_grad_elements(cfg, m: int, res_len: int) -> int:
+    """The elements of the gradients a tensor-parallel rank sums over a
+    model axis of ``m`` (``tensor_parallel.grad_is_partial``), for a
+    residual of ``res_len`` positions."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.distributed.tensor_parallel import grad_is_partial
+    from repro_torch.models.transformer import init_params
+
+    with FakeTensorMode():
+        params = init_params(cfg, device="cpu")
+    ctx = sh.make_ctx(cfg, comm=_AxisComm({sh.MODEL_AXIS: m}), seq=res_len)
+    total = 0
+    for (key, p), spec in zip(tree_lib.flatten_with_path(params),
+                              tree_lib.leaves(sh.param_specs(params, cfg, {sh.MODEL_AXIS: m}))):
+        split = any(sh.MODEL_AXIS in _names(e) for e in spec)
+        if grad_is_partial(key, split, ctx):
+            total += p.numel()
+    return total
+
+
+class _AxisComm:
+    """What ``sharding.specs.make_ctx`` reads of a mesh's ``Collectives``
+    (its axis sizes; rank 0), without a world."""
+
+    def __init__(self, sizes: dict):
+        self.axis_sizes = sizes
+
+    def size(self, axes) -> int:
+        return math.prod(self.axis_sizes.get(a, 1) for a in axes)
+
+    def index(self, axes) -> int:
+        return 0
+
+
+def _layer_branches(cfg, whole: dict) -> list:
+    """Whether each branch of a decoder layer runs whole on every rank, in
+    order: the mixer (hymba's attention and SSM, closed by one reduce,
+    whole only when both are), whisper's cross-attention, the MLP or MoE
+    block."""
+    arch = cfg.arch_type
+    if arch == "ssm":
+        return [whole["ssm"]]
+    out = [whole["q"] and whole["ssm"]] if arch == "hybrid" else [whole["q"]]
+    if arch == "audio":
+        out.append(whole["q"])
+    out.append(whole["experts"] if arch == "moe" else whole["mlp"])
+    return out
 
 
 def _tp_forward(cfg, rows: int, seq: int, m: int, elt: int) -> tuple:
@@ -597,23 +623,26 @@ def _tp_forward(cfg, rows: int, seq: int, m: int, elt: int) -> tuple:
     ``rows`` x ``seq`` text tokens a rank and a model axis of ``m``, each
     with its backward, as :func:`tp_bytes` counts them: ``(edge, layer,
     encoder)``, each a (forward, backward) pair of bytes. ``edge``: the
-    embedding's reduce and the logits' gather; ``layer``: one decoder
-    layer's sequence gathers and reduces, its 'hd' column gathers (the
-    cross-attention's too), an SSM layer's gated-norm all-reduce and, with
-    its heads whole, the gather of its convolved input; ``encoder``:
-    whisper's encoder layers and the gather of their output (0 without an
-    encoder). A column gather's backward is its reduce-scatter; a sequence
-    gather and reduce together move a pair's bytes each way."""
+    embedding and the logits' gather; ``layer``: one decoder layer's
+    branches (a split one's sequence gather and reduce, a whole one's
+    gather), its 'hd' column gathers (the cross-attention's too), a split
+    SSM layer's gated-norm all-reduce and, with its heads whole, the gather
+    of its convolved input; ``encoder``: whisper's encoder layers and the
+    gather of their output (0 without an encoder)."""
     res_len = sh.residual_len(cfg, seq)
     seq_shard = sh.sequence_sharded(res_len, m)
     tokens = rows * res_len
     d, arch = cfg.d_model, cfg.arch_type
     audio = arch == "audio"
+    whole = sh.whole_sub_blocks(cfg, {sh.MODEL_AXIS: m})
 
-    def pair(n: int = tokens, sharded: bool = seq_shard, size: int = elt) -> int:
-        """A gather and a reduce of (rows, n / rows, d), one way."""
+    def branch(is_whole: bool, n: int = tokens, sharded: bool = seq_shard,
+               size: int = elt) -> tuple:
+        """A branch's bytes each way: a split one's gather and reduce of
+        (rows, n / rows, d), a whole one's gather."""
         act = n * d * size
-        return act + act // m if sharded else act
+        one_way = (act if sharded else 0) if is_whole else (act + act // m if sharded else act)
+        return one_way, one_way
 
     def cols(width: int, n: int = tokens, size: int = elt) -> tuple:
         """A column gather of (rows, n / rows, width) and its reduce-scatter."""
@@ -623,9 +652,7 @@ def _tp_forward(cfg, rows: int, seq: int, m: int, elt: int) -> tuple:
     def add(*terms) -> tuple:
         return tuple(map(sum, zip((0, 0), *terms)))
 
-    # Sequence gathers a layer (as many reduces): into and out of each branch.
-    gathers = 1 if arch == "ssm" else 3 if audio else 2
-    layer = [(gathers * pair(), gathers * pair())]
+    layer = [branch(w) for w in _layer_branches(cfg, whole)]
     encoder = []
     if bool(cfg.num_heads) and arch != "ssm":
         ql, kvl = sh.attn_layouts(cfg, m)
@@ -640,27 +667,30 @@ def _tp_forward(cfg, rows: int, seq: int, m: int, elt: int) -> tuple:
             enc_q = [cols(cfg.q_dim, enc, FP32_BYTES)] if ql == "hd" else []
             # The cross-attention's K/V, from the encoder output.
             layer += enc_kv
-            enc_layer = add((2 * pair(enc, enc_shard, FP32_BYTES),) * 2, *enc_kv, *enc_q)
-            # The output's gather: an all-gather forward when sharded, else
-            # the identity forward and an all-reduce backward.
+            enc_layer = add(branch(whole["q"], enc, enc_shard, FP32_BYTES),
+                            branch(whole["mlp"], enc, enc_shard, FP32_BYTES), *enc_kv, *enc_q)
+            # The output's gather: an all-gather forward when sharded; its
+            # backward a reduce-scatter (an all-reduce unsharded) of the
+            # partial cotangents, or nothing for whole heads' whole one.
             act = enc * d * FP32_BYTES
-            out = (act, act // m) if enc_shard else (0, act)
+            out = (act if enc_shard else 0,
+                   0 if whole["q"] else act // m if enc_shard else act)
             encoder = [tuple(cfg.encoder_layers * x for x in enc_layer), out]
-    if arch in ("ssm", "hybrid"):
+    if arch in ("ssm", "hybrid") and not whole["ssm"]:
         layer.append((tokens * FP32_BYTES, tokens * FP32_BYTES))
         if not sh.ssm_heads_split(cfg, m):
             layer.append(cols(sh.ssm_dims(cfg).d_inner))
-    return (pair(), pair()), add(*layer), add(*encoder)
+    return branch(whole["vocab"]), add(*layer), add(*encoder)
 
 
 def _tp_serve_bytes(cfg, rows: int, seq: int, sizes: dict, *, mode: str,
                     batch: Optional[int] = None, cache_len: Optional[int] = None,
                     kv_seq_shard: bool = False, compute_bytes: int = 2) -> int:
-    """The ``'tp'`` collective bytes of one rank for one tensor-parallel
-    prefill (``mode="prefill"``: ``rows`` x ``seq`` text tokens, the
-    residual :func:`sharding.specs.residual_len` long) or one decode step
+    """The ``'tp'`` collective bytes of one rank for one prefill
+    (``mode="prefill"``: ``rows`` x ``seq`` text tokens, the residual
+    :func:`sharding.specs.residual_len` long) or one decode step
     (``mode="decode"``: ``rows`` tokens against a cache of ``seq``
-    positions), from the shapes. ``rows`` are the rank's data
+    positions) on a mesh, from the shapes. ``rows`` are the rank's data
     coordinate's; the cache is laid out by ``sharding.specs.cache_specs``
     for ``batch`` rows over the mesh (``rows`` times the data axes' size
     unless given), ``cache_len`` positions (prefill: the residual's length
@@ -668,32 +698,37 @@ def _tp_serve_bytes(cfg, rows: int, seq: int, sizes: dict, *, mode: str,
     the cache of ``compute_bytes`` (a prefill writes the cache in the
     activations' dtype); whisper's encoder and the cross-attention's K/V
     fp32, as :func:`tp_bytes` takes them. No backward and no recompute.
-    Counted:
+    A sub-block the model axis leaves whole moves nothing but its
+    sequence-sharded input's gather. Counted:
 
     prefill -- the train forward's collectives once (:func:`_tp_forward`);
     and for the cache: with its sequence over ``model`` in the 'head' KV
     layout, each attention layer's K and V heads gathered over ``model``
-    ((rows, S', Hkv, hd) each); with the SSM heads whole, each layer's last
-    K-1 raw inputs gathered ((rows, K-1, d_inner)).
+    ((rows, S', Hkv, hd) each); with a split ``d_inner`` and the SSM heads
+    whole, each layer's last K-1 raw inputs gathered ((rows, K-1,
+    d_inner)). On a mesh without a model split: nothing (every rank
+    computes its rows, or a batch of one whole, and keeps its positions).
 
-    decode -- the embedding's all-reduce and each layer's reduces of
-    (rows, 1, d) (the one-position residual is never sequence-sharded:
-    the gathers are the identity); in each self-attention layer, Q's
-    columns gathered where the cache's sequence is over ``model`` or Q is
-    'hd', the fresh K/V's where it is over ``model`` or KV is 'hd'; in the
-    'hd' KV layout (the sequence not over ``model``) the rank's cache, K and
-    V, gathered over ``model`` on head_dim ((rows, T_local, Hkv, hd)); with
-    the sequence split (over ``model``, or over the data axes), the merge
-    of the softmax: a (rows, heads) fp32 max and a (rows, heads, hd + 1)
-    fp32 sum, ``heads`` the Q heads the rank attends (every head over
-    ``model`` or in Q 'hd', else its own); whisper's cross-attention: Q's
-    columns in 'hd', K/V's of the whole encoder output in 'hd'; an SSM
-    layer's gated-norm (rows, 1) fp32 all-reduce, and with its heads whole
-    its raw and convolved (rows, d_inner) inputs gathered.
+    decode -- the embedding's all-reduce (a split vocab) and each split
+    branch's reduce of (rows, 1, d) (the one-position residual is never
+    sequence-sharded: the gathers are the identity); in each
+    self-attention layer, split Q's columns gathered where the cache's
+    sequence is over ``model`` or Q is 'hd', split K/V's where it is over
+    ``model`` or KV is 'hd'; in the 'hd' KV layout (the sequence not over
+    ``model``) the rank's cache, K and V, gathered over ``model`` on
+    head_dim ((rows, T_local, Hkv, hd)); with the sequence split (over
+    ``model``, or over the data axes), the merge of the softmax: a (rows,
+    heads) fp32 max and a (rows, heads, hd + 1) fp32 sum, ``heads`` the Q
+    heads the rank attends (every head over ``model``, in Q 'hd' or with Q
+    whole, else its own); whisper's cross-attention: Q's columns in 'hd',
+    K/V's of the whole encoder output in 'hd'; a split SSM layer's
+    gated-norm (rows, 1) fp32 all-reduce, and with its heads whole its raw
+    and convolved (rows, d_inner) inputs gathered. On a mesh without a
+    model split, only the merge over the data axes.
     """
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
-    m = sizes[sh.MODEL_AXIS]
+    m = sizes.get(sh.MODEL_AXIS, 1)
     d, arch, elt = cfg.d_model, cfg.arch_type, compute_bytes
     data = math.prod(v for a, v in sizes.items() if a != sh.MODEL_AXIS)
     batch = rows * data if batch is None else batch
@@ -704,38 +739,45 @@ def _tp_serve_bytes(cfg, rows: int, seq: int, sizes: dict, *, mode: str,
                            kv_seq_shard=kv_seq_shard, cache_len=length)
     tokens = rows * res_len
     attn = bool(cfg.num_heads) and arch != "ssm"
-    ssm_whole = arch in ("ssm", "hybrid") and not sh.ssm_heads_split(cfg, m)
+    whole = sh.whole_sub_blocks(cfg, {sh.MODEL_AXIS: m})
+    ssm_split = arch in ("ssm", "hybrid") and m > 1 and not whole["ssm"]
+    heads_whole = ssm_split and not sh.ssm_heads_split(cfg, m)
     d_inner = sh.ssm_dims(cfg).d_inner if arch in ("ssm", "hybrid") else 0
     if attn:
         ql, kvl = sh.attn_layouts(cfg, m)
-        seq_axes = sh.spec_entry_names(specs["kv"][0][2])
+        seq_axes = tuple(a for a in sh.spec_entry_names(specs["kv"][0][2])
+                         if sizes.get(a, 1) > 1)
         over_model = sh.MODEL_AXIS in seq_axes
         kv_cols = 2 * tokens * cfg.kv_dim * elt
     if prefill:
+        if m <= 1:
+            return 0
         (edge, _), (layer, _), (encoder, _) = _tp_forward(cfg, rows, seq, m, elt)
         cache = 0
         if attn and over_model and kvl == "head":
             cache += kv_cols
-        if ssm_whole:
+        if heads_whole:
             cache += rows * (sh.ssm_dims(cfg).conv_kernel - 1) * d_inner * elt
         return edge + cfg.num_layers * (layer + cache) + encoder
-    # One position: a reduce of (rows, 1, d) for each branch and the
+    # One position: a reduce of (rows, 1, d) for each split branch and the
     # embedding; no gather.
-    per_layer = (1 if arch == "ssm" else 3 if arch == "audio" else 2) * tokens * d * elt
+    act = tokens * d * elt if m > 1 else 0
+    per_layer = act * sum(not w for w in _layer_branches(cfg, whole))
     if attn:
-        per_layer += tokens * cfg.q_dim * elt if over_model or ql == "hd" else 0
-        per_layer += kv_cols if over_model or kvl == "hd" else 0
+        per_layer += tokens * cfg.q_dim * elt if (over_model and ql == "head") or ql == "hd" else 0
+        per_layer += kv_cols if (over_model and kvl == "head") or kvl == "hd" else 0
         if kvl == "hd" and not over_model:
             local_len = length // sh.spec_entry_size(specs["kv"][0][2], sizes)
             per_layer += 2 * rows * local_len * cfg.kv_dim * elt
         if seq_axes:
-            heads = cfg.num_heads if over_model or ql == "hd" else cfg.num_heads // m
+            heads = (cfg.num_heads if over_model or ql != "head" or m <= 1
+                     else cfg.num_heads // m)
             per_layer += FP32_BYTES * rows * heads * (cfg.head_dim + 2)
-    if arch in ("ssm", "hybrid"):
+    if ssm_split:
         per_layer += tokens * FP32_BYTES
-        if ssm_whole:
+        if heads_whole:
             per_layer += 2 * tokens * d_inner * elt
-    total = tokens * d * elt + cfg.num_layers * per_layer
+    total = (0 if whole["vocab"] else act) + cfg.num_layers * per_layer
     if arch == "audio":
         # The cross-attention: Q's columns and the encoder output's K/V in 'hd'.
         enc_kv = 2 * rows * cfg.encoder_seq * cfg.kv_dim * FP32_BYTES if kvl == "hd" else 0

@@ -19,6 +19,18 @@ with its sequence parallelism):
   and the vocab-parallel embedding: the partial sums reduce-scattered on
   the sequence dim, all-gathered in the backward; without sequence
   sharding an all-reduce, and the identity in the backward;
+* :func:`enter_whole` and :func:`leave_whole` -- into and out of a
+  sub-block whose weights are whole on every rank (``ShardCtx.runs_whole``:
+  no layout for Q, a ``d_ff``, expert ``d_ff``, ``d_inner`` or vocab that
+  the axis does not divide). Every rank computes it whole and alike on the
+  whole sequence, and keeps its own sequence shard of the output: the
+  sequence-sharded residual all-gathered in, and its slice taken out, no
+  reduce. Each is the other's transpose for a value the ranks compute
+  alike: the backward of :func:`leave_whole` all-gathers the shards'
+  cotangents, so every rank backpropagates the same whole cotangent, and
+  :func:`enter_whole`'s takes the rank's slice of the same whole result.
+  The weights' gradients come out whole on every rank, with no sum over
+  ``model``. Without sequence sharding both are the identity;
 * :func:`gather_cols` -- the Q and K/V projection columns of the 'hd'
   layout, and the SSM's convolved ``x`` where its heads stay whole, all-
   gathered over ``model``, reduce-scattered in the backward;
@@ -104,6 +116,35 @@ class _ReduceSeq(torch.autograd.Function):
         return (_all_gather(g, ctx, SEQ_DIM) if ctx.seq_shard else g), None
 
 
+def _seq_slice(x: torch.Tensor, ctx) -> torch.Tensor:
+    n = x.shape[SEQ_DIM] // ctx.size
+    return x.narrow(SEQ_DIM, ctx.index * n, n)
+
+
+class _EnterWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _all_gather(x, ctx, SEQ_DIM) if ctx.seq_shard else x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx = fctx.ctx
+        return (_seq_slice(g, ctx).contiguous() if ctx.seq_shard else g), None
+
+
+class _LeaveWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _seq_slice(x, ctx).contiguous() if ctx.seq_shard else x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx = fctx.ctx
+        return (_all_gather(g.contiguous(), ctx, SEQ_DIM) if ctx.seq_shard else g), None
+
+
 class _GatherCols(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, ctx):
@@ -145,6 +186,17 @@ def gather_seq(x: torch.Tensor, ctx) -> torch.Tensor:
 def reduce_seq(x: torch.Tensor, ctx) -> torch.Tensor:
     """Partial (B, S, D) -> summed (B, S/m, D), or (B, S, D) unsharded."""
     return _ReduceSeq.apply(x, ctx)
+
+
+def enter_whole(x: torch.Tensor, ctx) -> torch.Tensor:
+    """(B, S/m, D) -> (B, S, D) into a whole sub-block; see the module doc."""
+    return _EnterWhole.apply(x, ctx)
+
+
+def leave_whole(x: torch.Tensor, ctx) -> torch.Tensor:
+    """A whole sub-block's (B, S, D) output -> the rank's (B, S/m, D) shard
+    of it when sequence-sharded; see the module doc."""
+    return _LeaveWhole.apply(x, ctx)
 
 
 def gather_cols(x: torch.Tensor, ctx) -> torch.Tensor:
@@ -191,14 +243,16 @@ def replica_mean(x: torch.Tensor, ctx) -> torch.Tensor:
     return _ReplicaMean.apply(x, ctx)
 
 
-# Leaves every rank holds whole whose gradient on a rank covers only its
-# heads or columns, in either residual layout: the MoE router (it sees the
-# rank's d_ff slice of the experts' output); the SSM's B/C projections and
-# convs (read by the rank's heads only), its gate_norm (applied to the
-# rank's d_inner slice); hymba's branch scales (on the rank's partial sums).
+# Leaves every rank holds whole, in a sub-block the axis splits, whose
+# gradient on a rank covers only its heads or columns, in either residual
+# layout: the MoE router (it sees the rank's d_ff slice of the experts'
+# output); the SSM's B/C projections and convs (read by the rank's heads
+# only), its gate_norm (applied to the rank's d_inner slice); hymba's branch
+# scales (on the rank's partial sums); the K/V projections beside Q heads
+# that split (each rank reads the K/V heads of its own Q heads).
 PARTIAL_IN_EITHER_LAYOUT = frozenset({
     "router", "wb", "wc", "conv_b", "conv_b_bias", "conv_c", "conv_c_bias", "gate_norm",
-    "attn_scale", "ssm_scale"})
+    "attn_scale", "ssm_scale", "wk", "wv"})
 # The SSM's per-head leaves: split with the heads where their count divides
 # the model axis; whole on every rank otherwise (``sharding.specs.
 # ssm_heads_split``), where each rank runs every head but keeps its own
@@ -208,19 +262,33 @@ PARTIAL_WHEN_WHOLE = frozenset({"wdt", "A_log", "D", "dt_bias"})
 
 def grad_is_partial(key, model_split: bool, ctx) -> bool:
     """Whether a rank's gradient of the leaf ``key`` is a part of the whole
-    that the ranks of ``model`` sum: a leaf ``model`` does not split, when
-    its residual is sequence-sharded (it saw the rank's sequence shard
-    only), and in either layout the leaves of
-    :data:`PARTIAL_IN_EITHER_LAYOUT`: the MoE router; the SSM's ``wb``,
-    ``wc``, ``conv_b``, ``conv_b_bias``, ``conv_c``, ``conv_c_bias`` and
-    ``gate_norm``; hymba's ``attn_scale`` and ``ssm_scale``; and the SSM's
-    ``wdt``, ``A_log``, ``D`` and ``dt_bias`` where ``model`` does not
-    split them (:data:`PARTIAL_WHEN_WHOLE`: the heads whole on every rank,
-    so ``model_split``, read from the parameter's spec, decides). A leaf
-    under ``encoder/`` (whisper's) lives on the encoder's residual, which
-    follows its own length (``ctx.encoder_seq_shard``); every other leaf,
-    the decoder's ``cross_norm`` among them, on the decoder's."""
+    that the ranks of ``model`` sum, decided from what is whole on the mesh:
+
+    * a leaf ``model`` splits (``model_split``, read from the parameter's
+      spec): never;
+    * hymba's whole branch beside a split one (``ctx.whole_on_index0``):
+      always, since it enters the partial sum on model index 0 alone;
+    * a leaf of a sub-block every rank computes whole
+      (``ctx.runs_whole``: :func:`enter_whole` / :func:`leave_whole`):
+      never, in either layout;
+    * otherwise a leaf ``model`` does not split, when its residual is
+      sequence-sharded (it saw the rank's sequence shard only), and in
+      either layout the leaves of :data:`PARTIAL_IN_EITHER_LAYOUT` (the MoE
+      router beside split experts; the SSM's ``wb``, ``wc``, ``conv_b``,
+      ``conv_b_bias``, ``conv_c``, ``conv_c_bias`` and ``gate_norm`` beside
+      a split ``d_inner``; hymba's ``attn_scale`` and ``ssm_scale`` beside a
+      split branch; ``wk`` and ``wv`` whole beside split Q heads) and the
+      SSM's ``wdt``, ``A_log``, ``D`` and ``dt_bias`` whole beside a split
+      ``d_inner`` (:data:`PARTIAL_WHEN_WHOLE`).
+
+    A leaf under ``encoder/`` (whisper's) lives on the encoder's residual,
+    which follows its own length (``ctx.encoder_seq_shard``); every other
+    leaf, the decoder's ``cross_norm`` among them, on the decoder's."""
     if model_split:
+        return False
+    if len(key) > 1 and key[-2] in ctx.whole_on_index0:
+        return True
+    if ctx.runs_whole(key):
         return False
     seq_shard = ctx.encoder_seq_shard if key[0] == "encoder" else ctx.seq_shard
     return (seq_shard or key[-1] in PARTIAL_IN_EITHER_LAYOUT

@@ -31,8 +31,11 @@ every rank builds the full parameters from ``--seed`` (or takes the
 caller's) and keeps only its ``param_specs`` shards, which it computes with
 (``models/transformer.py``, ``models/encdec.py``,
 ``distributed/tensor_parallel.py``) -- and a mesh without a model split
-runs replicated, each rank holding the whole model. A head layout or a
-count the port does not split raises there. See ``training/train_step.py``
+runs replicated, each rank holding the whole model. A sub-block whose
+heads or width the axis does not divide keeps its weights whole on every
+rank and runs whole there (``sharding.specs.whole_sub_blocks``), as the
+reference keeps them replicated; the path line names such sub-blocks
+(``--mesh model=3`` runs every arch so). See ``training/train_step.py``
 for the gradient reduce and the 'apply' gathers. Only rank 0 prints step
 lines and writes ``--log-file``; a rank that fails raises, which fails the
 run.
@@ -495,9 +498,11 @@ def _train(args, device, bus, plan, params, cfg, on_step, before_step, rank) -> 
                        f", SSM heads "
                        f"{'split' if sh.ssm_heads_split(cfg, ctx.size) else 'whole'}"
                        if cfg.arch_type in ("ssm", "hybrid") else "")
+            whole = [k for k, v in sh.whole_sub_blocks(cfg, axis_sizes).items() if v]
             print(f"mesh path: {mesh_path} (model axis {axis_sizes.get('model', 1)}, "
                   f"Q layout {ctx.q_layout!r}, KV layout {ctx.kv_layout!r}, sequence-sharded "
-                  f"residual {ctx.seq_shard}{encoder}); collectives: {args.dist_backend}'s own "
+                  f"residual {ctx.seq_shard}{encoder}); whole on every rank: "
+                  f"{', '.join(whole) or 'none'}; collectives: {args.dist_backend}'s own "
                   f"on {device.type} tensors", flush=True)
     else:
         axis_sizes = {"model": args.mesh_model}

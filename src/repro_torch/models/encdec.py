@@ -16,7 +16,11 @@ rank runs the layers on its slice of the frames and the output is gathered
 once into the whole (B, S_enc, D) K/V source (``tensor_parallel.
 gather_seq``). That gather's backward sums the partial cotangents that each
 rank's cross-attention heads send back from every decoder layer (a
-reduce-scatter; unsharded, ``gather_seq``'s all-reduce). The reference lets
+reduce-scatter; unsharded, ``gather_seq``'s all-reduce). A sub-block that
+the axis leaves whole (no head layout, a ``d_ff`` it does not divide) runs
+whole on every rank (``tensor_parallel.enter_whole`` / ``leave_whole``),
+and with whole heads so does the cross-attention, whose whole cotangent of
+the encoder output each rank then cuts to its slice. The reference lets
 GSPMD lay the encoder out and sums the same terms in another order: a
 departure by design, with the same result up to rounding.
 """
@@ -69,7 +73,7 @@ def encode(enc_params: dict, frames: torch.Tensor, cfg: ModelConfig, ctx=None) -
     seq = frames.shape[1]
     tp = ctx is not None and ctx.tensor_parallel
     x = frames + sinusoidal_positions(seq, cfg.d_model, device=frames.device).to(frames.dtype)[None]
-    enter = leave = lambda h: h
+    enter = leave = lambda h, whole=False: h
     if tp:
         from repro_torch.distributed import tensor_parallel
         from repro_torch.sharding.specs import sequence_sharded
@@ -80,18 +84,24 @@ def encode(enc_params: dict, frames: torch.Tensor, cfg: ModelConfig, ctx=None) -
         ctx = dataclasses.replace(ctx, seq_shard=ctx.encoder_seq_shard)
         if ctx.seq_shard:
             x = x.narrow(1, ctx.index * (seq // ctx.size), seq // ctx.size)
-        enter = lambda h: tensor_parallel.gather_seq(h, ctx)
-        leave = lambda h: tensor_parallel.reduce_seq(h, ctx)
+        enter = lambda h, whole=False: (tensor_parallel.enter_whole if whole else
+                                        tensor_parallel.gather_seq)(h, ctx)
+        leave = lambda h, whole=False: (tensor_parallel.leave_whole if whole else
+                                        tensor_parallel.reduce_seq)(h, ctx)
+    attn_whole, mlp_whole = tp and ctx.attn_whole, tp and ctx.mlp_whole
     positions = torch.arange(seq, device=frames.device)
     for i in range(enc_params["attn"]["wq"].shape[0]):
         attn = {k: w[i] for k, w in enc_params["attn"].items()}
-        h = enter(rms_norm(x, enc_params["norms"]["attn_norm"][i]))
+        h = enter(rms_norm(x, enc_params["norms"]["attn_norm"][i]), attn_whole)
         attn_out, _ = attention_block(
             h, attn, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, positions=positions, inv_freq=None, causal=False, ctx=ctx)
-        x = x + leave(attn_out)
-        h = enter(rms_norm(x, enc_params["norms"]["mlp_norm"][i]))
+        x = x + leave(attn_out, attn_whole)
+        h = enter(rms_norm(x, enc_params["norms"]["mlp_norm"][i]), mlp_whole)
         x = x + leave(linear(F.gelu(linear(h, enc_params["mlp"]["wi"][i]), approximate="tanh"),
-                             enc_params["mlp"]["wo"][i]))
+                             enc_params["mlp"]["wo"][i]), mlp_whole)
     x = rms_norm(x, enc_params["final_norm"])
-    return tensor_parallel.gather_seq(x, ctx) if tp else x
+    # The decoder's cross-attention reads it: its K/V heads split or whole
+    # decide which backward the gather takes (the sum of the partial
+    # cotangents, or the rank's slice of the whole one).
+    return enter(x, attn_whole)

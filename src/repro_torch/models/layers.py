@@ -307,7 +307,13 @@ def _cached_attention_tp(x, params: dict, *, num_heads: int, num_kv_heads: int, 
       K/V are gathered over ``model`` (every head), the rank attends over
       its positions of every head and keeps its Q columns of the output;
     * over the data axes (a batch of one): heads as above, the rank's
-      positions.
+      positions;
+    * K/V whole (no layout): the cache holds every KV head on every rank,
+      and the rank's Q heads attend over theirs; Q whole too: every rank
+      attends over every head with the whole ``wo``, and the output is
+      whole, not a partial sum. On a mesh without a model split (``ctx``
+      of size 1, its cache's sequence over the data axes) every rank
+      computes the same Q and K/V and attends over its positions.
 
     With the sequence split the rank that holds ``cache_index`` writes the
     fresh K/V; each rank's softmax over its keys (positions offset by its
@@ -319,12 +325,15 @@ def _cached_attention_tp(x, params: dict, *, num_heads: int, num_kv_heads: int, 
 
     ql, kvl = ctx.q_layout, ctx.kv_layout
     over_model = ctx.cache_seq_over_model
+    # Split columns gathered: every head's. Whole ones are every head's already.
+    gather_q = (over_model and ql == "head") or ql == "hd"
+    gather_kv = (over_model and kvl == "head") or kvl == "hd"
     q = linear(x, params["wq"])
     q_cols = q.shape[-1]
     k, v = linear(x, params["wk"]), linear(x, params["wv"])
-    if over_model or ql == "hd":
+    if gather_q:
         q = tp.gather_cols(q, ctx)
-    if over_model or kvl == "hd":
+    if gather_kv:
         k, v = tp.gather_cols(k, ctx), tp.gather_cols(v, ctx)
     q = split_heads(q, q.shape[-1] // head_dim, head_dim, ql)
     k = split_heads(k, k.shape[-1] // head_dim, head_dim, kvl)
@@ -342,8 +351,9 @@ def _cached_attention_tp(x, params: dict, *, num_heads: int, num_kv_heads: int, 
     ck, cv = kv_cache.k, kv_cache.v
     if hd_split:
         ck, cv = tp.gather_over_model(ck, ctx, -1), tp.gather_over_model(cv, ctx, -1)
-        if ql == "head":
-            ck, cv = _kv_for_q_heads(ck, cv, num_heads, num_kv_heads, q.shape[2], ctx)
+    if ctx.tensor_parallel and ql == "head" and kvl != "head" and not over_model:
+        # The rank's Q heads against every KV head ('hd' gathered, or whole).
+        ck, cv = _kv_for_q_heads(ck, cv, num_heads, num_kv_heads, q.shape[2], ctx)
     masks = dict(causal=causal, window=window, attn_softcap=attn_softcap, q_offset=cache_index,
                  kv_len=kv_len)
     if ctx.kv_seq_axes:
@@ -353,7 +363,7 @@ def _cached_attention_tp(x, params: dict, *, num_heads: int, num_kv_heads: int, 
     else:
         out = attention(q, ck, cv, **masks)
     out = merge_heads(out, ql)
-    if over_model or ql == "hd":
+    if gather_q:
         out = out.narrow(-1, ctx.index * q_cols, q_cols)
     return linear(out, params["wo"])
 
@@ -392,15 +402,18 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
     it holds. So every rank repeats the whole attention, as the layout
     implies: the reference's GSPMD gathers Q there too. K/V in 'hd' are
     gathered likewise (``new_kv`` then holds every head; with Q in 'head'
-    each Q head attends over its KV head). With a ``kv_cache`` (decode)
-    the rank attends against its shard of the cache
+    each Q head attends over its KV head), and so are K/V that no layout
+    splits (whole on every rank). With Q whole too (``ctx.attn_whole``)
+    every rank computes the whole attention and the output is whole. With
+    a ``kv_cache`` against a context's decode layout on a mesh
+    (``ctx.mesh_cache``) the rank attends against its shard of the cache
     (:func:`_cached_attention_tp`) and ``new_kv`` is None.
     """
     b, s, _ = x.shape
     q_layout = "head" if ctx is None else ctx.q_layout
     kv_layout = "head" if ctx is None else ctx.kv_layout
     tp = ctx is not None and ctx.tensor_parallel
-    if tp and kv_cache is not None:
+    if ctx is not None and ctx.mesh_cache and kv_cache is not None:
         return _cached_attention_tp(
             x, params, num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
             positions=positions, inv_freq=inv_freq, causal=causal, window=window,
@@ -427,7 +440,7 @@ def attention_block(x, params: dict, *, num_heads: int, num_kv_heads: int, head_
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
     new_kv = (k, v)
-    if tp and kv_layout == "hd" and q_layout == "head":
+    if tp and q_layout == "head" and kv_layout != "head":  # every KV head: 'hd' or whole
         k, v = _kv_for_q_heads(k, v, num_heads, num_kv_heads, q_heads, ctx)
     q_offset = 0
     if kv_cache is not None:

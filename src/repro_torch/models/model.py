@@ -37,7 +37,8 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, ctx=None,
     ``ctx`` (``sharding.specs.ShardCtx``) is passed to ``forward``; on a
     tensor-parallel rank the CE is the vocab-parallel one over the rank's
     logit columns (``distributed.tensor_parallel.cross_entropy``), so the
-    whole (B, S, Vp) logits never exist. ``remat`` goes to ``forward``: on,
+    whole (B, S, Vp) logits never exist; with the vocab whole on every rank
+    (``ctx.vocab_whole``) every rank has them and computes the plain CE. ``remat`` goes to ``forward``: on,
     as in the reference, every layer is checkpointed; the launcher has no
     flag for it."""
     logits, aux = forward(params, batch["tokens"], cfg, return_aux=True,
@@ -45,7 +46,7 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, ctx=None,
                           encoder_frames=batch.get("audio_frames"), ctx=ctx, remat=remat)
     if cfg.vision_tokens:
         logits = logits[:, cfg.vision_tokens:, :]
-    if ctx is not None and ctx.tensor_parallel:
+    if ctx is not None and ctx.tensor_parallel and not ctx.vocab_whole:
         from repro_torch.distributed import tensor_parallel
 
         ce = tensor_parallel.cross_entropy(logits, batch["labels"], ctx, ignore=IGNORE_LABEL)

@@ -28,7 +28,13 @@ The combine is linear in the expert output, so that is the same sum in
 another order, over ``rows * S`` rows instead of ``E * C``. The router
 logits, gates and aux losses are computed alike on every model rank; the
 aux losses go through ``tensor_parallel.replica_mean``, so the gradient
-sums over ``model`` count them once.
+sums over ``model`` count them once. Where the axis does not divide the
+expert ``d_ff`` the experts are whole on every rank, as the reference's
+``shard_map`` with ``use_model=False`` keeps them: the caller runs the
+block with no context, every rank routing and running every expert on its
+rows' whole sequence, and keeps its sequence shard of the whole ``y``
+(``ShardCtx.experts_whole``); the aux losses are the plain ones, averaged
+over the data axes with the loss.
 
 Determinism. The reference scatter-adds; ``index_add_`` on CUDA adds
 atomically, so a bf16 sum would change from run to run. Here every

@@ -190,7 +190,9 @@ def ssm_forward(x: torch.Tensor, params: dict, dims: SSMDims, *, chunk: int = 12
     The returned state holds the final SSD state and the last K-1 raw
     inputs of each conv, in the projections' dtype (the model's).
 
-    ``ctx`` (``sharding.specs.ShardCtx``): tensor-parallel, ``x`` is the
+    ``ctx`` (``sharding.specs.ShardCtx``; None where the model axis leaves
+    ``d_inner`` whole, ``ShardCtx.ssm_whole``: every weight and the gated
+    norm whole, no collective): tensor-parallel, ``x`` is the
     whole (sequence-gathered) input and ``params`` the rank's
     ``param_specs`` shards: ``z``, ``x`` and the conv on ``x`` are the
     rank's ``d_inner`` columns, ``B`` and ``C`` whole. With the heads split

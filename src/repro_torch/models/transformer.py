@@ -24,7 +24,16 @@ rank's heads, or in the 'hd' layout its head_dim slice of every head, and
 its d_ff columns), both ``wo`` row-parallel, the experts' ``d_ff`` split
 as the reference's ``shard_map`` splits it (``models/moe.py``), the SSM's
 ``d_inner`` columns and heads split (``models/ssm.py``, ``out_proj``
-row-parallel), the logits column-parallel over the vocab. Between layers
+row-parallel), the logits column-parallel over the vocab. What the model
+axis does not divide (``sharding.specs.whole_sub_blocks``: Q or K/V heads
+with no layout, ``d_ff``, an expert ``d_ff``, ``d_inner``, the padded
+vocab) the rank holds whole, as the reference keeps it replicated, and
+such a sub-block runs whole on every rank, on its rows' whole sequence:
+the rank keeps its own sequence shard of the output
+(``tensor_parallel.enter_whole`` / ``leave_whole``), so the sub-block
+enters no reduce over the model axis and its gradients come out whole on
+every rank; with the vocab whole the lookup, the logits and the cross
+entropy are the plain ones. Between layers
 the residual is sequence-sharded over the model axis where the reference's
 ``_seq_shard`` shards it (``ctx.seq_shard``), so the norms run on the
 rank's sequence shard; ``distributed/tensor_parallel.py`` holds the
@@ -216,7 +225,14 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
     is the SSM's ``out_proj``. hymba's attention and SSM read one gathered
     input, and one reduce closes both: ``0.5 * (attn * attn_scale + ssm *
     ssm_scale)`` is linear in the two partial sums, so this is the
-    reference's sum in another order, with half the reduce bytes. The
+    reference's sum in another order, with half the reduce bytes. A
+    sub-block the model axis leaves whole (``ctx.attn_whole``,
+    ``mlp_whole``, ``experts_whole``, ``ssm_whole``) runs whole on every
+    rank and keeps the rank's sequence shard of its output
+    (``tensor_parallel.enter_whole`` / ``leave_whole``); hymba's two
+    branches do so when both are whole, and a whole one beside a split one
+    adds its output to the one reduce's partial sum on model index 0 alone
+    (``ctx.whole_on_index0``). The
     self- and cross-attention scan K/V in blocks of ``ctx.flash_block_k``
     (``layers.attention``; 1024 without a context).
     """
@@ -224,14 +240,30 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
     new_kv = new_ssm = None
     tp = ctx is not None and ctx.tensor_parallel
     block_k = FLASH_BLOCK_K if ctx is None else ctx.flash_block_k
-    # Into and out of a tensor-parallel branch: the sequence gather and the
-    # reduce of the row-parallel partial sums; the identity on one device.
-    enter = (lambda h: _tp().gather_seq(h, ctx)) if tp else (lambda h: h)
-    leave = (lambda h: _tp().reduce_seq(h, ctx)) if tp else (lambda h: h)
+    # What the model axis leaves whole (ShardCtx): such a sub-block runs
+    # whole on every rank, on the one-device code where it has its own.
+    attn_whole = tp and ctx.attn_whole
+    ssm_whole = tp and ctx.ssm_whole
+
+    def enter(h, whole: bool = False):
+        """Into a tensor-parallel branch: the sequence gather (for a split
+        one, its backward sums the partial cotangents; for a whole one, it
+        takes the rank's slice of the whole cotangent); the identity on one
+        device."""
+        if not tp:
+            return h
+        return _tp().enter_whole(h, ctx) if whole else _tp().gather_seq(h, ctx)
+
+    def leave(h, whole: bool = False):
+        """Out of it: the reduce of a split branch's partial sums, or a whole
+        branch's output cut to the rank's sequence shard."""
+        if not tp:
+            return h
+        return _tp().leave_whole(h, ctx) if whole else _tp().reduce_seq(h, ctx)
 
     def attend(h):
-        """The attention's output (the rank's partial sum, tensor-parallel)
-        on the entered input ``h``."""
+        """The attention's output (the rank's partial sum, tensor-parallel,
+        unless ``attn_whole``) on the entered input ``h``."""
         return attention_block(
             h, layer["attn"], num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, positions=positions, inv_freq=inv_freq,
@@ -241,39 +273,53 @@ def decoder_layer(x, layer: dict, cfg: ModelConfig, *, window: int, positions, i
         )
 
     if "attn" in layer and "ssm" in layer:  # hymba: both branches on one normed input
-        h = enter(rms_norm(x, norms["attn_norm"]))
+        both = attn_whole and ssm_whole
+        h = enter(rms_norm(x, norms["attn_norm"]), both)
         attn_out, new_kv = attend(h)
-        ssm_out, new_ssm = _ssm_apply(h, layer, cfg, mode, ssm_state, ctx)
+        ssm_out, new_ssm = _ssm_apply(h, layer, cfg, mode, ssm_state,
+                                      None if ssm_whole else ctx)
+        if tp and not both and ctx.index:
+            # A whole branch beside a split one enters the one reduce's
+            # partial sum on model index 0 alone.
+            if attn_whole:
+                attn_out = torch.zeros_like(attn_out)
+            if ssm_whole:
+                ssm_out = torch.zeros_like(ssm_out)
         scales = layer["hybrid"]
-        x = x + leave(0.5 * (attn_out * scales["attn_scale"] + ssm_out * scales["ssm_scale"]))
+        x = x + leave(0.5 * (attn_out * scales["attn_scale"] + ssm_out * scales["ssm_scale"]),
+                      both)
     elif "attn" in layer:
-        attn_out, new_kv = attend(enter(rms_norm(x, norms["attn_norm"])))
-        attn_out = leave(attn_out)
+        attn_out, new_kv = attend(enter(rms_norm(x, norms["attn_norm"]), attn_whole))
+        attn_out = leave(attn_out, attn_whole)
         if cfg.use_post_norms:
             attn_out = rms_norm(attn_out, norms["post_attn_norm"])
         x = x + attn_out
     else:  # pure SSM (mamba2)
-        ssm_out, new_ssm = _ssm_apply(enter(rms_norm(x, norms["ssm_norm"])), layer, cfg, mode,
-                                      ssm_state, ctx)
-        x = x + leave(ssm_out)
+        ssm_out, new_ssm = _ssm_apply(enter(rms_norm(x, norms["ssm_norm"]), ssm_whole), layer,
+                                      cfg, mode, ssm_state, None if ssm_whole else ctx)
+        x = x + leave(ssm_out, ssm_whole)
 
     if cross_kv is not None:
         cross_out, _ = attention_block(
-            enter(rms_norm(x, norms["cross_norm"])), layer["cross"], num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, positions=positions,
-            inv_freq=None, attn_softcap=cfg.attn_softcap, cross_kv=cross_kv, block_k=block_k,
-            ctx=ctx)
-        x = x + leave(cross_out)
+            enter(rms_norm(x, norms["cross_norm"]), attn_whole), layer["cross"],
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            positions=positions, inv_freq=None, attn_softcap=cfg.attn_softcap,
+            cross_kv=cross_kv, block_k=block_k, ctx=ctx)
+        x = x + leave(cross_out, attn_whole)
 
     aux = None
     if "moe" in layer:
-        out = moe_block(enter(rms_norm(x, norms["mlp_norm"])), layer["moe"], top_k=cfg.top_k,
-                        capacity_factor=cfg.capacity_factor, router_style=cfg.router_style,
-                        group_rows=group_rows, ctx=ctx)
-        x = x + leave(out.y)
+        whole = tp and ctx.experts_whole
+        out = moe_block(enter(rms_norm(x, norms["mlp_norm"]), whole), layer["moe"],
+                        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                        router_style=cfg.router_style, group_rows=group_rows,
+                        ctx=None if whole else ctx)
+        x = x + leave(out.y, whole)
         aux = torch.stack([out.load_balance_loss, out.router_z_loss])
     elif "mlp" in layer:
-        mlp_out = leave(_mlp_apply(enter(rms_norm(x, norms["mlp_norm"])), layer["mlp"], cfg))
+        whole = tp and ctx.mlp_whole
+        mlp_out = leave(_mlp_apply(enter(rms_norm(x, norms["mlp_norm"]), whole), layer["mlp"],
+                                   cfg), whole)
         if cfg.use_post_norms:
             mlp_out = rms_norm(mlp_out, norms["post_mlp_norm"])
         x = x + mlp_out
@@ -289,9 +335,12 @@ def _slice_layer(tree, i: int):
 def _embed(params, tokens, cfg, ctx=None, prefix=None):
     """The token embeddings, with ``prefix`` (B, V, D), a VLM's vision
     embeddings, ahead of them; tensor-parallel, the rank's sequence shard
-    of the whole ``V + S`` sequence (``tensor_parallel.embed_lookup``)."""
+    of the whole ``V + S`` sequence (``tensor_parallel.embed_lookup``; with
+    the vocab whole on every rank, the plain lookup's shard,
+    ``tensor_parallel.leave_whole``)."""
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
-    if ctx is not None and ctx.tensor_parallel:
+    tp = ctx is not None and ctx.tensor_parallel
+    if tp and not ctx.vocab_whole:
         return _tp().embed_lookup(params["embed"], tokens, ctx, scale=scale, prefix=prefix)
     x = params["embed"][tokens]
     if scale is not None:
@@ -300,15 +349,16 @@ def _embed(params, tokens, cfg, ctx=None, prefix=None):
         x = x * torch.full((), scale, dtype=x.dtype, device=x.device)
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
-    return x
+    return _tp().leave_whole(x, ctx) if tp else x
 
 
 def _logits(params, x, cfg, ctx=None):
     """The final norm and the head; tensor-parallel, the norm runs on the
-    rank's sequence shard and the logits are the rank's vocab columns."""
+    rank's sequence shard and the logits are the rank's vocab columns (all
+    of them, the same on every rank, where the vocab is whole)."""
     x = rms_norm(x, params["final_norm"])
     if ctx is not None and ctx.tensor_parallel:
-        x = _tp().gather_seq(x, ctx)
+        x = (_tp().enter_whole if ctx.vocab_whole else _tp().gather_seq)(x, ctx)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
     if cfg.final_softcap is not None:
@@ -424,8 +474,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, mode: str =
         if ctx.seq_shard != sequence_sharded(seq, ctx.size):
             raise ValueError(f"the context's seq_shard={ctx.seq_shard} was made for another "
                              f"residual length than {seq}")
-        if prefill:
-            _check_decode_ctx(cfg, ctx, rows=tokens.shape[0])
+    if prefill and (tp or (ctx is not None and ctx.mesh_cache)):
+        _check_decode_ctx(cfg, ctx, rows=tokens.shape[0])
     x = _embed(params, tokens, cfg, ctx, prefix=extra_embeds)
     b = x.shape[0]
     positions = torch.arange(seq, device=x.device)
@@ -513,9 +563,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat
     (``sharding.specs.make_ctx(..., batch=, cache_len=)``; ``batch`` and
     ``max_len`` must be its), each leaf is the rank's
     ``sharding.specs.cache_specs`` shard, never the whole (the context's
-    ``cache_shapes``)."""
+    ``cache_shapes``); so on a mesh without a model split
+    (``ctx.mesh_cache``)."""
     shapes = cache_shapes(cfg, batch, max_len)
-    if ctx is not None and ctx.tensor_parallel:
+    if ctx is not None and (ctx.tensor_parallel or ctx.mesh_cache):
         _check_decode_ctx(cfg, ctx)
         if (batch, max_len) != (ctx.cache_batch, ctx.cache_len):
             raise ValueError(f"the context's decode layout is {ctx.cache_batch} rows x "
@@ -533,7 +584,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat
 
 
 def _check_decode_ctx(cfg: ModelConfig, ctx, rows: Optional[int] = None) -> None:
-    """A tensor-parallel prefill or decode needs a context made for a decode
+    """A prefill or decode on a mesh needs a context made for a decode
     layout, and the rows its data coordinate holds (``rows``: the batch's)."""
     if ctx.cache_len is None:
         raise ValueError(f"{cfg.name}: a tensor-parallel prefill or decode needs a context "
@@ -549,7 +600,7 @@ def _check_decode_ctx(cfg: ModelConfig, ctx, rows: Optional[int] = None) -> None
 
 def _local_kv_shape(cfg: ModelConfig, ctx, rows: int) -> tuple:
     """One layer's (rows, T, Hkv, hd) K (or V) cache shard of the rank."""
-    if not ctx.tensor_parallel:
+    if ctx.cache_shapes is None:
         return (rows, ctx.cache_len, cfg.num_kv_heads, cfg.head_dim)
     return ctx.cache_shapes["kv"][0][1:]
 
@@ -622,12 +673,15 @@ def decode_layers(params: dict, token: torch.Tensor, pos, cfg: ModelConfig, laye
     (``layers.attention_block``), the row-parallel ``wo``, MLP, MoE block
     and SSM out-projection each closed by one reduce over ``model`` (the
     residual of one position is never sequence-sharded), the SSM step on
-    the rank's heads (``ssm.ssm_decode_step``).
+    the rank's heads (``ssm.ssm_decode_step``); a sub-block the axis leaves
+    whole computes whole and closes with no reduce. On a mesh without a
+    model split (``ctx.mesh_cache``) each rank steps its rows on the
+    one-device model; with the cache's sequence over the data axes every
+    rank attends over its positions and the softmax is merged over them.
     """
-    tp = ctx is not None and ctx.tensor_parallel
-    if tp:
+    if ctx is not None and (ctx.tensor_parallel or ctx.mesh_cache):
         if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-            raise NotImplementedError("a tensor-parallel decode steps every row at one "
+            raise NotImplementedError("a decode on a mesh steps every row at one "
                                       "position; per-row positions are single-device")
         ctx = dataclasses.replace(ctx, seq_shard=False)
     x = _embed(params, token, cfg, ctx)
@@ -699,7 +753,7 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict, pos, cfg: ModelC
     """
     kv = cache.get("kv")
     cache_index = kv_len = None
-    tp = ctx is not None and ctx.tensor_parallel
+    tp = ctx is not None and (ctx.tensor_parallel or ctx.mesh_cache)
     if tp:
         _check_decode_ctx(cfg, ctx, rows=token.shape[0])
         _check_rank_cache(cache, cfg, ctx)

@@ -23,7 +23,8 @@ With ``--cache-len T`` it also prints, from ``tp_bytes(mode=...)``, the
 ``--seq`` tokens into a decode cache of ``T`` positions (``tp_prefill``)
 and of one decode step against it (``tp_decode``), the cache laid out by
 ``sharding.specs.cache_specs`` (``--kv-seq-shard`` as it takes it; a batch
-that no data axis divides splits the cache's sequence over them), and the
+that no data axis divides splits the cache's sequence over them; on a mesh
+without a model split only that split's merge moves bytes), and the
 bytes of a rank's cache (``cache_a_rank``, in the activations' dtype,
 ``h`` fp32). gemma2-9b's decode step at ``decode_32k`` (128 rows, 32768
 positions, bf16) on ``data=16,model=16``, where its 8 KV heads lay out
@@ -63,7 +64,8 @@ def mesh_bytes(cfg, sizes: dict, *, batch: int, seq: int, zero1: bool = False,
     """The counts of the module doc for ``cfg`` on a mesh of ``sizes``
     (``{axis: size}``), ``batch`` rows of ``seq`` text tokens over the
     mesh; with ``cache_len``, a prefill's and a decode step's and the
-    cache's."""
+    cache's. ``whole`` names the sub-blocks the model axis leaves whole
+    on every rank (``sharding.specs.whole_sub_blocks``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode():
@@ -79,7 +81,7 @@ def mesh_bytes(cfg, sizes: dict, *, batch: int, seq: int, zero1: bool = False,
     # The loss, then each metric: ce, loss, and an MoE model's load_balance and z_loss.
     values = 3 + (2 if cfg.num_experts else 0)
     serve = {}
-    if cache_len is not None and tp:
+    if cache_len is not None:
         rows = batch // math.prod(sizes[a] for a in sh.batch_axes_for(batch, sizes))
         kw = dict(batch=batch, kv_seq_shard=kv_seq_shard, compute_bytes=compute_bytes)
         serve = {
@@ -91,6 +93,7 @@ def mesh_bytes(cfg, sizes: dict, *, batch: int, seq: int, zero1: bool = False,
         }
     return {
         "path": path,
+        "whole": [k for k, v in sh.whole_sub_blocks(cfg, sizes).items() if v],
         "params": sum(p.numel() for p in tree_lib.leaves(params)),
         "params_a_rank": held,
         **{ph: plan.predicted_bytes(ph) for ph in ("block", "full", "apply")},

@@ -32,6 +32,13 @@ the ``model`` axis:
   flatten fallback follow from these specs, whole, as the reference's do;
 * norms (gate_norm too: the name rule comes first, as in the reference),
   hymba's attn_scale / ssm_scale and everything else replicated.
+
+A weight the axis does not divide stays whole on every rank (the
+reference's ``col``/``row`` fall back to replicated), and
+:func:`whole_sub_blocks` names the sub-blocks that are whole so: the model
+computes each of them whole on every rank (:class:`ShardCtx`). Its MuonBP
+block grid is 1x1: its block step orthogonalizes it whole, with no
+collective, and its full step gathers nothing.
 """
 
 from __future__ import annotations
@@ -129,43 +136,63 @@ def mesh_path(cfg: ModelConfig, axis_sizes) -> str:
     (no model split: each rank holds the whole model, and its updates come
     out whole).
 
-    Every arch on a ``model`` axis larger than one is tensor-parallel, and
-    a mesh without a model split is replicated. The port computes the Q and
-    K/V heads in the 'head' and 'hd' layouts (the reference's
-    ``split_heads``): a ``None`` layout raises here, naming it, so that no
-    mesh computes another head split than the reference's. The
-    tensor-parallel path also needs the padded vocab and ``d_ff`` (an MoE
-    model's expert ``d_ff``), and an SSM's ``d_inner``, to divide the axis
-    (their splits are what its collectives assume). SSM heads that do not
-    divide it run with the heads whole on every rank (:func:`ssm_heads_split`,
-    ``models/ssm.py``): ``d_inner`` splits off the head boundaries, as in the
-    reference, whose GSPMD gathers the activations again at the head
-    reshape. The port does not run two cases the reference does, and
-    raises on them, naming the count: experts kept replicated where their
-    ``d_ff`` does not divide (``repro/models/moe.py:141-145``), and an SSM
-    ``d_inner`` that does not divide (the reference replicates ``wz``/``wx``
-    there; no config of the registry meets it on model 2-16).
+    Every config on a ``model`` axis larger than one is tensor-parallel, and
+    a mesh without a model split is replicated. Where the axis divides a
+    weight, the rank holds and computes its shard; where it does not, the
+    weight is whole on every rank, as the reference keeps it
+    (``repro/sharding/specs.py``'s ``col``/``row`` rules, its MoE
+    ``use_model``): Q and K/V projections with no 'head' or 'hd' layout,
+    ``d_ff``, an MoE model's expert ``d_ff``, an SSM's ``d_inner`` and the
+    padded vocab. :func:`whole_sub_blocks` names them, and the model runs
+    each such sub-block whole on every rank (``models/transformer.py``).
+    SSM heads that do not divide the axis while ``d_inner`` does run with
+    the heads whole on every rank (:func:`ssm_heads_split`).
     """
     m = mesh_axis_sizes(axis_sizes).get(MODEL_AXIS, 1)
+    return TENSOR_PARALLEL if m > 1 else REPLICATED
+
+
+class _Shape:
+    """A leaf that only has a shape: what :func:`param_specs` reads."""
+
+    def __init__(self, *shape: int):
+        self.shape = shape
+
+
+def whole_sub_blocks(cfg: ModelConfig, axis_sizes) -> dict[str, bool]:
+    """Which of ``cfg``'s sub-blocks keep their weights whole on every rank
+    of the mesh's model axis, read from :func:`param_specs` (so that the
+    model's context and the parameters never disagree): ``"q"`` and
+    ``"kv"`` (the attention's Q and K/V projections: no 'head' or 'hd'
+    layout), ``"mlp"`` (``d_ff``), ``"experts"`` (an MoE model's expert
+    ``d_ff``), ``"ssm"`` (``d_inner``) and ``"vocab"`` (the embedding and
+    the head). A sub-block the arch does not have is False; so is every
+    one without a model split (the one-device path)."""
+    m = mesh_axis_sizes(axis_sizes).get(MODEL_AXIS, 1)
+    out = dict.fromkeys(("q", "kv", "mlp", "experts", "ssm", "vocab"), False)
     if m <= 1:
-        return REPLICATED
-    if cfg.num_heads and cfg.arch_type != "ssm":
-        ql, kvl = attn_layouts(cfg, m)
-        if ql is None or kvl is None:
-            raise ValueError(
-                f"{cfg.name} on model={m}: Q layout {ql!r}, KV layout {kvl!r} "
-                f"({cfg.num_heads} Q / {cfg.num_kv_heads} KV heads of {cfg.head_dim}); the "
-                "tensor-parallel path computes Q and KV in 'head' or 'hd'")
-    ff = "expert d_ff" if cfg.arch_type == "moe" else "d_ff"
-    counts = [(cfg.padded_vocab, f"padded vocab {cfg.padded_vocab} does"),
-              (cfg.d_ff, f"{ff} {cfg.d_ff} does")]
-    if cfg.arch_type in ("ssm", "hybrid"):
-        dims = ssm_dims(cfg)
-        counts.append((dims.d_inner, f"d_inner {dims.d_inner} does"))
-    for n, what in counts:
-        if not _divides(n, m):
-            raise ValueError(f"{cfg.name} on model={m}: the {what} not divide the model axis")
-    return TENSOR_PARALLEL
+        return out
+    d, arch = cfg.d_model, cfg.arch_type
+    layers: dict = {}
+    if cfg.num_heads and arch != "ssm":
+        layers["attn"] = {"wq": _Shape(1, d, cfg.q_dim), "wk": _Shape(1, d, cfg.kv_dim)}
+    if arch in ("dense", "vlm", "audio", "hybrid"):
+        layers["mlp"] = {"wi": _Shape(1, d, cfg.d_ff)}
+    if arch == "moe":
+        layers["moe"] = {"wi": _Shape(1, cfg.num_experts, d, cfg.d_ff)}
+    if arch in ("ssm", "hybrid"):
+        layers["ssm"] = {"wx": _Shape(1, d, ssm_dims(cfg).d_inner)}
+    specs = param_specs({"embed": _Shape(cfg.padded_vocab, d), "layers": layers}, cfg,
+                        {MODEL_AXIS: m})
+    whole = lambda spec: MODEL_AXIS not in spec
+    groups = specs["layers"]
+    if "attn" in groups:
+        out["q"], out["kv"] = whole(groups["attn"]["wq"]), whole(groups["attn"]["wk"])
+    for name, group in (("mlp", "mlp"), ("experts", "moe"), ("ssm", "ssm")):
+        if group in groups:
+            out[name] = whole(groups[group]["wi" if group != "ssm" else "wx"])
+    out["vocab"] = whole(specs["embed"])
+    return out
 
 
 def ssm_heads_split(cfg: ModelConfig, model_size: int) -> bool:
@@ -209,15 +236,34 @@ class ShardCtx:
     divides, a batch of one) or none; ``cache_shapes``, the rank's
     :func:`local_cache_shapes` of that layout, which
     ``transformer.init_cache`` allocates and a prefill and a decode step
-    hold their cache to.
+    hold their cache to. On a mesh without a model split (``size`` 1) the
+    context carries only the decode layout: each rank runs the one-device
+    model on its rows, and with the cache's sequence over the data axes (a
+    batch of one) every rank computes the same values and attends over its
+    positions, the softmax merged over those axes.
+
+    The sub-blocks whose weights are whole on every rank of the model axis
+    (:func:`whole_sub_blocks`): Q and K/V where ``q_layout`` /
+    ``kv_layout`` is None, ``mlp_whole``, ``experts_whole``, ``ssm_whole``
+    (``d_inner``) and ``vocab_whole``. Every rank computes such a sub-block
+    whole, on the whole sequence of its rows, and keeps its own sequence
+    shard of the output (``tensor_parallel.enter_whole`` /
+    ``leave_whole``); ``whole_on_index0`` names hymba's whole branch
+    (``"attn"`` or ``"ssm"``) beside a split one, which enters the partial
+    sum of the one reduce that closes both on model index 0 alone.
     """
 
     comm: Any = None
     model_axes: tuple = ()
     size: int = 1
     index: int = 0
-    q_layout: str = "head"
-    kv_layout: str = "head"
+    q_layout: Optional[str] = "head"
+    kv_layout: Optional[str] = "head"
+    mlp_whole: bool = False
+    experts_whole: bool = False
+    ssm_whole: bool = False
+    vocab_whole: bool = False
+    whole_on_index0: frozenset = frozenset()
     seq_shard: bool = False
     encoder_seq_shard: bool = False
     flash_block_k: int = FLASH_BLOCK_K
@@ -231,6 +277,34 @@ class ShardCtx:
     @property
     def tensor_parallel(self) -> bool:
         return self.size > 1
+
+    @property
+    def attn_whole(self) -> bool:
+        """The attention's Q (and so its K/V) whole on every rank: every rank
+        computes every head with the whole ``wo``."""
+        return self.tensor_parallel and self.q_layout is None
+
+    @property
+    def mesh_cache(self) -> bool:
+        """A decode layout on a mesh (``make_ctx(..., comm=, cache_len=)``):
+        the cache a prefill makes and a decode step takes is the rank's
+        :func:`cache_specs` shard."""
+        return self.comm is not None and self.cache_len is not None
+
+    def runs_whole(self, key) -> bool:
+        """Whether the leaf at ``key`` belongs to a sub-block that every rank
+        of the model axis computes whole and alike (``tensor_parallel.
+        enter_whole`` / ``leave_whole``): its gradient is whole on every
+        rank. Hymba's branch scales are, where both branches are whole."""
+        if not self.tensor_parallel:
+            return False
+        group = key[-2] if len(key) > 1 else ""
+        if len(key) == 1 and key[0] in ("embed", "lm_head"):
+            return self.vocab_whole
+        if group in ("attn", "cross"):
+            return self.q_layout is None
+        return {"mlp": self.mlp_whole, "moe": self.experts_whole, "ssm": self.ssm_whole,
+                "hybrid": self.q_layout is None and self.ssm_whole}.get(group, False)
 
     @property
     def cache_seq_over_model(self) -> bool:
@@ -256,47 +330,58 @@ def make_ctx(cfg: ModelConfig, engine=None, seq: Optional[int] = None, *, comm=N
     (``distributed.audit.Collectives``: prefill and decode hold no engine),
     for a residual of ``seq`` positions, the whole length (a VLM's
     ``vision_tokens`` plus its text; :func:`residual_len`): tensor-parallel
-    on a model axis larger than one (the engine's ``tensor_parallel``),
-    else the one-device context (the replicated path). Without either, one
-    device. whisper's encoder residual is ``cfg.encoder_seq`` frames long.
+    on a model axis larger than one (the engine's ``tensor_parallel``), its
+    whole sub-blocks from :func:`whole_sub_blocks`, else the one-device
+    context (the replicated path). Without either, one device. whisper's
+    encoder residual is ``cfg.encoder_seq`` frames long.
 
     ``cache_len`` makes the context of a prefill of ``seq`` positions and
     of the decode steps after it: a cache of ``cache_len`` positions (the
     ring's window with ``ring_cache``) for ``batch`` rows over the mesh,
-    laid out by :func:`cache_specs` (``kv_seq_shard`` as it takes it).
-    Prefill and decode run tensor-parallel only: a mesh without a model
-    split raises, naming it.
+    laid out by :func:`cache_specs` (``kv_seq_shard`` as it takes it), on
+    a model split or without one: there, as the reference's layout, the
+    rows over the data axes where they divide, else the cache's sequence
+    over the data axes (a batch of one).
     """
     if engine is not None:
         comm, tp = engine.comm, engine.tensor_parallel
     else:
         tp = comm is not None and comm.size((MODEL_AXIS,)) > 1
-    if cache_len is not None:
-        if not tp:
-            raise NotImplementedError(
-                f"{cfg.name}: prefill and decode on a mesh run tensor-parallel, and the mesh "
-                f"{comm.axis_sizes if comm is not None else {}} has no model split")
-        if batch is None or seq is None:
-            raise ValueError("a decode layout needs the global rows and the prefill's length")
+    if cache_len is not None and (batch is None or seq is None):
+        raise ValueError("a decode layout needs the global rows and the prefill's length")
     if not tp:
-        return ShardCtx()
-    if seq is None:
-        raise ValueError("a tensor-parallel context needs the sequence length")
-    axes = (MODEL_AXIS,)
-    m = comm.size(axes)
-    ql, kvl = attn_layouts(cfg, m)
-    ctx = ShardCtx(comm=comm, model_axes=axes, size=m, index=comm.index(axes),
-                   q_layout=ql, kv_layout=kvl, seq_shard=sequence_sharded(seq, m),
-                   encoder_seq_shard=sequence_sharded(cfg.encoder_seq, m))
-    if cache_len is None:
-        return ctx
+        ctx = ShardCtx()
+        if cache_len is None:
+            return ctx
+        if comm is None:
+            return dataclasses.replace(ctx, cache_len=cache_len, ring_cache=ring_cache)
+    else:
+        if seq is None:
+            raise ValueError("a tensor-parallel context needs the sequence length")
+        axes = (MODEL_AXIS,)
+        m = comm.size(axes)
+        ql, kvl = attn_layouts(cfg, m)
+        whole = whole_sub_blocks(cfg, {MODEL_AXIS: m})
+        index0 = frozenset()
+        if cfg.arch_type == "hybrid" and whole["q"] != whole["ssm"]:
+            index0 = frozenset({"attn" if whole["q"] else "ssm"})
+        ctx = ShardCtx(comm=comm, model_axes=axes, size=m, index=comm.index(axes),
+                       q_layout=ql, kv_layout=kvl, mlp_whole=whole["mlp"],
+                       experts_whole=whole["experts"], ssm_whole=whole["ssm"],
+                       vocab_whole=whole["vocab"], whole_on_index0=index0,
+                       seq_shard=sequence_sharded(seq, m),
+                       encoder_seq_shard=sequence_sharded(cfg.encoder_seq, m))
+        if cache_len is None:
+            return ctx
     sizes = comm.axis_sizes
     specs = cache_specs(cfg, decode_shape(batch, cache_len), sizes, kv_seq_shard=kv_seq_shard,
                         cache_len=cache_len)
+    seq_axes = spec_entry_names(specs["kv"][0][2]) if "kv" in specs else ()
     return dataclasses.replace(
-        ctx, cache_len=cache_len, cache_batch=batch, kv_seq_shard=kv_seq_shard,
+        ctx, comm=comm, cache_len=cache_len, cache_batch=batch, kv_seq_shard=kv_seq_shard,
         ring_cache=ring_cache,
-        kv_seq_axes=spec_entry_names(specs["kv"][0][2]) if "kv" in specs else (),
+        # An axis of one splits nothing (the model axis of a mesh without a model split).
+        kv_seq_axes=tuple(a for a in seq_axes if sizes.get(a, 1) > 1),
         cache_shapes=local_cache_shapes(cfg, batch, cache_len, sizes,
                                         kv_seq_shard=kv_seq_shard))
 

@@ -209,8 +209,10 @@ def reduce_grads(engine, loss, metrics: dict, grads, ctx=None) -> tuple:
     sequence-sharded residual every leaf the axis does not split, each
     rank's covering its sequence shard's tokens; in either layout the MoE
     router, the SSM's replicated B/C leaves and ``gate_norm``, hymba's
-    branch scales, the SSM's per-head leaves where its heads stay whole)
-    are first summed over it (phase ``'tp'``)."""
+    branch scales, the SSM's per-head leaves where its heads stay whole,
+    K/V whole beside split Q heads, hymba's whole branch beside a split
+    one; never a sub-block every rank computes whole) are first summed
+    over it (phase ``'tp'``)."""
     if ctx is not None and ctx.tensor_parallel:
         for key, g in tree_lib.flatten_with_path(grads):
             if grad_is_partial(key, engine.model_split(key, g.dim()), ctx):

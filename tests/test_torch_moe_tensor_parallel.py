@@ -483,10 +483,18 @@ def test_launcher_trains_moe_tensor_parallel(name, worlds):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_mesh_path_refuses_an_expert_d_ff_the_axis_does_not_divide(arch):
-    """The reference keeps such experts replicated; the port raises, naming
-    the expert d_ff, and never falls back to the replicated path."""
+def test_mesh_path_keeps_an_expert_d_ff_the_axis_does_not_divide_whole(arch):
+    """An expert d_ff of 6 splits over model=2 and stays whole over model=4,
+    where the reference keeps the experts replicated
+    (``repro/models/moe.py``'s ``use_model``): the path is tensor-parallel,
+    the experts whole on every rank, the router whole."""
     cfg = dataclasses.replace(_cfg(arch), d_ff=6)
-    assert sh.mesh_path(cfg, {"model": 2}) == sh.TENSOR_PARALLEL
-    with pytest.raises(ValueError, match="expert d_ff 6"):
-        sh.mesh_path(cfg, {"model": 4})
+    params = jax.eval_shape(lambda: j_init_params(jax.random.PRNGKey(0),
+                                                  dataclasses.replace(_cfg(arch, j_get_config),
+                                                                      d_ff=6)))
+    for model, whole in ((2, False), (4, True)):
+        assert sh.mesh_path(cfg, {"model": model}) == sh.TENSOR_PARALLEL
+        assert sh.whole_sub_blocks(cfg, {"model": model})["experts"] is whole
+        moe = sh.param_specs(params, cfg, {"model": model})["layers"]["moe"]
+        assert (moe["wi"] == (None,) * 4) is whole and (moe["wo"] == (None,) * 4) is whole
+        assert moe["router"] == (None,) * 3

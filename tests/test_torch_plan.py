@@ -53,7 +53,9 @@ def _grids(full_width: bool, model: int):
     return shapes, ref, port
 
 
-CASES = [(False, 4), (False, 1), (True, 8)]
+# model=3 divides nothing of the reduced config (its heads, d_ff and vocab
+# stay whole: 1x1 grids) and splits the full-width one's in 'hd'.
+CASES = [(False, 4), (False, 1), (True, 8), (False, 3), (True, 3)]
 
 
 @pytest.mark.parametrize("full_width,model", CASES)
@@ -63,6 +65,30 @@ def test_block_grids_match_reference(full_width, model):
                 for path, b in jax.tree_util.tree_flatten_with_path(
                     ref, is_leaf=lambda x: isinstance(x, j_blocking.BlockSpec2D))[0]}
     port_flat = {path: (b.r, b.c) for path, b in tree_lib.flatten_with_path(port)}
+    assert port_flat == ref_flat
+
+
+ARCHS = ("granite-8b", "mixtral-8x7b", "phi4-mini-3.8b", "internvl2-1b", "gemma2-9b",
+         "whisper-small", "hymba-1.5b", "olmoe-1b-7b", "minitron-8b", "mamba2-1.3b")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_width_param_specs_match_reference_on_model_3(arch):
+    """At full width on model=3 every arch of the registry keeps whole what
+    the reference keeps whole (phi4's K/V, d_ff and vocab, olmoe's experts,
+    hymba's attention, d_ff and d_inner, mamba2's d_inner, whisper's vocab)
+    and splits what it splits: the port's specs equal the reference's leaf
+    for leaf."""
+    shapes = jax.eval_shape(lambda: j_init_params(jax.random.PRNGKey(0), j_get_config(arch)))
+    mesh = _stub_mesh(3)
+    ref = j_specs.param_specs(shapes, j_get_config(arch), mesh)
+    port = specs.param_specs(shapes, get_config(arch), {"data": 1, "model": 3})
+    ref_flat = {tuple(str(getattr(k, "key", k)) for k in path): tuple(spec)
+                for path, spec in jax.tree_util.tree_flatten_with_path(
+                    ref, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]}
+    port_flat = {path: tuple(spec) + (None,) * (len(ref_flat[path]) - len(spec))
+                 for path, spec in tree_lib.flatten_with_path(port)}
+    ref_flat = {k: v + (None,) * (len(port_flat[k]) - len(v)) for k, v in ref_flat.items()}
     assert port_flat == ref_flat
 
 

@@ -47,8 +47,8 @@ phase equal to ``plan_comm``, no collective of another class; a mamba2 snapshot 
 between the mesh and one process bitwise. ``scripts.mesh_bytes`` predicts
 the straddling hymba's 'tp' bytes on ``model=4`` at both lengths from fake
 tensors. ``mesh_path`` runs full hymba
-tensor-parallel on model 2, 4, 8 and 16, and raises, naming ``d_inner``,
-where ``d_inner`` does not divide the axis.
+tensor-parallel on model 2, 4, 8 and 16, and keeps a ``d_inner`` the axis
+does not divide whole on every rank.
 """
 
 import contextlib
@@ -633,13 +633,14 @@ def test_mesh_path_runs_the_ssm_archs_tensor_parallel(arch, model):
         assert sh.attn_layouts(cfg, model) == ("hd", "hd")
 
 
-def test_mesh_path_refuses_hymba_heads_the_axis_does_not_divide():
-    """Heads the axis does not divide are no longer refused: full hymba on
-    model=4 runs tensor-parallel with its 50 SSM heads whole. The refusal
-    left is a d_inner the axis does not divide (the reference replicates
-    wz/wx there): a hymba of d_model 1604 (d_inner 3208 in 401 heads of 8)
-    on model=16 raises, naming d_inner."""
+def test_mesh_path_keeps_a_d_inner_the_axis_does_not_divide_whole():
+    """Heads the axis does not divide run whole on every rank (full hymba on
+    model=4, its 50 SSM heads), and so does a d_inner the axis does not
+    divide, as the reference replicates wz/wx there: a hymba of d_model
+    1604 (d_inner 3208 in 401 heads of 8) on model=16 is tensor-parallel
+    with its SSM whole on every rank."""
     assert sh.mesh_path(get_config("hymba-1.5b"), {"model": 4}) == sh.TENSOR_PARALLEL
+    assert not sh.whole_sub_blocks(get_config("hymba-1.5b"), {"model": 4})["ssm"]
     cfg = dataclasses.replace(get_config("hymba-1.5b"), d_model=1604, ssm_head_dim=8)
-    with pytest.raises(ValueError, match="the d_inner 3208 does not divide"):
-        sh.mesh_path(cfg, {"model": 16})
+    assert sh.mesh_path(cfg, {"model": 16}) == sh.TENSOR_PARALLEL
+    assert sh.whole_sub_blocks(cfg, {"model": 16})["ssm"]

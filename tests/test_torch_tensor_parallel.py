@@ -32,8 +32,9 @@ shards, snapshots crossing between the mesh and one process bitwise; Q
 and K/V in 'hd' (3 Q heads and 1 KV head on ``model=2``) against the
 single-process step that computes the 'hd' split; the reduced internvl2-1b
 on ``data=4,model=1`` runs replicated (no ``'tp'``: the gradient reduce of
-the whole leaves and the optimizer's collectives only); a head layout the port does not compute
-raises, naming it.
+the whole leaves and the optimizer's collectives only); Q heads with no
+layout (whisper-small's 3 heads of 33 on ``model=2``) run whole on every
+rank, the losses one process's.
 """
 
 import dataclasses
@@ -79,6 +80,12 @@ REPLICATED_LAUNCH = ["--arch", REPLICATED_ARCH, "--reduced", "--device", "cpu", 
                      "float32"]
 # Q heads whose count and head_dim neither divide model=2: no layout.
 NO_Q_LAYOUT = dict(num_heads=3, num_kv_heads=1, head_dim=33)
+# whisper has no RoPE, so an odd head_dim runs: its attention whole on model=2.
+WHOLE_Q_ARCH = "whisper-small"
+WHOLE_Q_HEADS = dict(num_heads=3, num_kv_heads=3, head_dim=33)
+WHOLE_Q_LAUNCH = ["--arch", WHOLE_Q_ARCH, "--reduced", "--device", "cpu", "--steps", "2",
+                  "--batch", "4", "--seq", "16", "--period", "2", "--compute-dtype", "float32",
+                  "--schedule", "const"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,13 +95,13 @@ class World:
     zero1: bool = False
     launch: bool = False     # the dense launcher on the mesh
     replicated: bool = False  # the reduced REPLICATED_ARCH on REPLICATED_SPEC (4 ranks)
-    refuse: bool = False     # a Q layout the port does not compute
+    whole_q: bool = False    # the launcher with Q heads of no layout (WHOLE_Q_HEADS)
     q_hd: bool = False       # the launcher with Q and K/V in 'hd' (Q_HD_HEADS)
     archs: tuple = (ARCH,)   # the configs held against the reference
 
 
 WORLDS = {
-    "model2": World("model=2", seqs=(16, 15), refuse=True, q_hd=True, archs=(ARCH, GEMMA)),
+    "model2": World("model=2", seqs=(16, 15), whole_q=True, q_hd=True, archs=(ARCH, GEMMA)),
     "data2_model2_zero1": World("data=2,model=2", seqs=(16, 15), zero1=True, launch=True,
                                 replicated=True),
     "model4_hd": World("model=4", seqs=(16, 18), launch=True),
@@ -117,6 +124,10 @@ def _sizes(world: World) -> dict:
     from repro_torch.launch.mesh import parse_mesh_spec
 
     return dict(zip(*parse_mesh_spec(world.spec)))
+
+
+def _whole_q_cfg():
+    return dataclasses.replace(get_config(WHOLE_Q_ARCH).reduced(), **WHOLE_Q_HEADS)
 
 
 def _layouts(world: World, arch: str = ARCH) -> tuple:
@@ -241,13 +252,12 @@ def _rank_cases(rank, world_size, port, world, params_np, tmp) -> dict:
             out["rep_leaf_bytes"] = sum(p.numel() * p.element_size()
                                         for p in tree_lib.leaves(run.state.params))
 
-        if world.refuse:
-            bad = dataclasses.replace(get_config(REPLICATED_ARCH).reduced(), **NO_Q_LAYOUT)
-            try:
-                train.run(REPLICATED_LAUNCH + ["--mesh", world.spec], cfg=bad)
-                out["refusal"] = None
-            except ValueError as e:
-                out["refusal"] = str(e)
+        if world.whole_q:
+            run = train.run(WHOLE_Q_LAUNCH + ["--mesh", world.spec], cfg=_whole_q_cfg())
+            out["whole_q_losses"] = [r["loss"] for r in run.records]
+            out["whole_q_layouts"] = (run.ctx.q_layout, run.ctx.kv_layout)
+            out["whole_q_shapes"] = {k: tuple(p.shape)
+                                     for k, p in tree_lib.flatten_with_path(run.state.params)}
 
         if world.q_hd:
             run = train.run(LAUNCH + ["--mesh", world.spec],
@@ -555,28 +565,46 @@ def test_non_dense_arch_runs_replicated(worlds):
         assert not trace.select("tp")
 
 
-def test_launcher_refuses_a_q_layout_it_does_not_compute(worlds):
+def test_launcher_runs_a_q_layout_whole(worlds):
     """Q heads whose count and head_dim neither divide the model axis have
-    no layout: internvl2-1b with 3 Q heads of 33 on model=2 raises, naming
-    it."""
+    no layout: whisper-small with 3 heads of 33 on model=2 keeps its
+    attention projections whole on every rank (the decoder's, the
+    cross-attention's and the encoder's), computes them whole and trains
+    with one process's losses."""
+    from repro_torch.launch import train
+
     results, _, _ = worlds["model2"]
+    cfg = _whole_q_cfg()
+    ref = [r["loss"] for r in train.run(WHOLE_Q_LAUNCH + ["--mesh-model", "2"],
+                                        cfg=cfg).records]
     for res in results.values():
-        assert res["refusal"] is not None and "Q layout None" in res["refusal"]
+        assert res["whole_q_layouts"] == (None, None)
+        for group in (("layers", "attn"), ("layers", "cross"), ("encoder", "attn")):
+            assert res["whole_q_shapes"][group + ("wq",)][-1] == cfg.q_dim
+            assert res["whole_q_shapes"][group + ("wo",)][-2] == cfg.q_dim
+        np.testing.assert_allclose(res["whole_q_losses"], ref, rtol=LAUNCH_TOL, atol=0)
 
 
-@pytest.mark.parametrize("arch,overrides,model,match", [
-    (REPLICATED_ARCH, NO_Q_LAYOUT, 2, "Q layout None"),
-    (ARCH, dict(num_heads=3, num_kv_heads=1, head_dim=33), 2, "Q layout None"),
-    (ARCH, dict(num_kv_heads=1, head_dim=33), 2, "KV layout None"),
-    ("whisper-small", dict(num_heads=3, num_kv_heads=3, head_dim=33), 4, "KV layout None"),
+@pytest.mark.parametrize("arch,overrides,model,whole", [
+    (REPLICATED_ARCH, NO_Q_LAYOUT, 2, ("q", "kv")),
+    (ARCH, dict(num_heads=3, num_kv_heads=1, head_dim=33), 2, ("q", "kv")),
+    (ARCH, dict(num_kv_heads=1, head_dim=33), 2, ("kv",)),
+    ("whisper-small", dict(num_heads=3, num_kv_heads=3, head_dim=33), 4, ("q", "kv")),
 ])
-def test_mesh_path_refuses_layouts(arch, overrides, model, match):
-    """A Q or KV layout of None raises, on every arch (internvl2-1b's 3 Q
-    heads of 33 on model=2, whisper's 3 heads of 33 on model=4); 'head'
-    and 'hd' run."""
+def test_mesh_path_runs_layouts_whole(arch, overrides, model, whole):
+    """A Q or KV layout of None runs tensor-parallel on every arch, the
+    projections whole on every rank (internvl2-1b's 3 Q heads of 33 on
+    model=2, whisper's 3 heads of 33 on model=4); the context says so."""
+    import types
+
     cfg = dataclasses.replace(get_config(arch).reduced(), **overrides)
-    with pytest.raises(ValueError, match=match):
-        sh.mesh_path(cfg, {"model": model})
+    assert sh.mesh_path(cfg, {"model": model}) == sh.TENSOR_PARALLEL
+    got = sh.whole_sub_blocks(cfg, {"model": model})
+    assert {k for k, v in got.items() if v} == set(whole)
+    comm = types.SimpleNamespace(size=lambda axes: model, index=lambda axes: 0)
+    ctx = sh.make_ctx(cfg, comm=comm, seq=16)
+    assert (ctx.q_layout is None, ctx.kv_layout is None) == ("q" in whole, "kv" in whole)
+    assert ctx.attn_whole == ("q" in whole)
 
 
 @pytest.mark.parametrize("arch,sizes,path", [

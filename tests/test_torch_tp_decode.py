@@ -33,10 +33,15 @@ heads and 1 KV head; gemma2-9b's softcaps and alternating window; mixtral
 and hymba on a ring of 8 slots after a 12-token prompt; mamba2's SSM heads
 split; olmoe; internvl2's vision tokens; whisper's encoder output), and the
 refusals: a context without a decode layout, a whole cache, per-row
-positions, a mesh without a model split. A tensor-parallel decode takes its
+positions; and the decode layout of a mesh without a model split (rows or
+a batch of one's positions over the data axes). A decode on a mesh takes its
 ring from the context (``make_ctx(..., ring_cache=)``), so the ring cases
 pass none to ``decode_step``. ``tests/test_torch_tp_decode_mesh.py`` runs ``model=4`` and
-``data=2,model=2`` on the same harness.
+``data=2,model=2`` on the same harness, ``tests/test_torch_whole_decode.py``
+the sub-blocks a model axis leaves whole (``model2_whole``,
+``model4_whole``) and ``tests/test_torch_replicated_decode.py`` the meshes
+without a model split (``data2``, ``data4_model1``), where the logits are
+every vocab column and a prefill moves nothing.
 """
 
 import dataclasses
@@ -78,6 +83,26 @@ CONFIGS = {
     "olmoe": ("olmoe-1b-7b", {}),
     "vlm": ("internvl2-1b", {}),
     "whisper": ("whisper-small", {}),
+    # Sub-blocks a model axis leaves whole (sharding.specs.whole_sub_blocks):
+    # on model=2 a d_ff and a padded vocab of 511; on model=4 K/V heads of
+    # 30 (Q 'head'), Q and K/V heads of 30 (3 Q heads), an expert d_ff of 6,
+    # a d_inner of 198 (d_model 99, SSM heads of 18), whisper's heads of 30
+    # with a d_ff of 510.
+    "dense_mlp_whole": ("muonbp-960m", dict(d_ff=511)),
+    "dense_vocab_whole": ("muonbp-960m", dict(vocab_size=511, vocab_pad_multiple=1)),
+    "gemma_vocab_whole": ("gemma2-9b", dict(window_size=WINDOW, vocab_size=511,
+                                            vocab_pad_multiple=1)),
+    "vlm_vocab_whole": ("internvl2-1b", dict(vocab_size=511, vocab_pad_multiple=1)),
+    "dense_kv_whole": ("muonbp-960m", dict(num_heads=4, num_kv_heads=2, head_dim=30)),
+    "dense_attn_whole": ("muonbp-960m", dict(num_heads=3, num_kv_heads=1, head_dim=30)),
+    "olmoe_experts_whole": ("olmoe-1b-7b", dict(d_ff=6)),
+    "mamba2_whole": ("mamba2-1.3b", dict(d_model=99, ssm_head_dim=18)),
+    "hymba_ssm_whole": ("hymba-1.5b", dict(window_size=WINDOW, d_model=99, ssm_head_dim=18)),
+    "hymba_all_whole": ("hymba-1.5b", dict(window_size=WINDOW, d_model=99, ssm_head_dim=18,
+                                           num_heads=3, num_kv_heads=1, head_dim=30,
+                                           d_ff=510)),
+    "whisper_whole": ("whisper-small", dict(num_heads=3, num_kv_heads=3, head_dim=30,
+                                            d_ff=510)),
 }
 
 
@@ -121,6 +146,42 @@ WORLDS = {
         "mamba2": Case("mamba2"),
         "olmoe": Case("olmoe"),
         "whisper": Case("whisper"),
+    }),
+    # Whole sub-blocks beside split ones (tests/test_torch_whole_decode.py).
+    "model2_whole": ("model=2", {
+        "mlp_whole": Case("dense_mlp_whole"),
+        "vocab_whole": Case("dense_vocab_whole", prompt=11),
+        "gemma_vocab_whole": Case("gemma_vocab_whole"),
+        "vlm_vocab_whole": Case("vlm_vocab_whole", cache_len=36),
+    }),
+    "model4_whole": ("model=4", {
+        "kv_whole": Case("dense_kv_whole"),
+        "kv_whole_kv_seq": Case("dense_kv_whole", kv_seq_shard=True),
+        "attn_whole": Case("dense_attn_whole", prompt=11),
+        "attn_whole_kv_seq": Case("dense_attn_whole", kv_seq_shard=True),
+        "olmoe_experts_whole": Case("olmoe_experts_whole"),
+        "mamba2_whole": Case("mamba2_whole", prompt=11),
+        "hymba_ssm_whole_ring": Case("hymba_ssm_whole", cache_len=WINDOW, ring=True),
+        "hymba_all_whole_ring": Case("hymba_all_whole", cache_len=WINDOW, ring=True),
+        "whisper_whole": Case("whisper_whole"),
+    }),
+    # Meshes without a model split (tests/test_torch_replicated_decode.py):
+    # the rows over the data axes, or a batch of one with the cache's
+    # sequence over them.
+    "data2": ("data=2", {
+        "dense_rows": Case("dense"),
+        "dense_batch1": Case("dense", batch=1),
+        "hymba_ring_batch1": Case("hymba", batch=1, cache_len=WINDOW, ring=True),
+        "mamba2_batch1": Case("mamba2", batch=1),
+        "olmoe_rows": Case("olmoe"),
+        "whisper_batch1": Case("whisper", batch=1),
+    }),
+    "data4_model1": ("data=4,model=1", {
+        "dense_rows": Case("dense"),
+        "dense_batch1": Case("dense", batch=1),
+        "gemma_batch1": Case("gemma", batch=1, cache_len=24),
+        "vlm_batch1": Case("vlm", batch=1, cache_len=36),
+        "mixtral_ring_batch1": Case("mixtral", batch=1, cache_len=WINDOW, ring=True),
     }),
 }
 MODULE_WORLDS = ("model2",)
@@ -241,7 +302,9 @@ def _rank_cases(rank, world_size, port, world, params_np) -> dict:
 
             def argmax(logits):
                 comm.trace.step = (name, "argmax")
-                whole = tensor_parallel.gather_cols(logits[:, -1:].contiguous(), ctx)
+                whole = logits[:, -1:]
+                if ctx.tensor_parallel and not ctx.vocab_whole:
+                    whole = tensor_parallel.gather_cols(whole.contiguous(), ctx)
                 return torch.argmax(whole, dim=-1)
 
             with torch.no_grad():
@@ -344,7 +407,7 @@ def references(worlds, params_np) -> dict:
     out = {}
     jitted = {}
     for world in worlds:
-        m = _sizes(world)["model"]
+        m = _sizes(world).get("model", 1)
         for name, case in WORLDS[world][1].items():
             jcfg = _cfg(case.config, j_get_config)
             cfg = _cfg(case.config)
@@ -440,10 +503,13 @@ def _split(case_id: str) -> tuple:
     return world, name, WORLDS[world][1][name]
 
 
-def _vocab_cols(ref: np.ndarray, world: str, coords: dict) -> np.ndarray:
-    """The rank's vocab columns of whole logits (..., Vp)."""
-    m = _sizes(world)["model"]
-    cols = ref.shape[-1] // m
+def _vocab_cols(ref: np.ndarray, world: str, coords: dict, cfg) -> np.ndarray:
+    """The rank's vocab columns of whole logits (..., Vp): all of them where
+    the model axis leaves the vocab whole (or there is none)."""
+    sizes = _sizes(world)
+    if sh.whole_sub_blocks(cfg, sizes)["vocab"] or sizes.get("model", 1) == 1:
+        return ref
+    cols = ref.shape[-1] // sizes["model"]
     return ref[..., coords["model"] * cols:(coords["model"] + 1) * cols]
 
 
@@ -460,13 +526,13 @@ def test_layouts_follow_cache_specs(case, worlds):
         r = res[name]
         want = sh.spec_entry_names(specs["kv"][0][2]) if "kv" in specs else ()
         assert r["kv_seq_axes"] == want
-        assert r["layouts"] == sh.attn_layouts(cfg, sizes["model"])
+        assert r["layouts"] == sh.attn_layouts(cfg, sizes.get("model", 1))
 
 
 def test_prefill_and_decode_logits_match_reference(case, worlds, refs):
     """The prefill's logits and every decode step's, each rank's vocab
     columns of its rows, within LOGIT_TOL of the reference's max|logit|."""
-    world, name, _ = _split(case)
+    world, name, c = _split(case)
     ref = refs[case]
     for rank, res in worlds[world].items():
         r = res[name]
@@ -475,7 +541,7 @@ def test_prefill_and_decode_logits_match_reference(case, worlds, refs):
                                                                           ref["logits"]))
         for i, (got, want) in enumerate(pairs):
             want = want[rows]
-            err = np.abs(got - _vocab_cols(want, world, res["coords"])).max()
+            err = np.abs(got - _vocab_cols(want, world, res["coords"], _cfg(c.config))).max()
             assert err <= LOGIT_TOL * np.abs(want).max(), (rank, i, err)
 
 
@@ -559,15 +625,16 @@ def test_trace_equals_tp_bytes_and_mesh_bytes(case, worlds):
         rows = r["rows"][1] - r["rows"][0]
         events = res["trace"]
         pre = [e for e in events if e.step == (name, "prefill")]
-        assert {e.phase for e in pre} == {"tp"}
         predicted = tp_bytes(cfg, rows, c.prompt, sizes, mode="prefill",
                              cache_len=c.cache_len, **kw)
+        # No collective at all where every rank computes its values alike.
+        assert {e.phase for e in pre} == ({"tp"} if predicted else set())
         assert sum(e.bytes for e in pre) == predicted == fake["tp_prefill"]
         step = tp_bytes(cfg, rows, c.cache_len, sizes, mode="decode", **kw)
         assert step == fake["tp_decode"]
         for t in range(STEPS):
             dec = [e for e in events if e.step == (name, "decode", t)]
-            assert {e.phase for e in dec} == {"tp"}
+            assert {e.phase for e in dec} == ({"tp"} if step else set())
             assert sum(e.bytes for e in dec) == step, t
 
 
@@ -581,22 +648,43 @@ def test_refusals_raise_and_run_nothing(worlds):
 
 
 class _Comm:
-    """The sizes a mesh's ``Collectives`` reports, without a world."""
+    """The sizes and this rank's place that a mesh's ``Collectives``
+    reports, without a world."""
 
-    def __init__(self, sizes):
-        self.axis_sizes = sizes
+    def __init__(self, sizes, coords):
+        self.axis_sizes, self.coords = sizes, coords
 
     def size(self, axes):
         return int(np.prod([self.axis_sizes.get(a, 1) for a in axes]))
 
+    def index(self, axes):
+        i = 0
+        for a in axes:
+            i = i * self.axis_sizes.get(a, 1) + self.coords.get(a, 0)
+        return i
+
 
 @pytest.mark.parametrize("spec", ["data=4,model=1", "data=2"])
-def test_decode_layout_needs_a_model_split(spec):
-    """Prefill and decode on a mesh run tensor-parallel: a decode layout on
-    a mesh without a model split raises, naming it; no context falls back
-    to the replicated path."""
+def test_decode_layout_without_a_model_split(spec):
+    """A decode layout on a mesh without a model split is the reference's
+    ``cache_specs``: four rows over the data axes (each rank its rows,
+    every position), a batch of one with the cache's sequence over them
+    (each rank its positions); the context is not tensor-parallel and
+    ``init_cache`` allocates the rank's shard."""
     from repro_torch.launch.mesh import parse_mesh_spec
+    from repro_torch.models.model import init_cache
 
     sizes = dict(zip(*parse_mesh_spec(spec)))
-    with pytest.raises(NotImplementedError, match="no model split"):
-        sh.make_ctx(_cfg("dense"), comm=_Comm(sizes), seq=12, batch=4, cache_len=20)
+    data = sizes["data"]
+    cfg = _cfg("dense")
+    for batch, seq_axes, shape in [(4, (), (4 // data, 20)), (1, ("data",), (1, 20 // data))]:
+        ctx = sh.make_ctx(cfg, comm=_Comm(sizes, {"data": data - 1}), seq=12, batch=batch,
+                          cache_len=20)
+        assert not ctx.tensor_parallel and ctx.mesh_cache
+        assert ctx.kv_seq_axes == seq_axes
+        assert ctx.kv_seq_range() == ((0, 20) if not seq_axes else
+                                      (20 - 20 // data, 20))
+        kv = (cfg.num_layers, *shape, cfg.num_kv_heads, cfg.head_dim)
+        assert ctx.cache_shapes == sh.local_cache_shapes(cfg, batch, 20, sizes) == {"kv": (kv, kv)}
+        cache = init_cache(cfg, batch, 20, dtype=torch.float32, device="cpu", ctx=ctx)
+        assert sh.held_cache_shapes(cache) == ctx.cache_shapes
